@@ -1,0 +1,295 @@
+"""PyTorch port vs the JAX package: the render entry points, the CLI and
+the import boundary, on the CPU.
+
+The port's CPU tensors take the plain PyTorch versions of its CUDA kernels;
+the JAX side runs f64 XLA (``backend="tiled"``) or its Pallas kernels in
+interpret mode, as its own tests do.  Rays that cross the wormhole throat
+amplify rounding differences, so images are compared by mismatch fractions
+and medians, never bitwise.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from PIL import Image
+
+import curvis_tpu as cv
+from curvis_tpu.cli import main as jax_cli
+from curvis_tpu.ops.render_fused import render_planar_fused as jax_fused
+from curvis_tpu.render.fast import render_planar_fast as jax_fast
+
+from curvis_tpu_torch import convert
+from curvis_tpu_torch.cli import main as port_cli
+from curvis_tpu_torch.config import settings as port_settings
+from curvis_tpu_torch.ops.render_fused import render_planar_fused
+from curvis_tpu_torch.render.fast import (render_frames_batched,
+                                          render_planar_fast)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _tdtype(dtype):
+    return torch.float64 if dtype == np.float64 else torch.float32
+
+
+def _metric_pair(kind, dtype, **params):
+    jm = cv.make_metric(kind, **params)
+    jm = jax.tree.map(lambda x: x.astype(dtype), jm)
+    tm = convert.metric_from_arrays(
+        kind, dtype=_tdtype(dtype),
+        **{k: np.asarray(getattr(jm, k)) for k in params})
+    return jm, tm
+
+
+def _camera_pair(position, forward, res, dtype):
+    jc = cv.make_camera(position, forward, [0.0, 0.0, 1.0], 15.0, 43.0,
+                        res[0], res[1], dtype=jnp.dtype(dtype))
+    tc = convert.camera_from_arrays(
+        *(np.asarray(getattr(jc, f)) for f in ("position", "forward", "up",
+                                                "focal_length",
+                                                "sensor_diagonal")),
+        jc.resolution_x, jc.resolution_y, dtype=_tdtype(dtype))
+    return jc, tc
+
+
+def _sky_pair(texture, dtype):
+    js = cv.make_spherical_image(texture.astype(dtype), dtype=jnp.dtype(dtype))
+    ts = convert.spherical_image_from_arrays(
+        np.asarray(js.texture), np.asarray(js.rotation), dtype=_tdtype(dtype))
+    return js, ts
+
+
+def _random_skies(dtype, seed=3):
+    rng = np.random.default_rng(seed)
+    return (_sky_pair(rng.random((32, 64, 3)), dtype),
+            _sky_pair(rng.random((32, 64, 3)), dtype))
+
+
+def _smooth_skies(dtype):
+    yy, xx = np.mgrid[0:32, 0:64]
+    smooth = np.stack([np.sin(2 * np.pi * xx / 64) * 0.5 + 0.5, yy / 32,
+                       0.3 + 0.4 * np.cos(2 * np.pi * yy / 32)], -1)
+    return _sky_pair(smooth, dtype), _sky_pair(smooth[::-1].copy(), dtype)
+
+
+def _pixel_diff(a, b):
+    return np.abs(np.asarray(a) - b.detach().cpu().numpy()).max(-1)
+
+
+@pytest.mark.parametrize("filtering", ["nearest", "bilinear"])
+def test_render_planar_fast_matches_jax_f64(filtering):
+    jm, tm = _metric_pair("ellis", np.float64, rho=1.0)
+    jc, tc = _camera_pair([0.0, 5.0, np.pi / 2, 0.0], [-1.0, 0.2, 0.1],
+                          (32, 18), np.float64)
+    skies = (_random_skies if filtering == "nearest" else _smooth_skies)(
+        np.float64)
+    (jp, tp), (jn, tn) = skies
+    kw = dict(dt=0.05, max_steps=4000, escape_radius=30.0,
+              filtering=filtering)
+    want = jax_fast(jm, jc, jp, jn, backend="tiled", **kw)
+    got = render_planar_fast(tm, tc, tp, tn, **kw)
+    assert tuple(got.shape) == (18, 32, 3) and got.dtype == torch.float64
+    d = _pixel_diff(want, got)
+    if filtering == "nearest":
+        assert (d > 1e-9).mean() <= 0.05
+    else:
+        assert (d > 0.02).mean() == 0.0
+        assert np.median(d) < 1e-9
+
+
+def test_render_planar_fast_supersample_and_velocity_match_jax():
+    jm, tm = _metric_pair("ellis", np.float64, rho=1.0)
+    jc, tc = _camera_pair([0.0, 5.0, np.pi / 2, 0.0], [-1.0, 0.1, 0.0],
+                          (12, 8), np.float64)
+    (jp, tp), (jn, tn) = _smooth_skies(np.float64)
+    kw = dict(dt=0.05, max_steps=2000, escape_radius=20.0,
+              filtering="bilinear", supersample=2,
+              camera_velocity=[0.3, 0.1, 0.0])
+    want = jax_fast(jm, jc, jp, jn, backend="tiled", **kw)
+    got = render_planar_fast(tm, tc, tp, tn, **kw)
+    assert tuple(got.shape) == (8, 12, 3)
+    d = _pixel_diff(want, got)
+    assert (d > 0.02).mean() == 0.0
+    assert np.median(d) < 1e-9
+
+
+@pytest.mark.parametrize("kind, params, l0", [
+    ("ellis", dict(rho=1.0), 5.0),
+    ("schwarzschild", dict(m=1.0), 8.0),
+])
+def test_render_planar_fused_matches_pallas_interpret(kind, params, l0):
+    """The fused renderer on the CPU (the plain version of its kernel)
+    against the Pallas fused kernel in interpret mode, f32."""
+    jm, tm = _metric_pair(kind, np.float32, **params)
+    jc, tc = _camera_pair([0.0, l0, np.pi / 2, 0.0], [-1.0, 0.2, 0.1],
+                          (32, 18), np.float32)
+    (jp, tp), (jn, tn) = _smooth_skies(np.float32)
+    # max_steps a multiple of the Pallas unroll (8): its cap is exact then
+    kw = dict(dt=0.05, max_steps=2000, escape_radius=30.0,
+              filtering="bilinear")
+    want = jax_fused(jm, jc, jp, jn, interpret=True, tile_rows=8, **kw)
+    got = render_planar_fused(tm, tc, tp, tn, **kw)
+    assert tuple(got.shape) == (18, 32, 3) and got.dtype == torch.float32
+    d = _pixel_diff(want, got)
+    assert (d > 0.02).mean() == 0.0
+    assert np.median(d) < 1e-5
+    if kind == "schwarzschild":           # the shadow is black in both
+        black = got.sum(-1).numpy() == 0
+        assert black.any() and (black == (np.asarray(want).sum(-1) == 0)
+                                ).mean() > 0.99
+
+
+def test_fused_and_fast_agree_on_cpu():
+    """The fused renderer and the march-kernel path compute one image."""
+    _, tm = _metric_pair("interstellar", np.float32, m=0.1, a=1e-4, rho=1.0)
+    _, tc = _camera_pair([0.0, 5.0, np.pi / 2, 0.0], [-1.0, 0.0, 0.0],
+                         (16, 8), np.float32)
+    (_, tp), (_, tn) = _random_skies(np.float32)
+    kw = dict(dt=0.05, max_steps=3000, escape_radius=30.0)
+    a = render_planar_fused(tm, tc, tp, tn, **kw)
+    b = render_planar_fast(tm, tc, tp, tn, **kw)
+    assert ((a - b).abs().amax(-1) > 1e-6).double().mean() <= 0.05
+
+
+def test_render_frames_batched_equals_per_frame():
+    _, tm = _metric_pair("ellis", np.float64, rho=1.0)
+    cams = [_camera_pair([0.0, 5.0, np.pi / 2, 0.3 * k], [-1.0, 0.1, 0.0],
+                         (16, 8), np.float64)[1] for k in range(3)]
+    (_, tp), (_, tn) = _random_skies(np.float64)
+    kw = dict(dt=0.05, max_steps=3000, escape_radius=30.0)
+    batch = render_frames_batched(tm, cams, tp, tn, **kw)
+    assert tuple(batch.shape) == (3, 8, 16, 3)
+    for k, cam in enumerate(cams):
+        one = render_planar_fast(tm, cam, tp, tn, **kw)
+        torch.testing.assert_close(batch[k], one, rtol=0, atol=1e-12)
+
+
+def test_render_inputs_on_different_devices_raise():
+    _, tm = _metric_pair("ellis", np.float32, rho=1.0)
+    _, tc = _camera_pair([0.0, 5.0, np.pi / 2, 0.0], [-1.0, 0.0, 0.0],
+                         (4, 4), np.float32)
+    (_, tp), (_, tn) = _random_skies(np.float32)
+    on_meta = convert.spherical_image_from_arrays(
+        np.zeros((4, 8, 3)), np.eye(3), device="meta")
+    kw = dict(dt=0.05, max_steps=10, escape_radius=30.0)
+    for render in (render_planar_fast, render_planar_fused):
+        with pytest.raises(ValueError, match="one device"):
+            render(tm, tc, tp, on_meta, **kw)
+    with pytest.raises(NotImplementedError, match="rk45"):
+        render_planar_fast(tm, tc, tp, tn, stepper="rk45", **kw)
+
+
+# ------------------------------------------------------------------- CLI
+
+@pytest.fixture()
+def scene(tmp_path):
+    """The scene of tests/test_cli.py: two tiny skies + settings TOMLs."""
+    rng = np.random.default_rng(0)
+    for name in ("bg1.png", "bg2.png"):
+        arr = (rng.random((16, 32, 3)) * 255).astype(np.uint8)
+        Image.fromarray(arr).save(tmp_path / name)
+    (tmp_path / "cam.toml").write_text(
+        "resolution_x = 24\nresolution_y = 16\n"
+        "diagonal = 43.0\nfocal_length = 15.0\n")
+    (tmp_path / "sim.toml").write_text(
+        "escape_radius = 20.0\nray_integration_max_iterations = 3000\n"
+        "ray_integration_step = 0.05\nsampling_initial_nums = 40\n"
+        "sampling_max_iterations = 10\n"
+        "sampling_convergence_threshold_1 = 1e-4\n"
+        "sampling_convergence_threshold_2 = 1e-4\n")
+    (tmp_path / "metric.toml").write_text("rho = 1.0\n")
+    return tmp_path
+
+
+def _cli_args(d, out, *extra):
+    return ["image", str(d / "bg1.png"), str(d / "bg2.png"), str(d / out),
+            "-m", str(d / "metric.toml"), "-c", str(d / "cam.toml"),
+            "-s", str(d / "sim.toml"), "--f64", *extra]
+
+
+def test_cli_image_direct_matches_jax_cli(scene):
+    extra = ("--renderer", "direct", "--filtering", "bilinear")
+    assert jax_cli(_cli_args(scene, "jax", *extra)) == 0
+    assert port_cli(_cli_args(scene, "port", *extra)) == 0
+    a = np.asarray(Image.open(scene / "jax" / "output_image.png"))
+    b = np.asarray(Image.open(scene / "port" / "output_image.png"))
+    assert a.shape == b.shape == (16, 24, 3)
+    assert (a != b).any(-1).mean() <= 0.05
+    assert (b.sum(-1) > 0).mean() > 0.9
+
+
+@pytest.mark.parametrize("extra, item", [
+    ((), "item 7"),                                     # symmetric default
+    (("--renderer", "direct", "--disk"), "item 12"),
+    (("--renderer", "direct", "--adaptive-aa", "0.1"), "item 5"),
+    (("--renderer", "direct", "--stepper", "rk45"), "item"),
+])
+def test_cli_unported_options_raise(scene, extra, item):
+    with pytest.raises(NotImplementedError, match=item):
+        port_cli(_cli_args(scene, "port", *extra))
+
+
+def test_cli_kerr_and_video_raise(scene):
+    (scene / "kerr.toml").write_text('kind = "kerr"\nm = 1.0\na = 0.5\n')
+    args = _cli_args(scene, "port", "--renderer", "direct")
+    args[args.index("-m") + 1] = str(scene / "kerr.toml")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        port_cli(args)
+    video = ["video"] + _cli_args(scene, "port")[1:]
+    with pytest.raises(NotImplementedError, match="item 8"):
+        port_cli(video)
+
+
+def test_settings_defaults_match_jax():
+    """The port reads the JAX package's default TOMLs by file path."""
+    from curvis_tpu.config import settings as jax_settings
+    for name in ("CameraSettings", "SimulationSettings", "ImageSettings",
+                 "VideoSettings", "MetricSettings"):
+        want = getattr(jax_settings, name).from_toml(None)
+        got = getattr(port_settings, name).from_toml(None)
+        assert vars(got) == vars(want), name
+    metric = port_settings.MetricSettings(kind="rn", m=1.0, q=0.5).make()
+    assert type(metric).__name__ == "ReissnerNordstromMetric"
+
+
+# ---------------------------------------------------------- import guard
+
+def test_import_loads_no_jax_and_runs_no_nvcc(tmp_path):
+    """Importing the port (with its render, fused and CLI modules) loads no
+    jax module and does not run nvcc: a fake nvcc first on PATH would leave
+    a marker file."""
+    marker = tmp_path / "nvcc_ran"
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text(f"#!/bin/sh\ntouch {marker}\nexit 1\n")
+    fake.chmod(0o755)
+    code = textwrap.dedent("""
+        import sys
+        import curvis_tpu_torch
+        import curvis_tpu_torch.render.fast
+        import curvis_tpu_torch.ops.render_fused
+        import curvis_tpu_torch.cli
+        import curvis_tpu_torch.convert
+        import curvis_tpu_torch.config.settings
+        from curvis_tpu_torch.ops import _build
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "curvis_tpu"))
+        assert not bad, bad
+        assert not _build.is_loaded()
+        print("ok")
+    """)
+    env = dict(os.environ, PATH=f"{fake.parent}{os.pathsep}"
+               f"{os.environ.get('PATH', '')}", PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+    assert not marker.exists()
