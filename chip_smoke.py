@@ -18,16 +18,26 @@ it exits non-zero without them.  Phases, each of which raises on failure:
   4. the headline job through both kernels: an Ellis wormhole, 4 camera
      poses at 1024^2, Euler dt = 0.05, 40 000 steps, escape radius 100,
      nearest lookup into two 512 x 1024 skies made from seed 0;
-  5. the launch counters of that headline run.
+  5. the launch counters of that headline run;
+  6. the checkpoint kernels (gen #9, bwd #10) against their plain versions
+     on the same (y0, theta, steps, seeded random cotangent): Ellis and
+     DNEG at 256^2, Schwarzschild at 256^2 (with captured rays), RN at
+     128^2; the checkpoints against the march kernel run to s * seg steps;
+  7. the headline trainer: fit() takes 5 Adam steps on rho through
+     render_direct(differentiable='adjoint') (Ellis, 1024^2, bilinear
+     lookup, the weak-deflection viewpoint), with the gradient of the
+     kernel pair against the plain pair at 128^2, the per-step time split
+     into forward, gen and bwd, and the launch counts of the trainer run.
 
 The line before the last is a JSON object with each kernel's launches,
-error against its plain version and times; the last line is
+error against its plain version, times and bound; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -53,6 +63,26 @@ STEPS_EQ_MIN = 0.99        # fraction of rays with equal step count
 ANGLE_P99_MAX = 1e-3       # rad, escape-direction angle over escaped rays
 IMAGE_DIFF_MAX = 0.05      # fraction of pixels differing by > 1e-6
 LIT_MIN = 0.9              # lit-pixel fraction of a wormhole view
+
+SEG = 32                   # checkpoint segment of the backward kernels
+CKPT_CAP = 4000            # step cap of the checkpoint-kernel checks
+CKPT_EQ_MIN = 0.999        # rays whose checkpoints equal the march kernel's
+GRAD_RTOL = 1e-3           # kernel pair vs plain pair, per ray and summed
+GRAD_FRAC_MIN = 0.99       # rays within GRAD_RTOL (all 7 outputs)
+TRAIN_ITERS = 5
+TRAIN_LR = 5e-2
+GRAD_RES = 128             # side of the kernel-vs-plain gradient check
+
+# Roofline of one H100 SXM (NVIDIA data sheet): FP32 outside the tensor
+# cores and HBM3 bandwidth.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations counted from csrc/planar.cuh (a division counts as one):
+# an Ellis Euler step (RHS + update), its hand-written VJP, and the fused
+# kernel's per-pixel camera ray + spawn + readout (csrc/render_fused.cu).
+FLOP_STEP = 14
+FLOP_VJP = 33
+FLOP_FUSED_PIXEL = 100
 
 
 def require(ok, what):
@@ -95,7 +125,13 @@ def phase1_build():
           f"-> {_build.BUILD_DIR / _build.LIB_NAME}")
     log = (_build.BUILD_DIR / "build.log").read_text()
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        # mangled entry names: _ZN6curvis<len><name>ILi<kind>E...
+        entry = re.search(r"entry function '_ZN6curvis(\d+)(\w+?)ILi(\d)E",
+                          line)
+        if entry:
+            name = entry.group(2)[:int(entry.group(1))]
+            print(f"[1]   {name}<kind {entry.group(3)}>:")
+        elif "registers" in line or "spill" in line:
             print(f"[1]   {line.strip()}")
     return secs
 
@@ -118,6 +154,14 @@ def cuda_ms(fn, reps):
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def bound(n_bytes, n_flops):
+    """(least time in ms the card could take, what bounds it): bytes over
+    the memory rate against FP32 operations over the FP32 peak."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_flops / PEAK_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def camera(l, phi, res):
@@ -197,15 +241,19 @@ def phase2_march():
             require(int(res.steps.max()) <= cap
                     and bool((res.steps[res.sign == 0] == cap).all()),
                     f"march {name}: {who} overshot or undershot the cap")
-        out[name] = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms)
+        # 16 bytes read and 20 written per ray; FLOP_STEP per Ellis step
+        total = res_k.steps.double().sum().item()
+        b_ms, b_by = bound(36 * n, FLOP_STEP * total)
+        out[name] = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
     return out[f"ellis {FRAMES}x{RES}^2"]
 
 
 def phase3_fused(bgp, bgn):
     import torch
     from curvis_tpu_torch.metrics.base import make_metric
-    from curvis_tpu_torch.ops import render_fused
-    from curvis_tpu_torch.render.fast import render_planar_fast
+    from curvis_tpu_torch.ops import march_cuda, render_fused
+    from curvis_tpu_torch.render.fast import _spawn_frames, render_planar_fast
     metric = make_metric("ellis", rho=1.0, device=DEVICE)
     cam = camera(5.0, 0.0, RES)
     kw = dict(dt=DT, max_steps=MAX_STEPS, escape_radius=R_ESC)
@@ -221,6 +269,13 @@ def phase3_fused(bgp, bgn):
         kind, row, RES, RES, MAX_STEPS, cam.device), 3)
     neg_share = (sign_k == -1).double().mean().item()
     n = RES * RES
+    # the steps of this camera's rays, from the march kernel, for the bound:
+    # 16 bytes written per pixel, the spawn / readout and FLOP_STEP a step
+    state, _, _ = _spawn_frames(metric, [cam])
+    steps = march_cuda.launch(kind, row[:6], *state,
+                              max_steps=MAX_STEPS)[4]
+    b_ms, b_by = bound(16 * n, FLOP_FUSED_PIXEL * n
+                       + FLOP_STEP * steps.double().sum().item())
     print(f"[3] fused ellis {RES}^2: sign equal {sign_eq:.6f}, angle p99 "
           f"{p99:.3e} rad over {esc:.4f} of rays, max |dw| {max_abs:.3e}; "
           f"kernel {kernel_ms:.2f} ms ({n / kernel_ms / 1e3:.1f} Mrays/s), "
@@ -234,7 +289,7 @@ def phase3_fused(bgp, bgn):
           f"differ by > 1e-6")
     require(diff <= IMAGE_DIFF_MAX, f"fused vs march image: {diff}")
     return dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
-                neg_share=neg_share)
+                neg_share=neg_share, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase4_headline(bgp, bgn):
@@ -279,6 +334,332 @@ def phase4_headline(bgp, bgn):
     return launches, ms_f, ms_b
 
 
+def close_fraction(kernel, plain):
+    """Fraction of rays whose every output is within GRAD_RTOL of the
+    plain version's: |k - p| <= GRAD_RTOL * (|p| + 1e-6 max|p|), the floor
+    keeping entries that are zero in exact arithmetic from counting as
+    misses; and the largest absolute difference."""
+    import torch
+    ok = None
+    worst = 0.0
+    for k, p in zip(kernel, plain):
+        k, p = k.double(), p.double()
+        floor = 1e-6 * float(p.abs().max())
+        good = (k - p).abs() <= GRAD_RTOL * (p.abs() + floor)
+        ok = good if ok is None else ok & good
+        worst = max(worst, float((k - p).abs().max()))
+    return float(ok.double().mean()), worst
+
+
+def ckpt_inputs(metric, cam, cap, seed):
+    """(kind, scal, y0, b, steps, cot) of a camera's rays: the march
+    kernel's step counts with captured rays excluded (steps 0, cotangent
+    0), and a seeded random cotangent."""
+    import numpy as np
+    import torch
+    from curvis_tpu_torch.ops import march_cuda
+    from curvis_tpu_torch.physics.planar import CAPTURED
+    from curvis_tpu_torch.render.fast import _spawn_frames
+    state, _, _ = _spawn_frames(metric, [cam])
+    kind, scal = march_cuda.march_scalars(metric, DT, R_ESC)
+    sign, steps = march_cuda.launch(kind, scal, *state, max_steps=cap)[3:]
+    keep = sign != CAPTURED
+    steps = torch.where(keep, steps, torch.zeros_like(steps))
+    n = steps.numel()
+    cot = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (3, n)).astype(np.float32)).to(DEVICE)
+    cot = tuple(torch.where(keep, c, torch.zeros_like(c)) for c in cot)
+    return kind, scal, tuple(state[:3]), state[3], steps, cot
+
+
+def kernel_vs_plain(kind, scal, y0, b, steps, cot, label):
+    """Both checkpoint kernels against their plain versions on the same
+    inputs, the checkpoints against the march kernel, and the timings."""
+    import torch
+    from curvis_tpu_torch.ops import ckpt_adjoint_cuda as ca
+    from curvis_tpu_torch.ops import march_cuda
+    n_seg = ca.n_segments(steps, SEG)
+    ckpt = ca.launch_gen(kind, scal, *y0, b, steps, seg=SEG, n_seg=n_seg)
+    g_k, lam_k = ca.launch_bwd(kind, scal, ckpt, b, steps, cot, seg=SEG)
+    sync()
+    t0 = time.perf_counter()
+    ck_p = ca.ckpt_gen_plain(kind, scal, y0, b, steps, seg=SEG, n_seg=n_seg)
+    sync()
+    t1 = time.perf_counter()
+    g_p, lam_p = ca.ckpt_bwd_plain(kind, scal, ck_p, b, steps, cot, seg=SEG)
+    sync()
+    gen_plain_ms = 1e3 * (t1 - t0)
+    bwd_plain_ms = 1e3 * (time.perf_counter() - t1)
+    gen_ms = cuda_ms(lambda: ca.launch_gen(kind, scal, *y0, b, steps,
+                                           seg=SEG, n_seg=n_seg), 3)
+    bwd_ms = cuda_ms(lambda: ca.launch_bwd(kind, scal, ckpt, b, steps, cot,
+                                           seg=SEG), 3)
+    # checkpoint s holds the state after s * SEG steps of every ray still
+    # marching then: the march kernel's state with that cap, bit for bit
+    eq = []
+    for s_ in sorted({1, n_seg // 2, n_seg - 1} - {0}):
+        m = march_cuda.launch(kind, scal, *y0, b, max_steps=s_ * SEG)
+        live = steps > s_ * SEG
+        same = ((ckpt[s_, 0] == m[0]) & (ckpt[s_, 1] == m[1])
+                & (ckpt[s_, 2] == m[2]))
+        eq.append((s_, same[live].double().mean().item(),
+                   int(live.sum())))
+    eq_min = min(f for _, f, _ in eq) if eq else 1.0
+    # the plain gen writes frozen states past a ray's own segments, the
+    # kernel leaves them unwritten: compare the segments each ray has
+    seg_idx = torch.arange(n_seg, device=steps.device)[:, None]
+    valid = (seg_idx * SEG < steps[None, :])[:, None, :].expand_as(ckpt)
+    gen_err = float((ckpt - ck_p).abs()[valid].max()) if n_seg else 0.0
+    frac, bwd_err = close_fraction((*lam_k, *g_k), (*lam_p, *g_p))
+    sums = []
+    for i in range(3):
+        sk, sp = g_k[i].double().sum().item(), g_p[i].double().sum().item()
+        if sp != 0.0 or sk != 0.0:
+            sums.append((i, sk, sp, abs(sk - sp) / max(abs(sp), 1e-300)))
+    total = steps.double().sum().item()
+    n = steps.numel()
+    segs = (-(-steps.long() // SEG)).double().sum().item()
+    print(f"[6] ckpt {label}: {n} rays, {int((steps > 0).sum())} marched, "
+          f"mean / max steps {total / n:.1f} / {int(steps.max())}, "
+          f"{n_seg} segments ({n_seg * 3 * n * 4 / 2**20:.1f} MiB buffer)")
+    print(f"[6]   checkpoints == march kernel at s*{SEG} steps: "
+          + ", ".join(f"s={a}: {f:.6f} of {c}" for a, f, c in eq)
+          + f" (bound >= {CKPT_EQ_MIN})")
+    print(f"[6]   lam and g_theta within rtol {GRAD_RTOL}: {frac:.6f} of "
+          f"rays (bound >= {GRAD_FRAC_MIN}); max |d| gen {gen_err:.3e}, "
+          f"bwd {bwd_err:.3e}")
+    for i, sk, sp, rel in sums:
+        print(f"[6]   sum g_p{i}: kernel {sk:.9e}, plain {sp:.9e}, rel "
+              f"{rel:.3e} (bound {GRAD_RTOL})")
+    print(f"[6]   gen {gen_ms:.3f} ms (plain {gen_plain_ms:.1f} ms), bwd "
+          f"{bwd_ms:.3f} ms (plain {bwd_plain_ms:.1f} ms)")
+    require(eq_min >= CKPT_EQ_MIN, f"ckpt {label}: checkpoints {eq}")
+    require(frac >= GRAD_FRAC_MIN, f"ckpt {label}: close fraction {frac}")
+    for i, sk, sp, rel in sums:
+        require(rel <= GRAD_RTOL, f"ckpt {label}: sum g_p{i} {sk} vs {sp}")
+    require(all(bool(torch.isfinite(t).all()) for t in (*lam_k, *g_k)),
+            f"ckpt {label}: non-finite gradient")
+    # gen reads 20 bytes a ray and writes 12 per segment; bwd reads those
+    # segments and 20 bytes, writes 28; FLOP_STEP a step, + FLOP_VJP in bwd
+    gen_b = bound(20 * n + 12 * segs, FLOP_STEP * total)
+    bwd_b = bound(12 * segs + 20 * n + 28 * n,
+                  (FLOP_STEP + FLOP_VJP) * total)
+    return dict(gen=dict(max_abs_err=gen_err, ms=gen_ms,
+                         plain_ms=gen_plain_ms, bound_ms=gen_b[0],
+                         bound_by=gen_b[1]),
+                bwd=dict(max_abs_err=bwd_err, ms=bwd_ms,
+                         plain_ms=bwd_plain_ms, bound_ms=bwd_b[0],
+                         bound_by=bwd_b[1]),
+                buffer_mib=n_seg * 3 * n * 4 / 2**20)
+
+
+def phase6_ckpt():
+    from curvis_tpu_torch.metrics.base import make_metric
+    configs = [
+        (f"ellis {SMALL}^2", make_metric("ellis", rho=1.0, device=DEVICE),
+         camera(5.0, 0.0, SMALL)),
+        (f"dneg {SMALL}^2", make_metric("interstellar", m=0.1, a=0.5,
+                                        rho=1.0, device=DEVICE),
+         camera(5.0, 0.0, SMALL)),
+        (f"schwarzschild {SMALL}^2",
+         make_metric("schwarzschild", m=1.0, device=DEVICE),
+         camera(15.0, 0.0, SMALL)),
+        ("rn 128^2", make_metric("rn", m=1.0, q=0.6, device=DEVICE),
+         camera(12.0, 0.0, 128)),
+    ]
+    for k, (label, metric, cam) in enumerate(configs):
+        kernel_vs_plain(*ckpt_inputs(metric, cam, CKPT_CAP, seed=k), label)
+
+
+def trainer_camera(res):
+    """The weak-deflection viewpoint of tests/test_gradients.py: looking
+    away from the throat, so every ray bends smoothly with rho."""
+    from curvis_tpu_torch.camera.camera import make_camera
+    return make_camera([0.0, 5.0, math.pi / 2, 0.0], [1.0, 0.6, 0.3],
+                       [0.0, 0.0, 1.0], 15.0, 43.0, res, res, device=DEVICE)
+
+
+def grad_check(bgp, bgn):
+    """d loss / d rho at GRAD_RES^2 through the Function (kernel pair), and
+    the same chain with the march's pullback done by the kernel pair and by
+    the plain pair, called by hand."""
+    import torch
+    from curvis_tpu_torch.geometry.rotations import normalize
+    from curvis_tpu_torch.integrate.adjoint import march_planar_adjoint_rays
+    from curvis_tpu_torch.metrics.base import EllisMetric
+    from curvis_tpu_torch.ops import ckpt_adjoint_cuda as ca
+    from curvis_tpu_torch.ops import march_cuda
+    from curvis_tpu_torch.physics import planar as pl
+    from curvis_tpu_torch.render.direct import render_direct, shade
+    from curvis_tpu_torch.render.fast import _pixel_dirs_soa
+    cam = trainer_camera(GRAD_RES)
+    kw = dict(dt=DT, max_steps=MAX_STEPS, escape_radius=R_ESC)
+    with torch.no_grad():
+        target = render_direct(EllisMetric(1.6, device=DEVICE), cam, bgp,
+                               bgn, filtering="bilinear", **kw)
+    target = target.permute(1, 0, 2).reshape(-1, 3)
+
+    def loss_of(metric, rays, res):
+        w = normalize(pl.planar_world_directions(metric, rays, res))
+        colors = shade(bgp, bgn, w, res.sign, filtering="bilinear")
+        return torch.mean((colors - target) ** 2)
+
+    def spawn(rho):
+        metric = EllisMetric(rho, device=DEVICE)
+        dirs = torch.stack(_pixel_dirs_soa(cam), dim=-1)
+        return metric, pl.spawn_planar(metric, cam.position, dirs)
+
+    rho = torch.tensor(1.0, device=DEVICE, requires_grad=True)
+    metric, rays = spawn(rho)
+    res = march_planar_adjoint_rays(metric, rays, **kw)
+    (g_fn,) = torch.autograd.grad(loss_of(metric, rays, res), rho)
+
+    def by_hand(pullback):
+        rho = torch.tensor(1.0, device=DEVICE, requires_grad=True)
+        metric, rays = spawn(rho)
+        kind, scal = march_cuda.march_scalars(metric, DT, R_ESC)
+        y0 = tuple(t.detach().contiguous() for t in rays[:4])
+        out = march_cuda.launch(kind, scal, *y0, max_steps=MAX_STEPS)
+        ys = [t.clone().requires_grad_() for t in out[:3]]
+        res = pl.PlanarResult(*ys, out[3], out[4])
+        loss = loss_of(metric, rays, res)
+        g_direct, *cot = torch.autograd.grad(loss, [rho, *ys],
+                                             retain_graph=True)
+        keep = out[3] != pl.CAPTURED
+        steps = torch.where(keep, out[4], torch.zeros_like(out[4]))
+        cot = tuple(torch.where(keep, c, torch.zeros_like(c)) for c in cot)
+        g, lam = pullback(kind, scal, y0[:3], y0[3], steps, cot)
+        outs = [(t, c) for t, c in zip(rays[:4], (*lam, g[3]))
+                if t.requires_grad]
+        (g_spawn,) = torch.autograd.grad([t for t, _ in outs], rho,
+                                         grad_outputs=[c for _, c in outs])
+        return (g_direct + g_spawn + g[0].double().sum()).item()
+
+    def plain(kind, scal, y0, b, steps, cot):
+        ck = ca.ckpt_gen_plain(kind, scal, y0, b, steps, seg=SEG,
+                               n_seg=ca.n_segments(steps, SEG))
+        return ca.ckpt_bwd_plain(kind, scal, ck, b, steps, cot, seg=SEG)
+
+    g_k = by_hand(lambda *a: ca.ckpt_adjoint_backward_cuda(*a, seg=SEG))
+    g_p = by_hand(plain)
+    rel = abs(g_k - g_p) / abs(g_p)
+    print(f"[7] d loss / d rho at {GRAD_RES}^2: Function {g_fn.item():.9e}, "
+          f"kernel pair {g_k:.9e}, plain pair {g_p:.9e}; rel "
+          f"{rel:.3e} (bound {GRAD_RTOL})")
+    require(rel <= GRAD_RTOL, f"gradient kernel vs plain: {g_k} vs {g_p}")
+    require(abs(g_fn.item() - g_k) <= GRAD_RTOL * abs(g_k),
+            f"gradient Function vs kernel pair: {g_fn.item()} vs {g_k}")
+
+
+def profile_step(loss, rho):
+    """One trainer step (loss + gradient) under torch.profiler: device time
+    by kernel, and the device's busy share of the step's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        torch.autograd.grad(loss({"rho": rho}), rho)
+        sync()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device-side events only: a CPU op's self device time repeats the
+    # kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if busy_ms == 0.0:
+        print("[7] profile: no device time recorded (not measured)")
+        return
+    print(f"[7] profile of one step: wall {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), top kernels:")
+    for e in events[:8]:
+        print(f"[7]   {e.self_device_time_total / 1e3:8.3f} ms "
+              f"x{e.count:<5d} {e.key[:90]}")
+
+
+def phase7_trainer(bgp, bgn):
+    """The headline trainer at full width; returns the launch counts of the
+    trainer run and the checkpoint kernels' numbers at its shapes."""
+    import torch
+    from curvis_tpu_torch.fit import fit
+    from curvis_tpu_torch.metrics.base import EllisMetric
+    from curvis_tpu_torch.ops import ckpt_adjoint_cuda as ca
+    from curvis_tpu_torch.ops import march_cuda
+    from curvis_tpu_torch.render.direct import render_direct
+    cam = trainer_camera(RES)
+    kw = dict(dt=DT, max_steps=MAX_STEPS, escape_radius=R_ESC,
+              filtering="bilinear", differentiable="adjoint")
+    with torch.no_grad():
+        target = render_direct(EllisMetric(1.6, device=DEVICE), cam, bgp,
+                               bgn, **kw)
+
+    def loss(p):
+        img = render_direct(EllisMetric(rho=p["rho"], device=DEVICE), cam,
+                            bgp, bgn, **kw)
+        return torch.mean((img - target) ** 2)
+
+    # one step by hand, timed with CUDA events: forward, then backward
+    rho = torch.tensor(1.0, device=DEVICE, requires_grad=True)
+    fwd, bwd = [], []
+    for _ in range(3):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        v = loss({"rho": rho})
+        e[1].record()
+        (g,) = torch.autograd.grad(v, rho)
+        e[2].record()
+        e[2].synchronize()
+        fwd.append(e[0].elapsed_time(e[1]))
+        bwd.append(e[1].elapsed_time(e[2]))
+    g = g.item()
+    print(f"[7] d loss / d rho at rho = 1, {RES}^2: {g:.9e} (loss "
+          f"{v.item():.9e})")
+    require(math.isfinite(g) and g != 0.0, f"trainer gradient {g}")
+
+    profile_step(loss, rho)
+    # warm-up: the optimiser's first step pays one-off imports
+    fit(loss, {"rho": torch.tensor(1.0, device=DEVICE)}, iters=1,
+        lr=TRAIN_LR)
+    march_cuda.launches = 0
+    ca.launches.update(ckpt_gen=0, ckpt_bwd=0)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    res = fit(loss, {"rho": torch.tensor(1.0, device=DEVICE)},
+              iters=TRAIN_ITERS, lr=TRAIN_LR)
+    sync()
+    fit_s = time.perf_counter() - t0
+    launches = {"march": march_cuda.launches, **ca.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist = res.history
+    print(f"[7] fit: {TRAIN_ITERS} Adam steps (lr {TRAIN_LR}) in {fit_s:.2f} "
+          f"s, rho 1.0 -> {float(res.params['rho']):.6f} (target 1.6); "
+          f"history {', '.join(f'{h:.6e}' for h in hist)}")
+    print(f"[7] launches over the trainer run: {launches}; peak device "
+          f"memory {peak:.3f} GiB")
+    require(all(math.isfinite(h) for h in hist), f"history {hist}")
+    require(hist[-1] < hist[0], f"loss did not drop: {hist}")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the trainer was not launched: {launches}")
+
+    # the checkpoint kernels at the trainer's shapes, against their plain
+    # versions, with the cotangent seeded at random
+    metric = EllisMetric(1.0, device=DEVICE)
+    inputs = ckpt_inputs(metric, cam, MAX_STEPS, seed=7)
+    nums = kernel_vs_plain(*inputs, f"trainer ellis {RES}^2")
+    fwd_ms, bwd_total = statistics.median(fwd), statistics.median(bwd)
+    print(f"[7] per step (median of 3, CUDA events): forward {fwd_ms:.2f} ms "
+          f"+ backward {bwd_total:.2f} ms, of which gen "
+          f"{nums['gen']['ms']:.2f} ms and bwd {nums['bwd']['ms']:.2f} ms; "
+          f"checkpoint buffer {nums['buffer_mib']:.1f} MiB")
+    grad_check(bgp, bgn)
+    return launches, nums
+
+
 def main():
     smi = phase0_toolchain()
     import numpy as np
@@ -298,20 +679,30 @@ def main():
     print(f"[5] launch counters over the headline run: {launches}")
     require(launches["march"] > 0 and launches["fused"] > 0,
             f"a kernel of the main path was not launched: {launches}")
-    kernels = [
-        dict(name="march_planar_kernel", route="cuda",
-             source="curvis_tpu_torch/csrc/planar_march.cu",
-             replaces="curvis_tpu/ops/march_pallas.py:303",
-             launches=launches["march"], max_abs_err=march["max_abs_err"],
-             ms=march["ms"], plain_ms=march["plain_ms"]),
-        dict(name="render_fused_kernel", route="cuda",
-             source="curvis_tpu_torch/csrc/render_fused.cu",
-             replaces="curvis_tpu/ops/render_fused.py:150",
-             launches=launches["fused"], max_abs_err=fused["max_abs_err"],
-             ms=fused["ms"], plain_ms=fused["plain_ms"]),
-    ]
     print(f"[5] build {build_s:.1f} s; headline fused {ms_f:.2f} ms, "
           f"batched {ms_b:.2f} ms on {smi}")
+    phase6_ckpt()
+    train_launches, ckpt = phase7_trainer(bgp, bgn)
+
+    def entry(name, source, replaces, n_launches, nums):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=n_launches,
+                    **{k: nums[k] for k in keys}, library_ms=None)
+
+    kernels = [
+        entry("march_planar_kernel", "curvis_tpu_torch/csrc/planar_march.cu",
+              "curvis_tpu/ops/march_pallas.py:303", launches["march"], march),
+        entry("render_fused_kernel", "curvis_tpu_torch/csrc/render_fused.cu",
+              "curvis_tpu/ops/render_fused.py:150", launches["fused"], fused),
+        entry("ckpt_gen_kernel", "curvis_tpu_torch/csrc/ckpt_adjoint.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              train_launches["ckpt_gen"], ckpt["gen"]),
+        entry("ckpt_bwd_kernel", "curvis_tpu_torch/csrc/ckpt_adjoint.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              train_launches["ckpt_bwd"], ckpt["bwd"]),
+    ]
+    print(f"[7] done on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

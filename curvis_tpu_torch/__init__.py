@@ -1,11 +1,15 @@
 """curvis_tpu_torch — the PyTorch / CUDA port of curvis_tpu.
 
-The planar wormhole / static black-hole render path of ``curvis_tpu``,
-written in PyTorch, with its two TPU kernels rewritten by hand in CUDA for
-the H100 (``csrc/``): the Euler march (``ops/march_cuda.py``) and the fused
-spawn + march + readout (``ops/render_fused.py``).  Tensors on a GPU run the
-kernels; tensors on the CPU run their plain PyTorch versions.  The package
-imports neither JAX nor ``curvis_tpu``.
+The planar wormhole / static black-hole render path of ``curvis_tpu`` and
+its inverse-rendering path, written in PyTorch, with their TPU kernels
+rewritten by hand in CUDA for the H100 (``csrc/``): the Euler march
+(``ops/march_cuda.py``), the fused spawn + march + readout
+(``ops/render_fused.py``) and the checkpointed-recompute backward of the
+march (``ops/ckpt_adjoint_cuda.py``), behind ``render_direct(...,
+differentiable='adjoint')`` and ``fit``.  Tensors on a GPU run the kernels;
+tensors on the CPU run their plain PyTorch versions.  Factories build on
+the current CUDA device unless given ``device='cpu'``.  The package imports
+neither JAX nor ``curvis_tpu``.
 """
 
 from curvis_tpu_torch.metrics.base import (
@@ -27,22 +31,29 @@ from curvis_tpu_torch.env.spherical_image import (
 from curvis_tpu_torch.render.fast import (render_frames_batched,
                                           render_planar_fast)
 from curvis_tpu_torch.ops.render_fused import render_planar_fused
+from curvis_tpu_torch.render.direct import render_direct
+from curvis_tpu_torch.integrate.adjoint import march_planar_adjoint
+from curvis_tpu_torch.fit import FitResult, fit
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Camera",
     "EllisMetric",
+    "FitResult",
     "FlatSphericalMetric",
     "InterstellarMetric",
     "Metric",
     "ReissnerNordstromMetric",
     "SchwarzschildMetric",
     "SphericalImage",
+    "fit",
     "load_spherical_image",
     "make_camera",
     "make_metric",
     "make_spherical_image",
+    "march_planar_adjoint",
+    "render_direct",
     "render_frames_batched",
     "render_planar_fast",
     "render_planar_fused",

@@ -14,6 +14,7 @@ import dataclasses
 import torch
 
 from curvis_tpu_torch.geometry import rotations
+from curvis_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,11 +46,13 @@ class Camera:
 def make_camera(position, forward, up, focal_length, sensor_diagonal,
                 resolution_x, resolution_y, *, device=None,
                 dtype=torch.float32) -> Camera:
-    """Validated constructor (focal length and diagonal must be positive)."""
+    """Validated constructor (focal length and diagonal must be positive),
+    on the current CUDA device unless ``device`` is given."""
     if float(focal_length) <= 0:
         raise ValueError("focal_length must be > 0")
     if float(sensor_diagonal) <= 0:
         raise ValueError("sensor_diagonal must be > 0")
+    device = resolve_device(device)
 
     def t(v):
         return torch.as_tensor(v, dtype=dtype, device=device)

@@ -3,8 +3,9 @@
 The "weights" of a ``curvis_tpu`` scene are a metric's parameters, a camera
 and sky textures with their rotation matrices.  The functions here take
 them as numpy arrays (the JAX dataclass fields after ``np.asarray``) and
-build the port's objects on a given device and dtype, so that both packages
-compute on the same state.  This module never imports JAX.
+build the port's objects on a given device and dtype (the current CUDA
+device unless ``device`` is given), so that both packages compute on the
+same state.  This module never imports JAX.
 """
 from __future__ import annotations
 
@@ -17,31 +18,37 @@ from curvis_tpu_torch.metrics.base import (EllisMetric, FlatSphericalMetric,
                                            InterstellarMetric, Metric,
                                            ReissnerNordstromMetric,
                                            SchwarzschildMetric)
+from curvis_tpu_torch.utils.device import resolve_device
 
 _METRICS = {
-    "ellis": (EllisMetric, ("rho",)),
-    "interstellar": (InterstellarMetric, ("m", "a", "rho")),
-    "dneg": (InterstellarMetric, ("m", "a", "rho")),
-    "flat": (FlatSphericalMetric, ()),
-    "schwarzschild": (SchwarzschildMetric, ("m",)),
-    "reissner-nordstrom": (ReissnerNordstromMetric, ("m", "q")),
-    "rn": (ReissnerNordstromMetric, ("m", "q")),
+    "ellis": EllisMetric,
+    "interstellar": InterstellarMetric,
+    "dneg": InterstellarMetric,
+    "flat": FlatSphericalMetric,
+    "schwarzschild": SchwarzschildMetric,
+    "reissner-nordstrom": ReissnerNordstromMetric,
+    "rn": ReissnerNordstromMetric,
 }
 
 
 def _t(a, device, dtype):
-    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(a), dtype=dtype,
+                           device=resolve_device(device))
 
 
 def metric_from_arrays(kind: str, *, device=None, dtype=torch.float32,
                        **params) -> Metric:
     """A port metric of ``kind`` with the given parameter arrays, e.g.
     ``metric_from_arrays("ellis", rho=np.asarray(jax_metric.rho))``."""
-    cls, names = _METRICS[kind.lower()]
+    cls = _METRICS[kind.lower()]
+    names = cls.fields
     if set(params) != set(names):
         raise ValueError(f"{kind} takes parameters {names}, got "
                          f"{sorted(params)}")
-    return cls(*(_t(params[k], device, dtype) for k in names))
+    if not names:
+        return cls()
+    device = resolve_device(device)
+    return cls(*(_t(params[k], device, dtype) for k in names), device=device)
 
 
 def camera_from_arrays(position, forward, up, focal_length, sensor_diagonal,

@@ -1,5 +1,6 @@
-// Planar null-geodesic right-hand sides and the per-ray Euler march, shared
-// by planar_march.cu and render_fused.cu.
+// Planar null-geodesic right-hand sides, the per-ray Euler march and the
+// hand-written VJP of one Euler step, shared by planar_march.cu,
+// render_fused.cu and ckpt_adjoint.cu.
 //
 // State per ray: (l, psi, p_l) with conserved angular momentum b.  The
 // metric kind is a template parameter, so each kernel instance carries only
@@ -131,6 +132,128 @@ __device__ __forceinline__ float readout_u_l(const MarchScalars& s, float l,
   return p_l;
 }
 
+// One forward-Euler step y <- y + dt f(y), y = (l, psi, p_l): the step of
+// march_ray, which the checkpoint kernels re-run, so the recomputed map is
+// the marched map bit for bit.
+template <int KIND>
+__device__ __forceinline__ void euler_step(const MarchScalars& s, float b,
+                                           float b2, float* l, float* psi,
+                                           float* p_l) {
+  float dl, dpsi, dpl;
+  planar_deriv<KIND>(s, *l, *p_l, b, b2, &dl, &dpsi, &dpl);
+  *l = *l + s.dt * dl;
+  *psi = *psi + s.dt * dpsi;
+  *p_l = *p_l + s.dt * dpl;
+}
+
+// Reverse mode of the lapse metrics' RHS (Schwarzschild is q2 = 0, which
+// leaves the forms of planar_deriv bit for bit):
+//   A = 1 - (2M - q2/l)/l,  C = -(M - q2/l)/l^2,
+//   dl = A p_l,  dpsi = b/l^2,  dpl = C (1/A^2 + p_l^2) + b^2/l^3.
+// (u, v, w) are the cotangents of (dl, dpsi, dpl); adds d/dl to *g_l,
+// d/dp_l to *g_pl, d/db to *g_b and d/dM, d/dq2 to *g_m, *g_q2.
+__device__ __forceinline__ void lapse_rhs_vjp(float M, float q2, float l,
+                                              float p_l, float b, float b2,
+                                              float u, float v, float w,
+                                              float* g_l, float* g_pl,
+                                              float* g_b, float* g_m,
+                                              float* g_q2) {
+  const float invl = 1.0f / l;
+  const float invl2 = invl * invl;
+  const float A = 1.0f - (2.0f * M - q2 * invl) * invl;
+  const float invA = 1.0f / A;
+  const float C = -(M - q2 * invl) * invl2;
+  const float Q = invA * invA + p_l * p_l;
+  // dpl = C Q + b2 invl2 invl
+  const float gC = w * Q;
+  const float gQ = w * C;
+  const float gA = u * p_l - gQ * 2.0f * invA * invA * invA;
+  *g_pl += u * A + gQ * 2.0f * p_l;
+  *g_b += v * invl2 + w * 2.0f * b * invl2 * invl;
+  *g_m += gA * (-2.0f * invl) - gC * invl2;
+  *g_q2 += gA * invl2 + gC * invl * invl2;
+  // invl2 = invl * invl enters dpsi, dpl's b^2 term and C
+  const float g_invl2 = v * b + w * b2 * invl - gC * (M - q2 * invl);
+  const float g_invl = w * b2 * invl2 + g_invl2 * 2.0f * invl +
+                       gA * (-2.0f * M + 2.0f * q2 * invl) +
+                       gC * q2 * invl2;
+  *g_l += g_invl * (-invl * invl);
+}
+
+// VJP of one Euler step at (l, p_l) (psi does not enter the RHS):
+// lam = (lam_l, lam_psi, lam_pl) is the cotangent of the step's output and
+// becomes that of its input; g[0..2] gather the cotangents of the metric
+// slots p0, p1, p2 and g[3] that of b.  The derivatives are those of the
+// forms in planar_deriv, written out in reverse mode.
+template <int KIND>
+__device__ __forceinline__ void euler_step_vjp(const MarchScalars& s,
+                                               float l, float p_l, float b,
+                                               float b2, float* lam_l,
+                                               float lam_psi, float* lam_pl,
+                                               float g[4]) {
+  // cotangents of the RHS (dl, dpsi, dpl): y1 = y + dt f(y)
+  const float u = s.dt * *lam_l, v = s.dt * lam_psi, w = s.dt * *lam_pl;
+  float g_l = *lam_l, g_pl = *lam_pl;
+  if constexpr (KIND == kEllis) {
+    // inv = 1/r2, r2 = p0^2 + l^2; dpsi = b inv; dpl = b2 l inv^2
+    const float inv = 1.0f / (s.p0 * s.p0 + l * l);
+    const float inv2 = inv * inv;
+    const float g_inv = v * b + w * b2 * l * 2.0f * inv;
+    const float g_r2 = -g_inv * inv2;
+    g_l += w * b2 * inv2 + g_r2 * 2.0f * l;
+    g_pl += u;
+    g[0] += g_r2 * 2.0f * s.p0;
+    g[3] += v * inv + w * 2.0f * b * l * inv2;
+  } else if constexpr (KIND == kFlat) {
+    // inv = 1/l^2, r = sqrt(l^2); dpsi = b inv; dpl = b2 inv / r
+    const float r2 = l * l;
+    const float inv = 1.0f / r2;
+    const float r = sqrtf(r2);
+    const float g_inv = v * b + w * b2 / r;
+    const float g_r = -w * b2 * inv / (r * r);
+    const float g_r2 = -g_inv * inv * inv + g_r * 0.5f / r;
+    g_l += g_r2 * 2.0f * l;
+    g_pl += u;
+    g[3] += v * inv + w * 2.0f * b * inv / r;
+  } else if constexpr (KIND == kInterstellar) {
+    // r, r' of dneg_shape; ir = 1/r; dpsi = b ir^2; dpl = b2 r' ir^3
+    const float m = s.p0, a = s.p1;
+    float r, dr;
+    dneg_shape(m, a, s.p2, l, &r, &dr);
+    const float ir = 1.0f / r;
+    const float inv = ir * ir;
+    const float g_inv = v * b + w * b2 * dr * ir;
+    const float g_ir = g_inv * 2.0f * ir + w * b2 * dr * inv;
+    const float g_r = -g_ir * ir * ir;
+    const float g_dr = w * b2 * inv * ir;
+    g[2] += g_r;                                   // dr/drho = 1
+    if (fabsf(l) > a) {
+      // x = 2(|l| - a)/(pi m); r = rho + m (x atan x - log1p(x^2)/2);
+      // r' = sgn(l) (2/pi) atan x; dr/dx = m atan x
+      const float sg = l < 0.0f ? -1.0f : 1.0f;
+      const float c = 2.0f / (kPi * m);
+      const float x = c * (fabsf(l) - a);
+      const float at = atanf(x);
+      const float g_x =
+          g_r * m * at + g_dr * sg * (2.0f / kPi) / (1.0f + x * x);
+      g[0] += g_r * (x * at - 0.5f * log1pf(x * x)) - g_x * x / m;
+      g[1] += -g_x * c;
+      g_l += g_x * sg * c;
+    }
+    g_pl += u;
+    g[3] += v * inv + w * 2.0f * b * dr * inv * ir;
+  } else if constexpr (KIND == kSchwarzschild) {
+    float unused = 0.0f;
+    lapse_rhs_vjp(s.p0, 0.0f, l, p_l, b, b2, u, v, w, &g_l, &g_pl, &g[3],
+                  &g[0], &unused);
+  } else {  // kReissnerNordstrom: p1 = Q^2
+    lapse_rhs_vjp(s.p0, s.p1, l, p_l, b, b2, u, v, w, &g_l, &g_pl, &g[3],
+                  &g[0], &g[1]);
+  }
+  *lam_l = g_l;
+  *lam_pl = g_pl;
+}
+
 // Euler march of one ray until it escapes (sign +1 / -1), is captured
 // (sign 2) or has taken max_steps steps (sign 0).  The escape test follows
 // each step, strict on both sides.  Returns the sign; *steps gets the
@@ -144,11 +267,7 @@ __device__ __forceinline__ int march_ray(const MarchScalars& s, float* l_io,
   int sign = 0;
   int n = 0;
   while (n < max_steps && sign == 0) {
-    float dl, dpsi, dpl;
-    planar_deriv<KIND>(s, l, p_l, b, b2, &dl, &dpsi, &dpl);
-    l = l + s.dt * dl;
-    psi = psi + s.dt * dpsi;
-    p_l = p_l + s.dt * dpl;
+    euler_step<KIND>(s, b, b2, &l, &psi, &p_l);
     ++n;
     if (l > s.R) {
       sign = 1;

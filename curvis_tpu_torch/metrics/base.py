@@ -1,9 +1,11 @@
 """Metrics of diagonal, spherically symmetric spacetimes (PyTorch).
 
 Counterpart of ``curvis_tpu/metrics/base.py``.  A metric is a small
-``nn.Module`` whose parameters are 0-d tensors (registered as
-``nn.Parameter`` with ``requires_grad=False``, so ``.to(device)`` moves them
-and a gradient pass can switch them on).  It exposes the shape functions
+``nn.Module`` whose parameters are 0-d tensors registered as buffers, so
+``.to(device)`` moves them, and a tensor passed in stays in its caller's
+autograd graph: a loss built from ``EllisMetric(rho=t)`` reaches ``t``.
+Metrics are built on the current CUDA device unless ``device`` is given
+(``device='cpu'`` for the CPU).  It exposes the shape functions
 ``r(l)``, ``r_squared(l)``, ``r_derivative(l)``; the static black holes add
 ``lapse``, ``lapse_deriv``, ``radial_B`` and ``capture_radius``.
 
@@ -17,10 +19,7 @@ import math
 import torch
 from torch import nn
 
-
-def _param(value, device, dtype):
-    return nn.Parameter(torch.as_tensor(value, dtype=dtype, device=device),
-                        requires_grad=False)
+from curvis_tpu_torch.utils.device import resolve_device
 
 
 class Metric(nn.Module):
@@ -28,6 +27,16 @@ class Metric(nn.Module):
 
     unit_lapse = True          # g00 = -1, g11 = 1 (the reference family)
     capture_radius = None      # no photon capture
+    fields: tuple = ()         # parameter names, in constructor order
+
+    def _set_fields(self, values, device, dtype):
+        """Register each value as a 0-d buffer on ``device``.  A tensor is
+        moved and cast differentiably, so it stays in its caller's graph."""
+        dev = resolve_device(device)
+        for name, v in zip(self.fields, values):
+            t = (v.to(device=dev, dtype=dtype or v.dtype) if torch.is_tensor(v)
+                 else torch.as_tensor(v, dtype=dtype, device=dev))
+            self.register_buffer(name, t)
 
     def r(self, l):
         raise NotImplementedError
@@ -41,17 +50,19 @@ class Metric(nn.Module):
     @property
     def device(self):
         """Device of the parameters (None for a metric without any)."""
-        for p in self.parameters():
-            return p.device
+        for t in self.buffers():
+            return t.device
         return None
 
 
 class EllisMetric(Metric):
     """Ellis wormhole: r(l) = sqrt(rho^2 + l^2)."""
 
+    fields = ("rho",)
+
     def __init__(self, rho, *, device=None, dtype=None):
         super().__init__()
-        self.rho = _param(rho, device, dtype)
+        self._set_fields((rho,), device, dtype)
 
     def r(self, l):
         return torch.sqrt(self.r_squared(l))
@@ -73,11 +84,11 @@ class InterstellarMetric(Metric):
     Inside the throat r = rho, r' = 0.
     """
 
+    fields = ("m", "a", "rho")
+
     def __init__(self, m, a, rho, *, device=None, dtype=None):
         super().__init__()
-        self.m = _param(m, device, dtype)
-        self.a = _param(a, device, dtype)
-        self.rho = _param(rho, device, dtype)
+        self._set_fields((m, a, rho), device, dtype)
 
     def _x(self, l):
         return 2.0 * (torch.abs(l) - self.a) / (math.pi * self.m)
@@ -120,10 +131,11 @@ class SchwarzschildMetric(Metric):
     the photon sphere 3M) are captured (sign 2) and render black."""
 
     unit_lapse = False
+    fields = ("m",)
 
     def __init__(self, m, *, device=None, dtype=None):
         super().__init__()
-        self.m = _param(m, device, dtype)
+        self._set_fields((m,), device, dtype)
 
     def r(self, l):
         return l
@@ -154,11 +166,11 @@ class ReissnerNordstromMetric(Metric):
     Capture radius midway between the outer horizon and the photon sphere."""
 
     unit_lapse = False
+    fields = ("m", "q")
 
     def __init__(self, m, q, *, device=None, dtype=None):
         super().__init__()
-        self.m = _param(m, device, dtype)
-        self.q = _param(q, device, dtype)
+        self._set_fields((m, q), device, dtype)
 
     def r(self, l):
         return l
@@ -212,7 +224,8 @@ _REGISTRY = {
 def make_metric(kind: str, *, device=None, dtype=torch.float32,
                 **params) -> Metric:
     """Build a metric by name with validated parameters (the checks of
-    ``curvis_tpu.metrics.base.make_metric``)."""
+    ``curvis_tpu.metrics.base.make_metric``), on the current CUDA device
+    unless ``device`` is given."""
     kind = kind.lower()
     if kind not in _REGISTRY:
         raise ValueError(f"Unknown metric {kind!r}; known: {sorted(_REGISTRY)}")

@@ -39,6 +39,14 @@ _PROTOTYPES = {
     # stream
     "curvis_render_fused": [_I, _P, _I, _P, _P, _P, _P, _I,
                             ctypes.c_longlong, _I, _I, _P],
+    # kind, scalars, n_scalars, l, psi, p_l, b, steps, ckpt, n, seg, device,
+    # stream
+    "curvis_ckpt_gen": [_I, _P, _I, _P, _P, _P, _P, _P, _P,
+                        ctypes.c_longlong, _I, _I, _P],
+    # kind, scalars, n_scalars, ckpt, b, steps, cot_l, cot_psi, cot_pl,
+    # lam_l, lam_psi, lam_pl, g0, g1, g2, gb, n, seg, device, stream
+    "curvis_ckpt_bwd": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -14,14 +14,17 @@ own plane with the 2-D state
 
 (static metrics with a lapse A != 1 use the general form in ``planar_rhs``).
 ``march_planar_while`` is the plain version of the CUDA march kernel
-(``ops/march_cuda.py``); the escape direction is rebuilt afterwards as
-w = cos(beta) r_hat + sin(beta) e2.
+(``ops/march_cuda.py``); ``march_planar_scan`` is the same march under
+plain autograd, checkpointed per segment; the escape direction is rebuilt
+afterwards as w = cos(beta) r_hat + sin(beta) e2.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from curvis_tpu_torch.geometry.rotations import (_any_perpendicular,
                                                  normalize,
@@ -158,6 +161,46 @@ def march_planar_while(metric: Metric, rays: PlanarRays, *, dt, max_steps,
             sign = torch.where(active & (l < r_cap), CAPTURED, sign)
         steps = steps + active.to(torch.int32)
     return PlanarResult(l, psi, p_l, sign.to(torch.int32), steps)
+
+
+def march_planar_scan(metric: Metric, rays: PlanarRays, *, dt, max_steps,
+                      escape_radius, stepper="euler") -> PlanarResult:
+    """Differentiable masked Euler march with the result of
+    march_planar_while, under plain autograd: each segment of
+    ~sqrt(max_steps) steps runs under ``torch.utils.checkpoint``,
+    so the graph holds the segment starts and recomputes one segment at a
+    time in the backward pass.  Gradients reach the metric's parameters and
+    the rays' (l, psi, p_l, b).  Marching stops at the first segment start
+    with no ray left: every later step would be masked (the identity)."""
+    check_stepper(stepper)
+    l, psi, p_l, b = rays.l, rays.psi, rays.p_l, rays.b
+    dt = torch.as_tensor(dt, dtype=l.dtype, device=l.device)
+    segment = max(1, int(math.sqrt(max_steps)))
+    R = escape_radius
+    r_cap = _capture_radius(metric)
+
+    def run(n, l, psi, p_l, sign, steps):
+        for _ in range(n):
+            active = sign == 0
+            l1, psi1, pl1 = planar_euler_step(metric, l, psi, p_l, b, dt)
+            l = torch.where(active, l1, l)
+            psi = torch.where(active, psi1, psi)
+            p_l = torch.where(active, pl1, p_l)
+            sign = torch.where(active & (l > R), 1,
+                               torch.where(active & (l < -R), -1, sign))
+            if r_cap is not None:
+                sign = torch.where(active & (l < r_cap), CAPTURED, sign)
+            steps = steps + active.to(torch.int32)
+        return l, psi, p_l, sign.to(torch.int32), steps
+
+    sign = torch.zeros(l.shape, dtype=torch.int32, device=l.device)
+    state = (l, psi, p_l, sign, torch.zeros_like(sign))
+    done = 0
+    while done < max_steps and bool((state[3] == 0).any()):
+        n = min(segment, max_steps - done)
+        state = checkpoint(run, n, *state, use_reentrant=False)
+        done += n
+    return PlanarResult(*state)
 
 
 def escape_angle_beta(metric: Metric, res: PlanarResult, b):

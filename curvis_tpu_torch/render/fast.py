@@ -19,7 +19,8 @@ import torch
 
 from curvis_tpu_torch.camera.camera import (Camera, aberrate_directions,
                                             camera_rotation)
-from curvis_tpu_torch.env.spherical_image import SphericalImage
+from curvis_tpu_torch.env.spherical_image import (SphericalImage,
+                                                  filter_lookup)
 from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops.march_cuda import march_planar_cuda
 from curvis_tpu_torch.physics.planar import (PlanarRays, _unit_lapse,
@@ -105,51 +106,10 @@ def _texture_uv(img: SphericalImage, wx, wy, wz):
     return u, v
 
 
-def _filter_lookup(rows, base, u, v, W, H, filtering):
-    """Gather from (M, 3) texture rows at per-ray page offset ``base`` +
-    (u, v).  Nearest truncates; bilinear wraps horizontally and reflects at
-    the poles (a row beyond a pole is the same row half a turn around)."""
-    if filtering == "nearest":
-        xi = torch.clamp((u * W).to(torch.int64), 0, W - 1)
-        yi = torch.clamp((v * H).to(torch.int64), 0, H - 1)
-        return rows[base + yi * W + xi]                    # (N, 3)
-    if filtering != "bilinear":
-        raise ValueError(f"unknown filtering {filtering!r}")
-    fx = u * W - 0.5
-    fy = v * H - 0.5
-    x0 = torch.floor(fx)
-    y0 = torch.floor(fy)
-    wxf = (fx - x0)[:, None]
-    wyf = (fy - y0)[:, None]
-    x0i = torch.remainder(x0.to(torch.int64), W)
-    x1i = torch.remainder(x0i + 1, W)
-
-    def pole(yr):
-        over = (yr < 0) | (yr > H - 1)
-        yc = torch.clamp(torch.where(yr < 0, -1 - yr, 2 * H - 1 - yr),
-                         0, H - 1)
-        yc = torch.where(over, yc, yr)
-        xs = torch.where(over, W // 2, 0)
-        return yc, xs
-
-    y0r = y0.to(torch.int64)
-    y0c, xs0 = pole(y0r)
-    y1c, xs1 = pole(y0r + 1)
-    x0t = torch.remainder(x0i + xs0, W)
-    x1t = torch.remainder(x1i + xs0, W)
-    x0b = torch.remainder(x0i + xs1, W)
-    x1b = torch.remainder(x1i + xs1, W)
-    y0i = base + y0c * W
-    y1i = base + y1c * W
-    top = rows[y0i + x0t] * (1.0 - wxf) + rows[y0i + x1t] * wxf
-    bot = rows[y1i + x0b] * (1.0 - wxf) + rows[y1i + x1b] * wxf
-    return top * (1.0 - wyf) + bot * wyf
-
-
 def _shade_soa(img: SphericalImage, wx, wy, wz, filtering):
     u, v = _texture_uv(img, wx, wy, wz)
     rows = img.texture.reshape(-1, 3)
-    return _filter_lookup(rows, torch.zeros_like(u, dtype=torch.int64), u, v,
+    return filter_lookup(rows, torch.zeros_like(u, dtype=torch.int64), u, v,
                           img.width, img.height, filtering)
 
 
@@ -167,7 +127,7 @@ def _shade_two_skies(bg_positive, bg_negative, wx, wy, wz, sign, filtering):
         rows = torch.cat([bg_positive.texture.reshape(-1, 3),
                           bg_negative.texture.reshape(-1, 3)])
         base = torch.where(neg, H * W, 0).to(torch.int64)
-        colors = _filter_lookup(rows, base, u, v, W, H, filtering)
+        colors = filter_lookup(rows, base, u, v, W, H, filtering)
     else:
         pos_rgb = _shade_soa(bg_positive, wx, wy, wz, filtering)
         neg_rgb = _shade_soa(bg_negative, wx, wy, wz, filtering)

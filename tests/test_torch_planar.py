@@ -41,7 +41,7 @@ def _pair(kind, dtype=np.float64, **params):
     """(JAX metric, port metric) with the same parameters."""
     jm = cv.make_metric(kind, **(params or METRICS[kind]))
     arrays = {k: np.asarray(getattr(jm, k), dtype) for k in _PARAMS[kind]}
-    tm = convert.metric_from_arrays(kind, dtype=torch.from_numpy(
+    tm = convert.metric_from_arrays(kind, device="cpu", dtype=torch.from_numpy(
         np.zeros((), dtype)).dtype, **arrays)
     if dtype == np.float32:
         import jax
@@ -56,7 +56,7 @@ def _camera_pair(position, forward, res, dtype=np.float64):
         *(np.asarray(getattr(jc, f)) for f in ("position", "forward", "up",
                                                 "focal_length",
                                                 "sensor_diagonal")),
-        jc.resolution_x, jc.resolution_y,
+        jc.resolution_x, jc.resolution_y, device="cpu",
         dtype=torch.from_numpy(np.zeros((), dtype)).dtype)
     return jc, tc
 
@@ -111,12 +111,16 @@ def test_make_metric_validation(kind, params, message):
 
 
 def test_metric_parameters_are_module_parameters():
-    m = make_metric("interstellar", m=0.2, a=0.01, rho=2.0,
+    """The parameters are 0-d buffers of the module (moved by .to), named
+    by ``fields``; a tensor passed in is kept, not copied."""
+    m = make_metric("interstellar", m=0.2, a=0.01, rho=2.0, device="cpu",
                     dtype=torch.float64)
-    params = dict(m.named_parameters())
-    assert sorted(params) == ["a", "m", "rho"]
+    params = dict(m.named_buffers())
+    assert sorted(params) == sorted(m.fields) == ["a", "m", "rho"]
     assert all(p.dtype == torch.float64 and p.dim() == 0
                and not p.requires_grad for p in params.values())
+    assert m.device == torch.device("cpu")
+    assert m.to("meta").device == torch.device("meta")
     assert make_metric("flat").device is None
 
 
@@ -177,7 +181,7 @@ def test_near_radial_spawn_always_finite():
     """The planar basis must be gated on the computed cross norm: f32
     directions within microradians of -r_hat (and exactly anti-parallel)
     give finite bases in both spawn functions."""
-    metric = make_metric("ellis", rho=1.0)
+    metric = make_metric("ellis", rho=1.0, device="cpu")
     th, ph = np.float32(np.pi / 2 - 0.22), np.float32(0.0)
     r_hat = np.array([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
                       np.cos(th)], np.float32)
@@ -186,7 +190,8 @@ def test_near_radial_spawn_always_finite():
     d = -r_hat[None] + eps[:, None] * np.array([0.0, 1.0, 0.0], np.float32)
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     cam = convert.camera_from_arrays([0.0, 28.0, th, ph], -r_hat,
-                                     [0.0, 0.0, 1.0], 30.0, 43.0, 4, 4)
+                                     [0.0, 0.0, 1.0], 30.0, 43.0, 4, 4,
+                                     device="cpu")
     dt = torch.from_numpy(d)
     (l, psi, p_l, b), rh, e2 = tfast._spawn_planar_soa(
         metric, cam, dt[:, 0], dt[:, 1], dt[:, 2])
@@ -268,7 +273,7 @@ def test_march_wrapper_matches_pallas_interpret():
 
 
 def test_march_wrapper_refuses_what_it_cannot_run():
-    metric = make_metric("ellis")
+    metric = make_metric("ellis", device="cpu")
     rays = tpl.PlanarRays(*(torch.zeros(4) for _ in range(4)),
                           r_hat=torch.zeros(1, 3), e2=torch.zeros(1, 3))
     kw = dict(dt=0.05, max_steps=10, escape_radius=30.0)
@@ -291,7 +296,7 @@ def test_build_command_targets_hopper():
     assert "-shared" in cmd and "-O3" in cmd
     assert "-use_fast_math" not in cmd
     cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert cu == ["planar_march.cu", "render_fused.cu"]
+    assert cu == ["ckpt_adjoint.cu", "planar_march.cu", "render_fused.cu"]
     assert all(any(c.endswith(name) for c in cmd) for name in cu)
     assert len(_build.source_hash()) == 64
     assert not _build.is_loaded()

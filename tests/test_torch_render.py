@@ -43,7 +43,7 @@ def _metric_pair(kind, dtype, **params):
     jm = cv.make_metric(kind, **params)
     jm = jax.tree.map(lambda x: x.astype(dtype), jm)
     tm = convert.metric_from_arrays(
-        kind, dtype=_tdtype(dtype),
+        kind, device="cpu", dtype=_tdtype(dtype),
         **{k: np.asarray(getattr(jm, k)) for k in params})
     return jm, tm
 
@@ -55,14 +55,16 @@ def _camera_pair(position, forward, res, dtype):
         *(np.asarray(getattr(jc, f)) for f in ("position", "forward", "up",
                                                 "focal_length",
                                                 "sensor_diagonal")),
-        jc.resolution_x, jc.resolution_y, dtype=_tdtype(dtype))
+        jc.resolution_x, jc.resolution_y, device="cpu",
+        dtype=_tdtype(dtype))
     return jc, tc
 
 
 def _sky_pair(texture, dtype):
     js = cv.make_spherical_image(texture.astype(dtype), dtype=jnp.dtype(dtype))
     ts = convert.spherical_image_from_arrays(
-        np.asarray(js.texture), np.asarray(js.rotation), dtype=_tdtype(dtype))
+        np.asarray(js.texture), np.asarray(js.rotation), device="cpu",
+        dtype=_tdtype(dtype))
     return js, ts
 
 
@@ -255,15 +257,16 @@ def test_settings_defaults_match_jax():
         want = getattr(jax_settings, name).from_toml(None)
         got = getattr(port_settings, name).from_toml(None)
         assert vars(got) == vars(want), name
-    metric = port_settings.MetricSettings(kind="rn", m=1.0, q=0.5).make()
+    metric = port_settings.MetricSettings(kind="rn", m=1.0, q=0.5).make(
+        device="cpu")
     assert type(metric).__name__ == "ReissnerNordstromMetric"
 
 
 # ---------------------------------------------------------- import guard
 
 def test_import_loads_no_jax_and_runs_no_nvcc(tmp_path):
-    """Importing the port (with its render, fused and CLI modules) loads no
-    jax module and does not run nvcc: a fake nvcc first on PATH would leave
+    """Importing the port (with its render, fused, adjoint, fit and CLI
+    modules) loads no jax module and does not run nvcc: a fake nvcc first on PATH would leave
     a marker file."""
     marker = tmp_path / "nvcc_ran"
     fake = tmp_path / "bin" / "nvcc"
@@ -278,6 +281,11 @@ def test_import_loads_no_jax_and_runs_no_nvcc(tmp_path):
         import curvis_tpu_torch.cli
         import curvis_tpu_torch.convert
         import curvis_tpu_torch.config.settings
+        import curvis_tpu_torch.integrate.adjoint
+        import curvis_tpu_torch.integrate.ckpt
+        import curvis_tpu_torch.ops.ckpt_adjoint_cuda
+        import curvis_tpu_torch.render.direct
+        import curvis_tpu_torch.fit
         from curvis_tpu_torch.ops import _build
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "curvis_tpu"))
