@@ -27,7 +27,20 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      render_direct(differentiable='adjoint') (Ellis, 1024^2, bilinear
      lookup, the weak-deflection viewpoint), with the gradient of the
      kernel pair against the plain pair at 128^2, the per-step time split
-     into forward, gen and bwd, and the launch counts of the trainer run.
+     into forward, gen and bwd, and the launch counts of the trainer run;
+  8. the adaptive DP5(4) march kernel (#4) against its plain version at
+     its default tolerances (rtol 1e-5, atol 1e-7): Ellis on the headline
+     ray bundle, DNEG and Schwarzschild at 256^2, Schwarzschild with a cap
+     of 20 accepted steps that most rays reach (exactly), and Ellis 256^2
+     with 16 rays poisoned to NaN (which must freeze as sign 3);
+  9. the fused rk45 kernel (#3) against its plain version (Ellis 1024^2,
+     rtol 1e-3), the fused rk45 image against the rk45 march-kernel image,
+     rk45 against the Euler march kernel on the headline view, and the
+     quality-mode headline: render_planar_fused(stepper='rk45', rtol=1e-3,
+     max_steps=4000) over the 4 headline poses, render_frames_batched(
+     stepper='rk45') on the same poses, DNEG fused rk45 at 1024^2 and
+     render_planar_adaptive(stepper='rk45') on the headline view, with the
+     launch counts of that run and a profile of the fused job.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -73,6 +86,15 @@ TRAIN_ITERS = 5
 TRAIN_LR = 5e-2
 GRAD_RES = 128             # side of the kernel-vs-plain gradient check
 
+RK45_MAX_STEPS = 4_000     # the quality mode's budget of accepted steps
+RK45_RTOL = 1e-3           # the quality row's tolerance (bench.py:349-384)
+RK45_CAP = 20              # below the mean accepted steps at rtol 1e-5:
+                           # most rays stop at it, and must stop exactly there
+STEPS_NEAR = 2             # accepted steps within which kernel and plain agree
+N_POISON = 16              # rays set to NaN, which must freeze as sign 3
+ACC_RES = 128              # side of the accuracy check against f64 rk45
+ACC_RTOL = 1e-10           # its reference's tolerance (atol 1e-3 rtol)
+
 # Roofline of one H100 SXM (NVIDIA data sheet): FP32 outside the tensor
 # cores and HBM3 bandwidth.
 PEAK_FLOPS = 67e12
@@ -83,6 +105,12 @@ PEAK_BYTES = 3.35e12
 FLOP_STEP = 14
 FLOP_VJP = 33
 FLOP_FUSED_PIXEL = 100
+# One DP5(4) iteration of an Ellis ray (csrc/rk45.cuh:rk45_iter): 7 RHS of 8,
+# the 21 stage terms of l and p_l (105, dt * a shared), the 5th- and
+# 4th-order combinations (69), y5 (6), the error norm (26), escape,
+# writeback, capture, stall and controller (~18); an exp or a log counts
+# as one.
+FLOP_RK45_ITER = 280
 
 
 def require(ok, what):
@@ -164,24 +192,32 @@ def bound(n_bytes, n_flops):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def camera(l, phi, res):
+def camera(l, phi, res, dtype=None):
+    import torch
     from curvis_tpu_torch.camera.camera import make_camera
     return make_camera([0.0, l, math.pi / 2, phi], [-1.0, 0.0, 0.0],
-                       [0.0, 0.0, 1.0], 15.0, 43.0, res, res, device=DEVICE)
+                       [0.0, 0.0, 1.0], 15.0, 43.0, res, res, device=DEVICE,
+                       dtype=dtype or torch.float32)
+
+
+def angles(w_a, w_b, mask):
+    """Angles between the escape directions (three components each) of the
+    rays in ``mask``, as a numpy array, and the rows compared."""
+    import torch
+    a = torch.stack(w_a, -1)[mask].double()
+    b = torch.stack(w_b, -1)[mask].double()
+    return torch.atan2(torch.linalg.cross(a, b).norm(dim=-1),
+                       (a * b).sum(-1)).cpu().numpy(), a, b
 
 
 def compare(sign_k, sign_p, w_k, w_p):
     """Agreement of a kernel with its plain version: fraction of equal
     signs, the p99 angle between escape directions and their max abs
     difference, over rays whose sign is +-1 in both."""
-    import torch
+    import numpy as np
     sign_eq = (sign_k == sign_p).double().mean().item()
     esc = ((sign_k.abs() == 1) & (sign_p.abs() == 1))
-    a = torch.stack(w_k, -1)[esc].double()
-    b = torch.stack(w_p, -1)[esc].double()
-    ang = torch.atan2(torch.linalg.cross(a, b).norm(dim=-1),
-                      (a * b).sum(-1)).cpu().numpy()
-    import numpy as np
+    ang, a, b = angles(w_k, w_p, esc)
     p99 = float(np.percentile(ang, 99)) if ang.size else 0.0
     max_abs = float((a - b).abs().max()) if ang.size else 0.0
     return sign_eq, p99, max_abs, float(esc.double().mean())
@@ -311,12 +347,13 @@ def phase4_headline(bgp, bgn):
         return render_frames_batched(metric, cams, bgp, bgn, **kw)
 
     march_cuda.launches = 0
-    render_fused.launches = 0
+    render_fused.launches.update(euler=0, rk45=0)
     imgs_f = torch.stack(fused())                      # warm-up
     ms_f = cuda_ms(fused, REPS)
     imgs_b = batched()                                 # warm-up
     ms_b = cuda_ms(batched, REPS)
-    launches = {"march": march_cuda.launches, "fused": render_fused.launches}
+    launches = {"march": march_cuda.launches,
+                "fused": render_fused.launches["euler"]}
     for name, imgs, ms in (("render_planar_fused", imgs_f, ms_f),
                            ("render_frames_batched", imgs_b, ms_b)):
         require(tuple(imgs.shape) == (FRAMES, RES, RES, 3),
@@ -551,17 +588,16 @@ def grad_check(bgp, bgn):
             f"gradient Function vs kernel pair: {g_fn.item()} vs {g_k}")
 
 
-def profile_step(loss, rho):
-    """One trainer step (loss + gradient) under torch.profiler: device time
-    by kernel, and the device's busy share of the step's wall time."""
-    import torch
+def profile_window(fn, tag, what):
+    """``fn`` once under torch.profiler: device time by kernel, and the
+    device's busy share of the window's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        torch.autograd.grad(loss({"rho": rho}), rho)
+        fn()
         sync()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side events only: a CPU op's self device time repeats the
@@ -572,12 +608,12 @@ def profile_step(loss, rho):
     events.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms == 0.0:
-        print("[7] profile: no device time recorded (not measured)")
+        print(f"{tag} profile: no device time recorded (not measured)")
         return
-    print(f"[7] profile of one step: wall {wall_ms:.2f} ms, device busy "
+    print(f"{tag} profile of {what}: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), top kernels:")
     for e in events[:8]:
-        print(f"[7]   {e.self_device_time_total / 1e3:8.3f} ms "
+        print(f"{tag}   {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}")
 
 
@@ -620,7 +656,8 @@ def phase7_trainer(bgp, bgn):
           f"{v.item():.9e})")
     require(math.isfinite(g) and g != 0.0, f"trainer gradient {g}")
 
-    profile_step(loss, rho)
+    profile_window(lambda: torch.autograd.grad(loss({"rho": rho}), rho),
+                   "[7]", "one step")
     # warm-up: the optimiser's first step pays one-off imports
     fit(loss, {"rho": torch.tensor(1.0, device=DEVICE)}, iters=1,
         lr=TRAIN_LR)
@@ -660,6 +697,264 @@ def phase7_trainer(bgp, bgn):
     return launches, nums
 
 
+def poison_rays(l, n_nan):
+    """``l`` with ``n_nan`` evenly spread rays set to NaN, and their mask."""
+    import torch
+    bad = torch.zeros(l.shape, dtype=torch.bool, device=l.device)
+    if n_nan:
+        bad[torch.linspace(0, l.numel() - 1, n_nan,
+                           device=l.device).long()] = True
+    return torch.where(bad, torch.full_like(l, math.nan), l), bad
+
+
+def phase8_rk45_march():
+    """Kernel #4 against march_planar_rk45_plain, at #4's default
+    tolerances (rtol 1e-5, atol 1e-7)."""
+    import torch
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.ops import rk45_cuda
+    from curvis_tpu_torch.physics.planar import PlanarResult
+    from curvis_tpu_torch.render.fast import _readout, _spawn_frames
+    ellis = make_metric("ellis", rho=1.0, device=DEVICE)
+    schwarzschild = make_metric("schwarzschild", m=1.0, device=DEVICE)
+    configs = [
+        (f"ellis {FRAMES}x{RES}^2", ellis,
+         [camera(5.0, 0.001 * k, RES) for k in range(FRAMES)],
+         RK45_MAX_STEPS, 0),
+        (f"dneg {SMALL}^2", make_metric("interstellar", m=0.1, a=1e-4,
+                                        rho=1.0, device=DEVICE),
+         [camera(5.0, 0.0, SMALL)], RK45_MAX_STEPS, 0),
+        (f"schwarzschild {SMALL}^2", schwarzschild,
+         [camera(15.0, 0.0, SMALL)], RK45_MAX_STEPS, 0),
+        (f"schwarzschild {SMALL}^2 cap {RK45_CAP}", schwarzschild,
+         [camera(15.0, 0.0, SMALL)], RK45_CAP, 0),
+        (f"ellis {SMALL}^2 with {N_POISON} NaN rays", ellis,
+         [camera(5.0, 0.0, SMALL)], RK45_MAX_STEPS, N_POISON),
+    ]
+    out = {}
+    for name, metric, cams, cap, n_nan in configs:
+        state, r_hat, e2 = _spawn_frames(metric, cams)
+        l, bad = poison_rays(state[0].reshape(-1).contiguous(), n_nan)
+        flat = [l] + [t.reshape(-1).contiguous() for t in state[1:]]
+        kind, scal = rk45_cuda.rk45_scalars(metric, DT, R_ESC, rtol=1e-5,
+                                            atol=1e-7, dt_max=10.0)
+        mi = rk45_cuda.default_max_iters(cap, None)
+        out_k = rk45_cuda.launch(kind, scal, *flat, max_steps=cap,
+                                 max_iters=mi)
+        sync()
+        t0 = time.perf_counter()
+        out_p = rk45_cuda.march_planar_rk45_plain(kind, scal, *flat,
+                                                  max_steps=cap, max_iters=mi)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        res_k, res_p = PlanarResult(*out_k[:5]), PlanarResult(*out_p[:5])
+        w_k = _readout(metric, res_k, flat[3], r_hat, e2)
+        w_p = _readout(metric, res_p, flat[3], r_hat, e2)
+        sign_eq, p99, max_abs, esc = compare(res_k.sign, res_p.sign, w_k, w_p)
+        near = ((res_k.steps - res_p.steps).abs() <= STEPS_NEAR)
+        steps_near = near.double().mean().item()
+        iters_eq = (out_k[5] == out_p[5]).double().mean().item()
+        kernel_ms = cuda_ms(lambda: rk45_cuda.launch(
+            kind, scal, *flat, max_steps=cap, max_iters=mi), 3)
+        n = l.numel()
+        steps, iters = res_k.steps.double(), out_k[5].double()
+        counts = {s: int((res_k.sign == s).sum()) for s in (-1, 0, 1, 2, 3)}
+        print(f"[8] rk45 march {name}: {n} rays, signs {counts}, sign equal "
+              f"{sign_eq:.6f}, steps within {STEPS_NEAR} {steps_near:.6f}, "
+              f"iters equal {iters_eq:.6f}, angle p99 {p99:.3e} rad over "
+              f"{esc:.4f} of rays, max |dw| {max_abs:.3e}")
+        print(f"[8]   steps mean / max {steps.mean().item():.2f} / "
+              f"{int(steps.max())}, iters mean / max "
+              f"{iters.mean().item():.2f} / {int(iters.max())}; kernel "
+              f"{kernel_ms:.3f} ms ({n / kernel_ms / 1e3:.1f} Mrays/s), plain "
+              f"{plain_ms:.1f} ms")
+        require(sign_eq >= SIGN_EQ_MIN, f"rk45 {name}: sign equal {sign_eq}")
+        require(steps_near >= STEPS_EQ_MIN,
+                f"rk45 {name}: steps within {STEPS_NEAR} {steps_near}")
+        require(p99 < ANGLE_P99_MAX, f"rk45 {name}: angle p99 {p99}")
+        for who, res in (("kernel", res_k), ("plain", res_p)):
+            require(int(res.steps.max()) <= cap
+                    and bool((res.steps[res.sign == 0] == cap).all()),
+                    f"rk45 {name}: {who} overshot or undershot the cap")
+            if n_nan:
+                require(bool((res.sign[bad] == 3).all()),
+                        f"rk45 {name}: {who} left a NaN ray unfrozen: "
+                        f"{res.sign[bad].tolist()}")
+        if cap == RK45_CAP:
+            capped = (res_k.sign == 0).double().mean().item()
+            print(f"[8]   {capped:.4f} of rays stopped at the cap of {cap}")
+            require(capped > 0.5, f"rk45 {name}: only {capped} capped")
+        # 16 bytes read and 24 written per ray; FLOP_RK45_ITER an iteration
+        b_ms, b_by = bound(40 * n, FLOP_RK45_ITER * iters.sum().item())
+        out[name] = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+    return out[f"ellis {FRAMES}x{RES}^2"]
+
+
+def accuracy(metric, q):
+    """Escape-direction error of the fused rk45 kernel (``q``) and of the
+    Euler march kernel (the parity config) on the headline view at
+    ACC_RES^2, against integrate/rk45.py:march_planar_rk45 in float64 at
+    rtol ACC_RTOL (plain PyTorch on the card)."""
+    import numpy as np
+    import torch
+    from curvis_tpu_torch.integrate.rk45 import march_planar_rk45
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.ops import march_cuda, render_fused
+    from curvis_tpu_torch.physics.planar import PlanarRays
+    from curvis_tpu_torch.render.fast import _readout, _spawn_frames
+    f64 = torch.float64
+    m64 = make_metric("ellis", rho=1.0, device=DEVICE, dtype=f64)
+    s64, r64, e64 = _spawn_frames(m64, [camera(5.0, 0.0, ACC_RES, f64)])
+    ref = march_planar_rk45(m64, PlanarRays(*s64, r_hat=None, e2=None),
+                            escape_radius=R_ESC, dt0=DT, max_steps=100_000,
+                            rtol=ACC_RTOL, atol=ACC_RTOL * 1e-3)
+    w_ref = _readout(m64, ref, s64[3], r64, e64)
+    cam = camera(5.0, 0.0, ACC_RES)
+    *w_q, sign_q = render_fused.fused_directions(metric, cam, **q)
+    state, r_hat, e2 = _spawn_frames(metric, [cam])
+    unused = torch.zeros((1, 3), device=DEVICE)
+    eul = march_cuda.march_planar_cuda(
+        metric, PlanarRays(*state, r_hat=unused, e2=unused), dt=DT,
+        max_steps=MAX_STEPS, escape_radius=R_ESC)
+    w_e = _readout(metric, eul, state[3], r_hat, e2)
+    for name, w, sign in ((f"rk45 rtol {RK45_RTOL} (fused kernel)", w_q,
+                           sign_q),
+                          (f"Euler dt {DT} (march kernel)", w_e, eul.sign)):
+        both = (sign.abs() == 1) & (ref.sign.abs() == 1)
+        ang, _, _ = angles([c.double() for c in w], w_ref, both)
+        p50, p99, top = np.percentile(ang, [50, 99, 100])
+        print(f"[9] accuracy at {ACC_RES}^2 against f64 rk45 rtol "
+              f"{ACC_RTOL}: {name}: sign equal "
+              f"{(sign == ref.sign).double().mean().item():.6f}, angle p50 "
+              f"{p50:.3e}, p99 {p99:.3e}, max {top:.3e} rad")
+
+
+def phase9_quality(bgp, bgn):
+    """Kernel #3 against its plain version, the fused rk45 image against the
+    rk45 march-kernel image, rk45 against Euler on the headline view, and
+    the quality-mode headline through both entry points (its launch
+    counts)."""
+    import torch
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.ops import march_cuda, render_fused, rk45_cuda
+    from curvis_tpu_torch.physics.planar import PlanarRays
+    from curvis_tpu_torch.render.fast import (_readout, _spawn_frames,
+                                              render_frames_batched,
+                                              render_planar_adaptive,
+                                              render_planar_fast)
+    ellis = make_metric("ellis", rho=1.0, device=DEVICE)
+    cam = camera(5.0, 0.0, RES)
+    q = dict(dt=DT, max_steps=RK45_MAX_STEPS, escape_radius=R_ESC,
+             stepper="rk45", rtol=RK45_RTOL)
+    *w_k, sign_k = render_fused.fused_directions(ellis, cam, **q)
+    sync()
+    t0 = time.perf_counter()
+    *w_p, sign_p = render_fused.render_planar_fused_plain(ellis, cam, **q)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    sign_eq, p99, max_abs, esc = compare(sign_k, sign_p, w_k, w_p)
+    kind, row = render_fused._fused_row(ellis, cam, DT, R_ESC)
+    tail, mi = render_fused._rk45_tail(RK45_RTOL, None, 10.0, RK45_MAX_STEPS,
+                                       None)
+    kernel_ms = cuda_ms(lambda: render_fused.launch_rk45(
+        kind, row + tail, RES, RES, RK45_MAX_STEPS, mi, cam.device), 3)
+    # this camera's iterations at the same tolerances, from kernel #4, for
+    # the bound: 16 bytes written a pixel, spawn / readout, FLOP_RK45_ITER
+    # an iteration
+    state, r_hat, e2 = _spawn_frames(ellis, [cam])
+    iters = rk45_cuda.launch(kind, row[:6] + tail, *state,
+                             max_steps=RK45_MAX_STEPS, max_iters=mi)[5]
+    n = RES * RES
+    b_ms, b_by = bound(16 * n, FLOP_FUSED_PIXEL * n
+                       + FLOP_RK45_ITER * iters.double().sum().item())
+    print(f"[9] fused rk45 ellis {RES}^2 (rtol {RK45_RTOL}): sign equal "
+          f"{sign_eq:.6f}, angle p99 {p99:.3e} rad over {esc:.4f} of rays, "
+          f"max |dw| {max_abs:.3e}; iters mean / max "
+          f"{iters.double().mean().item():.2f} / {int(iters.max())}; kernel "
+          f"{kernel_ms:.3f} ms ({n / kernel_ms / 1e3:.1f} Mrays/s), plain "
+          f"{plain_ms:.1f} ms")
+    require(sign_eq >= SIGN_EQ_MIN, f"fused rk45: sign equal {sign_eq}")
+    require(p99 < ANGLE_P99_MAX, f"fused rk45: angle p99 {p99}")
+
+    # the fused rk45 image against the march-kernel route's, both at #4's
+    # default tolerances
+    kw = dict(dt=DT, max_steps=RK45_MAX_STEPS, escape_radius=R_ESC,
+              filtering="nearest", stepper="rk45")
+    img_f = render_fused.render_planar_fused(ellis, cam, bgp, bgn, rtol=1e-5,
+                                             atol=1e-7, **kw)
+    img_m = render_planar_fast(ellis, cam, bgp, bgn, **kw)
+    diff = ((img_f - img_m).abs().amax(-1) > 1e-6).double().mean().item()
+    print(f"[9] fused rk45 image vs rk45 march-kernel image: {diff:.6f} of "
+          f"pixels differ by > 1e-6")
+    require(diff <= IMAGE_DIFF_MAX, f"fused vs march rk45 image: {diff}")
+
+    # the quality mode's distance from parity: rk45 (rtol 1e-3) against the
+    # Euler march kernel (dt 0.05, 40 000 steps) on the headline view
+    unused = torch.zeros((1, 3), device=DEVICE)
+    eul = march_cuda.march_planar_cuda(
+        ellis, PlanarRays(*state, r_hat=unused, e2=unused), dt=DT,
+        max_steps=MAX_STEPS, escape_radius=R_ESC)
+    w_e = _readout(ellis, eul, state[3], r_hat, e2)
+    _, p99_e, _, esc_e = compare(sign_k, eul.sign, w_k, w_e)
+    print(f"[9] rk45 (rtol {RK45_RTOL}) vs Euler (dt {DT}) on the headline "
+          f"view: angle p99 {p99_e:.3e} rad over {esc_e:.4f} of rays")
+    accuracy(ellis, q)
+
+    # the quality-mode headline: the main path of kernels #3 and #4
+    cams = [camera(5.0, 0.001 * k, RES) for k in range(FRAMES)]
+    dneg = make_metric("interstellar", m=0.1, a=1e-4, rho=1.0, device=DEVICE)
+    cam_d = [camera(5.0, 0.0, RES)]
+
+    def fused(metric=ellis, poses=cams):
+        return [render_fused.render_planar_fused(metric, c, bgp, bgn,
+                                                 rtol=RK45_RTOL, **kw)
+                for c in poses]
+
+    def batched():
+        return render_frames_batched(ellis, cams, bgp, bgn, **kw)
+
+    def adaptive():
+        return render_planar_adaptive(ellis, cam, bgp, bgn,
+                                      refine_frac=0.1, **kw)
+
+    march_cuda.launches = 0
+    rk45_cuda.launches = 0
+    render_fused.launches.update(euler=0, rk45=0)
+    imgs_f = torch.stack(fused())                      # warm-up
+    ms_f = cuda_ms(fused, REPS)
+    imgs_b = batched()                                 # warm-up
+    ms_b = cuda_ms(batched, REPS)
+    imgs_d = torch.stack(fused(dneg, cam_d))           # warm-up
+    ms_d = cuda_ms(lambda: fused(dneg, cam_d), REPS)
+    imgs_a = adaptive()[None]                          # warm-up
+    ms_a = cuda_ms(adaptive, REPS)
+    launches = {"march": march_cuda.launches, "rk45": rk45_cuda.launches,
+                **{f"fused_{k}": v for k, v in render_fused.launches.items()}}
+    for name, imgs, ms in (
+            (f"render_planar_fused rk45 rtol {RK45_RTOL}", imgs_f, ms_f),
+            ("render_frames_batched rk45", imgs_b, ms_b),
+            (f"render_planar_fused rk45 rtol {RK45_RTOL} dneg", imgs_d, ms_d),
+            ("render_planar_adaptive rk45 (10 % of pixels 3 x 3)", imgs_a,
+             ms_a)):
+        require(tuple(imgs.shape[1:]) == (RES, RES, 3),
+                f"{name}: shape {tuple(imgs.shape)}")
+        require(bool(torch.isfinite(imgs).all()), f"{name}: non-finite")
+        lit = [(im.sum(-1) > 0).double().mean().item() for im in imgs]
+        rays = len(imgs) * RES * RES
+        print(f"[9] {name}: {len(imgs)} x {RES}^2 in {ms:.2f} ms (median of "
+              f"{REPS}) = {rays / ms / 1e3:.1f} Mrays/s; lit fraction "
+              f"{min(lit):.6f}..{max(lit):.6f}")
+        require(min(lit) > LIT_MIN, f"{name}: lit fraction {min(lit)}")
+    print(f"[9] launch counters over the quality-mode run: {launches}")
+    require(launches["rk45"] > 0 and launches["fused_rk45"] > 0,
+            f"a kernel of the rk45 path was not launched: {launches}")
+    profile_window(fused, "[9]", f"the quality-mode headline "
+                   f"(render_planar_fused rk45, {FRAMES} x {RES}^2)")
+    return launches, dict(max_abs_err=max_abs, ms=kernel_ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def main():
     smi = phase0_toolchain()
     import numpy as np
@@ -683,6 +978,8 @@ def main():
           f"batched {ms_b:.2f} ms on {smi}")
     phase6_ckpt()
     train_launches, ckpt = phase7_trainer(bgp, bgn)
+    rk45 = phase8_rk45_march()
+    quality_launches, fused_rk45 = phase9_quality(bgp, bgn)
 
     def entry(name, source, replaces, n_launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -701,8 +998,16 @@ def main():
         entry("ckpt_bwd_kernel", "curvis_tpu_torch/csrc/ckpt_adjoint.cu",
               "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
               train_launches["ckpt_bwd"], ckpt["bwd"]),
+        entry("march_planar_rk45_kernel",
+              "curvis_tpu_torch/csrc/planar_rk45.cu",
+              "curvis_tpu/ops/march_pallas.py:498",
+              quality_launches["rk45"], rk45),
+        entry("render_fused_rk45_kernel",
+              "curvis_tpu_torch/csrc/render_fused.cu",
+              "curvis_tpu/ops/render_fused.py:209",
+              quality_launches["fused_rk45"], fused_rk45),
     ]
-    print(f"[7] done on {smi}")
+    print(f"[9] done on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

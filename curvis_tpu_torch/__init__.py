@@ -1,11 +1,13 @@
 """curvis_tpu_torch — the PyTorch / CUDA port of curvis_tpu.
 
-The planar wormhole / static black-hole render path of ``curvis_tpu`` and
-its inverse-rendering path, written in PyTorch, with their TPU kernels
-rewritten by hand in CUDA for the H100 (``csrc/``): the Euler march
-(``ops/march_cuda.py``), the fused spawn + march + readout
-(``ops/render_fused.py``) and the checkpointed-recompute backward of the
-march (``ops/ckpt_adjoint_cuda.py``), behind ``render_direct(...,
+The planar wormhole / static black-hole render path of ``curvis_tpu``
+(Euler and the adaptive DP5(4) quality mode) and its inverse-rendering
+path, written in PyTorch, with their TPU kernels rewritten by hand in CUDA
+for the H100 (``csrc/``): the Euler march (``ops/march_cuda.py``), the
+adaptive march (``ops/rk45_cuda.py``), the fused spawn + march + readout
+for both steppers (``ops/render_fused.py``) and the
+checkpointed-recompute backward of the Euler march
+(``ops/ckpt_adjoint_cuda.py``), behind ``render_direct(...,
 differentiable='adjoint')`` and ``fit``.  Tensors on a GPU run the kernels;
 tensors on the CPU run their plain PyTorch versions.  Factories build on
 the current CUDA device unless given ``device='cpu'``.  The package imports
@@ -29,8 +31,11 @@ from curvis_tpu_torch.env.spherical_image import (
     save_image,
 )
 from curvis_tpu_torch.render.fast import (render_frames_batched,
+                                          render_planar_adaptive,
                                           render_planar_fast)
 from curvis_tpu_torch.ops.render_fused import render_planar_fused
+from curvis_tpu_torch.integrate.rk45 import march_planar_rk45
+from curvis_tpu_torch.ops.rk45_cuda import march_planar_rk45_cuda
 from curvis_tpu_torch.render.direct import render_direct
 from curvis_tpu_torch.integrate.adjoint import march_planar_adjoint
 from curvis_tpu_torch.fit import FitResult, fit
@@ -53,8 +58,11 @@ __all__ = [
     "make_metric",
     "make_spherical_image",
     "march_planar_adjoint",
+    "march_planar_rk45",
+    "march_planar_rk45_cuda",
     "render_direct",
     "render_frames_batched",
+    "render_planar_adaptive",
     "render_planar_fast",
     "render_planar_fused",
     "save_image",

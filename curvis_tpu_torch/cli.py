@@ -6,13 +6,15 @@ The argument parser of ``curvis_tpu/cli.py``:
                            [-m METRIC.toml] [-c CAMERA.toml] [-s SIM.toml]
                            --renderer direct ...
 
-What the port runs so far: ``image --renderer direct`` with the Euler
-stepper and any planar metric (Ellis, Interstellar, Schwarzschild,
-Reissner-Nordstrom), ``--filtering``, ``--supersample``,
-``--camera-velocity``, ``--bg1-orient`` / ``--bg2-orient`` and
-``--flip-negative``.  It renders on the GPU in float32, or with ``--f64``
-on the CPU in float64 (as the JAX CLI's ``--f64`` does).  Everything else
-raises NotImplementedError naming its ROADMAP item.
+What the port runs so far: ``image --renderer direct`` with the Euler or
+the adaptive rk45 stepper and any planar metric (Ellis, Interstellar,
+Schwarzschild, Reissner-Nordstrom), ``--filtering``, ``--supersample``,
+``--adaptive-aa``, ``--camera-velocity``, ``--bg1-orient`` /
+``--bg2-orient`` and ``--flip-negative``.  It renders on the GPU in
+float32, or with ``--f64`` on the CPU in float64 (as the JAX CLI's
+``--f64`` does); rk45 takes the tolerances of the JAX package's route on
+that device (``render/fast.py``).  Everything else raises
+NotImplementedError naming its ROADMAP item.
 
 Run as ``python -m curvis_tpu_torch.cli ...`` or via ``curvis-tpu-torch``.
 """
@@ -58,8 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "(symmetric renderer)")
         sp.add_argument("--stepper", choices=["euler", "rk4", "rk45"],
                         default="euler",
-                        help="euler = reference parity (the only ported "
-                             "stepper)")
+                        help="euler = reference parity; rk45 = adaptive "
+                             "Dormand-Prince (quality mode); rk4 is not "
+                             "ported yet")
         sp.add_argument("--disk", action="store_true",
                         help="render an accretion disk (not ported yet)")
         sp.add_argument("--disk-color", choices=["tint", "blackbody"],
@@ -79,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="k x k rays per pixel, box-filtered")
         sp.add_argument("--adaptive-aa", type=float, default=0.0,
                         metavar="FRAC",
-                        help="edge-adaptive antialiasing (not ported yet)")
+                        help="edge-adaptive antialiasing: supersample "
+                             "this fraction of highest-contrast pixels")
         sp.add_argument("--f64", action="store_true",
                         help="double precision (CPU)")
         sp.add_argument("--bg1-orient", type=float, nargs=6, default=None,
@@ -117,13 +121,9 @@ def _check_ported(args):
         raise NotImplementedError(
             "--renderer symmetric (the default) needs the on-device adaptive "
             "sampler, ROADMAP Queue 1 item 7; use --renderer direct")
-    if args.adaptive_aa > 0:
+    if args.stepper == "rk4":
         raise NotImplementedError(
-            "--adaptive-aa: render_planar_adaptive is ROADMAP Queue 1 item 5")
-    if args.stepper != "euler":
-        raise NotImplementedError(
-            f"--stepper {args.stepper}: rk4 / rk45 are ROADMAP Queue 1 items "
-            "4 and 10")
+            "--stepper rk4: the RK4 stepper is ROADMAP Queue 1 item 4")
 
 
 def image_main(args) -> int:
@@ -137,7 +137,8 @@ def image_main(args) -> int:
                                                       load_spherical_image,
                                                       save_image)
     from curvis_tpu_torch.camera.camera import make_camera
-    from curvis_tpu_torch.render.fast import render_planar_fast
+    from curvis_tpu_torch.render.fast import (render_planar_adaptive,
+                                              render_planar_fast)
 
     for bg in (args.background_image_1, args.background_image_2):
         if not bg.exists():
@@ -180,14 +181,16 @@ def image_main(args) -> int:
                          camera_s.resolution_x, camera_s.resolution_y,
                          device=device, dtype=dtype)
     args.output_folder.mkdir(parents=True, exist_ok=True)
-    img = render_planar_fast(metric, camera, bgp, bgn,
-                             dt=sim.ray_integration_step,
-                             max_steps=sim.ray_integration_max_iterations,
-                             escape_radius=sim.escape_radius,
-                             filtering=args.filtering,
-                             stepper=args.stepper,
-                             supersample=args.supersample,
-                             camera_velocity=args.camera_velocity)
+    kw = dict(dt=sim.ray_integration_step,
+              max_steps=sim.ray_integration_max_iterations,
+              escape_radius=sim.escape_radius, filtering=args.filtering,
+              stepper=args.stepper, camera_velocity=args.camera_velocity)
+    if args.adaptive_aa > 0:
+        img = render_planar_adaptive(metric, camera, bgp, bgn,
+                                     refine_frac=args.adaptive_aa, **kw)
+    else:
+        img = render_planar_fast(metric, camera, bgp, bgn,
+                                 supersample=args.supersample, **kw)
     out = args.output_folder / f"{img_s.image_name}.png"
     save_image(img, out)
     print(f"saved {out}")

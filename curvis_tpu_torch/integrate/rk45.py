@@ -1,0 +1,140 @@
+"""Adaptive Dormand-Prince 5(4) planar march with per-ray step control
+(PyTorch).
+
+Counterpart of ``curvis_tpu/integrate/rk45.py:march_planar_rk45``, bare
+variant: the quality mode of the planar renderers.  Each iteration of a
+lock-step masked loop proposes one DP5(4) step for every live ray, accepts
+it where the embedded error estimate |y5 - y4| passes (rtol, atol), and
+retries rejected rays with a smaller dt from the controller
+``clip(0.9 err^-0.2, 0.2, 5)``.  Escaping steps are interpolated to
+|l| = R, which removes the O(dt) readout jitter of the fixed-step marches.
+
+This is the CPU route of ``render_planar_fast(stepper='rk45')``, as in the
+JAX package.  On a GPU that route is the CUDA kernel
+(``ops/rk45_cuda.py``), whose arithmetic and default tolerances are the
+Pallas kernel's, not these (the module docstring there says how).
+"""
+from __future__ import annotations
+
+import torch
+
+from curvis_tpu_torch.metrics.base import Metric
+from curvis_tpu_torch.physics.planar import (_CHECK_EVERY, PlanarResult,
+                                             PlanarRays, _capture_radius,
+                                             planar_rhs)
+
+# Dormand-Prince 5(4) tableau
+DP_A = [
+    [],
+    [1 / 5],
+    [3 / 40, 9 / 40],
+    [44 / 45, -56 / 15, 32 / 9],
+    [19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729],
+    [9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656],
+    [35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84],
+]
+DP_B5 = [35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0]
+DP_B4 = [5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
+         187 / 2100, 1 / 40]
+
+CAPPED = -128     # sign of a ray stopped at max_steps, reported as 0
+
+
+def _comb(weights, ks, comp, like):
+    acc = torch.zeros_like(like)
+    for w, k in zip(weights, ks):
+        if w != 0.0:
+            acc = acc + w * k[comp]
+    return acc
+
+
+def march_planar_rk45(metric: Metric, rays: PlanarRays, *, escape_radius,
+                      max_steps=10_000, rtol=1e-6, atol=1e-9, dt0=0.05,
+                      dt_min=1e-6, dt_max=10.0, max_iters=None, disk=None,
+                      vol_disk=None) -> PlanarResult:
+    """Adaptive march with the result contract of the fixed-step marches;
+    ``steps`` counts accepted steps.  A ray ends escaped (+1 / -1, on
+    |l| = R), captured (2), stalled (3: a reject at the dt floor, which the
+    controller cannot pass, or a non-finite trial) or still marching at
+    ``max_steps`` accepted steps (0).  The loop runs at most ``max_iters``
+    (default 4 max_steps) iterations, accepted and rejected."""
+    if disk is not None or vol_disk is not None:
+        raise NotImplementedError(
+            "march_planar_rk45: the disk / vol_disk variants come with the "
+            "disk kernels, ROADMAP Queue 2 items 3-5")
+    l, psi, p_l, b = rays.l, rays.psi, rays.p_l, rays.b
+    shape, dtype, dev = l.shape, l.dtype, l.device
+    R = escape_radius
+    R_t = torch.as_tensor(R, dtype=dtype, device=dev)
+    if max_iters is None:
+        max_iters = 4 * max_steps
+    r_cap = _capture_radius(metric)
+    dt = torch.full(shape, dt0, dtype=dtype, device=dev)
+    sign = torch.zeros(shape, dtype=torch.int32, device=dev)
+    steps = torch.zeros_like(sign)
+    for it in range(max_iters):
+        if it % _CHECK_EVERY == 0 and not bool((sign == 0).any()):
+            break
+        active = sign == 0
+        ks = []                                   # 7 stages x 3 components
+        for i in range(7):
+            li, pi_, pli = l, psi, p_l
+            for j, a in enumerate(DP_A[i]):
+                li = li + dt * a * ks[j][0]
+                pi_ = pi_ + dt * a * ks[j][1]
+                pli = pli + dt * a * ks[j][2]
+            ks.append(planar_rhs(metric, li, pi_, pli, b))
+        l5 = l + dt * _comb(DP_B5, ks, 0, l)
+        psi5 = psi + dt * _comb(DP_B5, ks, 1, l)
+        pl5 = p_l + dt * _comb(DP_B5, ks, 2, l)
+        l4 = l + dt * _comb(DP_B4, ks, 0, l)
+        psi4 = psi + dt * _comb(DP_B4, ks, 1, l)
+        pl4 = p_l + dt * _comb(DP_B4, ks, 2, l)
+
+        def err_comp(y5, y4, y0):
+            return torch.abs(y5 - y4) / (atol + rtol * torch.maximum(
+                torch.abs(y0), torch.abs(y5)))
+
+        # torch.maximum propagates NaN, as jnp.maximum: a non-finite trial
+        # is rejected and then stalls at the dt floor
+        err = torch.maximum(err_comp(l5, l4, l),
+                            torch.maximum(err_comp(psi5, psi4, psi),
+                                          err_comp(pl5, pl4, p_l)))
+        accept = active & (err <= 1.0)
+
+        # escape on accepted steps: interpolate to |l| = R
+        esc_pos = accept & (l5 > R)
+        esc_neg = accept & (l5 < -R)
+        esc = esc_pos | esc_neg
+        target = torch.where(esc_pos, R_t, -R_t)
+        denom = torch.where(torch.abs(l5 - l) < 1e-30, 1.0, l5 - l)
+        frac = torch.clamp((target - l) / denom, 0.0, 1.0)
+        l_new = torch.where(esc, l + frac * (l5 - l), l5)
+        psi_new = torch.where(esc, psi + frac * (psi5 - psi), psi5)
+        pl_new = torch.where(esc, p_l + frac * (pl5 - p_l), pl5)
+        l = torch.where(accept, l_new, l)
+        psi = torch.where(accept, psi_new, psi)
+        p_l = torch.where(accept, pl_new, p_l)
+
+        sign = torch.where(esc_pos, 1, torch.where(esc_neg, -1, sign))
+        if r_cap is not None:
+            sign = torch.where(accept & (l < r_cap) & (sign == 0), 2, sign)
+        steps = steps + accept.to(torch.int32)
+        over = steps >= max_steps
+        # a reject at the dt floor can never pass -> freeze as blowup
+        # instead of spinning to max_iters (a NaN err lands here too)
+        stalled = active & ~(err <= 1.0) & (dt <= dt_min * 1.01) \
+            & (sign == 0)
+        sign = torch.where(stalled, 3, sign)
+        # step-size control for rays still marching; the guard on a
+        # non-finite factor keeps dt finite, so the stall test can fire
+        err_safe = torch.clamp(err, min=1e-10)
+        factor = torch.clamp(0.9 * err_safe ** -0.2, 0.2, 5.0)
+        factor = torch.where(torch.isfinite(factor), factor, 0.2)
+        dt = torch.where(active & ~esc & (sign == 0),
+                         torch.clamp(dt * factor, dt_min, dt_max), dt)
+        # test the current sign, not `active`: a ray whose max_steps-th
+        # accepted step also escapes or is captured keeps that fate
+        sign = torch.where((sign == 0) & over, CAPPED, sign).to(torch.int32)
+    sign = torch.where(sign == CAPPED, 0, sign).to(torch.int32)
+    return PlanarResult(l, psi, p_l, sign, steps)

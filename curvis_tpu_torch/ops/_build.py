@@ -1,15 +1,16 @@
 """Build the CUDA kernels of ``curvis_tpu_torch/csrc`` and load them.
 
-At the first kernel launch (never at import) the ``csrc/*.cu`` sources are
-compiled by ``nvcc`` into one shared library with a plain C interface,
+At the first kernel launch (never at import) each ``csrc/*.cu`` source is
+compiled by its own ``nvcc`` process, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/curvis_tpu_torch/libcurvis_kernels.so \\
-         curvis_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <object> csrc/<source>.cu
 
-which is loaded with ``ctypes``.  The library is rebuilt when the SHA-256
-of the sources and flags changes (kept beside it in a stamp file).  A failed
-build raises with nvcc's output; nothing is downloaded or prebuilt.
+and the objects are linked into one shared library with a plain C
+interface, ``build/curvis_tpu_torch/libcurvis_kernels.so``, which is loaded
+with ``ctypes``.  The library is rebuilt when the SHA-256 of the sources
+and flags changes (kept beside it in a stamp file).  A failed build raises
+with nvcc's output; nothing is downloaded or prebuilt.
 """
 from __future__ import annotations
 
@@ -24,9 +25,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "curvis_tpu_torch"
 LIB_NAME = "libcurvis_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]       # register / spill report in build.log
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v"]    # register / spill report in build.log
+LINK_FLAGS = [*ARCH, "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +41,15 @@ _PROTOTYPES = {
     # stream
     "curvis_render_fused": [_I, _P, _I, _P, _P, _P, _P, _I,
                             ctypes.c_longlong, _I, _I, _P],
+    # kind, scalars, n_scalars, l, psi, p_l, b, l_out, psi_out, pl_out,
+    # sign_out, steps_out, iters_out, n, max_steps, max_iters, device,
+    # stream
+    "curvis_march_planar_rk45": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    # kind, scalars, n_scalars, wx, wy, wz, sign, H, n, max_steps,
+    # max_iters, device, stream
+    "curvis_render_fused_rk45": [_I, _P, _I, _P, _P, _P, _P, _I,
+                                 ctypes.c_longlong, _I, _I, _I, _P],
     # kind, scalars, n_scalars, l, psi, p_l, b, steps, ckpt, n, seg, device,
     # stream
     "curvis_ckpt_gen": [_I, _P, _I, _P, _P, _P, _P, _P, _P,
@@ -58,7 +69,7 @@ def sources():
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -75,9 +86,16 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(nvcc: str, out: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out),
-            *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+def nvcc_commands(nvcc: str, out: Path):
+    """(one compile command per csrc/*.cu, the command linking their
+    objects into the library ``out``); the objects go beside ``out``."""
+    compiles, objects = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.with_name(f"{out.name}.{src.stem}.o")
+        objects.append(str(obj))
+        compiles.append([nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj),
+                         str(src)])
+    return compiles, [nvcc, *LINK_FLAGS, "-o", str(out), *objects]
 
 
 def build() -> Path:
@@ -89,14 +107,29 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    proc = subprocess.run(nvcc_command(find_nvcc(), tmp),
-                          capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    compiles, link = nvcc_commands(find_nvcc(), tmp)
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in compiles]
+        outs = [p.communicate() for p in procs]
+        runs = [(c[-1], p.returncode, out, err)
+                for c, p, (out, err) in zip(compiles, procs, outs)]
+        if all(rc == 0 for _, rc, _, _ in runs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            runs.append(("link", proc.returncode, proc.stdout, proc.stderr))
+        (BUILD_DIR / "build.log").write_text(
+            "".join(f"== {src}\n{out}{err}" for src, _, out, err in runs))
+        failed = [(src, rc, err) for src, rc, _, err in runs if rc != 0]
+        if failed:
+            src, rc, err = failed[0]
+            raise RuntimeError(f"nvcc failed on {src} with exit code {rc}:"
+                               f"\n{err}")
+        os.replace(tmp, lib)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, lib)
+        for c in compiles:
+            Path(c[c.index("-o") + 1]).unlink(missing_ok=True)
     stamp.write_text(digest)
     return lib
 

@@ -1,7 +1,8 @@
-"""Fused render: camera ray + planar spawn + Euler march + world-direction
-readout in one CUDA kernel (``csrc/render_fused.cu``, replacing
-``curvis_tpu/ops/render_fused.py``'s ``_fused_kernel``), then the two-sky
-texture gather in PyTorch.
+"""Fused render: camera ray + planar spawn + march + world-direction
+readout in one CUDA kernel (``csrc/render_fused.cu``), then the two-sky
+texture gather in PyTorch.  The Euler march replaces
+``curvis_tpu/ops/render_fused.py``'s ``_fused_kernel``, the adaptive DP5(4)
+march (``stepper='rk45'``) its ``_fused_rk45_kernel``.
 
 ``fused_directions`` launches the kernel for a camera on a GPU and runs
 ``render_planar_fused_plain``, the plain PyTorch version of the same spawn +
@@ -17,12 +18,16 @@ from curvis_tpu_torch.env.spherical_image import SphericalImage
 from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops import _build
 from curvis_tpu_torch.ops.march_cuda import KINDS, march_scalars
+from curvis_tpu_torch.ops.rk45_cuda import march_planar_rk45_plain
 from curvis_tpu_torch.physics.planar import (PlanarRays, _unit_lapse,
+                                             check_stepper,
                                              march_planar_while)
 from curvis_tpu_torch.render.fast import _shade_two_skies
 from curvis_tpu_torch.utils.device import common_device
 
-launches = 0             # kernel launches since the last reset
+launches = {"euler": 0, "rk45": 0}   # kernel launches since a reset
+
+RK45_UNROLL = 2          # the JAX kernel's unroll, which rounds max_iters up
 
 
 def _fused_row(metric: Metric, camera: Camera, dt, escape_radius):
@@ -58,10 +63,26 @@ def _fused_row(metric: Metric, camera: Camera, dt, escape_radius):
     return kind, head + tail.cpu().tolist()
 
 
+def _rk45_tail(rtol, atol, dt_max, max_steps, max_iters):
+    """([rtol, atol, dt_max], the per-ray iteration cap) of the JAX fused
+    rk45 path: atol defaults to rtol * 1e-3, max_iters to 4 max_steps,
+    rounded up to a multiple of RK45_UNROLL."""
+    if atol is None:
+        atol = rtol * 1e-3
+    mi = 4 * max_steps if max_iters is None else int(max_iters)
+    mi += (RK45_UNROLL - mi % RK45_UNROLL) % RK45_UNROLL
+    return [float(rtol), float(atol), float(dt_max)], mi
+
+
 def render_planar_fused_plain(metric: Metric, camera: Camera, *, dt,
-                              max_steps, escape_radius):
-    """Plain PyTorch version of the fused kernel on any device:
-    (wx, wy, wz, sign), each (W*H,) in pixel order idx = x * H + y."""
+                              max_steps, escape_radius, stepper="euler",
+                              rtol=1e-4, atol=None, dt_max=10.0,
+                              max_iters=None):
+    """Plain PyTorch version of the fused kernels on any device:
+    (wx, wy, wz, sign), each (W*H,) in pixel order idx = x * H + y.  With
+    ``stepper='rk45'`` ``dt`` is the initial step and the march is
+    ``ops/rk45_cuda.py:march_planar_rk45_plain``."""
+    check_stepper(stepper, ("euler", "rk45"))
     dev = common_device(metric, camera)
     kind, row = _fused_row(metric, camera, dt, escape_radius)
     s = torch.tensor(row, dtype=torch.float32, device=dev)
@@ -103,62 +124,80 @@ def render_planar_fused_plain(metric: Metric, camera: Camera, *, dt,
     e2z = nx * ry - ny * rx
     p_l = cos_a * s_pl
     b = sin_a * s_b
-    unused = torch.zeros((1, 3), dtype=torch.float32, device=dev)
-    rays = PlanarRays(l=l0.expand(n), psi=torch.zeros_like(p_l), p_l=p_l,
-                      b=b, r_hat=unused, e2=unused)
-    res = march_planar_while(metric, rays, dt=row[0], max_steps=max_steps,
-                             escape_radius=row[1])
+    l, psi = l0.expand(n), torch.zeros_like(p_l)
+    if stepper == "rk45":
+        tail, mi = _rk45_tail(rtol, atol, dt_max, max_steps, max_iters)
+        l, psi, p_l, sign, _, _ = march_planar_rk45_plain(
+            kind, row[:6] + tail, l, psi, p_l, b, max_steps=max_steps,
+            max_iters=mi)
+    else:
+        unused = torch.zeros((1, 3), dtype=torch.float32, device=dev)
+        res = march_planar_while(
+            metric, PlanarRays(l=l, psi=psi, p_l=p_l, b=b, r_hat=unused,
+                               e2=unused),
+            dt=row[0], max_steps=max_steps, escape_radius=row[1])
+        l, psi, p_l, sign = res.l, res.psi, res.p_l, res.sign
 
     # readout with the kernel's clamps: lapse >= 1e-6, |u|^2 >= 1e-30
-    l = res.l
     if kind == "schwarzschild":
-        u_l = res.p_l * torch.sqrt(torch.clamp(1.0 - 2.0 * s[2] / l,
-                                               min=1e-6))
+        u_l = p_l * torch.sqrt(torch.clamp(1.0 - 2.0 * s[2] / l, min=1e-6))
     elif kind == "rn":
         A = 1.0 - (2.0 * s[2] - s[3] / l) / l
-        u_l = res.p_l * torch.sqrt(torch.clamp(A, min=1e-6))
+        u_l = p_l * torch.sqrt(torch.clamp(A, min=1e-6))
     else:
-        u_l = res.p_l
+        u_l = p_l
     r = metric.r(l) if kind in ("ellis", "interstellar") else torch.abs(l)
     u_psi = b / r
     invu = 1.0 / torch.sqrt(torch.clamp(u_l * u_l + u_psi * u_psi,
                                         min=1e-30))
     cg = u_l * invu
     sg = u_psi * invu
-    cp, sp = torch.cos(res.psi), torch.sin(res.psi)
+    cp, sp = torch.cos(psi), torch.sin(psi)
     cb = cp * cg - sp * sg
     sb = sp * cg + cp * sg
     return (cb * rx + sb * e2x, cb * ry + sb * e2y, cb * rz + sb * e2z,
-            res.sign)
+            sign)
 
 
 def fused_directions(metric: Metric, camera: Camera, *, dt, max_steps,
-                     escape_radius):
-    """(wx, wy, wz, sign) of every pixel, (W*H,) each: the CUDA kernel for
-    a camera on a GPU, the plain version for a camera on the CPU."""
+                     escape_radius, stepper="euler", rtol=1e-4, atol=None,
+                     dt_max=10.0, max_iters=None):
+    """(wx, wy, wz, sign) of every pixel, (W*H,) each: the CUDA kernel of
+    ``stepper`` for a camera on a GPU, the plain version for a camera on
+    the CPU."""
+    check_stepper(stepper, ("euler", "rk45"))
+    rk45 = dict(rtol=rtol, atol=atol, dt_max=dt_max, max_iters=max_iters)
     dev = common_device(metric, camera)
     if dev.type == "cpu":
         return render_planar_fused_plain(metric, camera, dt=dt,
                                          max_steps=max_steps,
-                                         escape_radius=escape_radius)
+                                         escape_radius=escape_radius,
+                                         stepper=stepper, **rk45)
     if dev.type != "cuda":
         raise ValueError(f"fused_directions: unsupported device {dev}")
     if camera.position.dtype != torch.float32:
         raise TypeError("fused kernel takes a float32 camera, got "
                         f"{camera.position.dtype}")
     kind, row = _fused_row(metric, camera, dt, escape_radius)
-    return launch(kind, row, camera.resolution_x, camera.resolution_y,
-                  max_steps, dev)
+    W, H = camera.resolution_x, camera.resolution_y
+    if stepper == "rk45":
+        tail, mi = _rk45_tail(rtol, atol, dt_max, max_steps, max_iters)
+        return launch_rk45(kind, row + tail, W, H, max_steps, mi, dev)
+    return launch(kind, row, W, H, max_steps, dev)
 
 
-def launch(kind, row, W, H, max_steps, dev):
-    """One kernel launch for a W x H camera with the host scalars of
-    ``_fused_row`` on CUDA device ``dev`` -> (wx, wy, wz, sign)."""
-    global launches
-    n = W * H
+def _outputs(n, dev):
     outs = [torch.empty(n, dtype=torch.float32, device=dev)
             for _ in range(3)]
     outs.append(torch.empty(n, dtype=torch.int32, device=dev))
+    return outs
+
+
+def launch(kind, row, W, H, max_steps, dev):
+    """One Euler kernel launch for a W x H camera with the host scalars of
+    ``_fused_row`` on CUDA device ``dev`` -> (wx, wy, wz, sign)."""
+    n = W * H
+    outs = _outputs(n, dev)
     lib = _build.load_library()
     host = _build.host_floats(row)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -166,27 +205,53 @@ def launch(kind, row, W, H, max_steps, dev):
                                   *(o.data_ptr() for o in outs), H, n,
                                   int(max_steps), dev.index, stream)
     _build.check(lib, err, "render_fused_kernel")
-    launches += 1
+    launches["euler"] += 1
+    return tuple(outs)
+
+
+def launch_rk45(kind, row, W, H, max_steps, max_iters, dev):
+    """One rk45 kernel launch for a W x H camera: ``row`` is the row of
+    ``_fused_row`` followed by [rtol, atol, dt_max] -> (wx, wy, wz,
+    sign)."""
+    n = W * H
+    outs = _outputs(n, dev)
+    lib = _build.load_library()
+    host = _build.host_floats(row)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.curvis_render_fused_rk45(KINDS[kind], host, len(row),
+                                       *(o.data_ptr() for o in outs), H, n,
+                                       int(max_steps), int(max_iters),
+                                       dev.index, stream)
+    _build.check(lib, err, "render_fused_rk45_kernel")
+    launches["rk45"] += 1
     return tuple(outs)
 
 
 def render_planar_fused(metric: Metric, camera: Camera,
                         bg_positive: SphericalImage,
                         bg_negative: SphericalImage, *, dt, max_steps,
-                        escape_radius, filtering="nearest", stepper="euler"):
+                        escape_radius, filtering="nearest", stepper="euler",
+                        rtol=1e-4, atol=None, dt_max=10.0, max_iters=None):
     """(H, W, 3) image: spawn + march + readout in one kernel, then one
     gather from the two skies, which must have equal shapes.  The march
-    runs in float32 whatever the inputs' dtype, as the kernel does."""
-    if stepper != "euler":
-        raise NotImplementedError(
-            f"stepper {stepper!r}: the fused rk45 kernel is still to be "
-            "ported (ROADMAP Queue 2)")
+    runs in float32 whatever the inputs' dtype, as the kernel does.
+
+    ``stepper='rk45'`` (the JAX package's quality mode) marches with the
+    adaptive DP5(4) kernel: ``dt`` is the initial step, ``max_steps``
+    counts accepted steps, the error is bounded by ``rtol`` and ``atol``
+    (default rtol * 1e-3), dt grows at most to ``dt_max``, and each ray
+    takes at most ``max_iters`` iterations (default 4 max_steps, rounded
+    up to even as in the JAX package)."""
+    check_stepper(stepper, ("euler", "rk45"))
     common_device(metric, camera, bg_positive, bg_negative)
     if bg_positive.texture.shape != bg_negative.texture.shape:
         raise ValueError("fused renderer requires equal background shapes")
     wx, wy, wz, sign = fused_directions(metric, camera, dt=dt,
                                         max_steps=max_steps,
-                                        escape_radius=escape_radius)
+                                        escape_radius=escape_radius,
+                                        stepper=stepper, rtol=rtol,
+                                        atol=atol, dt_max=dt_max,
+                                        max_iters=max_iters)
     colors = _shade_two_skies(bg_positive, bg_negative, wx, wy, wz, sign,
                               filtering)
     W, H = camera.resolution_x, camera.resolution_y

@@ -127,12 +127,24 @@ def planar_euler_step(metric: Metric, l, psi, p_l, b, dt):
     return l + dt * dl, psi + dt * dpsi, p_l + dt * dp_l
 
 
-def check_stepper(stepper):
-    """Raise for steppers the port does not run yet."""
-    if stepper != "euler":
+# Where each stepper that a route may not run is still to come.
+_STEPPER_ITEMS = {
+    "rk4": "the RK4 stepper is ROADMAP Queue 1 item 4",
+    "rk45": "rk45 runs in the render routes (render_planar_fast, "
+            "render_frames_batched, render_planar_adaptive, "
+            "render_planar_fused); its gradients are ROADMAP Queue 1 "
+            "item 11",
+}
+
+
+def check_stepper(stepper, ported=("euler",)):
+    """Raise NotImplementedError for a stepper outside ``ported``, the
+    steppers that the calling route runs."""
+    if stepper not in ported:
+        why = _STEPPER_ITEMS.get(stepper, f"unknown stepper {stepper!r}")
         raise NotImplementedError(
-            f"stepper {stepper!r}: only 'euler' is ported (rk4 / rk45 are "
-            "ROADMAP Queue 1 items 4 and 10)")
+            f"stepper {stepper!r} on this route (it runs "
+            f"{', '.join(ported)}): {why}")
 
 
 def march_planar_while(metric: Metric, rays: PlanarRays, *, dt, max_steps,

@@ -2,9 +2,14 @@
 
 Counterpart of ``curvis_tpu/render/fast.py``: pixel rays, planar spawn,
 march, world-direction readout and the two-sky texture lookup, with every
-vector quantity as three (N,) tensors.  The march goes through
+vector quantity as three (N,) tensors, and the edge-adaptive supersampler
+``render_planar_adaptive``.  The Euler march goes through
 ``ops/march_cuda.py:march_planar_cuda`` — the CUDA kernel for CUDA tensors,
-the plain PyTorch march for CPU tensors.  Everything runs on the device of
+the plain PyTorch march for CPU tensors.  The adaptive DP5(4) march
+(``stepper='rk45'``) follows the JAX package's split by device: the CUDA
+kernel (``ops/rk45_cuda.py``, the Pallas kernel's tolerances rtol 1e-5,
+atol 1e-7) on a GPU, ``integrate/rk45.py:march_planar_rk45`` (the XLA
+march's rtol 1e-6, atol 1e-9) on the CPU.  Everything runs on the device of
 the inputs; inputs on different devices raise.
 
 Rays are numbered column-major like the reference, idx = x * H + y, so the
@@ -21,11 +26,15 @@ from curvis_tpu_torch.camera.camera import (Camera, aberrate_directions,
                                             camera_rotation)
 from curvis_tpu_torch.env.spherical_image import (SphericalImage,
                                                   filter_lookup)
+from curvis_tpu_torch.integrate.rk45 import march_planar_rk45
 from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops.march_cuda import march_planar_cuda
+from curvis_tpu_torch.ops.rk45_cuda import march_planar_rk45_cuda
 from curvis_tpu_torch.physics.planar import (PlanarRays, _unit_lapse,
                                              check_stepper)
 from curvis_tpu_torch.utils.device import common_device
+
+STEPPERS = ("euler", "rk45")       # the steppers of these render routes
 
 
 def _pixel_dirs_soa(camera: Camera, center_pixels=False):
@@ -50,6 +59,30 @@ def _pixel_dirs_soa(camera: Camera, center_pixels=False):
     dy = R[1, 0] * vx + R[1, 1] * vy + R[1, 2] * vz
     dz = R[2, 0] * vx + R[2, 1] * vy + R[2, 2] * vz
     return dx.reshape(-1), dy.reshape(-1), dz.reshape(-1)
+
+
+def _dirs_for_pixel_coords(camera: Camera, px, py):
+    """World-space unit ray directions for float pixel coordinates (N,)
+    ``px``, ``py``, with the optics of _pixel_dirs_soa (integer coordinates
+    are pixel corners, +0.5 centres): the sub-pixel rays of the adaptive
+    supersampler."""
+    dtype = camera.position.dtype
+    W, H = camera.resolution_x, camera.resolution_y
+    wfrac = px.to(dtype) / W - 0.5
+    hfrac = 0.5 - py.to(dtype) / H
+    aspect = W / H
+    sh = torch.sqrt(camera.sensor_diagonal ** 2 / (aspect * aspect + 1.0))
+    sw = aspect * sh
+    vx = camera.focal_length.expand(px.shape).to(dtype)
+    vy = -sw * wfrac
+    vz = sh * hfrac
+    inv = torch.rsqrt(vx * vx + vy * vy + vz * vz)
+    vx, vy, vz = vx * inv, vy * inv, vz * inv
+    R = camera_rotation(camera)
+    dx = R[0, 0] * vx + R[0, 1] * vy + R[0, 2] * vz
+    dy = R[1, 0] * vx + R[1, 1] * vy + R[1, 2] * vz
+    dz = R[2, 0] * vx + R[2, 1] * vy + R[2, 2] * vz
+    return dx, dy, dz
 
 
 def _spawn_planar_soa(metric: Metric, camera: Camera, dx, dy, dz):
@@ -149,19 +182,44 @@ def _readout(metric, res, b, r_hat, e2):
     return (cb * rx + sb * e2x, cb * ry + sb * e2y, cb * rz + sb * e2z)
 
 
-def _finish_render(metric, camera, bg_positive, bg_negative, state, r_hat,
-                   e2, *, dt, max_steps, escape_radius, filtering, stepper,
-                   n_frames):
-    """March + readout + shade + image assembly.  ``r_hat``/``e2``
+def _march(metric, rays, *, dt, max_steps, escape_radius, stepper):
+    """The march of a render route: Euler through march_planar_cuda; rk45
+    with ``dt`` as its initial step, through the CUDA kernel with its
+    default tolerances on a GPU and through march_planar_rk45 with its
+    own on the CPU (the JAX package's _finish_render split)."""
+    if stepper != "rk45":
+        return march_planar_cuda(metric, rays, dt=dt, max_steps=max_steps,
+                                 escape_radius=escape_radius,
+                                 stepper=stepper)
+    if rays.l.device.type == "cpu":
+        return march_planar_rk45(metric, rays, escape_radius=escape_radius,
+                                 dt0=dt, max_steps=max_steps)
+    return march_planar_rk45_cuda(metric, rays, escape_radius=escape_radius,
+                                  dt0=dt, max_steps=max_steps)
+
+
+def _march_and_shade(metric, bg_positive, bg_negative, state, r_hat, e2, *,
+                     dt, max_steps, escape_radius, filtering, stepper):
+    """March + readout + shade -> (N, 3) colours.  ``r_hat``/``e2``
     components may be 0-d (one frame) or (N,) (frame batches)."""
     l, psi, p_l, b = state
     unused = torch.zeros((1, 3), dtype=l.dtype, device=l.device)
     rays = PlanarRays(l=l, psi=psi, p_l=p_l, b=b, r_hat=unused, e2=unused)
-    res = march_planar_cuda(metric, rays, dt=dt, max_steps=max_steps,
-                            escape_radius=escape_radius, stepper=stepper)
+    res = _march(metric, rays, dt=dt, max_steps=max_steps,
+                 escape_radius=escape_radius, stepper=stepper)
     wx, wy, wz = _readout(metric, res, b, r_hat, e2)
-    colors = _shade_two_skies(bg_positive, bg_negative, wx, wy, wz, res.sign,
-                              filtering)
+    return _shade_two_skies(bg_positive, bg_negative, wx, wy, wz, res.sign,
+                            filtering)
+
+
+def _finish_render(metric, camera, bg_positive, bg_negative, state, r_hat,
+                   e2, *, dt, max_steps, escape_radius, filtering, stepper,
+                   n_frames):
+    """March + readout + shade + image assembly of ``n_frames`` frames."""
+    colors = _march_and_shade(metric, bg_positive, bg_negative, state, r_hat,
+                              e2, dt=dt, max_steps=max_steps,
+                              escape_radius=escape_radius,
+                              filtering=filtering, stepper=stepper)
     W, H = camera.resolution_x, camera.resolution_y
     if n_frames == 1:
         return colors.reshape(W, H, 3).permute(1, 0, 2)
@@ -195,8 +253,8 @@ def render_frames_batched(metric: Metric, cameras, bg_positive: SphericalImage,
                           center_pixels=False, stepper="euler"):
     """Render several camera poses with ONE march -> (F, H, W, 3).  All
     frames' rays are concatenated into a single bundle; the cameras must
-    share a resolution."""
-    check_stepper(stepper)
+    share a resolution.  ``stepper`` is 'euler' or 'rk45'."""
+    check_stepper(stepper, STEPPERS)
     cams = list(cameras)
     common_device(metric, bg_positive, bg_negative, *cams)
     state, r_hat, e2 = _spawn_frames(metric, cams, center_pixels)
@@ -238,12 +296,13 @@ def render_planar_fast(metric: Metric, camera: Camera,
 
     ``supersample=k`` renders k x k centred rays per pixel and box-filters.
     ``camera_velocity`` (3-velocity, fraction of c) applies aberration and
-    Doppler brightness.
+    Doppler brightness.  ``stepper='rk45'`` marches with the adaptive
+    DP5(4) stepper (module docstring), ``dt`` being its initial step.
 
     f32 caveat: rays crossing the throat amplify rounding differences
     exponentially, so f32 images of two implementations differ in the
     lensed-disk band; compare f64 on the CPU for parity."""
-    check_stepper(stepper)
+    check_stepper(stepper, STEPPERS)
     dev = common_device(metric, camera, bg_positive, bg_negative)
     if camera_velocity is not None:
         camera_velocity = torch.as_tensor(
@@ -262,3 +321,77 @@ def render_planar_fast(metric: Metric, camera: Camera,
         return img.reshape(H, k, W, k, 3).mean(dim=(1, 3))
     return _render_one(metric, camera, bg_positive, bg_negative,
                        center_pixels=center_pixels, **kw)
+
+
+def _contrast_topk(base, n_refine):
+    """(iy, ix) of the ``n_refine`` highest-contrast pixels of an (H, W, 3)
+    image, contrast = max |4-neighbour colour difference|.  Ties go to the
+    lower flat index, as lax.top_k orders them: a stable descending sort
+    (torch.topk leaves the order of ties unspecified, and flat or black
+    regions tie often)."""
+    H, W, _ = base.shape
+    dx_im = torch.abs(torch.diff(base, dim=1)).amax(-1)
+    dy_im = torch.abs(torch.diff(base, dim=0)).amax(-1)
+    z_col = torch.zeros((H, 1), dtype=base.dtype, device=base.device)
+    z_row = torch.zeros((1, W), dtype=base.dtype, device=base.device)
+    score = torch.maximum(
+        torch.maximum(torch.cat([dx_im, z_col], 1),
+                      torch.cat([z_col, dx_im], 1)),
+        torch.maximum(torch.cat([dy_im, z_row], 0),
+                      torch.cat([z_row, dy_im], 0)))
+    idx = torch.sort(score.reshape(-1), descending=True,
+                     stable=True).indices[:n_refine]
+    return idx // W, idx % W
+
+
+def _subpixel_coords(iy, ix, k, n_refine, dtype):
+    """Flat (n_refine * k * k,) float pixel coordinates of the centred
+    k x k sub-grid of each selected pixel."""
+    off = (torch.arange(k, dtype=dtype, device=ix.device) + 0.5) / k
+    px = (ix[:, None, None].to(dtype)
+          + off[None, :, None]).expand(n_refine, k, k).reshape(-1)
+    py = (iy[:, None, None].to(dtype)
+          + off[None, None, :]).expand(n_refine, k, k).reshape(-1)
+    return px, py
+
+
+def render_planar_adaptive(metric: Metric, camera: Camera,
+                           bg_positive: SphericalImage,
+                           bg_negative: SphericalImage, *, dt, max_steps,
+                           escape_radius, filtering="bilinear",
+                           stepper="euler", refine_frac=0.1, supersample=3,
+                           camera_velocity=None):
+    """Edge-adaptive antialiasing: a base render, then k x k sub-rays
+    (k = ``supersample``) for the ``refine_frac`` highest-contrast pixels
+    only, marched as one second bundle with the same stepper.  Full
+    supersampling pays k^2 rays a pixel, this 1 + refine_frac k^2.
+    Pixels that are not refined are the base render's, bit for bit."""
+    check_stepper(stepper, STEPPERS)
+    dev = common_device(metric, camera, bg_positive, bg_negative)
+    if camera_velocity is not None:
+        camera_velocity = torch.as_tensor(
+            camera_velocity, dtype=camera.position.dtype, device=dev)
+    W, H = camera.resolution_x, camera.resolution_y
+    n_refine = max(1, int(refine_frac * W * H))
+    kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius,
+              filtering=filtering, stepper=stepper)
+    base = _render_one(metric, camera, bg_positive, bg_negative,
+                       center_pixels=False, camera_velocity=camera_velocity,
+                       **kw)
+    iy, ix = _contrast_topk(base, n_refine)
+    k = int(supersample)
+    px, py = _subpixel_coords(iy, ix, k, n_refine, base.dtype)
+    dxs, dys, dzs = _dirs_for_pixel_coords(camera, px, py)
+    delta = None
+    if camera_velocity is not None:
+        dxs, dys, dzs, delta = aberrate_directions(dxs, dys, dzs,
+                                                   camera_velocity)
+    state, r_hat, e2 = _spawn_planar_soa(metric, camera, dxs, dys, dzs)
+    colors = _march_and_shade(metric, bg_positive, bg_negative, state, r_hat,
+                              e2, **kw)
+    if delta is not None:
+        colors = torch.clamp(colors * (delta ** 3)[:, None], 0.0, 1.0)
+    refined = colors.reshape(n_refine, k * k, 3).mean(dim=1)
+    img = base.clone()
+    img[iy, ix] = refined
+    return img

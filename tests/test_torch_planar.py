@@ -289,14 +289,20 @@ def test_march_wrapper_refuses_what_it_cannot_run():
 
 
 def test_build_command_targets_hopper():
-    """The nvcc command (never run on import or on the CPU) compiles every
-    csrc/*.cu for sm_90a into one shared library."""
-    cmd = _build.nvcc_command("nvcc", _build.BUILD_DIR / _build.LIB_NAME)
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and "-O3" in cmd
-    assert "-use_fast_math" not in cmd
+    """The nvcc commands (never run on import or on the CPU) compile each
+    csrc/*.cu for sm_90a in a process of its own and link the objects into
+    one shared library."""
+    compiles, link = _build.nvcc_commands("nvcc", _build.BUILD_DIR /
+                                          _build.LIB_NAME)
     cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert cu == ["ckpt_adjoint.cu", "planar_march.cu", "render_fused.cu"]
-    assert all(any(c.endswith(name) for c in cmd) for name in cu)
+    assert cu == ["ckpt_adjoint.cu", "planar_march.cu", "planar_rk45.cu",
+                  "render_fused.cu"]
+    assert [c[-1].rsplit("/", 1)[-1] for c in compiles] == cu
+    for cmd in [*compiles, link]:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert not any("fast_math" in a for a in cmd)
+    assert all("-O3" in c and "-c" in c for c in compiles)
+    objects = [c[c.index("-o") + 1] for c in compiles]
+    assert "-shared" in link and link[-len(objects):] == objects
     assert len(_build.source_hash()) == 64
     assert not _build.is_loaded()

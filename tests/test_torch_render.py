@@ -184,8 +184,8 @@ def test_render_inputs_on_different_devices_raise():
     for render in (render_planar_fast, render_planar_fused):
         with pytest.raises(ValueError, match="one device"):
             render(tm, tc, tp, on_meta, **kw)
-    with pytest.raises(NotImplementedError, match="rk45"):
-        render_planar_fast(tm, tc, tp, tn, stepper="rk45", **kw)
+    with pytest.raises(NotImplementedError, match="rk4"):
+        render_planar_fast(tm, tc, tp, tn, stepper="rk4", **kw)
 
 
 # ------------------------------------------------------------------- CLI
@@ -230,8 +230,8 @@ def test_cli_image_direct_matches_jax_cli(scene):
 @pytest.mark.parametrize("extra, item", [
     ((), "item 7"),                                     # symmetric default
     (("--renderer", "direct", "--disk"), "item 12"),
-    (("--renderer", "direct", "--adaptive-aa", "0.1"), "item 5"),
-    (("--renderer", "direct", "--stepper", "rk45"), "item"),
+    (("--renderer", "direct", "--stepper", "rk4"), "item 4"),
+    (("--stepper", "rk45"), "item 7"),                  # symmetric, rk45
 ])
 def test_cli_unported_options_raise(scene, extra, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -265,9 +265,9 @@ def test_settings_defaults_match_jax():
 # ---------------------------------------------------------- import guard
 
 def test_import_loads_no_jax_and_runs_no_nvcc(tmp_path):
-    """Importing the port (with its render, fused, adjoint, fit and CLI
-    modules) loads no jax module and does not run nvcc: a fake nvcc first on PATH would leave
-    a marker file."""
+    """Importing the port (with its render, fused, rk45, adjoint, fit and
+    CLI modules) loads no jax module and does not run nvcc: a fake nvcc
+    first on PATH would leave a marker file."""
     marker = tmp_path / "nvcc_ran"
     fake = tmp_path / "bin" / "nvcc"
     fake.parent.mkdir()
@@ -283,6 +283,8 @@ def test_import_loads_no_jax_and_runs_no_nvcc(tmp_path):
         import curvis_tpu_torch.config.settings
         import curvis_tpu_torch.integrate.adjoint
         import curvis_tpu_torch.integrate.ckpt
+        import curvis_tpu_torch.integrate.rk45
+        import curvis_tpu_torch.ops.rk45_cuda
         import curvis_tpu_torch.ops.ckpt_adjoint_cuda
         import curvis_tpu_torch.render.direct
         import curvis_tpu_torch.fit
