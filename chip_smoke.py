@@ -40,7 +40,23 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      max_steps=4000) over the 4 headline poses, render_frames_batched(
      stepper='rk45') on the same poses, DNEG fused rk45 at 1024^2 and
      render_planar_adaptive(stepper='rk45') on the headline view, with the
-     launch counts of that run and a profile of the fused job.
+     launch counts of that run and a profile of the fused job;
+ 10. the disk-crossing march kernel (#5) against its plain version: the
+     black-hole disk view (Schwarzschild, r = 28, theta = pi/2 - 0.2,
+     30 mm, escape radius 80) at 1024^2, RN and an Ellis wormhole disk at
+     256^2, a step cap of 1500 that most rays reach, 16 NaN rays, and the
+     starlight map's 64 x 256 reduced rays;
+ 11. the volumetric-transfer march kernel (#6) against its plain version:
+     tint at 1024^2; blackbody, redshift / Doppler on and off and the
+     starlight scatter source (a real map's block) at 512^2; a kappa that
+     freezes rays at tau_max, RN and Ellis at 256^2;
+ 12. the disk path end to end at 1024^2 (examples/render_blackholes.py):
+     render_blackhole_disk thin blackbody, the starlight map (64 x 128,
+     256 samples) and the starlit frame, volumetric tint / blackbody /
+     blackbody + scatter, render_disk_frames_batched over 4 poses and the
+     CLI's image --disk at 256^2, with each job's launches of #5 and #6,
+     the thin frame against the route with #5's plain version, and
+     profiles of a thin and a volumetric frame.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -95,6 +111,31 @@ N_POISON = 16              # rays set to NaN, which must freeze as sign 3
 ACC_RES = 128              # side of the accuracy check against f64 rk45
 ACC_RTOL = 1e-10           # its reference's tolerance (atol 1e-3 rtol)
 
+# The black-hole disk path (examples/render_blackholes.py:43-70): a
+# Schwarzschild hole (M = 1) seen from r = 28 at theta = pi/2 - 0.2 through
+# a 30 mm lens, Euler dt = 0.05, 40 000 steps, escape radius 80.
+DISK_L = 28.0
+DISK_TH = math.pi / 2 - 0.2
+DISK_FOCAL = 30.0
+DISK_R = 80.0
+DISK_VOL_RES = 512         # side of most volumetric kernel-vs-plain cases
+DISK_CAP = 1500            # a step cap below the mean (~1 980): most rays
+                           # stop at it, and must stop exactly there
+DISK_NAN_CAP = 3000        # the cap of the NaN case (NaN rays never end)
+DISK_THIN = dict(r_inner=5.2, r_outer=14.0, color_mode="blackbody",
+                 t_peak=7000.0, brightness=14.0)
+DISK_STAR = dict(r_inner=5.2, r_outer=14.0, brightness=0.35, starlight=True,
+                 albedo=(0.55, 0.55, 0.6), starlight_samples=256,
+                 starlight_grid=(64, 128))
+DISK_VOL = dict(r_inner=5.2, r_outer=13.0, volumetric=True, h_rel=0.08,
+                kappa=3.0)     # the parity gate's (parity_gates.py:159-161)
+HIT_EQ_MIN = 0.995         # rays whose hit presence (h1 != 0) is equal
+HIT_P99_MAX = 1e-3         # p99 relative hit radius and |dpsi| at the hit
+DISK_IMG_TOL = 1e-3        # thin-disk image vs the plain route: at most
+DISK_IMG_FRAC_MAX = 0.01   # this fraction of pixels beyond DISK_IMG_TOL
+DISK_FRAC = (0.05, 0.6)    # fraction of disk pixels in a disk frame
+DISK_LIT_MIN = 0.8         # lit pixels (sky and disk) of a disk frame
+
 # Roofline of one H100 SXM (NVIDIA data sheet): FP32 outside the tensor
 # cores and HBM3 bandwidth.
 PEAK_FLOPS = 67e12
@@ -111,6 +152,13 @@ FLOP_FUSED_PIXEL = 100
 # writeback, capture, stall and controller (~18); an exp or a log counts
 # as one.
 FLOP_RK45_ITER = 280
+# A Schwarzschild Euler step of kernel #5 (csrc/disk.cu; an FMA counts as
+# two): RHS 15, Euler + rotation 12, crossing test and hit bookkeeping 33,
+# psi and sign 4.  Kernel #6 (csrc/disk_vol.cu): the step, density, edges,
+# transmittance, accumulation and sign 66; redshift + Doppler 27 (lapse
+# kinds); tint 11 or blackbody 51; the scatter source 60.
+FLOP_DISK_STEP = 64
+FLOP_VOL = dict(base=66, shift=27, tint=11, blackbody=51, scatter=60)
 
 
 def require(ok, what):
@@ -151,16 +199,32 @@ def phase1_build():
     secs = time.perf_counter() - t0
     print(f"[1] kernels built{' (fresh)' if fresh else ''} in {secs:.1f} s "
           f"-> {_build.BUILD_DIR / _build.LIB_NAME}")
+    # per kernel: the range of registers, stack bytes and spill bytes over
+    # its instances (kinds and flags), from ptxas's report in build.log
     log = (_build.BUILD_DIR / "build.log").read_text()
+    stats, name = {}, None
     for line in log.splitlines():
         # mangled entry names: _ZN6curvis<len><name>ILi<kind>E...
         entry = re.search(r"entry function '_ZN6curvis(\d+)(\w+?)ILi(\d)E",
                           line)
         if entry:
             name = entry.group(2)[:int(entry.group(1))]
-            print(f"[1]   {name}<kind {entry.group(3)}>:")
-        elif "registers" in line or "spill" in line:
-            print(f"[1]   {line.strip()}")
+            stats.setdefault(name, {"n": 0, "regs": [], "stack": [],
+                                    "spill": []})["n"] += 1
+        elif name is not None:
+            st = stats[name]
+            for key, pat in (("regs", r"Used (\d+) registers"),
+                             ("stack", r"(\d+) bytes stack frame"),
+                             ("spill", r"(\d+) bytes spill stores")):
+                m = re.search(pat, line)
+                if m:
+                    st[key].append(int(m.group(1)))
+    for name, st in sorted(stats.items()):
+        rng = {k: (f"{min(v)}-{max(v)}" if v and min(v) != max(v)
+                   else str(v[0]) if v else "?")
+               for k, v in st.items() if k != "n"}
+        print(f"[1]   {name}: {st['n']} instances, {rng['regs']} registers, "
+              f"{rng['stack']} B stack frame, {rng['spill']} B spill stores")
     return secs
 
 
@@ -955,6 +1019,422 @@ def phase9_quality(bgp, bgn):
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+def disk_camera(res, phi=0.0):
+    """The example's camera at azimuth ``phi``, looking at the hole."""
+    from curvis_tpu_torch.camera.camera import make_camera
+    st, ct = math.sin(DISK_TH), math.cos(DISK_TH)
+    return make_camera([0.0, DISK_L, DISK_TH, phi],
+                       [-st * math.cos(phi), -st * math.sin(phi), -ct],
+                       [0.0, 0.0, 1.0], DISK_FOCAL, 43.0, res, res,
+                       device=DEVICE)
+
+
+def disk_rays(metric, cams):
+    """Flat (l, psi, p_l, b) and (c1, c2, nz) of the cameras' pixel rays, as
+    render/disk.py's routes make them."""
+    from curvis_tpu_torch.render.fast import _spawn_frames
+    state, r_hat, e2 = _spawn_frames(metric, cams)
+    planes = (r_hat[2], e2[2], r_hat[0] * e2[1] - r_hat[1] * e2[0])
+    return ([t.reshape(-1).contiguous() for t in state],
+            [t.reshape(-1).contiguous() for t in planes])
+
+
+def hit_agreement(out_k, out_p):
+    """Kernel #5 against its plain version, both (l, psi, p_l, sign, steps,
+    h1, h1p, h1s, h2, h2p, h2s): fractions of equal sign, steps and hit
+    presence (h != 0, NaN counting as present), and over the hits present
+    and finite in both the p99 relative radius error, the p99 |dpsi| and
+    the max |dr|."""
+    import numpy as np
+    import torch
+    sign_eq = (out_k[3] == out_p[3]).double().mean().item()
+    steps_eq = (out_k[4] == out_p[4]).double().mean().item()
+    pres, rel, dpsi, dr = [], [], [], []
+    for r_i, s_i in ((5, 7), (8, 10)):
+        hk, hp = out_k[r_i].double(), out_p[r_i].double()
+        pres.append(((hk != 0) == (hp != 0)).double().mean().item())
+        both = (hk != 0) & (hp != 0) & torch.isfinite(hk) & torch.isfinite(hp)
+        rel.append(((hk - hp).abs() / hp.abs())[both])
+        dr.append((hk - hp).abs()[both])
+        dpsi.append((out_k[s_i].double() - out_p[s_i].double()).abs()[both])
+    rel, dpsi, dr = (torch.cat(x).cpu().numpy() for x in (rel, dpsi, dr))
+
+    def p99(x):
+        return float(np.percentile(x, 99)) if x.size else 0.0
+    return dict(sign_eq=sign_eq, steps_eq=steps_eq, hit_eq=min(pres),
+                rel_p99=p99(rel), dpsi_p99=p99(dpsi),
+                max_abs=float(dr.max()) if dr.size else 0.0,
+                n_hits=int(rel.size))
+
+
+def phase10_disk_march():
+    """Kernel #5 against march_planar_disk_plain on the card: the path's
+    view at 1024^2, RN and an Ellis wormhole disk at 256^2, an exact step
+    cap, 16 NaN rays and the starlight map's reduced rays."""
+    import torch
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.ops import disk_cuda
+    from curvis_tpu_torch.render.starlight import map_rays
+    bh = make_metric("schwarzschild", m=1.0, device=DEVICE)
+    band = (5.2, 14.0)
+    configs = [
+        (f"schwarzschild {RES}^2 (the path's view)", bh,
+         [disk_camera(RES)], band, MAX_STEPS, 0),
+        (f"rn {SMALL}^2", make_metric("rn", m=1.0, q=0.6, device=DEVICE),
+         [disk_camera(SMALL)], band, MAX_STEPS, 0),
+        (f"ellis {SMALL}^2 (wormhole disk)",
+         make_metric("ellis", rho=1.0, device=DEVICE),
+         [disk_camera(SMALL)], (1.5, 14.0), MAX_STEPS, 0),
+        (f"schwarzschild {SMALL}^2 cap {DISK_CAP}", bh,
+         [disk_camera(SMALL)], band, DISK_CAP, 0),
+        (f"schwarzschild {SMALL}^2 with {N_POISON} NaN rays", bh,
+         [disk_camera(SMALL)], band, DISK_NAN_CAP, N_POISON),
+        ("starlight map rays 64 x 256", bh, None, band, MAX_STEPS, 0),
+    ]
+    out = {}
+    for name, metric, cams, (r_in, r_out), cap, n_nan in configs:
+        if cams is None:
+            _, rays, _, _ = map_rays(metric, r_in, r_out, 64, 256,
+                                     torch.float32, DEVICE)
+            state = [t.contiguous() for t in rays[:4]]
+            planes = [torch.zeros_like(rays.l), torch.ones_like(rays.l)]
+        else:
+            state, planes = disk_rays(metric, cams)
+        state[0], bad = poison_rays(state[0], n_nan)
+        ins = state + planes[:2]
+        kind, scal = disk_cuda.disk_scalars(metric, DT, DISK_R, r_in, r_out)
+        out_k = disk_cuda.launch(kind, scal, *ins, max_steps=cap)
+        sync()
+        t0 = time.perf_counter()
+        out_p = disk_cuda.march_planar_disk_plain(kind, scal, *ins,
+                                                  max_steps=cap)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        a = hit_agreement(out_k, out_p)
+        kernel_ms = cuda_ms(lambda: disk_cuda.launch(kind, scal, *ins,
+                                                     max_steps=cap), 3)
+        n = ins[0].numel()
+        steps = out_k[4].double()
+        counts = {s: int((out_k[3] == s).sum()) for s in (-1, 0, 1, 2)}
+        hits = [int((out_k[i] != 0).sum()) for i in (5, 8)]
+        print(f"[10] disk march {name}: {n} rays, signs {counts}, hits "
+              f"{hits[0]} / {hits[1]} (first / second); sign equal "
+              f"{a['sign_eq']:.6f}, steps equal {a['steps_eq']:.6f}, hit "
+              f"presence equal {a['hit_eq']:.6f}; over {a['n_hits']} hits "
+              f"p99 rel radius {a['rel_p99']:.3e}, p99 |dpsi| "
+              f"{a['dpsi_p99']:.3e}, max |dr| {a['max_abs']:.3e}")
+        print(f"[10]   steps mean / max {steps.mean().item():.1f} / "
+              f"{int(steps.max())}; kernel {kernel_ms:.3f} ms "
+              f"({n / kernel_ms / 1e3:.1f} Mrays/s), plain {plain_ms:.1f} ms")
+        require(a["sign_eq"] >= SIGN_EQ_MIN,
+                f"disk {name}: sign equal {a['sign_eq']}")
+        require(a["steps_eq"] >= STEPS_EQ_MIN,
+                f"disk {name}: steps equal {a['steps_eq']}")
+        require(a["hit_eq"] >= HIT_EQ_MIN,
+                f"disk {name}: hit presence equal {a['hit_eq']}")
+        require(a["rel_p99"] < HIT_P99_MAX,
+                f"disk {name}: p99 relative hit radius {a['rel_p99']}")
+        require(a["dpsi_p99"] < HIT_P99_MAX,
+                f"disk {name}: p99 |dpsi| at the hit {a['dpsi_p99']}")
+        require(hits[0] > 0, f"disk {name}: no disk hit")
+        for who, o in (("kernel", out_k), ("plain", out_p)):
+            require(int(o[4].max()) <= cap
+                    and bool((o[4][o[3] == 0] == cap).all()),
+                    f"disk {name}: {who} overshot or undershot the cap")
+            if n_nan:
+                require(bool((o[3][bad] == 0).all())
+                        and bool(torch.isnan(o[5][bad]).all()),
+                        f"disk {name}: {who} NaN rays not sign 0 / NaN hit")
+        if cap == DISK_CAP:
+            capped = (out_k[3] == 0).double().mean().item()
+            print(f"[10]   {capped:.4f} of rays stopped at the cap of {cap}")
+            require(capped > 0.5, f"disk {name}: only {capped} capped")
+        # 24 bytes read and 44 written per ray; FLOP_DISK_STEP a step
+        b_ms, b_by = bound(68 * n, FLOP_DISK_STEP * steps.sum().item())
+        out[name] = dict(max_abs_err=a["max_abs"], ms=kernel_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return out[f"schwarzschild {RES}^2 (the path's view)"]
+
+
+def vol_flops(kind, flags):
+    """FP32 operations of one kernel #6 step for a kind and its flags."""
+    blackbody, redshift, doppler, scatter = flags
+    n = FLOP_VOL["base"]
+    if kind in ("schwarzschild", "rn") and (redshift or doppler):
+        n += FLOP_VOL["shift"]
+    n += FLOP_VOL["blackbody" if blackbody else "tint"]
+    return n + (FLOP_VOL["scatter"] if scatter else 0)
+
+
+def phase11_disk_vol(sky):
+    """Kernel #6 against march_planar_disk_volumetric_plain on the card:
+    tint and blackbody, redshift and Doppler on and off, the scatter
+    source with a real starlight map's block, the tau_max freeze, RN and
+    an Ellis wormhole."""
+    import dataclasses
+    import torch
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.ops import disk_vol_cuda as dv
+    from curvis_tpu_torch.render.disk import DiskParams, compute_starlight_map
+    from curvis_tpu_torch.render.starlight import starlight_scatter_block
+    bh = make_metric("schwarzschild", m=1.0, device=DEVICE)
+    tint = DiskParams(**DISK_VOL)
+    bb = dataclasses.replace(tint, color_mode="blackbody", t_peak=7000.0)
+    smap = compute_starlight_map(
+        bh, sky, dataclasses.replace(bb, starlight=True, starlight_samples=256,
+                                     starlight_grid=(64, 128)),
+        dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R)
+    block = starlight_scatter_block(smap, bb)
+    V = DISK_VOL_RES
+    configs = [
+        (f"tint {RES}^2 (the path's view)", bh, RES, tint, None),
+        (f"blackbody {V}^2", bh, V, bb, None),
+        (f"tint, redshift only {V}^2", bh, V,
+         dataclasses.replace(tint, doppler=False), None),
+        (f"tint, no shift {V}^2", bh, V,
+         dataclasses.replace(tint, redshift=False, doppler=False), None),
+        (f"tint + scatter {V}^2", bh, V, tint, block),
+        (f"blackbody + scatter {V}^2", bh, V, bb, block),
+        (f"tint kappa 40 (tau_max freeze) {SMALL}^2", bh, SMALL,
+         dataclasses.replace(tint, kappa=40.0), None),
+        (f"rn blackbody {SMALL}^2", make_metric("rn", m=1.0, q=0.6,
+                                                device=DEVICE), SMALL, bb,
+         None),
+        (f"ellis tint {SMALL}^2 (wormhole disk)",
+         make_metric("ellis", rho=1.0, device=DEVICE), SMALL,
+         dataclasses.replace(tint, r_inner=1.5), None),
+    ]
+    out = {}
+    frozen_seen = [0, 0]
+    for name, metric, res, disk, blk in configs:
+        state, planes = disk_rays(metric, [disk_camera(res)])
+        ins = state + planes
+        kind, scal = dv.vol_scalars(metric, DT, DISK_R, disk, blk)
+        flags = (disk.color_mode == "blackbody", disk.redshift, disk.doppler,
+                 blk is not None)
+        out_k = dv.launch(kind, flags, scal, *ins, max_steps=MAX_STEPS)
+        sync()
+        t0 = time.perf_counter()
+        out_p = dv.march_planar_disk_volumetric_plain(
+            kind, flags, scal, *ins, max_steps=MAX_STEPS)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        sign_eq = (out_k[3] == out_p[3]).double().mean().item()
+        steps_eq = (out_k[4] == out_p[4]).double().mean().item()
+        frac, worst = close_fraction(out_k[5:9], out_p[5:9])
+        cap_r = metric.capture_radius
+        frozen = [int(((o[3] == 2) & (o[0] > (cap_r if cap_r is not None
+                                               else -1e30))).sum())
+                  for o in (out_k, out_p)]
+        frozen_seen = [a + b for a, b in zip(frozen_seen, frozen)]
+        kernel_ms = cuda_ms(lambda: dv.launch(kind, flags, scal, *ins,
+                                              max_steps=MAX_STEPS), 3)
+        n = ins[0].numel()
+        steps = out_k[4].double()
+        print(f"[11] vol march {name}: {n} rays, sign equal {sign_eq:.6f}, "
+              f"steps equal {steps_eq:.6f}, tau and em within rtol "
+              f"{GRAD_RTOL} on {frac:.6f} of rays (max |d| {worst:.3e}); "
+              f"frozen by tau_max {frozen[0]} / {frozen[1]} (kernel / "
+              f"plain); tau max {out_k[5].max().item():.3f}")
+        print(f"[11]   steps mean / max {steps.mean().item():.1f} / "
+              f"{int(steps.max())}; kernel {kernel_ms:.3f} ms "
+              f"({n / kernel_ms / 1e3:.1f} Mrays/s), plain {plain_ms:.1f} ms")
+        require(sign_eq >= SIGN_EQ_MIN, f"vol {name}: sign equal {sign_eq}")
+        require(frac >= GRAD_FRAC_MIN, f"vol {name}: close fraction {frac}")
+        require(all(bool(torch.isfinite(t).all()) for t in out_k[5:9]),
+                f"vol {name}: non-finite tau or emission")
+        if disk.kappa > 10.0:
+            require(min(frozen) > 0, f"vol {name}: no tau_max freeze "
+                    f"{frozen}")
+        # 28 bytes read and 36 written per ray
+        b_ms, b_by = bound(64 * n, vol_flops(kind, flags)
+                           * steps.sum().item())
+        out[name] = dict(max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+    print(f"[11] tau_max freeze seen on {frozen_seen[0]} / {frozen_seen[1]} "
+          f"rays (kernel / plain) over all cases")
+    return out[f"tint {RES}^2 (the path's view)"]
+
+
+def disk_image_gates(name, imgs, bare):
+    """Shape, finite pixels, lit and disk-pixel fractions of disk frames;
+    a disk pixel differs by > DISK_IMG_TOL from ``bare``, the same frames
+    rendered with a disk of zero brightness and opacity (the lensed sky
+    and the shadow)."""
+    import torch
+    require(imgs.shape == bare.shape and imgs.shape[-3:] == (RES, RES, 3),
+            f"{name}: shape {tuple(imgs.shape)}")
+    require(bool(torch.isfinite(imgs).all()), f"{name}: non-finite pixel")
+    imgs = imgs.reshape(-1, RES, RES, 3)
+    bare = bare.reshape(-1, RES, RES, 3)
+    lit = min((im.sum(-1) > 0).double().mean().item() for im in imgs)
+    disk = [((im - b).abs().amax(-1) > DISK_IMG_TOL).double().mean().item()
+            for im, b in zip(imgs, bare)]
+    print(f"[12]   {name}: lit fraction {lit:.6f}, disk-pixel fraction "
+          f"{min(disk):.6f}..{max(disk):.6f}")
+    require(lit > DISK_LIT_MIN, f"{name}: lit fraction {lit}")
+    require(DISK_FRAC[0] < min(disk) and max(disk) < DISK_FRAC[1],
+            f"{name}: disk-pixel fraction {disk}")
+
+
+def run_disk_cli(tmp, sky_np, extra):
+    """``image --disk`` through the CLI's main on a 256^2 view of the path's
+    scene, with the skies written as PNGs; returns the saved image."""
+    import numpy as np
+    from PIL import Image
+    from curvis_tpu_torch.cli import main as cli_main
+    for name in ("bg1.png", "bg2.png"):
+        Image.fromarray((255 * sky_np).astype(np.uint8)).save(tmp / name)
+    (tmp / "cam.toml").write_text(
+        f"resolution_x = 256\nresolution_y = 256\ndiagonal = 43.0\n"
+        f"focal_length = {DISK_FOCAL}\n")
+    (tmp / "sim.toml").write_text(
+        f"escape_radius = {DISK_R}\nray_integration_max_iterations = "
+        f"{MAX_STEPS}\nray_integration_step = {DT}\n")
+    (tmp / "metric.toml").write_text('kind = "schwarzschild"\nm = 1.0\n')
+    (tmp / "img.toml").write_text(
+        f"l = {DISK_L}\ntheta = {DISK_TH!r}\nphi = 0.0\n"
+        f"forward_x = {-math.sin(DISK_TH)!r}\nforward_y = 0.0\n"
+        f"forward_z = {-math.cos(DISK_TH)!r}\n")
+    out = tmp / "out"
+    rc = cli_main(["image", str(tmp / "bg1.png"), str(tmp / "bg2.png"),
+                   str(out), "-m", str(tmp / "metric.toml"), "-c",
+                   str(tmp / "cam.toml"), "-s", str(tmp / "sim.toml"), "-i",
+                   str(tmp / "img.toml"), "--filtering", "bilinear",
+                   "--disk", *extra])
+    require(rc == 0, f"cli image --disk {extra}: exit code {rc}")
+    return np.asarray(Image.open(out / "output_image.png"))
+
+
+def phase12_disk_path(sky, sky_np):
+    """The disk path end to end at 1024^2 through its entry points, with
+    the launch counts of kernels #5 and #6 in each job."""
+    import dataclasses
+    import tempfile
+    from unittest import mock
+    import numpy as np
+    import torch
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.ops import disk_cuda
+    from curvis_tpu_torch.ops import disk_vol_cuda
+    from curvis_tpu_torch.physics.planar import PlanarResult
+    from curvis_tpu_torch.render import disk as rd
+    bh = make_metric("schwarzschild", m=1.0, device=DEVICE)
+    cam = disk_camera(RES)
+    kw = dict(dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R)
+    thin = rd.DiskParams(**DISK_THIN)
+    star = rd.DiskParams(**DISK_STAR)
+    vol_t = rd.DiskParams(**DISK_VOL)
+    vol_b = dataclasses.replace(vol_t, color_mode="blackbody", t_peak=7000.0)
+    vol_s = dataclasses.replace(vol_b, starlight=True, starlight_samples=256,
+                                starlight_grid=(64, 128))
+    poses = [disk_camera(RES, 0.5 * k) for k in range(FRAMES)]
+    maps = {}
+
+    def frame(disk, smap=None):
+        return rd.render_blackhole_disk(bh, cam, sky, disk=disk,
+                                        starlight_map=smap, **kw)
+
+    # the frames without the disk's light and opacity, for the disk-pixel
+    # gates
+    dark = rd.DiskParams(brightness=0.0, opacity=0.0)
+    bare = frame(dark)
+    bare_batch = rd.render_disk_frames_batched(bh, poses, sky, disk=dark,
+                                               **kw)
+
+    jobs = [
+        ("thin blackbody frame", lambda: frame(thin), bare, "disk"),
+        ("starlight map (64 x 128, 256 samples)",
+         lambda: maps.__setitem__("star", rd.compute_starlight_map(
+             bh, sky, star, **kw)), None, "disk"),
+        ("starlight frame (map precomputed)",
+         lambda: frame(star, maps["star"]), bare, "disk"),
+        ("volumetric tint frame", lambda: frame(vol_t), bare, "vol"),
+        ("volumetric blackbody frame", lambda: frame(vol_b), bare, "vol"),
+        ("volumetric blackbody + scatter frame (map precomputed)",
+         lambda: frame(vol_s, maps["vol"]), bare, "vol"),
+        (f"render_disk_frames_batched thin blackbody, {FRAMES} poses",
+         lambda: rd.render_disk_frames_batched(bh, poses, sky, disk=thin,
+                                               **kw), bare_batch, "disk"),
+    ]
+    maps["vol"] = rd.compute_starlight_map(bh, sky, vol_s, **kw)
+    totals = {"disk": 0, "vol": 0}
+    results = {}
+    for name, fn, ref, which in jobs:
+        disk_cuda.launches = 0
+        disk_vol_cuda.launches = 0
+        img = fn()                                         # warm-up
+        ms = cuda_ms(fn, REPS)
+        counts = {"disk": disk_cuda.launches, "vol": disk_vol_cuda.launches}
+        totals = {k: totals[k] + counts[k] for k in totals}
+        rays = 0 if ref is None else ref.numel() // 3
+        rate = f" = {rays / ms / 1e3:.1f} Mrays/s" if rays else ""
+        print(f"[12] {name}: {ms:.2f} ms (median of {REPS}){rate}; launches "
+              f"#5 {counts['disk']}, #6 {counts['vol']}")
+        require(counts[which] > 0, f"{name}: kernel {which} not launched: "
+                f"{counts}")
+        if ref is not None:
+            disk_image_gates(name, img, ref)
+        results[name] = (img, ms)
+    require(maps["star"].values.shape == (2, 64, 128, 3)
+            and bool(torch.isfinite(maps["star"].values).all()),
+            "starlight map: shape or non-finite values")
+
+    # the thin frame against the same route with kernel #5's plain version
+    def plain_thin(metric, rays, c1, c2, *, dt, max_steps, escape_radius,
+                   r_inner, r_outer):
+        kind, scal = disk_cuda.disk_scalars(metric, dt, escape_radius,
+                                            r_inner, r_outer)
+        out = disk_cuda.march_planar_disk_plain(
+            kind, scal, rays.l, rays.psi, rays.p_l, rays.b, c1, c2,
+            max_steps=max_steps)
+        return PlanarResult(*out[:5]), tuple(out[5:8]), tuple(out[8:11])
+
+    disk_cuda.launches = 0
+    with mock.patch.object(rd, "_march_thin", plain_thin):
+        img_p = frame(thin)
+    require(disk_cuda.launches == 0, "the plain route launched kernel #5")
+    img_k = results["thin blackbody frame"][0]
+    diff = ((img_k - img_p).abs().amax(-1) > DISK_IMG_TOL).double().mean()
+    print(f"[12] thin blackbody frame vs the plain route: {diff.item():.6f} "
+          f"of pixels differ by > {DISK_IMG_TOL}")
+    require(diff.item() <= DISK_IMG_FRAC_MAX,
+            f"thin frame vs plain route: {diff.item()}")
+
+    # the CLI at 256^2, thin and volumetric
+    with tempfile.TemporaryDirectory() as tmp:
+        for extra, which in ((("--disk-color", "blackbody"), "disk"),
+                             (("--disk-volumetric",), "vol")):
+            disk_cuda.launches = 0
+            disk_vol_cuda.launches = 0
+            t0 = time.perf_counter()
+            png = run_disk_cli(Path(tmp), sky_np, extra)
+            secs = time.perf_counter() - t0
+            counts = {"disk": disk_cuda.launches,
+                      "vol": disk_vol_cuda.launches}
+            totals = {k: totals[k] + counts[k] for k in totals}
+            # a disk pixel is brighter than the dim sky's brightest texel
+            sky_max = int((255 * sky_np).astype(np.uint8).sum(-1).max())
+            frac = (png.astype(int).sum(-1) > sky_max).mean()
+            print(f"[12] cli image --disk {' '.join(extra)}: {png.shape} in "
+                  f"{secs:.2f} s (host clock, first call); launches #5 "
+                  f"{counts['disk']}, #6 {counts['vol']}; disk-pixel "
+                  f"fraction {frac:.6f}")
+            require(counts[which] > 0, f"cli {extra}: kernel {which} not "
+                    f"launched: {counts}")
+            require(png.shape == (256, 256, 3)
+                    and DISK_FRAC[0] < frac < DISK_FRAC[1],
+                    f"cli {extra}: shape {png.shape} or disk fraction "
+                    f"{frac}")
+    print(f"[12] launches over the disk path: #5 {totals['disk']}, #6 "
+          f"{totals['vol']}")
+    profile_window(lambda: frame(thin), "[12]",
+                   f"the thin blackbody frame ({RES}^2)")
+    profile_window(lambda: frame(vol_b), "[12]",
+                   f"the volumetric blackbody frame ({RES}^2)")
+    return totals
+
+
 def main():
     smi = phase0_toolchain()
     import numpy as np
@@ -980,6 +1460,13 @@ def main():
     train_launches, ckpt = phase7_trainer(bgp, bgn)
     rk45 = phase8_rk45_march()
     quality_launches, fused_rk45 = phase9_quality(bgp, bgn)
+    disk = phase10_disk_march()
+    # a dim sky, so that the disk's pixels stand out (the example's
+    # starfield is mostly black)
+    disk_np = 0.05 * np.random.default_rng(1).random(SKY, dtype=np.float32)
+    disk_sky = make_spherical_image(disk_np, device=DEVICE)
+    vol = phase11_disk_vol(disk_sky)
+    disk_launches = phase12_disk_path(disk_sky, disk_np)
 
     def entry(name, source, replaces, n_launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1006,8 +1493,14 @@ def main():
               "curvis_tpu_torch/csrc/render_fused.cu",
               "curvis_tpu/ops/render_fused.py:209",
               quality_launches["fused_rk45"], fused_rk45),
+        entry("march_disk_kernel", "curvis_tpu_torch/csrc/disk.cu",
+              "curvis_tpu/ops/march_pallas.py:913", disk_launches["disk"],
+              disk),
+        entry("march_disk_vol_kernel", "curvis_tpu_torch/csrc/disk_vol.cu",
+              "curvis_tpu/ops/march_pallas.py:1213", disk_launches["vol"],
+              vol),
     ]
-    print(f"[9] done on {smi}")
+    print(f"[12] done on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,11 @@ adaptive march (``ops/rk45_cuda.py``), the fused spawn + march + readout
 for both steppers (``ops/render_fused.py``) and the
 checkpointed-recompute backward of the Euler march
 (``ops/ckpt_adjoint_cuda.py``), behind ``render_direct(...,
-differentiable='adjoint')`` and ``fit``.  Tensors on a GPU run the kernels;
+differentiable='adjoint')`` and ``fit``; and the black-hole accretion-disk
+path (``render_blackhole_disk``, ``render_disk_frames_batched``,
+``compute_starlight_map``) with its disk-crossing march
+(``ops/disk_cuda.py``) and volumetric-transfer march
+(``ops/disk_vol_cuda.py``).  Tensors on a GPU run the kernels;
 tensors on the CPU run their plain PyTorch versions.  Factories build on
 the current CUDA device unless given ``device='cpu'``.  The package imports
 neither JAX nor ``curvis_tpu``.
@@ -39,11 +43,15 @@ from curvis_tpu_torch.ops.rk45_cuda import march_planar_rk45_cuda
 from curvis_tpu_torch.render.direct import render_direct
 from curvis_tpu_torch.integrate.adjoint import march_planar_adjoint
 from curvis_tpu_torch.fit import FitResult, fit
+from curvis_tpu_torch.render.disk import (DiskParams, compute_starlight_map,
+                                          render_blackhole_disk,
+                                          render_disk_frames_batched)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Camera",
+    "DiskParams",
     "EllisMetric",
     "FitResult",
     "FlatSphericalMetric",
@@ -52,6 +60,7 @@ __all__ = [
     "ReissnerNordstromMetric",
     "SchwarzschildMetric",
     "SphericalImage",
+    "compute_starlight_map",
     "fit",
     "load_spherical_image",
     "make_camera",
@@ -60,7 +69,9 @@ __all__ = [
     "march_planar_adjoint",
     "march_planar_rk45",
     "march_planar_rk45_cuda",
+    "render_blackhole_disk",
     "render_direct",
+    "render_disk_frames_batched",
     "render_frames_batched",
     "render_planar_adaptive",
     "render_planar_fast",

@@ -10,7 +10,10 @@ What the port runs so far: ``image --renderer direct`` with the Euler or
 the adaptive rk45 stepper and any planar metric (Ellis, Interstellar,
 Schwarzschild, Reissner-Nordstrom), ``--filtering``, ``--supersample``,
 ``--adaptive-aa``, ``--camera-velocity``, ``--bg1-orient`` /
-``--bg2-orient`` and ``--flip-negative``.  It renders on the GPU in
+``--bg2-orient`` and ``--flip-negative``; and ``image --disk`` (thin,
+slab, blackbody, volumetric and starlit disks through
+``render/disk.py:render_blackhole_disk``, whose march is always Euler, as
+in the JAX CLI, under any ``--renderer``).  It renders on the GPU in
 float32, or with ``--f64`` on the CPU in float64 (as the JAX CLI's
 ``--f64`` does); rk45 takes the tolerances of the JAX package's route on
 that device (``render/fast.py``).  Everything else raises
@@ -64,15 +67,27 @@ def build_parser() -> argparse.ArgumentParser:
                              "Dormand-Prince (quality mode); rk4 is not "
                              "ported yet")
         sp.add_argument("--disk", action="store_true",
-                        help="render an accretion disk (not ported yet)")
+                        help="render an accretion disk (black-hole metrics; "
+                             "Euler march)")
         sp.add_argument("--disk-color", choices=["tint", "blackbody"],
-                        default="tint")
-        sp.add_argument("--disk-thickness", type=float, default=0.0)
-        sp.add_argument("--disk-volumetric", action="store_true")
-        sp.add_argument("--disk-h", type=float, default=0.08)
-        sp.add_argument("--disk-starlight", action="store_true")
+                        default="tint",
+                        help="disk shading: tint = power-law emissivity x "
+                             "fixed tint; blackbody = Shakura-Sunyaev T(r) "
+                             "with Planck colors + chromatic Doppler shift")
+        sp.add_argument("--disk-thickness", type=float, default=0.0,
+                        help="finite-thickness slab shading (slab aspect; "
+                             "0 = thin-disk model)")
+        sp.add_argument("--disk-volumetric", action="store_true",
+                        help="volumetric radiative transfer through a "
+                             "flared Gaussian gas disk")
+        sp.add_argument("--disk-h", type=float, default=0.08,
+                        help="volumetric disk scale height H / r")
+        sp.add_argument("--disk-starlight", action="store_true",
+                        help="Lambertian reflection of the lensed sky off "
+                             "the disk (in-gas scattering when volumetric)")
         sp.add_argument("--disk-albedo", type=float, nargs=3,
-                        default=(0.4, 0.4, 0.4), metavar=("R", "G", "B"))
+                        default=(0.4, 0.4, 0.4), metavar=("R", "G", "B"),
+                        help="disk surface albedo for --disk-starlight")
         sp.add_argument("--camera-velocity", type=float, nargs=3,
                         default=None, metavar=("VX", "VY", "VZ"),
                         help="camera 3-velocity (fraction of c, world "
@@ -112,11 +127,22 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _disk_params(args):
+    """DiskParams from the --disk-* knobs."""
+    from curvis_tpu_torch.render.disk import DiskParams
+    return DiskParams(color_mode=args.disk_color,
+                      thickness=args.disk_thickness,
+                      volumetric=args.disk_volumetric, h_rel=args.disk_h,
+                      starlight=args.disk_starlight,
+                      albedo=tuple(args.disk_albedo))
+
+
 def _check_ported(args):
-    """Raise NotImplementedError for options the port does not run yet."""
+    """Raise NotImplementedError for options the port does not run yet.
+    ``--disk`` takes its own route before the renderer and stepper
+    options, as in the JAX CLI."""
     if args.disk:
-        raise NotImplementedError(
-            "--disk: disks and starlight are ROADMAP Queue 1 item 12")
+        return
     if args.renderer == "symmetric":
         raise NotImplementedError(
             "--renderer symmetric (the default) needs the on-device adaptive "
@@ -134,9 +160,9 @@ def image_main(args) -> int:
                                                   SimulationSettings,
                                                   load_settings)
     from curvis_tpu_torch.env.spherical_image import (SphericalImage,
-                                                      load_spherical_image,
-                                                      save_image)
+                                                      load_spherical_image)
     from curvis_tpu_torch.camera.camera import make_camera
+    from curvis_tpu_torch.render.disk import render_blackhole_disk
     from curvis_tpu_torch.render.fast import (render_planar_adaptive,
                                               render_planar_fast)
 
@@ -183,15 +209,24 @@ def image_main(args) -> int:
     args.output_folder.mkdir(parents=True, exist_ok=True)
     kw = dict(dt=sim.ray_integration_step,
               max_steps=sim.ray_integration_max_iterations,
-              escape_radius=sim.escape_radius, filtering=args.filtering,
-              stepper=args.stepper, camera_velocity=args.camera_velocity)
+              escape_radius=sim.escape_radius, filtering=args.filtering)
+    if args.disk:
+        img = render_blackhole_disk(metric, camera, bgp,
+                                    disk=_disk_params(args), **kw)
+        return _save(img, args.output_folder, img_s.image_name)
+    kw.update(stepper=args.stepper, camera_velocity=args.camera_velocity)
     if args.adaptive_aa > 0:
         img = render_planar_adaptive(metric, camera, bgp, bgn,
                                      refine_frac=args.adaptive_aa, **kw)
     else:
         img = render_planar_fast(metric, camera, bgp, bgn,
                                  supersample=args.supersample, **kw)
-    out = args.output_folder / f"{img_s.image_name}.png"
+    return _save(img, args.output_folder, img_s.image_name)
+
+
+def _save(img, folder, name) -> int:
+    from curvis_tpu_torch.env.spherical_image import save_image
+    out = folder / f"{name}.png"
     save_image(img, out)
     print(f"saved {out}")
     return 0

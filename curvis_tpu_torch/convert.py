@@ -1,11 +1,12 @@
 """Carry the JAX package's state across to the port.
 
-The "weights" of a ``curvis_tpu`` scene are a metric's parameters, a camera
-and sky textures with their rotation matrices.  The functions here take
-them as numpy arrays (the JAX dataclass fields after ``np.asarray``) and
-build the port's objects on a given device and dtype (the current CUDA
-device unless ``device`` is given), so that both packages compute on the
-same state.  This module never imports JAX.
+The "weights" of a ``curvis_tpu`` scene are a metric's parameters, a
+camera, sky textures with their rotation matrices and, for a starlit disk,
+its starlight map (``DiskParams`` carries across as plain field values).
+The functions here take them as numpy arrays (the JAX dataclass fields
+after ``np.asarray``) and build the port's objects on a given device and
+dtype (the current CUDA device unless ``device`` is given), so that both
+packages compute on the same state.  This module never imports JAX.
 """
 from __future__ import annotations
 
@@ -69,3 +70,15 @@ def spherical_image_from_arrays(texture, rotation, *, device=None,
     taken as they are (the rotation is not rebuilt)."""
     return SphericalImage(texture=_t(texture, device, dtype),
                           rotation=_t(rotation, device, dtype))
+
+
+def starlight_map(radii, values, values_neg=None, *, device=None,
+                  dtype=torch.float32):
+    """A port StarlightMap from the arrays of a JAX ``StarlightMap``
+    (``radii`` (n_r,), ``values`` (2, n_r, n_phi, 3), optional
+    ``values_neg``), e.g. ``starlight_map(np.asarray(m.radii),
+    np.asarray(m.values))`` for a one-sheet JAX map ``m``."""
+    from curvis_tpu_torch.render.starlight import StarlightMap
+    neg = None if values_neg is None else _t(values_neg, device, dtype)
+    return StarlightMap(radii=_t(radii, device, dtype),
+                        values=_t(values, device, dtype), values_neg=neg)

@@ -1,0 +1,167 @@
+// Euler march of planar rays that records their first two crossings of the
+// equatorial disk, one thread per ray (CUDA, sm_90a).
+//
+// Replaces the TPU kernel curvis_tpu/ops/march_pallas.py:_disk_kernel
+// (wrapper march_planar_disk_pallas).  Inputs per ray: (l, psi, p_l, b) and
+// the world z-components (c1, c2) of its orbital-plane basis; outputs: the
+// march state (l, psi, p_l, sign, steps) and the first two in-band crossings
+// as signed (l, p_l, psi) triples (h1, h1p, h1s, h2, h2p, h2s), h1 == 0
+// meaning no hit.  The Python wrapper is
+// curvis_tpu_torch/ops/disk_cuda.py:march_planar_disk_cuda and the plain
+// PyTorch version of this arithmetic is march_planar_disk_plain there.
+//
+// Semantics kept from the TPU kernel:
+//   - (cos psi, sin psi) advance incrementally, u <- u - v du,
+//     v <- v + u du, and zq = c1 u + c2 v (z / r(l), no r) detects the
+//     crossing; the drift of that rotation in norm is part of the march;
+//   - the crossing interpolates frac = |zq| / max(|zq| + |zq1|, 1e-30)
+//     within the step; the hit coordinate l + frac (l1 - l) is SIGNED
+//     (sign = sheet), psi at the hit is psi + frac du;
+//   - the second hit is decided from h1 before this step's update, and the
+//     hits accumulate as h += new * value (a NaN ray gets NaN hits, as on
+//     the TPU);
+//   - escape / capture after each step as in march_ray (planar.cuh).
+//
+// What bounds it on the H100: FP32 issue and warp divergence, as the plain
+// march kernel (planar_march.cu): ~14 operations per Schwarzschild Euler
+// step plus ~20 for the rotation and the crossing test, over thousands of
+// dependent steps; 24 bytes read and 44 written per ray.  The design does
+// nothing about divergence yet: a thread leaves the loop when its ray ends.
+#include <cstring>
+
+#include "planar.cuh"
+
+namespace curvis {
+
+constexpr int kDiskThreads = 128;
+
+// Host row: the march scalars, then the recording band [r_in, r_out].
+struct DiskScalars {
+  MarchScalars m;
+  float r_in;
+  float r_out;
+};
+
+template <int KIND>
+__global__ void __launch_bounds__(kDiskThreads)
+    march_disk_kernel(DiskScalars s, const float* __restrict__ l_in,
+                      const float* __restrict__ psi_in,
+                      const float* __restrict__ pl_in,
+                      const float* __restrict__ b_in,
+                      const float* __restrict__ c1_in,
+                      const float* __restrict__ c2_in,
+                      float* __restrict__ fout, int* __restrict__ iout,
+                      long long n, int max_steps) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float l = l_in[i], psi = psi_in[i], p_l = pl_in[i];
+  const float b = b_in[i], c1 = c1_in[i], c2 = c2_in[i];
+  const float b2 = b * b;
+  const float dt = s.m.dt;
+  float u = cosf(psi), v = sinf(psi);
+  float zq = c1 * u + c2 * v;
+  float h1 = 0.0f, h1p = 0.0f, h1s = 0.0f;
+  float h2 = 0.0f, h2p = 0.0f, h2s = 0.0f;
+  int sign = 0;
+  int n_steps = 0;
+  while (n_steps < max_steps && sign == 0) {
+    float dl, dpsi, dpl;
+    planar_deriv<KIND>(s.m, l, p_l, b, b2, &dl, &dpsi, &dpl);
+    const float l1 = l + dt * dl;
+    const float pl1 = p_l + dt * dpl;
+    const float du = dt * dpsi;
+    const float u1 = u - v * du;
+    const float v1 = v + u * du;
+    const float zq1 = c1 * u1 + c2 * v1;
+    // crossing: z changes sign within the step (r > 0, so zq's sign is z's)
+    const bool crossed = zq * zq1 < 0.0f;
+    const float frac = fabsf(zq) / max_nan(fabsf(zq) + fabsf(zq1), 1e-30f);
+    const float lh = l + frac * (l1 - l);
+    const float r_hit = fabsf(lh);
+    const bool in_disk = crossed && r_hit >= s.r_in && r_hit <= s.r_out;
+    const float pl_hit = p_l + frac * (pl1 - p_l);
+    const float psi_hit = psi + frac * du;
+    const float new1 = (in_disk && h1 == 0.0f) ? 1.0f : 0.0f;
+    const float new2 = (in_disk && h1 != 0.0f && h2 == 0.0f) ? 1.0f : 0.0f;
+    h1 = h1 + new1 * lh;
+    h1p = h1p + new1 * pl_hit;
+    h1s = h1s + new1 * psi_hit;
+    h2 = h2 + new2 * lh;
+    h2p = h2p + new2 * pl_hit;
+    h2s = h2s + new2 * psi_hit;
+    l = l1;
+    psi = psi + du;
+    p_l = pl1;
+    u = u1;
+    v = v1;
+    zq = zq1;
+    ++n_steps;
+    if (l > s.m.R) {
+      sign = 1;
+    } else if (l < -s.m.R) {
+      sign = -1;
+    } else if (HasCapture<KIND>::value && l < s.m.r_cap) {
+      sign = 2;
+    }
+  }
+  // fout rows: l, psi, p_l, h1, h1p, h1s, h2, h2p, h2s; iout: sign, steps
+  const float row[9] = {l, psi, p_l, h1, h1p, h1s, h2, h2p, h2s};
+#pragma unroll
+  for (int k = 0; k < 9; ++k) fout[k * n + i] = row[k];
+  iout[i] = sign;
+  iout[n + i] = n_steps;
+}
+
+}  // namespace curvis
+
+// Host entry.  `scalars` is a host array of n_scalars floats in the layout
+// of curvis::DiskScalars, copied into the kernel's by-value argument.
+// `fout` is a (9, n) float buffer (l, psi, p_l, h1, h1p, h1s, h2, h2p, h2s)
+// and `iout` a (2, n) int buffer (sign, steps).  Launches on `stream`
+// without synchronising and returns the cudaError_t of the launch.
+extern "C" int curvis_march_disk(int kind, const float* scalars,
+                                 int n_scalars, const float* l,
+                                 const float* psi, const float* p_l,
+                                 const float* b, const float* c1,
+                                 const float* c2, float* fout, int* iout,
+                                 long long n, int max_steps, int device,
+                                 void* stream) {
+  using namespace curvis;
+  if (n_scalars != static_cast<int>(sizeof(DiskScalars) / sizeof(float)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DiskScalars s;
+  std::memcpy(&s, scalars, sizeof(s));
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return 0;
+  const long long blocks = (n + kDiskThreads - 1) / kDiskThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned g = static_cast<unsigned>(blocks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CURVIS_DISK_LAUNCH(K)                                              \
+  march_disk_kernel<K><<<g, kDiskThreads, 0, st>>>(s, l, psi, p_l, b, c1, \
+                                                   c2, fout, iout, n,     \
+                                                   max_steps)
+  switch (kind) {
+    case kEllis:
+      CURVIS_DISK_LAUNCH(kEllis);
+      break;
+    case kInterstellar:
+      CURVIS_DISK_LAUNCH(kInterstellar);
+      break;
+    case kFlat:
+      CURVIS_DISK_LAUNCH(kFlat);
+      break;
+    case kSchwarzschild:
+      CURVIS_DISK_LAUNCH(kSchwarzschild);
+      break;
+    case kReissnerNordstrom:
+      CURVIS_DISK_LAUNCH(kReissnerNordstrom);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef CURVIS_DISK_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,359 @@
+// Euler march of planar rays with per-step volumetric radiative transfer
+// through a flared Gaussian gas disk, one thread per ray (CUDA, sm_90a).
+//
+// Replaces the TPU kernel curvis_tpu/ops/march_pallas.py:_disk_vol_kernel
+// with its per-step emission _vol_emission (wrapper
+// march_planar_disk_volumetric_pallas).  Inputs per ray: (l, psi, p_l, b),
+// the z-components (c1, c2) of the orbital-plane basis and the plane
+// normal's z-component nz; outputs: (l, psi, p_l, sign, steps) and the
+// optical depth tau with the three emission accumulators (em_r, em_g,
+// em_b).  The Python wrapper is curvis_tpu_torch/ops/disk_vol_cuda.py:
+// march_planar_disk_volumetric_cuda, and the plain PyTorch version of this
+// arithmetic is march_planar_disk_volumetric_plain there.
+//
+// The TPU kernel's four compile-time flags are template parameters:
+// BLACKBODY (Planck colours of the Shakura-Sunyaev temperature, else a
+// power-law emissivity in grey), REDSHIFT and DOPPLER (the gravitational
+// and the orbital shift g; they act only for the lapse kinds,
+// Schwarzschild and Reissner-Nordstrom) and SCATTER (the single-scattering
+// source of the lensed sky, a 27-scalar block after the emission slots).
+//
+// Semantics kept from the TPU kernel:
+//   - emission at the post-step state with the PRE-update tau; the
+//     accumulators and tau advance by dt only while the ray is live;
+//   - r from rsqrt of the shape function's 1/r^2 (r = l for the lapse
+//     kinds); the Planck chromaticity from ln(e^x - 1) = x + ln(1 - e^-x);
+//   - escape / capture first, then the tau_max freeze of a ray still at
+//     sign 0 (sign 2: OPAQUE_SIGN == CAPTURED);
+//   - every max and clip propagates NaN, as jnp.maximum / jnp.clip do.
+//
+// What bounds it on the H100: FP32 issue (an Euler step of ~14 operations
+// plus ~45 of tint emission, ~75 with blackbody: 3 more exp and 3 more log)
+// and warp divergence; 28 bytes read and 36 written per ray.  As the other
+// march kernels, a thread leaves its loop when its ray ends.
+#include <cstring>
+
+#include "planar.cuh"
+
+namespace curvis {
+
+constexpr int kVolThreads = 128;
+constexpr int kScatterDeg = 7;
+constexpr int kScatterBlock = 3 + 3 * (kScatterDeg + 1);   // = 27
+
+// Host row (the planar volumetric row of curvis_tpu/ops/march_pallas.py):
+// the march scalars, the band, the 8 emission slots, then the scatter
+// block [tint_r, tint_g, tint_b, 3 x (kScatterDeg + 1) monomials] when the
+// SCATTER instance runs (the host passes 16 or 43 floats).
+struct VolScalars {
+  MarchScalars m;
+  float r_in;
+  float r_out;
+  float h2;          // h_rel^2
+  float inv_norm;    // 1 / (sqrt(2 pi) h_rel)
+  float kappa;
+  float tau_max;
+  float t_peak;
+  float emis_q;      // emissivity index
+  float spin_sign;
+  float t_scale;     // t_peak / f_peak
+  float scatter[kScatterBlock];
+};
+
+constexpr int kVolBaseFloats = 16;
+
+// c2 / lambda and -5 ln lambda at the three sample wavelengths (610, 550,
+// 465 nm), as the TPU kernel's _VOL_BB_K and _VOL_BB_L5 (the logs in
+// double, from numpy).
+constexpr float kBbK0 = static_cast<float>(1.4388e-2 / 610e-9);
+constexpr float kBbK1 = static_cast<float>(1.4388e-2 / 550e-9);
+constexpr float kBbK2 = static_cast<float>(1.4388e-2 / 465e-9);
+constexpr float kBbL50 = static_cast<float>(71.54903439889527);
+constexpr float kBbL51 = static_cast<float>(72.06673779359947);
+constexpr float kBbL52 = static_cast<float>(72.90614215679527);
+
+// ln of the Planck radiance at one wavelength, up to a common constant:
+// -5 ln lambda - ln(e^x - 1), x = c2 / (lambda T), with
+// ln(e^x - 1) = x + ln(1 - e^-x) (no overflow for cold T).
+__device__ __forceinline__ float planck_log(float k, float l5, float inv_T) {
+  const float x = k * inv_T;
+  return l5 - (x + logf(max_nan(1.0f - expf(-x), 1e-30f)));
+}
+
+// (dtau, dem_r, dem_g, dem_b) per unit step at the post-step state.
+template <int KIND, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
+          bool SCATTER>
+__device__ __forceinline__ void vol_emission(const VolScalars& s, float l,
+                                             float p_l, float b, float zq,
+                                             float tau, float nz,
+                                             float* dtau, float* dem) {
+  constexpr bool kLapse = HasCapture<KIND>::value;
+  float r;
+  if constexpr (kLapse) {
+    r = l;
+  } else {
+    r = rsqrtf(planar_inv_r2<KIND>(s.m, l));
+  }
+  const float zq2 = zq * zq;
+  const float s2 = clip_nan(1.0f - zq2, 1e-12f, 1.0f);
+  const float r_cyl = r * sqrtf(s2);
+  const float dens = expf(-zq2 / (2.0f * s.h2 * s2)) * (s.inv_norm / r_cyl);
+  const float w_edge = s.r_out - s.r_in;
+  const float edge_in = clip_nan((r_cyl - s.r_in) / (0.1f * w_edge), 0.0f,
+                                 1.0f);
+  const float edge_out = clip_nan((s.r_out - r_cyl) / (0.3f * w_edge), 0.0f,
+                                  1.0f);
+  const float base = dens * edge_in * edge_out;
+  const float rr = max_nan(r_cyl, s.r_in);
+  float g = 1.0f;
+  if constexpr (kLapse && (REDSHIFT || DOPPLER)) {
+    const float M = s.m.p0;
+    float A, vsq;
+    if constexpr (KIND == kReissnerNordstrom) {
+      const float q2 = s.m.p1;
+      A = clip_nan(1.0f - (2.0f * M - q2 / rr) / rr, 1e-3f, 1.0f);
+      vsq = (M - q2 / rr) / rr;     // r A'/2: circular-orbit speed^2
+    } else {
+      A = clip_nan(1.0f - 2.0f * M / rr, 1e-3f, 1.0f);
+      vsq = M / rr;
+    }
+    const float sqA = sqrtf(A);
+    if constexpr (REDSHIFT) g = sqA;
+    if constexpr (DOPPLER) {
+      const float v = clip_nan(sqrtf(vsq) / sqA, 0.0f, 0.99f);
+      const float gamma = rsqrtf(1.0f - v * v);
+      const float u_l = p_l * sqA;
+      const float u_psi = b / rr;
+      const float inv = rsqrtf(u_l * u_l + u_psi * u_psi + 1e-30f);
+      const float cos_xi = (u_psi * inv) * nz * s.spin_sign;
+      g = g / (gamma * (1.0f - v * cos_xi));
+    }
+  }
+  const float trans = expf(-tau);
+  *dtau = s.kappa * base;
+  float scat[3] = {0.0f, 0.0f, 0.0f};
+  if constexpr (SCATTER) {
+    // Horner in the compactified radius per channel, clipped at 0 (a
+    // least-squares fit may undershoot)
+    const float t = clip_nan(2.0f * (r_cyl - s.r_in) / (s.r_out - s.r_in) -
+                                 1.0f,
+                             -1.0f, 1.0f);
+    const float sw = trans * base;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int c0 = 3 + c * (kScatterDeg + 1);
+      float acc = s.scatter[c0 + kScatterDeg];
+#pragma unroll
+      for (int k = kScatterDeg - 1; k >= 0; --k)
+        acc = acc * t + s.scatter[c0 + k];
+      scat[c] = sw * max_nan(acc, 0.0f);
+    }
+  }
+  if constexpr (BLACKBODY) {
+    // Shakura-Sunyaev T(rr), normalised to its peak t_peak
+    const float sq = sqrtf(s.r_in / rr);
+    const float ln_r = logf(rr);
+    const float f =
+        expf(-0.75f * ln_r + 0.25f * logf(max_nan(1.0f - sq, 1e-20f)));
+    const float t_obs = g * s.t_scale * f;
+    const float rel_sq = t_obs / s.t_peak;
+    float rel = rel_sq * rel_sq;
+    rel = rel * rel;                               // (t_obs / t_peak)^4
+    const float inv_T = 1.0f / max_nan(t_obs, 1.0f);
+    const float lg[3] = {planck_log(kBbK0, kBbL50, inv_T),
+                         planck_log(kBbK1, kBbL51, inv_T),
+                         planck_log(kBbK2, kBbL52, inv_T)};
+    const float m = max_nan(lg[0], max_nan(lg[1], lg[2]));
+    const float w = trans * base * rel;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      dem[c] = w * expf(lg[c] - m);
+      if constexpr (SCATTER) dem[c] = dem[c] + scat[c];
+    }
+  } else {
+    const float emis = expf(s.emis_q * logf(s.r_in / rr));
+    const float cg = clip_nan(g, 0.0f, 4.0f);
+    const float w = trans * base * emis * (cg * cg * cg);
+    if constexpr (SCATTER) {
+      // scattered light is coloured: the tint folds in per channel
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dem[c] = w * s.scatter[c] + scat[c];
+    } else {
+      dem[0] = w;
+      dem[1] = w;
+      dem[2] = w;
+    }
+  }
+}
+
+template <int KIND, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
+          bool SCATTER>
+__global__ void __launch_bounds__(kVolThreads)
+    march_disk_vol_kernel(VolScalars s, const float* __restrict__ l_in,
+                          const float* __restrict__ psi_in,
+                          const float* __restrict__ pl_in,
+                          const float* __restrict__ b_in,
+                          const float* __restrict__ c1_in,
+                          const float* __restrict__ c2_in,
+                          const float* __restrict__ nz_in,
+                          float* __restrict__ fout, int* __restrict__ iout,
+                          long long n, int max_steps) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float l = l_in[i], psi = psi_in[i], p_l = pl_in[i];
+  const float b = b_in[i], c1 = c1_in[i], c2 = c2_in[i], nz = nz_in[i];
+  const float b2 = b * b;
+  const float dt = s.m.dt;
+  float u = cosf(psi), v = sinf(psi);
+  float tau = 0.0f;
+  float em[3] = {0.0f, 0.0f, 0.0f};
+  int sign = 0;
+  int n_steps = 0;
+  while (n_steps < max_steps && sign == 0) {
+    float dl, dpsi, dpl;
+    planar_deriv<KIND>(s.m, l, p_l, b, b2, &dl, &dpsi, &dpl);
+    l = l + dt * dl;
+    psi = psi + dt * dpsi;
+    p_l = p_l + dt * dpl;
+    const float du = dt * dpsi;
+    const float u1 = u - v * du;
+    v = v + u * du;
+    u = u1;
+    const float zq = c1 * u + c2 * v;
+    float dtau, dem[3];
+    vol_emission<KIND, BLACKBODY, REDSHIFT, DOPPLER, SCATTER>(
+        s, l, p_l, b, zq, tau, nz, &dtau, dem);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) em[c] = em[c] + dt * dem[c];
+    tau = tau + dt * dtau;
+    ++n_steps;
+    if (l > s.m.R) {
+      sign = 1;
+    } else if (l < -s.m.R) {
+      sign = -1;
+    } else if (HasCapture<KIND>::value && l < s.m.r_cap) {
+      sign = 2;
+    }
+    // the tau_max freeze (OPAQUE_SIGN == CAPTURED == 2) comes after
+    // escape / capture
+    if (sign == 0 && tau > s.tau_max) sign = 2;
+  }
+  // fout rows: l, psi, p_l, tau, em_r, em_g, em_b; iout: sign, steps
+  const float row[7] = {l, psi, p_l, tau, em[0], em[1], em[2]};
+#pragma unroll
+  for (int k = 0; k < 7; ++k) fout[k * n + i] = row[k];
+  iout[i] = sign;
+  iout[n + i] = n_steps;
+}
+
+// Launch arguments of one call, bundled for the flag dispatch below.
+struct VolLaunch {
+  unsigned blocks;
+  cudaStream_t stream;
+  const float *l, *psi, *p_l, *b, *c1, *c2, *nz;
+  float* fout;
+  int* iout;
+  long long n;
+  int max_steps;
+};
+
+template <int KIND, bool BB, bool RS, bool DOP, bool SC>
+void launch_vol(const VolScalars& s, const VolLaunch& a) {
+  march_disk_vol_kernel<KIND, BB, RS, DOP, SC>
+      <<<a.blocks, kVolThreads, 0, a.stream>>>(s, a.l, a.psi, a.p_l, a.b,
+                                               a.c1, a.c2, a.nz, a.fout,
+                                               a.iout, a.n, a.max_steps);
+}
+
+template <int KIND, bool BB, bool RS, bool DOP>
+void pick_scatter(bool sc, const VolScalars& s, const VolLaunch& a) {
+  if (sc)
+    launch_vol<KIND, BB, RS, DOP, true>(s, a);
+  else
+    launch_vol<KIND, BB, RS, DOP, false>(s, a);
+}
+
+template <int KIND, bool BB>
+void pick_shift(bool rs, bool dop, bool sc, const VolScalars& s,
+                const VolLaunch& a) {
+  if constexpr (!HasCapture<KIND>::value) {
+    // the shifts act only for the lapse kinds: one instance serves all
+    pick_scatter<KIND, BB, false, false>(sc, s, a);
+  } else if (rs && dop) {
+    pick_scatter<KIND, BB, true, true>(sc, s, a);
+  } else if (rs) {
+    pick_scatter<KIND, BB, true, false>(sc, s, a);
+  } else if (dop) {
+    pick_scatter<KIND, BB, false, true>(sc, s, a);
+  } else {
+    pick_scatter<KIND, BB, false, false>(sc, s, a);
+  }
+}
+
+template <int KIND>
+void pick_flags(bool bb, bool rs, bool dop, bool sc, const VolScalars& s,
+                const VolLaunch& a) {
+  if (bb)
+    pick_shift<KIND, true>(rs, dop, sc, s, a);
+  else
+    pick_shift<KIND, false>(rs, dop, sc, s, a);
+}
+
+}  // namespace curvis
+
+// Host entry.  `scalars` is a host array of n_scalars floats in the layout
+// of curvis::VolScalars: 16 without the scatter block, 16 + 27 with it
+// (`scatter` must say which).  `fout` is a (7, n) float buffer (l, psi,
+// p_l, tau, em_r, em_g, em_b) and `iout` a (2, n) int buffer (sign,
+// steps).  Launches on `stream` without synchronising and returns the
+// cudaError_t of the launch.
+extern "C" int curvis_march_disk_vol(int kind, int blackbody, int redshift,
+                                     int doppler, int scatter,
+                                     const float* scalars, int n_scalars,
+                                     const float* l, const float* psi,
+                                     const float* p_l, const float* b,
+                                     const float* c1, const float* c2,
+                                     const float* nz, float* fout, int* iout,
+                                     long long n, int max_steps, int device,
+                                     void* stream) {
+  using namespace curvis;
+  const int want = kVolBaseFloats + (scatter ? kScatterBlock : 0);
+  static_assert(sizeof(VolScalars) ==
+                    (kVolBaseFloats + kScatterBlock) * sizeof(float),
+                "VolScalars is a packed row of floats");
+  if (n_scalars != want) return static_cast<int>(cudaErrorInvalidValue);
+  VolScalars s;
+  std::memset(&s, 0, sizeof(s));
+  std::memcpy(&s, scalars, sizeof(float) * n_scalars);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return 0;
+  const long long blocks = (n + kVolThreads - 1) / kVolThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const VolLaunch a{static_cast<unsigned>(blocks),
+                    static_cast<cudaStream_t>(stream),
+                    l, psi, p_l, b, c1, c2, nz, fout, iout, n, max_steps};
+  const bool bb = blackbody != 0, rs = redshift != 0, dop = doppler != 0,
+             sc = scatter != 0;
+  switch (kind) {
+    case kEllis:
+      pick_flags<kEllis>(bb, rs, dop, sc, s, a);
+      break;
+    case kInterstellar:
+      pick_flags<kInterstellar>(bb, rs, dop, sc, s, a);
+      break;
+    case kFlat:
+      pick_flags<kFlat>(bb, rs, dop, sc, s, a);
+      break;
+    case kSchwarzschild:
+      pick_flags<kSchwarzschild>(bb, rs, dop, sc, s, a);
+      break;
+    case kReissnerNordstrom:
+      pick_flags<kReissnerNordstrom>(bb, rs, dop, sc, s, a);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

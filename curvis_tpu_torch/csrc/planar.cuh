@@ -1,6 +1,6 @@
 // Planar null-geodesic right-hand sides, the per-ray Euler march and the
 // hand-written VJP of one Euler step, shared by planar_march.cu,
-// render_fused.cu and ckpt_adjoint.cu.
+// render_fused.cu, ckpt_adjoint.cu, disk.cu and disk_vol.cu.
 //
 // State per ray: (l, psi, p_l) with conserved angular momentum b.  The
 // metric kind is a template parameter, so each kernel instance carries only
@@ -41,6 +41,16 @@ struct MarchScalars {
 };
 
 constexpr float kPi = 3.14159265358979323846f;
+
+// max and clip that propagate NaN, as jnp.maximum / jnp.clip do (fmaxf /
+// fminf drop a NaN operand).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float clip_nan(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
 
 // DNEG: r(l) and r'(l) with x = 2(|l| - a) / (pi m); r = rho, r' = 0 inside
 // the throat |l| <= a.
@@ -104,6 +114,22 @@ __device__ __forceinline__ void planar_deriv(const MarchScalars& s, float l,
     *dpl = (-(M - q2 * invl) * invl2) * (invA * invA + p_l * p_l) +
            b2 * invl2 * invl;
   }
+}
+
+// 1 / r(l)^2 of the unit-lapse kinds, in the form planar_deriv computes
+// it (curvis_tpu/ops/march_pallas.py:_shape_fns); the lapse kinds have
+// r = l and never call it.
+template <int KIND>
+__device__ __forceinline__ float planar_inv_r2(const MarchScalars& s,
+                                               float l) {
+  if constexpr (KIND == kEllis) return 1.0f / (s.p0 * s.p0 + l * l);
+  if constexpr (KIND == kInterstellar) {
+    float r, dr;
+    dneg_shape(s.p0, s.p1, s.p2, l, &r, &dr);
+    const float ir = 1.0f / r;
+    return ir * ir;
+  }
+  return 1.0f / (l * l);
 }
 
 // Areal radius r(l), for the readout.

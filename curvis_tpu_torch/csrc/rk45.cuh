@@ -73,14 +73,6 @@ constexpr float kE5 = static_cast<float>(-92097.0 / 339200);
 constexpr float kE6 = static_cast<float>(187.0 / 2100);
 constexpr float kE7 = static_cast<float>(1.0 / 40);
 
-// max and clip that propagate NaN, as jnp.maximum / jnp.clip do.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
-}
-
-__device__ __forceinline__ float clip_nan(float x, float lo, float hi) {
-  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
-}
 
 // Scaled error of one component: |dt e| / (atol + rtol max(|y0|, |y1|)).
 __device__ __forceinline__ float rk45_err(const Rk45Control& c, float dt,

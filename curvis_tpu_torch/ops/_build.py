@@ -58,6 +58,15 @@ _PROTOTYPES = {
     # lam_l, lam_psi, lam_pl, g0, g1, g2, gb, n, seg, device, stream
     "curvis_ckpt_bwd": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    # kind, scalars, n_scalars, l, psi, p_l, b, c1, c2, fout (9 x n),
+    # iout (2 x n), n, max_steps, device, stream
+    "curvis_march_disk": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          ctypes.c_longlong, _I, _I, _P],
+    # kind, blackbody, redshift, doppler, scatter, scalars, n_scalars, l,
+    # psi, p_l, b, c1, c2, nz, fout (7 x n), iout (2 x n), n, max_steps,
+    # device, stream
+    "curvis_march_disk_vol": [_I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
 }
 
 _lock = threading.Lock()

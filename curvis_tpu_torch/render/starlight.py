@@ -1,0 +1,271 @@
+"""Starlight on the disk: the lensed sky illuminating the accretion-disk
+surface (PyTorch; the planar part of ``curvis_tpu/render/starlight.py``).
+
+Each disk face is a Lambertian reflector, L_out = albedo / pi * E with
+E = int_hemi L_in cos(th) dw, where L_in is the sky radiance arriving
+along the curved photon path.  By spherical symmetry a secondary ray's
+reduced orbit depends only on its launch radius and its angle from the
+radial direction, so ONE march of n_r x n_samples reduced rays (a
+cosine-weighted hemisphere set per radius) covers every disk point, both
+faces and every azimuth; the (2, n_r, n_phi, 3) map of E / pi is a basis
+rotation of those escape angles followed by sky lookups.  The map does not
+depend on the camera: compute it once per (metric, sky, disk).
+
+The map's march is the thin-disk march of ``render/disk.py`` (annulus
+crossings give the self-shadow): kernel #5 (``ops/disk_cuda.py``) for CUDA
+tensors, the XLA twin for CPU tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from curvis_tpu_torch.metrics.base import (EllisMetric, FlatSphericalMetric,
+                                           InterstellarMetric, Metric,
+                                           ReissnerNordstromMetric,
+                                           SchwarzschildMetric)
+from curvis_tpu_torch.ops.disk_vol_cuda import SCATTER_BLOCK, SCATTER_DEG
+from curvis_tpu_torch.physics import planar as pl
+from curvis_tpu_torch.render.disk import (_check_route, _emission_rgb,
+                                          _march_thin)
+from curvis_tpu_torch.render.fast import _shade_soa
+
+# the metrics whose l -> -l mirror is themselves
+_SYMMETRIC = (EllisMetric, InterstellarMetric, FlatSphericalMetric,
+              SchwarzschildMetric, ReissnerNordstromMetric)
+
+
+class StarlightMap(NamedTuple):
+    """Reflected-sky map over the disk: values[(1 - side) // 2, i, j] is
+    E / pi at radius radii[i], world azimuth 2 pi j / n_phi, on the +z
+    (index 0) or -z (index 1) face.  ``values_neg``: the negative-sheet
+    table of a two-sheet wormhole map; hits select their sheet by the sign
+    of the recorded hit coordinate."""
+    radii: torch.Tensor             # (n_r,)
+    values: torch.Tensor            # (2, n_r, n_phi, 3)
+    values_neg: Optional[torch.Tensor] = None
+
+
+def mirror_metric(metric):
+    """The l -> -l mirrored metric, r_m(l) = r(-l): the metric itself for
+    the five planar kinds, whose shapes are even in l.  Tabulated metrics
+    (whose mirror flips the parity of their Chebyshev tables) are ROADMAP
+    Queue 1 item 9."""
+    if isinstance(metric, _SYMMETRIC):
+        return metric
+    raise NotImplementedError(
+        f"mirror_metric: {type(metric).__name__} is not a ported planar "
+        "metric (tabulated metrics are ROADMAP Queue 1 item 9)")
+
+
+def _cosine_hemisphere(n_samples: int):
+    """Deterministic cosine-weighted hemisphere set around the face normal,
+    in local (r_hat, phi_hat, n_hat) coordinates (a_r, a_p, a_n): a
+    Fibonacci lattice in (u, phi) with cos(th) = sqrt(1 - u)."""
+    k = np.arange(n_samples)
+    u = (k + 0.5) / n_samples
+    ang = np.pi * (3.0 - np.sqrt(5.0)) * k          # golden angle
+    sin_t = np.sqrt(u)
+    a_n = np.sqrt(1.0 - u)                          # cos(th) > 0: upper hemi
+    a_r = sin_t * np.cos(ang)
+    a_p = sin_t * np.sin(ang)
+    return a_r, a_p, a_n
+
+
+def hit_phi_side(r_hit, psi_hit, b, c1, c2, e1, e2):
+    """World azimuth and approach side of a recorded disk crossing.
+
+    ``e1``, ``e2``: per-ray orbital-plane basis as component tuples.  The
+    hit lies at r_hit (e1 cos psi + e2 sin psi), azimuth atan2(p_y, p_x);
+    the approach side is the sign of z just before the crossing,
+    -sign(b) sign(c2 cos psi - c1 sin psi).  Returns (phi_world, side),
+    side in {+1, -1} (meaningless where r_hit == 0)."""
+    cu = torch.cos(psi_hit)
+    sv = torch.sin(psi_hit)
+    px = e1[0] * cu + e2[0] * sv
+    py = e1[1] * cu + e2[1] * sv
+    phi = torch.atan2(py, px)
+    dz = c2 * cu - c1 * sv
+    side = -torch.sign(b) * torch.sign(dz)
+    side = torch.where(side == 0.0, torch.ones_like(side), side)
+    return phi, side
+
+
+def map_rays(metric: Metric, r_inner, r_outer, n_r, n_samples, dtype,
+             device):
+    """The map's reduced rays: (radii (n_r,), PlanarRays of the n_r x
+    n_samples hemisphere samples at (r_i, alpha_k), sin(alpha) per ray,
+    the hemisphere set (a_r, a_p, a_n) as tensors).  The planar spawn of
+    physics/planar.spawn_planar with a per-ray launch radius."""
+    rr = torch.linspace(float(r_inner), float(r_outer), n_r, dtype=dtype,
+                        device=device)
+    hemi = tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in _cosine_hemisphere(n_samples))
+    l0 = rr[:, None].expand(n_r, n_samples).reshape(-1)
+    cos_a = hemi[0][None, :].expand(n_r, n_samples).reshape(-1)
+    sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
+    p_l0 = cos_a
+    b0 = sin_a * metric.r(l0)
+    if not pl._unit_lapse(metric):
+        A0 = metric.lapse(l0)
+        B0 = metric.radial_B(l0)
+        p_l0 = cos_a * torch.sqrt(B0 / A0)
+        b0 = b0 / torch.sqrt(A0)
+    rays = pl.PlanarRays(l0, torch.zeros_like(l0), p_l0, b0, None, None)
+    return rr, rays, sin_a, hemi
+
+
+def compute_disk_starlight_map(
+        metric: Metric, bg_positive, bg_negative=None, *, r_inner, r_outer,
+        escape_radius, dt=0.02, max_steps=100_000, n_r=48, n_phi=128,
+        n_samples=128, filtering="bilinear", sample_filtering="nearest",
+        stepper="euler", blueshift=True, shadow_params=None,
+        two_sheet=False) -> StarlightMap:
+    """March the (n_r x n_samples) reduced secondary-ray table and expand
+    it to the (2, n_r, n_phi, 3) reflected-sky map.
+
+    ``shadow_params`` (a render/disk.DiskParams or None): each secondary
+    ray is attenuated by (1 - alpha) at its first two annulus crossings
+    (the disk shadowing itself).  ``sample_filtering``: the texture filter
+    of the per-sample sky lookups (each texel averages n_samples of them);
+    ``filtering`` is passed on to the second sheet only, as in the JAX
+    package.  ``two_sheet``: a second table for the mirrored metric with
+    the skies swapped (capture-free metrics only)."""
+    _check_route(stepper)
+    tex = bg_positive.texture
+    dtype, dev = tex.dtype, tex.device
+    if bg_negative is None:
+        bg_negative = bg_positive
+    rr, rays, sin_a, (_, a_p, a_n) = map_rays(metric, r_inner, r_outer, n_r,
+                                              n_samples, dtype, dev)
+    # the launch point sits ON the plane (c1 = 0, c2 = 1): crossings at
+    # psi = m pi for every sample
+    c1 = torch.zeros_like(rays.l)
+    c2 = torch.ones_like(rays.l)
+    res, h1, h2 = _march_thin(metric, rays, c1, c2, dt=dt,
+                              max_steps=max_steps,
+                              escape_radius=escape_radius, r_inner=r_inner,
+                              r_outer=r_outer)
+
+    beta = pl.escape_angle_beta(metric, res, rays.b).reshape(n_r, n_samples)
+    sign = res.sign.reshape(n_r, n_samples)
+
+    # self-shadow: Beer attenuation at the first two annulus crossings
+    att = torch.ones((n_r, n_samples), dtype=dtype, device=dev)
+    if shadow_params is not None:
+        g1 = torch.ones_like(h1[0])
+        _, alpha1 = _emission_rgb(torch.abs(h1[0]), g1, shadow_params, dtype)
+        _, alpha2 = _emission_rgb(torch.abs(h2[0]), g1, shadow_params, dtype)
+        att = ((1.0 - alpha1) * (1.0 - alpha2)).reshape(n_r, n_samples)
+
+    # expand: w(side, i, j, k) = cos(beta_ik) r_hat_j + sin(beta_ik) t_hat,
+    # t_hat = (a_p phi_hat_j + a_n side z_hat) / sin(alpha_k)
+    pp = (2.0 * math.pi / n_phi) * torch.arange(n_phi, dtype=dtype,
+                                                device=dev)
+    cj = torch.cos(pp)[None, None, :, None]          # (1, 1, n_phi, 1)
+    sj = torch.sin(pp)[None, None, :, None]
+    cb = torch.cos(beta)[None, :, None, :]           # (1, n_r, 1, K)
+    sb = torch.sin(beta)[None, :, None, :]
+    inv_s = (1.0 / torch.clamp(sin_a.reshape(n_r, n_samples), min=1e-12)
+             )[None, :, None, :]
+    apk = a_p[None, None, None, :]
+    ank = a_n[None, None, None, :]
+    sides = torch.tensor([1.0, -1.0], dtype=dtype,
+                         device=dev)[:, None, None, None]
+    shape = (2, n_r, n_phi, n_samples)
+    wx = (cb * cj + sb * inv_s * apk * (-sj)).expand(shape).reshape(-1)
+    wy = (cb * sj + sb * inv_s * apk * cj).expand(shape).reshape(-1)
+    wz = (sb * inv_s * ank * sides).expand(shape).reshape(-1)
+    esc_pos = (sign == 1)[None, :, None, :, None]
+    esc_neg = (sign == -1)[None, :, None, :, None]
+    L = _shade_soa(bg_positive, wx, wy, wz,
+                   sample_filtering).reshape(shape + (3,))
+    L = torch.where(esc_pos, L, torch.zeros_like(L))
+    if pl._capture_radius(metric) is None:
+        Ln = _shade_soa(bg_negative, wx, wy, wz,
+                        sample_filtering).reshape(shape + (3,))
+        L = torch.where(esc_neg, Ln, L)
+    L = L * att[None, :, None, :, None]
+    E = torch.mean(L, dim=3)                         # (2, n_r, n_phi, 3)
+    if blueshift and not pl._unit_lapse(metric):
+        A = torch.clamp(metric.lapse(rr), 1e-3, 1.0)
+        E = E * (1.0 / (A * A))[None, :, None, None]
+    values_neg = None
+    if two_sheet:
+        # the negative sheet's own table: the mirrored metric with the two
+        # universes' skies swapped
+        if pl._capture_radius(metric) is not None:
+            raise ValueError("two_sheet=True needs a two-universe "
+                             "(capture-free) metric")
+        neg = compute_disk_starlight_map(
+            mirror_metric(metric), bg_negative, bg_positive,
+            r_inner=r_inner, r_outer=r_outer, escape_radius=escape_radius,
+            dt=dt, max_steps=max_steps, n_r=n_r, n_phi=n_phi,
+            n_samples=n_samples, filtering=filtering,
+            sample_filtering=sample_filtering, stepper=stepper,
+            blueshift=blueshift, shadow_params=shadow_params,
+            two_sheet=False)
+        values_neg = neg.values
+    return StarlightMap(radii=rr, values=E, values_neg=values_neg)
+
+
+def starlight_lookup(smap: StarlightMap, r_hit, phi_world, side):
+    """Bilinear (r, phi) lookup with azimuthal wraparound; ``side`` in
+    {+1, -1} selects the face.  ``r_hit`` may be signed (sign = sheet):
+    the radius is |r_hit| and, when the map has a negative-sheet table,
+    r_hit < 0 selects it.  Returns (N, 3) E / pi."""
+    if smap.values_neg is not None:
+        pos = starlight_lookup(smap._replace(values_neg=None),
+                               torch.abs(r_hit), phi_world, side)
+        neg = starlight_lookup(StarlightMap(smap.radii, smap.values_neg),
+                               torch.abs(r_hit), phi_world, side)
+        return torch.where((r_hit < 0.0)[:, None], neg, pos)
+    vals = smap.values
+    _, n_r, n_phi, _ = vals.shape
+    r0 = smap.radii[0]
+    r1 = smap.radii[-1]
+    r_hit = torch.abs(r_hit)
+    tr = torch.clamp((r_hit - r0) / (r1 - r0), 0.0, 1.0) * (n_r - 1)
+    i0 = torch.clamp(torch.floor(tr).to(torch.int64), 0, n_r - 2)
+    fr = (tr - i0)[:, None]
+    tp = torch.remainder(phi_world / (2.0 * math.pi), 1.0) * n_phi
+    j0 = torch.clamp(torch.floor(tp).to(torch.int64), 0, n_phi - 1)
+    fp = (tp - j0)[:, None]
+    j1 = torch.remainder(j0 + 1, n_phi)
+    s = ((1.0 - side) * 0.5).to(torch.int64)         # +1 -> 0, -1 -> 1
+    rows = vals.reshape(-1, 3)
+    base = (s * n_r + i0) * n_phi
+
+    def gather(i_off, j):
+        return rows[base + i_off * n_phi + j]
+
+    top = gather(0, j0) * (1.0 - fp) + gather(0, j1) * fp
+    bot = gather(1, j0) * (1.0 - fp) + gather(1, j1) * fp
+    return top * (1.0 - fr) + bot * fr
+
+
+def starlight_scatter_block(smap: StarlightMap, disk, dtype=torch.float32):
+    """The (SCATTER_BLOCK,) in-gas scattering coefficients of the
+    volumetric marches: [tint_rgb, then per channel the SCATTER_DEG-degree
+    monomial fit of kappa_s albedo_c Ebar_c(t)], Ebar the face- and
+    azimuth-averaged map profile over t = 2 (r - r_in) / (r_out - r_in) - 1
+    and kappa_s = disk.starlight_scatter * disk.kappa."""
+    prof = torch.mean(smap.values, dim=(0, 2))        # (n_r, 3)
+    if smap.values_neg is not None:
+        prof = 0.5 * (prof + torch.mean(smap.values_neg, dim=(0, 2)))
+    n_r = prof.shape[0]
+    t = np.linspace(-1.0, 1.0, n_r)
+    pinv = np.linalg.pinv(np.vander(t, SCATTER_DEG + 1, increasing=True))
+    dev = prof.device
+    coefs = torch.as_tensor(pinv, dtype=dtype, device=dev) @ prof.to(dtype)
+    albedo = torch.tensor(disk.albedo, dtype=dtype, device=dev)
+    ks = torch.tensor(disk.starlight_scatter * disk.kappa, dtype=dtype,
+                      device=dev)
+    coefs = coefs * albedo[None, :] * ks
+    tint = torch.tensor(disk.tint, dtype=dtype, device=dev)
+    block = torch.cat([tint, coefs.T.reshape(-1)])
+    assert block.shape == (SCATTER_BLOCK,)
+    return block

@@ -229,7 +229,6 @@ def test_cli_image_direct_matches_jax_cli(scene):
 
 @pytest.mark.parametrize("extra, item", [
     ((), "item 7"),                                     # symmetric default
-    (("--renderer", "direct", "--disk"), "item 12"),
     (("--renderer", "direct", "--stepper", "rk4"), "item 4"),
     (("--stepper", "rk45"), "item 7"),                  # symmetric, rk45
 ])
@@ -265,9 +264,9 @@ def test_settings_defaults_match_jax():
 # ---------------------------------------------------------- import guard
 
 def test_import_loads_no_jax_and_runs_no_nvcc(tmp_path):
-    """Importing the port (with its render, fused, rk45, adjoint, fit and
-    CLI modules) loads no jax module and does not run nvcc: a fake nvcc
-    first on PATH would leave a marker file."""
+    """Importing the port (with its render, fused, rk45, adjoint, fit,
+    disk, starlight and CLI modules) loads no jax module and does not run
+    nvcc: a fake nvcc first on PATH would leave a marker file."""
     marker = tmp_path / "nvcc_ran"
     fake = tmp_path / "bin" / "nvcc"
     fake.parent.mkdir()
@@ -288,6 +287,10 @@ def test_import_loads_no_jax_and_runs_no_nvcc(tmp_path):
         import curvis_tpu_torch.ops.ckpt_adjoint_cuda
         import curvis_tpu_torch.render.direct
         import curvis_tpu_torch.fit
+        import curvis_tpu_torch.render.disk
+        import curvis_tpu_torch.render.starlight
+        import curvis_tpu_torch.ops.disk_cuda
+        import curvis_tpu_torch.ops.disk_vol_cuda
         from curvis_tpu_torch.ops import _build
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "curvis_tpu"))
