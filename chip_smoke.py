@@ -56,7 +56,22 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      blackbody + scatter, render_disk_frames_batched over 4 poses and the
      CLI's image --disk at 256^2, with each job's launches of #5 and #6,
      the thin frame against the route with #5's plain version, and
-     profiles of a thin and a volumetric frame.
+     profiles of a thin and a volumetric frame;
+ 13. the Kerr RK4 march kernel (#7) against its plain version: the
+     example's bare Kerr view (a = 0.9, r = 28, theta = pi/2 - 0.2, 24 mm,
+     dt 0.1, escape radius 56) at 960 x 540, Kerr-Newman at 256^2, the
+     disk tracker and the volumetric variants (tint / blackbody, beaming
+     on and off, the scatter source of a real Kerr starlight map) at
+     480 x 270, a kappa that freezes rays at tau_max, a step cap of 150
+     that most rays reach, 16 NaN rays (sign 3) and the starlight map's
+     48 x 128 ray bundle;
+ 14. the Kerr path end to end at 960 x 540 (examples/render_blackholes.py:
+     72-133): the bare shadow, the thin blackbody disk, the volumetric gas
+     disk, the Kerr starlight map, the starlit thin disk, the in-gas
+     scatter and Kerr-Newman, render_kerr_frames_batched over 4 poses,
+     render_kerr_adaptive and the CLI's Kerr image at 256^2, with each
+     job's launches of #7, the shadow's captured fraction and its spin
+     asymmetry, and profiles of a thin and a volumetric frame.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -135,6 +150,26 @@ DISK_IMG_TOL = 1e-3        # thin-disk image vs the plain route: at most
 DISK_IMG_FRAC_MAX = 0.01   # this fraction of pixels beyond DISK_IMG_TOL
 DISK_FRAC = (0.05, 0.6)    # fraction of disk pixels in a disk frame
 DISK_LIT_MIN = 0.8         # lit pixels (sky and disk) of a disk frame
+# The Kerr path (examples/render_blackholes.py:72-133 at its 960 x 540): a =
+# 0.9, camera at r = 28, theta = pi/2 - 0.2, 24 mm lens, dt 0.1, 32 000
+# steps, escape radius 2 r_cam, disk band 2.6-12; the volumetric jobs at
+# r = 24, 28 mm, dt 0.08, 12 000 steps, escape radius 60, kappa 3, h 0.07.
+KERR_RES = (960, 540)
+KERR_SMALL = (480, 270)    # side of most thin / volumetric kernel cases
+KERR_A = 0.9
+KERR_L = 28.0
+KERR_DT = 0.1
+KERR_STEPS = 32_000
+KERR_BAND = (2.6, 12.0)
+KERR_VOL = dict(l=24.0, focal=28.0, dt=0.08, steps=12_000, R=60.0)
+KERR_CAP = 150             # a step cap below the mean (~320): most rays
+                           # reach it
+KERR_ANGLE_P99 = 1e-3      # p99 escape angle, kernel vs plain (rad)
+KERR_SHADOW = (0.02, 0.2)  # captured fraction of the bare 960 x 540 view
+KERR_SHIFT_MIN = 10.0      # shadow centroid shift, a = 0.9 vs 0.001 (px)
+KERR_VOL_FRAC = (0.05, 0.85)   # disk pixels of the volumetric frames: the
+                               # gas covers ~63 % of that view (a CPU count
+                               # at 96 x 54), more than a thin disk
 
 # Roofline of one H100 SXM (NVIDIA data sheet): FP32 outside the tensor
 # cores and HBM3 bandwidth.
@@ -159,6 +194,14 @@ FLOP_RK45_ITER = 280
 # kinds); tint 11 or blackbody 51; the scatter source 60.
 FLOP_DISK_STEP = 64
 FLOP_VOL = dict(base=66, shift=27, tint=11, blackbody=51, scatter=60)
+# One RK4 step of kernel #7 (csrc/kerr.cu): four Carter-form RHS of 77
+# (sincos as two, three divisions), the stage and update arithmetic, the
+# axis and far-field dt scales, the blowup guard and the sign: 390; the
+# disk tracker 8; the volumetric emission 40, its beaming g 25, tint 10 or
+# blackbody 51, the scatter source 60.
+FLOP_KERR_STEP = 390
+FLOP_KERR = dict(disk=8, vol=40, beaming=25, tint=10, blackbody=51,
+                 scatter=60)
 
 
 def require(ok, what):
@@ -204,8 +247,8 @@ def phase1_build():
     log = (_build.BUILD_DIR / "build.log").read_text()
     stats, name = {}, None
     for line in log.splitlines():
-        # mangled entry names: _ZN6curvis<len><name>ILi<kind>E...
-        entry = re.search(r"entry function '_ZN6curvis(\d+)(\w+?)ILi(\d)E",
+        # mangled entry names: _ZN6curvis<len><name>IL{i,b}<first>E...
+        entry = re.search(r"entry function '_ZN6curvis(\d+)(\w+?)IL[ib](\d)E",
                           line)
         if entry:
             name = entry.group(2)[:int(entry.group(1))]
@@ -1435,6 +1478,445 @@ def phase12_disk_path(sky, sky_np):
     return totals
 
 
+def kerr_camera(res, l=KERR_L, focal=24.0, phi=0.0):
+    """The example's Kerr camera at azimuth ``phi``, looking at the hole."""
+    from curvis_tpu_torch.camera.camera import make_camera
+    st, ct = math.sin(DISK_TH), math.cos(DISK_TH)
+    return make_camera([0.0, l, DISK_TH, phi],
+                       [-st * math.cos(phi), -st * math.sin(phi), -ct],
+                       [0.0, 0.0, 1.0], focal, 43.0, res[0], res[1],
+                       device=DEVICE)
+
+
+def kerr_flops(flags):
+    """FP32 operations of one kernel #7 step for its flags."""
+    track, vol, blackbody, beaming, scatter = flags
+    n = FLOP_KERR_STEP + (FLOP_KERR["disk"] if track else 0)
+    if vol:
+        n += FLOP_KERR["vol"] + (FLOP_KERR["beaming"] if beaming else 0)
+        n += FLOP_KERR["blackbody" if blackbody else "tint"]
+        n += FLOP_KERR["scatter"] if scatter else 0
+    return n
+
+
+def kerr_agreement(metric, flags, out_k, out_p, E, L):
+    """Kernel #7 against its plain version, both (r, theta, phi, p_r,
+    p_theta, sign, steps, extra...) of rays with constants (E, L):
+    fractions of equal sign and steps, the p99 angle between the escape
+    directions of the rays escaped in both and their largest component
+    difference, and per variant the hit or transfer agreement."""
+    import numpy as np
+    import torch
+    from curvis_tpu_torch.render.kerr import _asymptotic_dirs
+    sign_k, sign_p = out_k[5], out_p[5]
+    a = dict(sign_eq=(sign_k == sign_p).double().mean().item(),
+             steps_eq=(out_k[6] == out_p[6]).double().mean().item())
+    esc = (sign_k == 1) & (sign_p == 1)
+
+    def dirs(o):
+        x = torch.stack([torch.zeros_like(o[0]), o[0], o[1], o[2]], -1)
+        p = torch.stack([-E, o[3], o[4], L], -1)
+        return _asymptotic_dirs(metric, x[esc].double(), p[esc].double())
+
+    w_k, w_p = dirs(out_k), dirs(out_p)
+    ang, d_k, d_p = angles(w_k, w_p, torch.ones_like(w_k[0],
+                                                     dtype=torch.bool))
+    a["angle_p99"] = float(np.percentile(ang, 99)) if ang.size else 0.0
+    a["max_abs"] = float((d_k - d_p).abs().max()) if ang.size else 0.0
+    if flags[0]:
+        pres, rel, dph, side = [], [], [], []
+        for i in (7, 10):
+            hk, hp = out_k[i].double(), out_p[i].double()
+            pres.append(((hk != 0) == (hp != 0)).double().mean().item())
+            both = (hk != 0) & (hp != 0)
+            rel.append(((hk - hp).abs() / hp.abs())[both])
+            dph.append((out_k[i + 1].double()
+                        - out_p[i + 1].double()).abs()[both])
+            side.append((out_k[i + 2] == out_p[i + 2])[both])
+        rel, dph = (torch.cat(t).cpu().numpy() for t in (rel, dph))
+        a.update(hit_eq=min(pres), n_hits=int(rel.size),
+                 rel_p99=float(np.percentile(rel, 99)) if rel.size else 0.0,
+                 dphi_p99=float(np.percentile(dph, 99)) if dph.size else 0.0,
+                 side_ne=int((~torch.cat(side)).sum()))
+    if flags[1]:
+        a["close"], a["em_max_abs"] = close_fraction(out_k[7:11],
+                                                     out_p[7:11])
+    return a
+
+
+def phase13_kerr_march(sky):
+    """Kernel #7 against march_kerr_plain on the card: the example's bare
+    view at 960 x 540, Kerr-Newman at 256^2, the disk tracker, the
+    volumetric variants (tint / blackbody, beaming on and off, the scatter
+    source with a real Kerr starlight map's block), a kappa that freezes
+    rays at tau_max, an exact step cap, 16 NaN rays and the starlight map's
+    ray bundle."""
+    import dataclasses
+    import torch
+    from curvis_tpu_torch.metrics.kerr import make_kerr, make_kerr_newman
+    from curvis_tpu_torch.ops import kerr_cuda as kc
+    from curvis_tpu_torch.physics.hamiltonian import spawn_photon
+    from curvis_tpu_torch.render import kerr as rk
+    from curvis_tpu_torch.render.disk import DiskParams
+    from curvis_tpu_torch.render.starlight import (
+        _cosine_hemisphere, compute_kerr_starlight_map,
+        starlight_scatter_block)
+    kerr = make_kerr(1.0, KERR_A, device=DEVICE)
+    kn = make_kerr_newman(1.0, 0.7, 0.5, device=DEVICE)
+    far_bare = 8.0
+    far_disk = max(8.0, KERR_BAND[1] + 2.0)
+    R = 2.0 * KERR_L
+    V = KERR_VOL
+    tint = DiskParams(r_inner=KERR_BAND[0], r_outer=KERR_BAND[1],
+                      volumetric=True, h_rel=0.07, kappa=3.0, doppler=True)
+    bb = dataclasses.replace(tint, color_mode="blackbody", t_peak=6500.0)
+    smap = compute_kerr_starlight_map(
+        kerr, sky, r_inner=KERR_BAND[0], r_outer=KERR_BAND[1],
+        escape_radius=30.0, dt=KERR_DT, max_steps=20_000, boost="orbit")
+    block = starlight_scatter_block(smap, dataclasses.replace(
+        bb, starlight=True, starlight_scatter=0.4))
+
+    def map_bundle():
+        # the starlight map's 48 x 128 secondary rays
+        rr = torch.linspace(KERR_BAND[0], KERR_BAND[1], 48, device=DEVICE)
+        hemi = [torch.as_tensor(h, dtype=torch.float32, device=DEVICE)
+                for h in _cosine_hemisphere(128)]
+        r0 = rr[:, None].expand(48, 128).reshape(-1)
+        z = torch.zeros_like(r0)
+        x0 = torch.stack([z, r0, torch.full_like(r0, math.pi / 2), z], -1)
+        d3 = torch.stack([h[None, :].expand(48, 128).reshape(-1)
+                          for h in (hemi[0], -hemi[2], hemi[1])], -1)
+        return x0, spawn_photon(kerr, x0, d3)
+
+    # name, metric, ray bundle, row keywords, dt, cap, escape radius, far
+    # radius, NaN rays
+    cam_bare = (kerr_camera(KERR_RES),)
+    small = (kerr_camera(KERR_SMALL),)
+    vol_cam = (kerr_camera(KERR_SMALL, V["l"], V["focal"]),)
+    vkw = (V["dt"], V["steps"], V["R"], far_disk)
+    configs = [
+        (f"bare {KERR_RES[0]}x{KERR_RES[1]} (the path's view)", kerr,
+         cam_bare, {}, KERR_DT, KERR_STEPS, R, far_bare, 0),
+        ("kerr-newman 256^2", kn, (kerr_camera((SMALL, SMALL)),), {},
+         KERR_DT, KERR_STEPS, R, far_bare, 0),
+        (f"disk tracker {KERR_SMALL[0]}x{KERR_SMALL[1]}", kerr, small,
+         dict(disk=KERR_BAND), KERR_DT, KERR_STEPS, R, far_disk, 0),
+        (f"vol tint {KERR_SMALL[0]}x{KERR_SMALL[1]}", kerr, vol_cam,
+         dict(vol_disk=tint), *vkw, 0),
+        ("vol tint, no beaming", kerr, vol_cam,
+         dict(vol_disk=dataclasses.replace(tint, doppler=False,
+                                           redshift=False)), *vkw, 0),
+        ("vol blackbody", kerr, vol_cam, dict(vol_disk=bb), *vkw, 0),
+        ("vol blackbody, no beaming", kerr, vol_cam,
+         dict(vol_disk=dataclasses.replace(bb, doppler=False,
+                                           redshift=False)), *vkw, 0),
+        ("vol tint + scatter", kerr, vol_cam,
+         dict(vol_disk=tint, scatter_block=block), *vkw, 0),
+        ("vol blackbody + scatter", kerr, vol_cam,
+         dict(vol_disk=bb, scatter_block=block), *vkw, 0),
+        ("vol kappa 40 (tau_max freeze) 256^2", kerr,
+         (kerr_camera((SMALL, SMALL), V["l"], V["focal"]),),
+         dict(vol_disk=dataclasses.replace(tint, kappa=40.0)), *vkw, 0),
+        (f"bare 256^2 cap {KERR_CAP}", kerr, (kerr_camera((SMALL, SMALL)),),
+         {}, KERR_DT, KERR_CAP, R, far_bare, 0),
+        (f"bare 256^2 with {N_POISON} NaN rays", kerr,
+         (kerr_camera((SMALL, SMALL)),), {}, KERR_DT, KERR_STEPS, R,
+         far_bare, N_POISON),
+        ("starlight map rays 48 x 128", kerr, None, dict(disk=KERR_BAND),
+         KERR_DT, 20_000, 30.0, far_disk, 0),
+    ]
+    out = {}
+    frozen_seen = [0, 0]
+    for name, metric, cams, row_kw, dt, cap, esc_r, far_r0, n_nan in configs:
+        if cams is None:
+            x0, p0 = map_bundle()
+        else:
+            x0, p0, _ = rk._spawn_kerr_rays(metric, cams[0])
+        scal = kc.kerr_scalars(metric, dt, esc_r, axis_u0=0.01,
+                               far_r0=far_r0, **row_kw)
+        vd = row_kw.get("vol_disk")
+        flags = ("disk" in row_kw, vd is not None,
+                 vd is not None and vd.color_mode == "blackbody",
+                 vd is not None and bool(vd.redshift or vd.doppler),
+                 "scatter_block" in row_kw)
+        ins = [t.contiguous() for t in (x0[:, 1], x0[:, 2], x0[:, 3],
+                                        p0[:, 1], p0[:, 2], -p0[:, 0],
+                                        p0[:, 3])]
+        ins[0], bad = poison_rays(ins[0], n_nan)
+        out_k = kc.launch(flags, scal, *ins, max_steps=cap)
+        sync()
+        t0 = time.perf_counter()
+        out_p = kc.march_kerr_plain(flags, scal, *ins, max_steps=cap)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        a = kerr_agreement(metric, flags, out_k, out_p, ins[5], ins[6])
+        kernel_ms = cuda_ms(lambda: kc.launch(flags, scal, *ins,
+                                              max_steps=cap), 3)
+        n = ins[0].numel()
+        steps = out_k[6].double()
+        counts = {s_: int((out_k[5] == s_).sum()) for s_ in range(4)}
+        print(f"[13] kerr march {name}: {n} rays, signs {counts}; sign "
+              f"equal {a['sign_eq']:.6f}, steps equal {a['steps_eq']:.6f}, "
+              f"p99 escape angle {a['angle_p99']:.3e} rad, max |dw| "
+              f"{a['max_abs']:.3e}")
+        print(f"[13]   steps mean / max {steps.mean().item():.1f} / "
+              f"{int(steps.max())}; kernel {kernel_ms:.3f} ms "
+              f"({n / kernel_ms / 1e3:.1f} Mrays/s), plain {plain_ms:.1f} ms")
+        require(a["sign_eq"] >= SIGN_EQ_MIN,
+                f"kerr {name}: sign equal {a['sign_eq']}")
+        require(a["steps_eq"] >= STEPS_EQ_MIN,
+                f"kerr {name}: steps equal {a['steps_eq']}")
+        require(a["angle_p99"] < KERR_ANGLE_P99,
+                f"kerr {name}: p99 escape angle {a['angle_p99']}")
+        if flags[0]:
+            print(f"[13]   hits {a['n_hits']} in both; presence equal "
+                  f"{a['hit_eq']:.6f}, p99 rel radius {a['rel_p99']:.3e}, "
+                  f"p99 |dphi| {a['dphi_p99']:.3e}, sides differing "
+                  f"{a['side_ne']}")
+            require(a["n_hits"] > 0, f"kerr {name}: no disk hit")
+            require(a["hit_eq"] >= HIT_EQ_MIN,
+                    f"kerr {name}: hit presence equal {a['hit_eq']}")
+            require(a["rel_p99"] < HIT_P99_MAX and a["dphi_p99"]
+                    < HIT_P99_MAX, f"kerr {name}: hit radius / phi {a}")
+            require(a["side_ne"] == 0, f"kerr {name}: {a['side_ne']} sides "
+                    "differ")
+        if flags[1]:
+            r_cap = float(metric.capture_radius)
+            frozen = [int(((o[5] == 2) & (o[0] > r_cap)).sum())
+                      for o in (out_k, out_p)]
+            frozen_seen = [f + g for f, g in zip(frozen_seen, frozen)]
+            print(f"[13]   tau and em within rtol {GRAD_RTOL} on "
+                  f"{a['close']:.6f} of rays (max |d| {a['em_max_abs']:.3e})"
+                  f"; frozen by tau_max {frozen[0]} / {frozen[1]} (kernel "
+                  f"/ plain); tau max {out_k[7].max().item():.3f}")
+            require(a["close"] >= GRAD_FRAC_MIN,
+                    f"kerr {name}: close fraction {a['close']}")
+            require(all(bool(torch.isfinite(t).all()) for t in out_k[7:11]),
+                    f"kerr {name}: non-finite tau or emission")
+            if vd.kappa > 10.0:
+                require(min(frozen) > 0, f"kerr {name}: no tau_max freeze "
+                        f"{frozen}")
+        for who, o in (("kernel", out_k), ("plain", out_p)):
+            require(int(o[6].max()) <= cap
+                    and bool((o[6][o[5] == 0] == cap).all()),
+                    f"kerr {name}: {who} overshot or undershot the cap")
+            if n_nan:
+                require(bool((o[5][bad] == 3).all())
+                        and bool((o[6][bad] == 1).all()),
+                        f"kerr {name}: {who} NaN rays not sign 3 at step 1")
+        if cap == KERR_CAP:
+            capped = (out_k[5] == 0).double().mean().item()
+            print(f"[13]   {capped:.4f} of rays stopped at the cap of {cap}")
+            require(capped > 0.5, f"kerr {name}: only {capped} capped")
+        # 28 bytes read; 28 written, and 24 (hits) or 16 (transfer) more
+        n_bytes = (56 + (24 if flags[0] else 16 if flags[1] else 0)) * n
+        b_ms, b_by = bound(n_bytes, kerr_flops(flags) * steps.sum().item())
+        out[name] = dict(max_abs_err=a["max_abs"], ms=kernel_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"[13]   bound {b_ms:.3f} ms ({b_by}); kernel at "
+              f"{100 * b_ms / kernel_ms:.1f} % of it")
+    print(f"[13] tau_max freeze seen on {frozen_seen[0]} / {frozen_seen[1]} "
+          f"rays (kernel / plain) over the volumetric cases")
+    return out[configs[0][0]]
+
+
+def kerr_disk_gates(name, img, dark, frac_range):
+    """Finite pixels and the disk-pixel fraction (inside ``frac_range``) of
+    a Kerr disk frame: a disk pixel differs by > DISK_IMG_TOL from
+    ``dark``, the same view rendered with a disk of zero brightness and
+    opacity."""
+    import torch
+    require(img.shape == dark.shape, f"{name}: shape {tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), f"{name}: non-finite pixel")
+    imgs = img.reshape(-1, *img.shape[-3:])
+    darks = dark.reshape(-1, *dark.shape[-3:])
+    disk = [((im - d).abs().amax(-1) > DISK_IMG_TOL).double().mean().item()
+            for im, d in zip(imgs, darks)]
+    print(f"[14]   {name}: disk-pixel fraction {min(disk):.6f}.."
+          f"{max(disk):.6f}")
+    require(frac_range[0] < min(disk) and max(disk) < frac_range[1],
+            f"{name}: disk-pixel fraction {disk}")
+
+
+def shadow_stats(img):
+    """(captured fraction, centroid column offset from the image centre)
+    of a frame over a sky without black texels."""
+    import torch
+    black = img.sum(-1) == 0
+    cols = torch.nonzero(black)[:, 1].double()
+    shift = float(cols.mean()) - (img.shape[1] - 1) / 2 if cols.numel() else 0
+    return black.double().mean().item(), shift
+
+
+def run_kerr_cli(tmp, sky_np, extra):
+    """``image`` with a ``kind = "kerr"`` TOML through the CLI's main on a
+    256^2 view of the Kerr path's scene; returns the saved image."""
+    import numpy as np
+    from PIL import Image
+    from curvis_tpu_torch.cli import main as cli_main
+    for name in ("bg1.png", "bg2.png"):
+        Image.fromarray((255 * sky_np).astype(np.uint8)).save(tmp / name)
+    (tmp / "cam.toml").write_text(
+        "resolution_x = 256\nresolution_y = 256\ndiagonal = 43.0\n"
+        "focal_length = 24.0\n")
+    (tmp / "sim.toml").write_text(
+        f"escape_radius = {2 * KERR_L}\nray_integration_max_iterations = "
+        f"{KERR_STEPS}\nray_integration_step = {KERR_DT}\n")
+    (tmp / "metric.toml").write_text(
+        f'kind = "kerr"\nm = 1.0\na = {KERR_A}\n')
+    (tmp / "img.toml").write_text(
+        f"l = {KERR_L}\ntheta = {DISK_TH!r}\nphi = 0.0\n"
+        f"forward_x = {-math.sin(DISK_TH)!r}\nforward_y = 0.0\n"
+        f"forward_z = {-math.cos(DISK_TH)!r}\n")
+    out = tmp / "out"
+    rc = cli_main(["image", str(tmp / "bg1.png"), str(tmp / "bg2.png"),
+                   str(out), "-m", str(tmp / "metric.toml"), "-c",
+                   str(tmp / "cam.toml"), "-s", str(tmp / "sim.toml"), "-i",
+                   str(tmp / "img.toml"), "--filtering", "bilinear",
+                   "--disk", *extra])
+    require(rc == 0, f"cli image kerr {extra}: exit code {rc}")
+    return np.asarray(Image.open(out / "output_image.png"))
+
+
+def phase14_kerr_path(sky, sky_np, bright):
+    """The Kerr path end to end at 960 x 540 through its entry points (the
+    six jobs of examples/render_blackholes.py, frames batched, adaptive and
+    the CLI), with the launches of kernel #7 in each job; returns their
+    total."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from curvis_tpu_torch.metrics.kerr import make_kerr, make_kerr_newman
+    from curvis_tpu_torch.ops import kerr_cuda
+    from curvis_tpu_torch.render import kerr as rk
+    from curvis_tpu_torch.render.disk import DiskParams
+    from curvis_tpu_torch.render.starlight import compute_kerr_starlight_map
+    kerr = make_kerr(1.0, KERR_A, device=DEVICE)
+    kn = make_kerr_newman(1.0, 0.7, 0.5, device=DEVICE)
+    V = KERR_VOL
+    cam = kerr_camera(KERR_RES)
+    vcam = kerr_camera(KERR_RES, V["l"], V["focal"])
+    poses = [kerr_camera(KERR_RES, phi=0.5 * k) for k in range(FRAMES)]
+    band = dict(r_inner=KERR_BAND[0], r_outer=KERR_BAND[1])
+    kdisk = DiskParams(**band, doppler=True, color_mode="blackbody",
+                       t_peak=7000.0, brightness=14.0)
+    voldisk = DiskParams(**band, volumetric=True, h_rel=0.07, kappa=3.0,
+                         doppler=True, color_mode="blackbody", t_peak=6500.0,
+                         brightness=14.0)
+    kstar = dataclasses.replace(kdisk, brightness=10.0, starlight=True,
+                                albedo=(0.5, 0.5, 0.55))
+    volstar = dataclasses.replace(voldisk, brightness=8.0, starlight=True,
+                                  albedo=(0.45, 0.45, 0.5),
+                                  starlight_scatter=0.4)
+    dark = DiskParams(**band, brightness=0.0, opacity=0.0)
+    kw = dict(dt=KERR_DT, max_steps=KERR_STEPS)
+    vkw = dict(dt=V["dt"], max_steps=V["steps"], escape_radius=V["R"])
+    maps = {}
+
+    def smap():
+        return compute_kerr_starlight_map(
+            kerr, sky, **band, escape_radius=30.0, dt=KERR_DT,
+            max_steps=20_000, n_r=48, n_phi=128, n_samples=128,
+            boost="orbit")
+
+    maps["star"] = smap()
+    # the views with a dark disk, for the disk-pixel gates
+    dark_k = rk.render_kerr(kerr, cam, sky, disk=dark, **kw)
+    dark_v = rk.render_kerr(kerr, vcam, sky, disk=dark, **vkw)
+    dark_kn = rk.render_kerr(kn, cam, sky, disk=dark, **kw)
+    dark_b = rk.render_kerr_frames_batched(kerr, poses, sky, disk=dark,
+                                           **kw)
+    jobs = [
+        ("bare shadow", lambda: rk.render_kerr(kerr, cam, bright, **kw),
+         None),
+        ("thin blackbody disk",
+         lambda: rk.render_kerr(kerr, cam, sky, disk=kdisk, **kw), dark_k),
+        ("volumetric gas disk",
+         lambda: rk.render_kerr(kerr, vcam, sky, disk=voldisk, **vkw),
+         dark_v),
+        ("starlight map (48 x 128, 128 samples, orbit boost)",
+         lambda: maps.__setitem__("star", smap()), None),
+        ("starlit thin disk (map precomputed)",
+         lambda: rk.render_kerr(kerr, cam, sky, disk=kstar,
+                                starlight_map=maps["star"], **kw), dark_k),
+        ("in-gas scatter (map precomputed)",
+         lambda: rk.render_kerr(kerr, vcam, sky, disk=volstar,
+                                starlight_map=maps["star"], **vkw), dark_v),
+        ("kerr-newman a 0.7 q 0.5, thin disk",
+         lambda: rk.render_kerr(kn, cam, sky, disk=kdisk, **kw), dark_kn),
+        (f"render_kerr_frames_batched thin disk, {FRAMES} poses",
+         lambda: rk.render_kerr_frames_batched(kerr, poses, sky, disk=kdisk,
+                                               **kw), dark_b),
+        ("render_kerr_adaptive thin disk, refine_frac 0.1",
+         lambda: rk.render_kerr_adaptive(kerr, cam, sky, disk=kdisk,
+                                         refine_frac=0.1, **kw), dark_k),
+    ]
+    total = 0
+    results = {}
+    for name, fn, ref in jobs:
+        kerr_cuda.launches = 0
+        img = fn()                                         # warm-up
+        ms = cuda_ms(fn, REPS)
+        n = kerr_cuda.launches
+        total += n
+        px = 0 if img is None else img.numel() // 3
+        rate = f" = {px / ms / 1e3:.1f} Mpixels/s" if px else ""
+        print(f"[14] {name}: {ms:.2f} ms (median of {REPS}){rate}; "
+              f"launches #7 {n}")
+        require(n > 0, f"{name}: kernel #7 not launched")
+        if ref is not None:
+            kerr_disk_gates(name, img, ref, KERR_VOL_FRAC if ref is dark_v
+                            else DISK_FRAC)
+        results[name] = (img, ms)
+    star = maps["star"].values
+    require(star.shape == (2, 48, 128, 3) and bool(torch.isfinite(star).all()),
+            "kerr starlight map: shape or non-finite values")
+
+    # the shadow: captured fraction and the spin's displacement of it
+    shadow = results["bare shadow"][0]
+    require(bool(torch.isfinite(shadow).all()), "bare shadow: non-finite")
+    frac, shift = shadow_stats(shadow)
+    slow = rk.render_kerr(make_kerr(1.0, 1e-3, device=DEVICE), cam, bright,
+                          **kw)
+    frac0, shift0 = shadow_stats(slow)
+    print(f"[14] shadow: captured fraction {frac:.6f} (a = {KERR_A}) / "
+          f"{frac0:.6f} (a = 0.001); centroid column offset {shift:.2f} / "
+          f"{shift0:.2f} px")
+    require(KERR_SHADOW[0] < frac < KERR_SHADOW[1],
+            f"shadow captured fraction {frac}")
+    require(abs(shift - shift0) > KERR_SHIFT_MIN,
+            f"no prograde / retrograde shadow asymmetry: {shift} vs {shift0}")
+
+    # the CLI at 256^2, thin and volumetric
+    with tempfile.TemporaryDirectory() as tmp:
+        for extra in (("--disk-color", "blackbody"),
+                      ("--disk-volumetric", "--disk-color", "blackbody")):
+            kerr_cuda.launches = 0
+            t0 = time.perf_counter()
+            png = run_kerr_cli(Path(tmp), sky_np, extra)
+            secs = time.perf_counter() - t0
+            n = kerr_cuda.launches
+            total += n
+            sky_max = int((255 * sky_np).astype(np.uint8).sum(-1).max())
+            frac = (png.astype(int).sum(-1) > sky_max).mean()
+            print(f"[14] cli image kerr --disk {' '.join(extra)}: "
+                  f"{png.shape} in {secs:.2f} s (host clock, first call); "
+                  f"launches #7 {n}; disk-pixel fraction {frac:.6f}")
+            require(n > 0, f"cli {extra}: kernel #7 not launched")
+            require(png.shape == (256, 256, 3)
+                    and DISK_FRAC[0] < frac < DISK_FRAC[1],
+                    f"cli {extra}: shape {png.shape} or disk fraction "
+                    f"{frac}")
+    print(f"[14] launches of #7 over the Kerr path: {total}")
+    profile_window(lambda: rk.render_kerr(kerr, cam, sky, disk=kdisk, **kw),
+                   "[14]", "the thin blackbody Kerr frame (960 x 540)")
+    profile_window(lambda: rk.render_kerr(kerr, vcam, sky, disk=voldisk,
+                                          **vkw),
+                   "[14]", "the volumetric Kerr frame (960 x 540)")
+    return total
+
+
 def main():
     smi = phase0_toolchain()
     import numpy as np
@@ -1467,6 +1949,12 @@ def main():
     disk_sky = make_spherical_image(disk_np, device=DEVICE)
     vol = phase11_disk_vol(disk_sky)
     disk_launches = phase12_disk_path(disk_sky, disk_np)
+    kerr = phase13_kerr_march(disk_sky)
+    # the shadow gates need a sky without black texels
+    bright = make_spherical_image(
+        0.2 + 0.8 * np.random.default_rng(2).random(SKY, dtype=np.float32),
+        device=DEVICE)
+    kerr_launches = phase14_kerr_path(disk_sky, disk_np, bright)
 
     def entry(name, source, replaces, n_launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1499,8 +1987,10 @@ def main():
         entry("march_disk_vol_kernel", "curvis_tpu_torch/csrc/disk_vol.cu",
               "curvis_tpu/ops/march_pallas.py:1213", disk_launches["vol"],
               vol),
+        entry("march_kerr_kernel", "curvis_tpu_torch/csrc/kerr.cu",
+              "curvis_tpu/ops/march_pallas.py:1521", kerr_launches, kerr),
     ]
-    print(f"[12] done on {smi}")
+    print(f"[14] done on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

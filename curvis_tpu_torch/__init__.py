@@ -12,7 +12,10 @@ differentiable='adjoint')`` and ``fit``; and the black-hole accretion-disk
 path (``render_blackhole_disk``, ``render_disk_frames_batched``,
 ``compute_starlight_map``) with its disk-crossing march
 (``ops/disk_cuda.py``) and volumetric-transfer march
-(``ops/disk_vol_cuda.py``).  Tensors on a GPU run the kernels;
+(``ops/disk_vol_cuda.py``); and the Kerr / Kerr-Newman path
+(``render_kerr``, ``render_kerr_frames_batched``, ``render_kerr_adaptive``,
+``compute_kerr_starlight_map``) with its Boyer-Lindquist RK4 march
+(``ops/kerr_cuda.py``).  Tensors on a GPU run the kernels;
 tensors on the CPU run their plain PyTorch versions.  Factories build on
 the current CUDA device unless given ``device='cpu'``.  The package imports
 neither JAX nor ``curvis_tpu``.
@@ -46,6 +49,12 @@ from curvis_tpu_torch.fit import FitResult, fit
 from curvis_tpu_torch.render.disk import (DiskParams, compute_starlight_map,
                                           render_blackhole_disk,
                                           render_disk_frames_batched)
+from curvis_tpu_torch.metrics.kerr import (KerrMetric, KerrNewmanMetric,
+                                           make_kerr, make_kerr_newman)
+from curvis_tpu_torch.ops.kerr_cuda import march_kerr_cuda
+from curvis_tpu_torch.render.kerr import (render_kerr, render_kerr_adaptive,
+                                          render_kerr_frames_batched)
+from curvis_tpu_torch.render.starlight import compute_kerr_starlight_map
 
 __version__ = "0.1.0"
 
@@ -56,16 +65,22 @@ __all__ = [
     "FitResult",
     "FlatSphericalMetric",
     "InterstellarMetric",
+    "KerrMetric",
+    "KerrNewmanMetric",
     "Metric",
     "ReissnerNordstromMetric",
     "SchwarzschildMetric",
     "SphericalImage",
+    "compute_kerr_starlight_map",
     "compute_starlight_map",
     "fit",
     "load_spherical_image",
     "make_camera",
+    "make_kerr",
+    "make_kerr_newman",
     "make_metric",
     "make_spherical_image",
+    "march_kerr_cuda",
     "march_planar_adjoint",
     "march_planar_rk45",
     "march_planar_rk45_cuda",
@@ -73,6 +88,9 @@ __all__ = [
     "render_direct",
     "render_disk_frames_batched",
     "render_frames_batched",
+    "render_kerr",
+    "render_kerr_adaptive",
+    "render_kerr_frames_batched",
     "render_planar_adaptive",
     "render_planar_fast",
     "render_planar_fused",

@@ -13,7 +13,11 @@ Schwarzschild, Reissner-Nordstrom), ``--filtering``, ``--supersample``,
 ``--bg2-orient`` and ``--flip-negative``; and ``image --disk`` (thin,
 slab, blackbody, volumetric and starlit disks through
 ``render/disk.py:render_blackhole_disk``, whose march is always Euler, as
-in the JAX CLI, under any ``--renderer``).  It renders on the GPU in
+in the JAX CLI, under any ``--renderer``); and, for a Kerr or
+Kerr-Newman metric (``kind = "kerr"`` / ``"kerr-newman"`` with ``m``, ``a``
+and ``q``), ``image`` through ``render/kerr.py`` with the fixed RK4 march
+for ``--stepper euler`` and ``rk4``, as in the JAX CLI, with or without a
+disk and ``--adaptive-aa``.  It renders on the GPU in
 float32, or with ``--f64`` on the CPU in float64 (as the JAX CLI's
 ``--f64`` does); rk45 takes the tolerances of the JAX package's route on
 that device (``render/fast.py``).  Everything else raises
@@ -64,8 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--stepper", choices=["euler", "rk4", "rk45"],
                         default="euler",
                         help="euler = reference parity; rk45 = adaptive "
-                             "Dormand-Prince (quality mode); rk4 is not "
-                             "ported yet")
+                             "Dormand-Prince (quality mode); Kerr metrics "
+                             "march with RK4 for euler / rk4 (planar rk4 "
+                             "and Kerr rk45 are not ported yet)")
         sp.add_argument("--disk", action="store_true",
                         help="render an accretion disk (black-hole metrics; "
                              "Euler march)")
@@ -127,6 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+KERR_KINDS = ("kerr", "kerr-newman", "kn")
+
+
 def _disk_params(args):
     """DiskParams from the --disk-* knobs."""
     from curvis_tpu_torch.render.disk import DiskParams
@@ -146,10 +154,11 @@ def _check_ported(args):
     if args.renderer == "symmetric":
         raise NotImplementedError(
             "--renderer symmetric (the default) needs the on-device adaptive "
-            "sampler, ROADMAP Queue 1 item 7; use --renderer direct")
+            "sampler, ROADMAP Queue 1 item 5; use --renderer direct")
     if args.stepper == "rk4":
         raise NotImplementedError(
-            "--stepper rk4: the RK4 stepper is ROADMAP Queue 1 item 4")
+            "--stepper rk4: the planar RK4 stepper is ROADMAP Queue 1 item "
+            "7")
 
 
 def image_main(args) -> int:
@@ -180,11 +189,14 @@ def image_main(args) -> int:
     camera_s = pick(args.camera_settings, CameraSettings, "camera")
     sim = pick(args.simulation_settings, SimulationSettings, "simulation")
     img_s = pick(args.image_settings, ImageSettings, "image")
-    if metric_s.kind in ("kerr", "kerr-newman", "kn"):
-        raise NotImplementedError(
-            f"metric {metric_s.kind!r}: Kerr and Kerr-Newman are ROADMAP "
-            "Queue 1 item 13")
-    _check_ported(args)
+    kerr = metric_s.kind in KERR_KINDS
+    if kerr:
+        # BL marches have no Euler form: euler / rk4 -> fixed RK4, rk45 ->
+        # the DP5(4) kernel (not ported yet)
+        from curvis_tpu_torch.render.kerr import check_kerr_route
+        check_kerr_route("rk45" if args.stepper == "rk45" else "rk4")
+    else:
+        _check_ported(args)
 
     device, dtype = (("cpu", torch.float64) if args.f64
                      else ("cuda", torch.float32))
@@ -210,6 +222,9 @@ def image_main(args) -> int:
     kw = dict(dt=sim.ray_integration_step,
               max_steps=sim.ray_integration_max_iterations,
               escape_radius=sim.escape_radius, filtering=args.filtering)
+    if kerr:
+        img = _render_kerr(args, metric, camera, bgp, kw)
+        return _save(img, args.output_folder, img_s.image_name)
     if args.disk:
         img = render_blackhole_disk(metric, camera, bgp,
                                     disk=_disk_params(args), **kw)
@@ -224,6 +239,32 @@ def image_main(args) -> int:
     return _save(img, args.output_folder, img_s.image_name)
 
 
+def _render_kerr(args, metric, camera, bg, kw):
+    """The Kerr / Kerr-Newman branch of ``image``, as the JAX CLI's: one
+    exterior universe (the second sky is unused), dt at least 0.05, the
+    disk's starlight map computed once here (``boost='orbit'``), and
+    ``--adaptive-aa`` through render_kerr_adaptive."""
+    from curvis_tpu_torch.render.kerr import (render_kerr,
+                                              render_kerr_adaptive)
+    from curvis_tpu_torch.render.starlight import compute_kerr_starlight_map
+    dp = _disk_params(args) if args.disk else None
+    kerr_kw = dict(dt=max(0.05, kw["dt"]), max_steps=kw["max_steps"],
+                   escape_radius=kw["escape_radius"], disk=dp,
+                   filtering=args.filtering,
+                   camera_velocity=args.camera_velocity)
+    if dp is not None and dp.starlight:
+        kerr_kw["starlight_map"] = compute_kerr_starlight_map(
+            metric, bg, r_inner=dp.r_inner, r_outer=dp.r_outer,
+            escape_radius=kw["escape_radius"], dt=kerr_kw["dt"],
+            max_steps=kw["max_steps"], n_r=dp.starlight_grid[0],
+            n_phi=dp.starlight_grid[1], n_samples=dp.starlight_samples,
+            boost="orbit")
+    if args.adaptive_aa > 0:
+        return render_kerr_adaptive(metric, camera, bg,
+                                    refine_frac=args.adaptive_aa, **kerr_kw)
+    return render_kerr(metric, camera, bg, **kerr_kw)
+
+
 def _save(img, folder, name) -> int:
     from curvis_tpu_torch.env.spherical_image import save_image
     out = folder / f"{name}.png"
@@ -234,7 +275,7 @@ def _save(img, folder, name) -> int:
 
 def video_main(args) -> int:
     raise NotImplementedError("video: the video renderer is ROADMAP Queue 1 "
-                              "item 8")
+                              "item 9")
 
 
 def custom_main(args) -> int:

@@ -204,10 +204,12 @@ class MetricSettings:
             return make_metric("schwarzschild", m=self.m, **kw)
         if self.kind in ("reissner-nordstrom", "rn"):
             return make_metric("rn", m=self.m, q=self.q, **kw)
-        if self.kind in ("kerr", "kerr-newman", "kn"):
-            raise NotImplementedError(
-                f"metric {self.kind!r}: Kerr and Kerr-Newman are ROADMAP "
-                "Queue 1 item 13")
+        if self.kind == "kerr":
+            from curvis_tpu_torch.metrics.kerr import make_kerr
+            return make_kerr(m=self.m, a=self.a, **kw)
+        if self.kind in ("kerr-newman", "kn"):
+            from curvis_tpu_torch.metrics.kerr import make_kerr_newman
+            return make_kerr_newman(m=self.m, a=self.a, q=self.q, **kw)
         return make_metric("interstellar", m=self.m, a=self.a, rho=self.rho,
                            **kw)
 

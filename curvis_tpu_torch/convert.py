@@ -16,9 +16,10 @@ import torch
 from curvis_tpu_torch.camera.camera import Camera
 from curvis_tpu_torch.env.spherical_image import SphericalImage
 from curvis_tpu_torch.metrics.base import (EllisMetric, FlatSphericalMetric,
-                                           InterstellarMetric, Metric,
+                                           InterstellarMetric,
                                            ReissnerNordstromMetric,
                                            SchwarzschildMetric)
+from curvis_tpu_torch.metrics.kerr import KerrMetric, KerrNewmanMetric
 from curvis_tpu_torch.utils.device import resolve_device
 
 _METRICS = {
@@ -29,6 +30,9 @@ _METRICS = {
     "schwarzschild": SchwarzschildMetric,
     "reissner-nordstrom": ReissnerNordstromMetric,
     "rn": ReissnerNordstromMetric,
+    "kerr": KerrMetric,
+    "kerr-newman": KerrNewmanMetric,
+    "kn": KerrNewmanMetric,
 }
 
 
@@ -38,9 +42,10 @@ def _t(a, device, dtype):
 
 
 def metric_from_arrays(kind: str, *, device=None, dtype=torch.float32,
-                       **params) -> Metric:
+                       **params):
     """A port metric of ``kind`` with the given parameter arrays, e.g.
-    ``metric_from_arrays("ellis", rho=np.asarray(jax_metric.rho))``."""
+    ``metric_from_arrays("ellis", rho=np.asarray(jax_metric.rho))`` or
+    ``metric_from_arrays("kerr", m=..., a=...)`` (Kerr-Newman: m, a, q)."""
     cls = _METRICS[kind.lower()]
     names = cls.fields
     if set(params) != set(names):

@@ -18,6 +18,9 @@
 // Schwarzschild and Reissner-Nordstrom) and SCATTER (the single-scattering
 // source of the lensed sky, a 27-scalar block after the emission slots).
 //
+// The Planck constants, the scattering source and the colour tail are
+// shared with the Kerr volumetric march through vol_common.cuh.
+//
 // Semantics kept from the TPU kernel:
 //   - emission at the post-step state with the PRE-update tau; the
 //     accumulators and tau advance by dt only while the ray is live;
@@ -33,13 +36,11 @@
 // march kernels, a thread leaves its loop when its ray ends.
 #include <cstring>
 
-#include "planar.cuh"
+#include "vol_common.cuh"
 
 namespace curvis {
 
 constexpr int kVolThreads = 128;
-constexpr int kScatterDeg = 7;
-constexpr int kScatterBlock = 3 + 3 * (kScatterDeg + 1);   // = 27
 
 // Host row (the planar volumetric row of curvis_tpu/ops/march_pallas.py):
 // the march scalars, the band, the 8 emission slots, then the scatter
@@ -49,36 +50,11 @@ struct VolScalars {
   MarchScalars m;
   float r_in;
   float r_out;
-  float h2;          // h_rel^2
-  float inv_norm;    // 1 / (sqrt(2 pi) h_rel)
-  float kappa;
-  float tau_max;
-  float t_peak;
-  float emis_q;      // emissivity index
-  float spin_sign;
-  float t_scale;     // t_peak / f_peak
+  VolSlots v;
   float scatter[kScatterBlock];
 };
 
 constexpr int kVolBaseFloats = 16;
-
-// c2 / lambda and -5 ln lambda at the three sample wavelengths (610, 550,
-// 465 nm), as the TPU kernel's _VOL_BB_K and _VOL_BB_L5 (the logs in
-// double, from numpy).
-constexpr float kBbK0 = static_cast<float>(1.4388e-2 / 610e-9);
-constexpr float kBbK1 = static_cast<float>(1.4388e-2 / 550e-9);
-constexpr float kBbK2 = static_cast<float>(1.4388e-2 / 465e-9);
-constexpr float kBbL50 = static_cast<float>(71.54903439889527);
-constexpr float kBbL51 = static_cast<float>(72.06673779359947);
-constexpr float kBbL52 = static_cast<float>(72.90614215679527);
-
-// ln of the Planck radiance at one wavelength, up to a common constant:
-// -5 ln lambda - ln(e^x - 1), x = c2 / (lambda T), with
-// ln(e^x - 1) = x + ln(1 - e^-x) (no overflow for cold T).
-__device__ __forceinline__ float planck_log(float k, float l5, float inv_T) {
-  const float x = k * inv_T;
-  return l5 - (x + logf(max_nan(1.0f - expf(-x), 1e-30f)));
-}
 
 // (dtau, dem_r, dem_g, dem_b) per unit step at the post-step state.
 template <int KIND, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
@@ -97,7 +73,8 @@ __device__ __forceinline__ void vol_emission(const VolScalars& s, float l,
   const float zq2 = zq * zq;
   const float s2 = clip_nan(1.0f - zq2, 1e-12f, 1.0f);
   const float r_cyl = r * sqrtf(s2);
-  const float dens = expf(-zq2 / (2.0f * s.h2 * s2)) * (s.inv_norm / r_cyl);
+  const float dens =
+      expf(-zq2 / (2.0f * s.v.h2 * s2)) * (s.v.inv_norm / r_cyl);
   const float w_edge = s.r_out - s.r_in;
   const float edge_in = clip_nan((r_cyl - s.r_in) / (0.1f * w_edge), 0.0f,
                                  1.0f);
@@ -125,65 +102,17 @@ __device__ __forceinline__ void vol_emission(const VolScalars& s, float l,
       const float u_l = p_l * sqA;
       const float u_psi = b / rr;
       const float inv = rsqrtf(u_l * u_l + u_psi * u_psi + 1e-30f);
-      const float cos_xi = (u_psi * inv) * nz * s.spin_sign;
+      const float cos_xi = (u_psi * inv) * nz * s.v.spin_sign;
       g = g / (gamma * (1.0f - v * cos_xi));
     }
   }
   const float trans = expf(-tau);
-  *dtau = s.kappa * base;
+  *dtau = s.v.kappa * base;
   float scat[3] = {0.0f, 0.0f, 0.0f};
-  if constexpr (SCATTER) {
-    // Horner in the compactified radius per channel, clipped at 0 (a
-    // least-squares fit may undershoot)
-    const float t = clip_nan(2.0f * (r_cyl - s.r_in) / (s.r_out - s.r_in) -
-                                 1.0f,
-                             -1.0f, 1.0f);
-    const float sw = trans * base;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const int c0 = 3 + c * (kScatterDeg + 1);
-      float acc = s.scatter[c0 + kScatterDeg];
-#pragma unroll
-      for (int k = kScatterDeg - 1; k >= 0; --k)
-        acc = acc * t + s.scatter[c0 + k];
-      scat[c] = sw * max_nan(acc, 0.0f);
-    }
-  }
-  if constexpr (BLACKBODY) {
-    // Shakura-Sunyaev T(rr), normalised to its peak t_peak
-    const float sq = sqrtf(s.r_in / rr);
-    const float ln_r = logf(rr);
-    const float f =
-        expf(-0.75f * ln_r + 0.25f * logf(max_nan(1.0f - sq, 1e-20f)));
-    const float t_obs = g * s.t_scale * f;
-    const float rel_sq = t_obs / s.t_peak;
-    float rel = rel_sq * rel_sq;
-    rel = rel * rel;                               // (t_obs / t_peak)^4
-    const float inv_T = 1.0f / max_nan(t_obs, 1.0f);
-    const float lg[3] = {planck_log(kBbK0, kBbL50, inv_T),
-                         planck_log(kBbK1, kBbL51, inv_T),
-                         planck_log(kBbK2, kBbL52, inv_T)};
-    const float m = max_nan(lg[0], max_nan(lg[1], lg[2]));
-    const float w = trans * base * rel;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      dem[c] = w * expf(lg[c] - m);
-      if constexpr (SCATTER) dem[c] = dem[c] + scat[c];
-    }
-  } else {
-    const float emis = expf(s.emis_q * logf(s.r_in / rr));
-    const float cg = clip_nan(g, 0.0f, 4.0f);
-    const float w = trans * base * emis * (cg * cg * cg);
-    if constexpr (SCATTER) {
-      // scattered light is coloured: the tint folds in per channel
-#pragma unroll
-      for (int c = 0; c < 3; ++c) dem[c] = w * s.scatter[c] + scat[c];
-    } else {
-      dem[0] = w;
-      dem[1] = w;
-      dem[2] = w;
-    }
-  }
+  if constexpr (SCATTER)
+    scatter_source(s.scatter, r_cyl, s.r_in, s.r_out, trans * base, scat);
+  vol_color<BLACKBODY, SCATTER>(s.v, s.r_in, rr, g, trans * base, s.scatter,
+                                scat, dem);
 }
 
 template <int KIND, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
@@ -237,7 +166,7 @@ __global__ void __launch_bounds__(kVolThreads)
     }
     // the tau_max freeze (OPAQUE_SIGN == CAPTURED == 2) comes after
     // escape / capture
-    if (sign == 0 && tau > s.tau_max) sign = 2;
+    if (sign == 0 && tau > s.v.tau_max) sign = 2;
   }
   // fout rows: l, psi, p_l, tau, em_r, em_g, em_b; iout: sign, steps
   const float row[7] = {l, psi, p_l, tau, em[0], em[1], em[2]};

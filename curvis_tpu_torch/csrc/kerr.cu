@@ -1,0 +1,339 @@
+// Fixed-step RK4 march of Kerr / Kerr-Newman photons in Boyer-Lindquist
+// coordinates, one thread per ray (CUDA, sm_90a).
+//
+// Replaces the TPU kernel curvis_tpu/ops/march_pallas.py:_kerr_kernel
+// with its RHS _kerr_rhs and its volumetric emission _kerr_vol_emission
+// (wrapper march_kerr_pallas).  State per ray: (r, theta, phi, p_r,
+// p_theta) with the conserved E = -p_t and L = p_phi; seven float inputs
+// and (r, theta, phi, p_r, p_theta, sign, steps) out, then either the
+// first two equatorial crossings in [r_in, r_out] as (r, BL phi, approach
+// side) x 2 (TRACK_DISK) or the optical depth and the three emission
+// accumulators (tau, em_r, em_g, em_b) (VOL).  The Python wrapper is
+// curvis_tpu_torch/ops/kerr_cuda.py:march_kerr_cuda, and the plain
+// PyTorch version of this arithmetic is march_kerr_plain there.
+//
+// The RHS is the Hamiltonian flow of 2 Sigma H = Delta p_r^2 + p_th^2 +
+// (L - a E sin^2)^2 / sin^2 - ((r^2 + a^2) E - a L)^2 / Delta written out
+// by hand, with the off-shell W d(1/2 Sigma) term; Kerr-Newman enters only
+// through Delta (the q^2 slot).  The flags of the TPU kernel are template
+// parameters: TRACK_DISK, VOL and, for VOL, BLACKBODY, BEAMING (the
+// circular-orbit g of the frame-dragged gas) and SCATTER (the lensed-sky
+// source of vol_common.cuh): 1 bare + 1 disk + 8 volumetric instances.
+//
+// Semantics kept from the TPU kernel:
+//   - dt scales by the polar-axis factor (sin^2 theta below ax_u0) and the
+//     far-field factor (r beyond far_r0, 1e30 = off), every step;
+//   - escape r > R (sign 1), capture r < r_cap (sign 2), and the blowup
+//     guard: sign 3 unless |r| + |theta| + |phi| + |p_r| + |p_theta| <=
+//     1e8, which NaN fails;
+//   - each ray takes at most max_steps steps; a ray that has ended takes
+//     none, so its state is never touched again;
+//   - a hit is recorded by select, only for the first two in-band
+//     crossings; the volumetric emission is evaluated at the post-step
+//     state with the pre-step tau, added only when the state passed the
+//     guard, and the tau_max freeze (sign 2) follows the sign update and
+//     touches only rays still at sign 0;
+//   - every max and clip propagates NaN, as jnp.maximum / jnp.clip do.
+//
+// What bounds it on the H100: FP32 and special-function issue.  An RK4
+// step is four RHS of ~75 operations (three divisions and one sincos
+// each) and ~40 more; the volumetric emission adds ~60-110.  A ray moves
+// 28 bytes in and 48 to 68 out, so memory is far from the bound.  As the
+// other march kernels, a thread leaves its loop when its ray ends.
+#include <cstring>
+
+#include "vol_common.cuh"
+
+namespace curvis {
+
+constexpr int kKerrThreads = 128;
+
+// Host row, the Kerr rows of curvis_tpu/ops/march_pallas.py: 10 floats
+// (bare, disk), 20 with the emission slots at VOL_BLOCK_KERR = 10 and two
+// spares (VOL), 47 with the scatter block at KERR_SCATTER_OFF = 20.
+struct KerrScalars {
+  float dt;
+  float R;       // escape radius
+  float M;
+  float a;
+  float q2;      // Kerr-Newman charge^2 (0 for Kerr)
+  float r_cap;   // capture radius
+  float r_in;
+  float r_out;
+  float ax_u0;   // polar-axis band, sin^2 theta
+  float far_r0;  // far-field radius (1e30 = off)
+  VolSlots v;
+  float spare[2];
+  float scatter[kScatterBlock];
+};
+
+constexpr int kKerrBaseFloats = 10;
+constexpr int kKerrVolFloats = 20;
+static_assert(sizeof(KerrScalars) ==
+                  (kKerrVolFloats + kScatterBlock) * sizeof(float),
+              "KerrScalars is a packed row of floats");
+
+// d(r, theta, phi, p_r, p_theta) / d lambda.
+__device__ __forceinline__ void kerr_rhs(const KerrScalars& s, float E,
+                                         float L, float r, float th,
+                                         float p_r, float p_th, float* d) {
+  const float M = s.M, a = s.a;
+  float sn, cs;
+  sincosf(th, &sn, &cs);
+  const float u = max_nan(sn * sn, 1e-12f);       // axis guard
+  const float invu = 1.0f / u;
+  const float ac = a * cs;
+  const float sigma = r * r + ac * ac;
+  const float inv_sigma = 1.0f / sigma;
+  const float delta = r * (r - 2.0f * M) + a * a + s.q2;
+  const float inv_delta = 1.0f / delta;
+  const float P = (r * r + a * a) * E - a * L;
+  const float G = L - a * E * u;
+  const float W =
+      delta * p_r * p_r + p_th * p_th + G * G * invu - P * P * inv_delta;
+  const float dDelta = 2.0f * r - 2.0f * M;
+  const float dWdr = dDelta * p_r * p_r - 4.0f * r * E * P * inv_delta +
+                     P * P * dDelta * inv_delta * inv_delta;
+  const float sin2t = 2.0f * sn * cs;
+  const float aE = a * E;
+  const float dWdth = (aE * aE - L * L * invu * invu) * sin2t;
+  const float half = 0.5f * inv_sigma;
+  d[0] = delta * p_r * inv_sigma;
+  d[1] = p_th * inv_sigma;
+  d[2] = (G * invu + a * P * inv_delta) * inv_sigma;
+  d[3] = (-dWdr + W * (2.0f * r) * inv_sigma) * half;
+  d[4] = (-dWdth - W * (a * a * sin2t) * inv_sigma) * half;
+}
+
+// (dtau, dem_r, dem_g, dem_b) per unit step at a BL state: the flared
+// Gaussian gas with zq = cos(theta) and r_cyl = r sin(theta), the
+// Kerr-Newman circular-orbit g (BEAMING) seen along b_ph = L / E.
+template <bool BLACKBODY, bool BEAMING, bool SCATTER>
+__device__ __forceinline__ void kerr_vol_emission(const KerrScalars& s,
+                                                  float r, float th,
+                                                  float b_ph, float tau,
+                                                  float* dtau, float* dem) {
+  const VolSlots& v = s.v;
+  const float ct = cosf(th);
+  const float zq2 = ct * ct;
+  const float s2 = clip_nan(1.0f - zq2, 1e-12f, 1.0f);
+  const float r_cyl = r * sqrtf(s2);
+  const float dens = expf(-zq2 / (2.0f * v.h2 * s2)) * (v.inv_norm / r_cyl);
+  const float w_edge = s.r_out - s.r_in;
+  const float edge_in =
+      clip_nan((r_cyl - s.r_in) / (0.1f * w_edge), 0.0f, 1.0f);
+  const float edge_out =
+      clip_nan((s.r_out - r_cyl) / (0.3f * w_edge), 0.0f, 1.0f);
+  const float base = dens * edge_in * edge_out;
+  const float rr = max_nan(r_cyl, s.r_in);
+  float g = 1.0f;
+  if constexpr (BEAMING) {
+    const float M = s.M, a = s.a, q2 = s.q2, sp = v.spin_sign;
+    const float sq = sqrtf(max_nan(M * rr - q2, 1e-12f));
+    const float rr2 = rr * rr;
+    const float omega = sp * sq / (rr2 + sp * a * sq);
+    const float under = max_nan(
+        1.0f - (3.0f * M - 2.0f * q2 / rr) / rr + 2.0f * sp * a * sq / rr2,
+        1e-3f);
+    g = sqrtf(under) / clip_nan(1.0f - omega * b_ph, 0.2f, 5.0f);
+  }
+  const float trans = expf(-tau);
+  *dtau = v.kappa * base;
+  float scat[3] = {0.0f, 0.0f, 0.0f};
+  if constexpr (SCATTER)
+    scatter_source(s.scatter, r_cyl, s.r_in, s.r_out, trans * base, scat);
+  vol_color<BLACKBODY, SCATTER>(v, s.r_in, rr, g, trans * base, s.scatter,
+                                scat, dem);
+}
+
+template <bool TRACK_DISK, bool VOL, bool BLACKBODY, bool BEAMING,
+          bool SCATTER>
+__global__ void __launch_bounds__(kKerrThreads)
+    march_kerr_kernel(KerrScalars s, const float* __restrict__ rad_in,
+                      const float* __restrict__ th_in,
+                      const float* __restrict__ ph_in,
+                      const float* __restrict__ pr_in,
+                      const float* __restrict__ pth_in,
+                      const float* __restrict__ E_in,
+                      const float* __restrict__ L_in,
+                      float* __restrict__ fout, int* __restrict__ iout,
+                      long long n, int max_steps) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float r = rad_in[i], th = th_in[i], ph = ph_in[i];
+  float p_r = pr_in[i], p_th = pth_in[i];
+  const float E = E_in[i], L = L_in[i];
+  float ct_prev = cosf(th);
+  float hit[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // (r, phi, side) x 2
+  float tau = 0.0f;
+  float em[3] = {0.0f, 0.0f, 0.0f};
+  const float b_ph = VOL ? L / E : 0.0f;
+  int sign = 0;
+  int n_steps = 0;
+  while (n_steps < max_steps && sign == 0) {
+    const float s_ax = sinf(th);
+    const float scale = clip_nan(
+        (s_ax * s_ax + 1e-12f) / max_nan(s.ax_u0, 1e-12f), 1.0f / 16.0f,
+        1.0f);
+    const float fscale = clip_nan(r / max_nan(s.far_r0, 1e-12f), 1.0f, 8.0f);
+    const float dte = s.dt * scale * fscale;
+    const float hd = 0.5f * dte;
+    float k1[5], k2[5], k3[5], k4[5];
+    kerr_rhs(s, E, L, r, th, p_r, p_th, k1);
+    kerr_rhs(s, E, L, r + hd * k1[0], th + hd * k1[1], p_r + hd * k1[3],
+             p_th + hd * k1[4], k2);
+    kerr_rhs(s, E, L, r + hd * k2[0], th + hd * k2[1], p_r + hd * k2[3],
+             p_th + hd * k2[4], k3);
+    kerr_rhs(s, E, L, r + dte * k3[0], th + dte * k3[1], p_r + dte * k3[3],
+             p_th + dte * k3[4], k4);
+    const float w = dte * (1.0f / 6.0f);
+    float y1[5];
+    const float y0[5] = {r, th, ph, p_r, p_th};
+#pragma unroll
+    for (int c = 0; c < 5; ++c)
+      y1[c] = y0[c] + w * (k1[c] + 2.0f * (k2[c] + k3[c]) + k4[c]);
+    if constexpr (TRACK_DISK) {
+      const float ct = cosf(y1[1]);
+      if (ct_prev * ct < 0.0f) {
+        const float den = fabsf(ct_prev) + fabsf(ct);
+        const float frac = fabsf(ct_prev) / max_nan(den, 1e-30f);
+        const float r_hit = r + frac * (y1[0] - r);
+        const float ph_hit = ph + frac * (y1[2] - ph);
+        const float side = ct_prev > 0.0f ? 1.0f : -1.0f;
+        if (r_hit >= s.r_in && r_hit <= s.r_out) {
+          const int k = hit[0] == 0.0f ? 0 : (hit[3] == 0.0f ? 3 : -1);
+          if (k >= 0) {
+            hit[k] = r_hit;
+            hit[k + 1] = ph_hit;
+            hit[k + 2] = side;
+          }
+        }
+      }
+      ct_prev = ct;
+    }
+    r = y1[0];
+    th = y1[1];
+    ph = y1[2];
+    p_r = y1[3];
+    p_th = y1[4];
+    const float m_chk =
+        fabsf(r) + fabsf(th) + fabsf(ph) + fabsf(p_r) + fabsf(p_th);
+    const bool ok = m_chk <= 1e8f;
+    if constexpr (VOL) {
+      float dtau, dem[3];
+      kerr_vol_emission<BLACKBODY, BEAMING, SCATTER>(s, r, th, b_ph, tau,
+                                                     &dtau, dem);
+      if (ok) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) em[c] = em[c] + dte * dem[c];
+        tau = tau + dte * dtau;
+      }
+    }
+    sign = ok ? static_cast<int>(r > s.R) + 2 * static_cast<int>(r < s.r_cap)
+              : 3;
+    // the tau_max freeze (OPAQUE_SIGN == CAPTURED == 2)
+    if constexpr (VOL) {
+      if (sign == 0 && tau > s.v.tau_max) sign = 2;
+    }
+    ++n_steps;
+  }
+  // fout rows: r, theta, phi, p_r, p_theta, then the six hit rows or
+  // (tau, em_r, em_g, em_b); iout: sign, steps
+  const float row[5] = {r, th, ph, p_r, p_th};
+#pragma unroll
+  for (int k = 0; k < 5; ++k) fout[k * n + i] = row[k];
+  if constexpr (TRACK_DISK) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) fout[(5 + k) * n + i] = hit[k];
+  }
+  if constexpr (VOL) {
+    fout[5 * n + i] = tau;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) fout[(6 + c) * n + i] = em[c];
+  }
+  iout[i] = sign;
+  iout[n + i] = n_steps;
+}
+
+// Launch arguments of one call, bundled for the flag dispatch below.
+struct KerrLaunch {
+  unsigned blocks;
+  cudaStream_t stream;
+  const float *r, *th, *ph, *p_r, *p_th, *E, *L;
+  float* fout;
+  int* iout;
+  long long n;
+  int max_steps;
+};
+
+template <bool TRACK, bool VOL, bool BB, bool BEAM, bool SC>
+void launch_kerr(const KerrScalars& s, const KerrLaunch& a) {
+  march_kerr_kernel<TRACK, VOL, BB, BEAM, SC>
+      <<<a.blocks, kKerrThreads, 0, a.stream>>>(s, a.r, a.th, a.ph, a.p_r,
+                                                a.p_th, a.E, a.L, a.fout,
+                                                a.iout, a.n, a.max_steps);
+}
+
+template <bool BB, bool BEAM>
+void pick_kerr_scatter(bool sc, const KerrScalars& s, const KerrLaunch& a) {
+  if (sc)
+    launch_kerr<false, true, BB, BEAM, true>(s, a);
+  else
+    launch_kerr<false, true, BB, BEAM, false>(s, a);
+}
+
+template <bool BB>
+void pick_kerr_beaming(bool beam, bool sc, const KerrScalars& s,
+                       const KerrLaunch& a) {
+  if (beam)
+    pick_kerr_scatter<BB, true>(sc, s, a);
+  else
+    pick_kerr_scatter<BB, false>(sc, s, a);
+}
+
+}  // namespace curvis
+
+// Host entry.  `scalars` is a host array of n_scalars floats in the layout
+// of curvis::KerrScalars: 10 for the bare and the disk march, 20 with
+// `vol`, 47 with `vol` and `scatter`.  `fout` is a (5 + 6, n) float buffer
+// with `track_disk`, (5 + 4, n) with `vol`, (5, n) otherwise, and `iout` a
+// (2, n) int buffer (sign, steps).  Launches on `stream` without
+// synchronising and returns the cudaError_t of the launch.
+extern "C" int curvis_march_kerr(int track_disk, int vol, int scatter,
+                                 int blackbody, int beaming,
+                                 const float* scalars, int n_scalars,
+                                 const float* r, const float* th,
+                                 const float* ph, const float* p_r,
+                                 const float* p_th, const float* E,
+                                 const float* L, float* fout, int* iout,
+                                 long long n, int max_steps, int device,
+                                 void* stream) {
+  using namespace curvis;
+  const int want = !vol ? kKerrBaseFloats
+                        : kKerrVolFloats + (scatter ? kScatterBlock : 0);
+  if (n_scalars != want || (track_disk && vol) || (scatter && !vol))
+    return static_cast<int>(cudaErrorInvalidValue);
+  KerrScalars s;
+  std::memset(&s, 0, sizeof(s));
+  std::memcpy(&s, scalars, sizeof(float) * n_scalars);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return 0;
+  const long long blocks = (n + kKerrThreads - 1) / kKerrThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const KerrLaunch a{static_cast<unsigned>(blocks),
+                     static_cast<cudaStream_t>(stream),
+                     r, th, ph, p_r, p_th, E, L, fout, iout, n, max_steps};
+  if (vol) {
+    if (blackbody)
+      pick_kerr_beaming<true>(beaming != 0, scatter != 0, s, a);
+    else
+      pick_kerr_beaming<false>(beaming != 0, scatter != 0, s, a);
+  } else if (track_disk) {
+    launch_kerr<true, false, false, false, false>(s, a);
+  } else {
+    launch_kerr<false, false, false, false, false>(s, a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

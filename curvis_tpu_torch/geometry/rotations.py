@@ -80,3 +80,15 @@ def _any_perpendicular(a):
     ez = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype, device=a.device)
     e = torch.where(use_x, ex, torch.where(use_y, ey, ez))
     return torch.linalg.cross(a, e.expand_as(a), dim=-1)
+
+
+def frame_matrix(theta, phi):
+    """Orthonormal coordinate frame [r_hat, theta_hat, phi_hat] as columns,
+    (..., 3, 3): tangent components (along increasing r, theta, phi) map
+    to world space as w = F @ u."""
+    st, ct = torch.sin(theta), torch.cos(theta)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    r_hat = torch.stack([st * cp, st * sp, ct], dim=-1)
+    t_hat = torch.stack([ct * cp, ct * sp, -st], dim=-1)
+    p_hat = torch.stack([-sp, cp, torch.zeros_like(sp)], dim=-1)
+    return torch.stack([r_hat, t_hat, p_hat], dim=-1)

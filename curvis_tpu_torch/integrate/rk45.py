@@ -60,8 +60,9 @@ def march_planar_rk45(metric: Metric, rays: PlanarRays, *, escape_radius,
     (default 4 max_steps) iterations, accepted and rejected."""
     if disk is not None or vol_disk is not None:
         raise NotImplementedError(
-            "march_planar_rk45: the disk / vol_disk variants come with the "
-            "disk kernels, ROADMAP Queue 2 items 3-5")
+            "march_planar_rk45: the disk / vol_disk variants come with "
+            "kernel #4's track_disk / vol variants, ROADMAP Queue 1 item 1 "
+            "(Queue 2 item 1)")
     l, psi, p_l, b = rays.l, rays.psi, rays.p_l, rays.b
     shape, dtype, dev = l.shape, l.dtype, l.device
     R = escape_radius

@@ -67,6 +67,11 @@ _PROTOTYPES = {
     # device, stream
     "curvis_march_disk_vol": [_I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
                               _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    # track_disk, vol, scatter, blackbody, beaming, scalars, n_scalars, r,
+    # theta, phi, p_r, p_theta, E, L, fout (5 + 6 | 4 x n), iout (2 x n),
+    # n, max_steps, device, stream
+    "curvis_march_kerr": [_I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
 }
 
 _lock = threading.Lock()

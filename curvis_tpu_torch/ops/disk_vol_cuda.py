@@ -101,7 +101,7 @@ def vol_emission_plain(kind, flags, row, l, p_l, b, zq, tau, nz):
     blackbody, redshift, doppler, scatter = flags
     p = (row[2], row[3], row[4])
     r_in, r_out = row[6], row[7]
-    h2, inv_norm, kappa, _, t_peak, emis_q, spin_sign, t_scale = row[8:16]
+    h2, inv_norm, kappa, _, _, _, spin_sign, _ = row[8:16]
     r = _radius(kind, p, l)
     zq2 = zq * zq
     s2 = torch.clamp(1.0 - zq2, 1e-12, 1.0)
@@ -135,18 +135,33 @@ def vol_emission_plain(kind, flags, row, l, p_l, b, zq, tau, nz):
             g = g / (gamma * (1.0 - v * cos_xi))
     trans = torch.exp(-tau)
     dtau = kappa * base
-    scat = None
-    if scatter:
-        t = torch.clamp(2.0 * (r_cyl - r_in) / (r_out - r_in) - 1.0, -1.0,
-                        1.0)
-        sw = trans * base
-        scat = []
-        for c in range(3):
-            c0 = N_VOL_SCALARS + 3 + c * (SCATTER_DEG + 1)
-            acc = row[c0 + SCATTER_DEG]
-            for k in range(SCATTER_DEG - 1, -1, -1):
-                acc = acc * t + row[c0 + k]
-            scat.append(sw * torch.clamp(acc, min=0.0))
+    block = row[N_VOL_SCALARS:]
+    scat = (scatter_source_plain(block, r_cyl, r_in, r_out, trans * base)
+            if scatter else None)
+    return dtau, vol_color_plain(row[8:16], r_in, rr, g, trans * base, block,
+                                 scat, blackbody)
+
+
+def scatter_source_plain(block, r_cyl, r_in, r_out, sw):
+    """The lensed-sky scattering source of csrc/vol_common.cuh: per channel
+    sw times the Horner sum of ``block``'s monomials in the compactified
+    radius, clipped at 0."""
+    t = torch.clamp(2.0 * (r_cyl - r_in) / (r_out - r_in) - 1.0, -1.0, 1.0)
+    scat = []
+    for c in range(3):
+        c0 = 3 + c * (SCATTER_DEG + 1)
+        acc = block[c0 + SCATTER_DEG]
+        for k in range(SCATTER_DEG - 1, -1, -1):
+            acc = acc * t + block[c0 + k]
+        scat.append(sw * torch.clamp(acc, min=0.0))
+    return scat
+
+
+def vol_color_plain(slots, r_in, rr, g, tb, block, scat, blackbody):
+    """[dem_r, dem_g, dem_b], the colour tail of csrc/vol_common.cuh:
+    ``slots`` the 8 emission scalars, ``tb`` = e^-tau density, ``scat``
+    the scattering source or None."""
+    _, _, _, _, t_peak, emis_q, _, t_scale = slots
     if blackbody:
         sq = torch.sqrt(r_in / rr)
         ln_r = torch.log(rr)
@@ -163,17 +178,17 @@ def vol_emission_plain(kind, flags, row, l, p_l, b, zq, tau, nz):
             logs.append(l5 - (x + torch.log(
                 torch.clamp(1.0 - torch.exp(-x), min=1e-30))))
         m = torch.maximum(logs[0], torch.maximum(logs[1], logs[2]))
-        w = trans * base * rel
+        w = tb * rel
         dem = [w * torch.exp(lg - m) for lg in logs]
         if scat is not None:
             dem = [d + s for d, s in zip(dem, scat)]
-        return dtau, dem
+        return dem
     emis = torch.exp(emis_q * torch.log(r_in / rr))
     cg = torch.clamp(g, 0.0, 4.0)
-    w = trans * base * emis * (cg * cg * cg)
+    w = tb * emis * (cg * cg * cg)
     if scat is not None:
-        return dtau, [w * row[N_VOL_SCALARS + c] + scat[c] for c in range(3)]
-    return dtau, [w, w, w]
+        return [w * block[c] + scat[c] for c in range(3)]
+    return [w, w, w]
 
 
 def march_planar_disk_volumetric_plain(kind, flags, scal, l, psi, p_l, b, c1,

@@ -44,7 +44,7 @@ def metric_kind_and_params(metric: Metric):
         return "rn", [metric.m, metric.q * metric.q]
     raise NotImplementedError(
         f"CUDA march: unsupported metric {type(metric).__name__} (tabulated "
-        "cheb{K} metrics are ROADMAP Queue 1 item 9)")
+        "cheb{K} metrics are ROADMAP Queue 1 item 4)")
 
 
 def march_scalars(metric: Metric, dt, escape_radius):

@@ -129,11 +129,11 @@ def planar_euler_step(metric: Metric, l, psi, p_l, b, dt):
 
 # Where each stepper that a route may not run is still to come.
 _STEPPER_ITEMS = {
-    "rk4": "the RK4 stepper is ROADMAP Queue 1 item 4",
+    "rk4": "the planar RK4 stepper is ROADMAP Queue 1 item 7",
     "rk45": "rk45 runs in the render routes (render_planar_fast, "
             "render_frames_batched, render_planar_adaptive, "
             "render_planar_fused); its gradients are ROADMAP Queue 1 "
-            "item 11",
+            "item 3",
 }
 
 

@@ -36,7 +36,7 @@ from curvis_tpu_torch.env.spherical_image import SphericalImage
 from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops.disk_cuda import march_planar_disk_cuda
 from curvis_tpu_torch.ops.disk_vol_cuda import (
-    SCATTER_DEG, march_planar_disk_volumetric_cuda)
+    march_planar_disk_volumetric_cuda, scatter_source_plain)
 from curvis_tpu_torch.physics import planar as pl
 from curvis_tpu_torch.render.fast import (_readout, _shade_two_skies,
                                           _spawn_frames)
@@ -88,17 +88,18 @@ def _check_route(stepper, differentiable=None, disk_theta=None):
     if stepper == "rk45":
         raise NotImplementedError(
             "stepper='rk45' on the disk routes needs kernel #4's track_disk "
-            "/ vol / scatter variants, ROADMAP Queue 2 item 5")
+            "/ vol / scatter variants, ROADMAP Queue 1 item 1 (Queue 2 item "
+            "1)")
     pl.check_stepper(stepper)
     if differentiable:
         raise NotImplementedError(
             "differentiable disk renders (the planar surface adjoints, "
             "integrate/planar_surface_adjoint.py) are ROADMAP Queue 1 "
-            "item 12")
+            "item 3")
     if disk_theta:
         raise NotImplementedError(
             "disk_theta (traced disk parameters) comes with the planar "
-            "surface adjoints, ROADMAP Queue 1 item 12")
+            "surface adjoints, ROADMAP Queue 1 item 3")
 
 
 def blackbody_rgb(T):
@@ -274,17 +275,8 @@ def march_planar_disk_volumetric(metric: Metric, rays: pl.PlanarRays, c1,
         dtau = params.kappa * base
         scat = None
         if scatter_block is not None:
-            t = torch.clamp(2.0 * (r_cyl - params.r_inner)
-                            / (params.r_outer - params.r_inner) - 1.0,
-                            -1.0, 1.0)
-            sw = trans * base
-            scat = []
-            for c in range(3):
-                c0 = 3 + c * (SCATTER_DEG + 1)
-                acc = scatter_block[c0 + SCATTER_DEG]
-                for k in range(SCATTER_DEG - 1, -1, -1):
-                    acc = acc * t + scatter_block[c0 + k]
-                scat.append(sw * torch.clamp(acc, min=0.0))
+            scat = scatter_source_plain(scatter_block, r_cyl, params.r_inner,
+                                        params.r_outer, trans * base)
         if blackbody:
             t_obs = g * disk_temperature(rr, params)
             rel = (t_obs / params.t_peak) ** 4

@@ -13,7 +13,8 @@ depend on the camera: compute it once per (metric, sky, disk).
 
 The map's march is the thin-disk march of ``render/disk.py`` (annulus
 crossings give the self-shadow): kernel #5 (``ops/disk_cuda.py``) for CUDA
-tensors, the XLA twin for CPU tensors.
+tensors, the XLA twin for CPU tensors.  ``compute_kerr_starlight_map`` is
+the Kerr / Kerr-Newman map, marched by kernel #7 on a GPU.
 """
 from __future__ import annotations
 
@@ -28,10 +29,13 @@ from curvis_tpu_torch.metrics.base import (EllisMetric, FlatSphericalMetric,
                                            ReissnerNordstromMetric,
                                            SchwarzschildMetric)
 from curvis_tpu_torch.ops.disk_vol_cuda import SCATTER_BLOCK, SCATTER_DEG
+from curvis_tpu_torch.ops.kerr_cuda import march_kerr_cuda
+from curvis_tpu_torch.physics.hamiltonian import spawn_photon
 from curvis_tpu_torch.physics import planar as pl
 from curvis_tpu_torch.render.disk import (_check_route, _emission_rgb,
                                           _march_thin)
 from curvis_tpu_torch.render.fast import _shade_soa
+from curvis_tpu_torch.utils.device import common_device
 
 # the metrics whose l -> -l mirror is themselves
 _SYMMETRIC = (EllisMetric, InterstellarMetric, FlatSphericalMetric,
@@ -53,12 +57,12 @@ def mirror_metric(metric):
     """The l -> -l mirrored metric, r_m(l) = r(-l): the metric itself for
     the five planar kinds, whose shapes are even in l.  Tabulated metrics
     (whose mirror flips the parity of their Chebyshev tables) are ROADMAP
-    Queue 1 item 9."""
+    Queue 1 item 4."""
     if isinstance(metric, _SYMMETRIC):
         return metric
     raise NotImplementedError(
         f"mirror_metric: {type(metric).__name__} is not a ported planar "
-        "metric (tabulated metrics are ROADMAP Queue 1 item 9)")
+        "metric (tabulated metrics are ROADMAP Queue 1 item 4)")
 
 
 def _cosine_hemisphere(n_samples: int):
@@ -210,6 +214,110 @@ def compute_disk_starlight_map(
             two_sheet=False)
         values_neg = neg.values
     return StarlightMap(radii=rr, values=E, values_neg=values_neg)
+
+
+def compute_kerr_starlight_map(
+        metric, bg, *, r_inner, r_outer, escape_radius, dt=0.1,
+        max_steps=20_000, n_r=48, n_phi=128, n_samples=128,
+        sample_filtering="nearest", backend="auto", stepper="rk4",
+        boost="static", shadow_params=None, far_accel=True) -> StarlightMap:
+    """The lensed-sky illumination map of a Kerr / Kerr-Newman disk.
+
+    Kerr is stationary and axisymmetric: the escape direction of a
+    secondary ray launched at disk azimuth phi0 is the phi0 = 0 ray's
+    rotated by phi0 about the spin axis, and the equatorial reflection maps
+    the -z face onto the +z face's marches.  So ONE bundle of n_r x
+    n_samples BL marches (a cosine-weighted hemisphere in the local static
+    frame at (r_i, pi/2, 0), local energy 1) covers both faces and every
+    azimuth, with the annulus crossings for the self-shadow
+    (``shadow_params``).  Each escaped sample is weighted by the
+    bolometric boost (nu_loc / nu_inf)^4: nu_loc = 1 (``boost='static'``)
+    or the circular-orbit material frame's u^t (E - Omega L) (``'orbit'``,
+    ratio clipped to [0.2, 4]); captured samples are black.  The march is
+    kernel #7 with its disk tracker on a GPU, ``render/kerr.py:
+    march_kerr_disk`` on the CPU.  Camera-independent: compute once per
+    (metric, sky, disk) and pass to every frame."""
+    from curvis_tpu_torch.render import kerr as rk
+    rk.check_kerr_route(stepper, backend)
+    tex = bg.texture
+    dtype, dev = tex.dtype, tex.device
+    common_device(metric, bg)
+    rr = torch.linspace(float(r_inner), float(r_outer), n_r, dtype=dtype,
+                        device=dev)
+    a_r, a_p, a_n = (torch.as_tensor(a, dtype=dtype, device=dev)
+                     for a in _cosine_hemisphere(n_samples))
+    N = n_r * n_samples
+    r0 = rr[:, None].expand(n_r, n_samples).reshape(-1)
+    zeros = torch.zeros((N,), dtype=dtype, device=dev)
+    x0 = torch.stack([zeros, r0, torch.full_like(r0, math.pi / 2), zeros],
+                     dim=-1)
+
+    def tile(a):
+        return a[None, :].expand(n_r, n_samples).reshape(-1)
+
+    # +z-face hemisphere in the static tetrad (e_r, e_theta, e_phi): at the
+    # equator e_theta points along -z, so the vertical component is -a_n
+    d3 = torch.stack([tile(a_r), -tile(a_n), tile(a_p)], dim=-1)
+    p0 = spawn_photon(metric, x0, d3)
+    E = -p0[:, 0]                                 # nu_inf per sample
+    far_r0 = None
+    if far_accel:
+        far_r0 = torch.maximum(8.0 * metric.m, r_outer + 2.0 * metric.m)
+    kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius,
+              far_r0=far_r0)
+    if dev.type == "cpu":
+        x, p, sign, (h1, h2) = rk.march_kerr_disk(
+            metric, x0, p0, r_inner=r_inner, r_outer=r_outer, **kw)
+    else:
+        x, p, sign, _, (h1, h2) = march_kerr_cuda(
+            metric, x0, p0, disk=(r_inner, r_outer), **kw)
+
+    esc = (sign == 1)[:, None]
+    wx, wy, wz = rk._asymptotic_dirs(metric, torch.where(esc, x, x0),
+                                     torch.where(esc, p, p0))
+    weight = (sign == 1).to(dtype)
+    if boost:
+        if boost == "orbit":
+            M, aspin = metric.m, metric.a
+            sqM = torch.sqrt(M)
+            r32 = r0 * torch.sqrt(r0)
+            omega = sqM / (r32 + aspin * sqM)
+            under = torch.clamp(1.0 - 3.0 * M / r0
+                                + 2.0 * aspin * sqM / r32, min=1e-3)
+            u_t = 1.0 / torch.sqrt(under)
+            nu_loc = u_t * (E - omega * p0[:, 3])
+        else:                                     # "static"
+            nu_loc = torch.ones_like(E)
+        ratio = nu_loc / torch.clamp(E, min=1e-12)
+        if boost == "orbit":
+            ratio = torch.clamp(ratio, 0.2, 4.0)
+        r2 = ratio * ratio
+        weight = weight * r2 * r2
+    if shadow_params is not None:
+        g1 = torch.ones_like(h1[0])
+        _, alpha1 = _emission_rgb(h1[0], g1, shadow_params, dtype)
+        _, alpha2 = _emission_rgb(h2[0], g1, shadow_params, dtype)
+        weight = weight * (1.0 - alpha1) * (1.0 - alpha2)
+
+    # axisymmetry: azimuth j rotates (wx, wy) by phi_j about z; the -z face
+    # (index 1) is the reflection wz -> -wz
+    wx, wy, wz, weight = (t.reshape(n_r, n_samples)
+                          for t in (wx, wy, wz, weight))
+    pp = (2.0 * math.pi / n_phi) * torch.arange(n_phi, dtype=dtype,
+                                                device=dev)
+    cj = torch.cos(pp)[None, :, None]             # (1, n_phi, 1)
+    sj = torch.sin(pp)[None, :, None]
+    rx = wx[:, None, :] * cj - wy[:, None, :] * sj
+    ry = wx[:, None, :] * sj + wy[:, None, :] * cj
+    shape = (2, n_r, n_phi, n_samples)
+    sides = torch.tensor([1.0, -1.0], dtype=dtype,
+                         device=dev)[:, None, None, None]
+    wxa = rx[None].expand(shape).reshape(-1)
+    wya = ry[None].expand(shape).reshape(-1)
+    wza = (wz[None, :, None, :] * sides).expand(shape).reshape(-1)
+    L = _shade_soa(bg, wxa, wya, wza, sample_filtering).reshape(shape + (3,))
+    L = L * weight[None, :, None, :, None]
+    return StarlightMap(radii=rr, values=torch.mean(L, dim=3))
 
 
 def starlight_lookup(smap: StarlightMap, r_hit, phi_world, side):

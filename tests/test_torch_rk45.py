@@ -437,9 +437,9 @@ def test_render_routes_refuse_rk4(scene64):
     kw = dict(dt=0.05, max_steps=10, escape_radius=30.0, stepper="rk4")
     for render in (tfast.render_planar_fast, tfast.render_planar_adaptive,
                    render_fused.render_planar_fused):
-        with pytest.raises(NotImplementedError, match="item 4"):
+        with pytest.raises(NotImplementedError, match="item 7"):
             render(tm, cams[0][1], tp, tn, **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tfast.render_frames_batched(tm, [cams[0][1]], tp, tn, **kw)
 
 
