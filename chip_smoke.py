@@ -71,7 +71,19 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      scatter and Kerr-Newman, render_kerr_frames_batched over 4 poses,
      render_kerr_adaptive and the CLI's Kerr image at 256^2, with each
      job's launches of #7, the shadow's captured fraction and its spin
-     asymmetry, and profiles of a thin and a volumetric frame.
+     asymmetry, and profiles of a thin and a volumetric frame;
+ 15. the Kerr DP5(4) march kernel (#8) against its plain version at rtol
+     1e-4: the bare Kerr view at 960 x 540, Kerr-Newman at 256^2, the
+     disk tracker and the volumetric variants at 480 x 270, a tau_max
+     freeze, a step cap of 8 and a max_iters of 15 (16) that most rays
+     reach, 16 NaN rays (sign 3), rays parked on the escape radius (which
+     must escape) and the starlight map's 48 x 128 bundle;
+ 16. the Kerr path with stepper='rk45' end to end at 960 x 540: the jobs
+     of phase 14 and the CLI's image --stepper rk45 at 256^2, with each
+     job's launches of #8 (and none of #7), the disk-fraction and shadow
+     gates, the bare, thin and volumetric frames against their RK4
+     renders over a smooth sky, and profiles of a thin and a volumetric
+     frame.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -202,6 +214,26 @@ FLOP_VOL = dict(base=66, shift=27, tint=11, blackbody=51, scatter=60)
 FLOP_KERR_STEP = 390
 FLOP_KERR = dict(disk=8, vol=40, beaming=25, tint=10, blackbody=51,
                  scatter=60)
+# The Kerr DP5(4) path: the jobs above with stepper='rk45' at the JAX
+# default rtol 1e-4 (atol = rtol 1e-3, dt_max = R / 8, dt_min = 1e-5; dt is
+# the initial step and max_steps counts accepted steps).
+KERR_RTOL = 1e-4
+KERR_RK45_CAP = 8          # below the mean accepted steps (~20 bare): most
+                           # rays stop at it
+KERR_RK45_ITERS = 15       # a small odd max_iters (rounded up to 16) that
+                           # many rays reach (~25 iterations on average)
+RK45_DIFF = 0.1            # a pixel differs from the RK4 render by more,
+RK45_DIFF_MAX = dict(bare=0.02, thin=0.03, vol=0.02)  # on at most this share
+RK45_FLUX_MAX = 0.02       # relative total flux, volumetric rk45 vs RK4
+# One DP5(4) iteration of kernel #8 (csrc/kerr_rk45.cu; an FMA counts as
+# two, a division, sin, cos, exp or log as one): seven Carter RHS of 77
+# (539), the 21 stage terms on four components (189), the 5th- and
+# 4th-order sums (102), y1 (10), the error norm (35), boundary stepping,
+# writeback, guard and sign (20), the controller (15): 910; the disk
+# tracker and its clamp 8, the gas-slab clamp 15 an iteration; the
+# emission of an accepted step as #7's (FLOP_KERR) plus 8 for its sums.
+FLOP_KERR_RK45_ITER = 910
+FLOP_KERR_RK45 = dict(disk=8, vol_clamp=15, vol_sum=8)
 
 
 def require(ok, what):
@@ -1488,6 +1520,23 @@ def kerr_camera(res, l=KERR_L, focal=24.0, phi=0.0):
                        device=DEVICE)
 
 
+def kerr_map_bundle(metric):
+    """The Kerr starlight map's 48 x 128 secondary rays (x0, p0): a
+    cosine-weighted hemisphere at each of 48 radii of the band."""
+    import torch
+    from curvis_tpu_torch.physics.hamiltonian import spawn_photon
+    from curvis_tpu_torch.render.starlight import _cosine_hemisphere
+    rr = torch.linspace(KERR_BAND[0], KERR_BAND[1], 48, device=DEVICE)
+    hemi = [torch.as_tensor(h, dtype=torch.float32, device=DEVICE)
+            for h in _cosine_hemisphere(128)]
+    r0 = rr[:, None].expand(48, 128).reshape(-1)
+    z = torch.zeros_like(r0)
+    x0 = torch.stack([z, r0, torch.full_like(r0, math.pi / 2), z], -1)
+    d3 = torch.stack([h[None, :].expand(48, 128).reshape(-1)
+                      for h in (hemi[0], -hemi[2], hemi[1])], -1)
+    return x0, spawn_photon(metric, x0, d3)
+
+
 def kerr_flops(flags):
     """FP32 operations of one kernel #7 step for its flags."""
     track, vol, blackbody, beaming, scatter = flags
@@ -1544,6 +1593,40 @@ def kerr_agreement(metric, flags, out_k, out_p, E, L):
     return a
 
 
+def kerr_variant_gates(tag, name, metric, flags, vd, a, out_k, out_p):
+    """The disk-tracker and volumetric gates of a Kerr kernel against its
+    plain version (``a`` from kerr_agreement); returns the rays frozen by
+    tau_max in (kernel, plain)."""
+    import torch
+    if flags[0]:
+        print(f"{tag}   hits {a['n_hits']} in both; presence equal "
+              f"{a['hit_eq']:.6f}, p99 rel radius {a['rel_p99']:.3e}, "
+              f"p99 |dphi| {a['dphi_p99']:.3e}, sides differing "
+              f"{a['side_ne']}")
+        require(a["n_hits"] > 0, f"{name}: no disk hit")
+        require(a["hit_eq"] >= HIT_EQ_MIN,
+                f"{name}: hit presence equal {a['hit_eq']}")
+        require(a["rel_p99"] < HIT_P99_MAX and a["dphi_p99"] < HIT_P99_MAX,
+                f"{name}: hit radius / phi {a}")
+        require(a["side_ne"] == 0, f"{name}: {a['side_ne']} sides differ")
+    if not flags[1]:
+        return [0, 0]
+    r_cap = float(metric.capture_radius)
+    frozen = [int(((o[5] == 2) & (o[0] > r_cap)).sum())
+              for o in (out_k, out_p)]
+    print(f"{tag}   tau and em within rtol {GRAD_RTOL} on "
+          f"{a['close']:.6f} of rays (max |d| {a['em_max_abs']:.3e}); "
+          f"frozen by tau_max {frozen[0]} / {frozen[1]} (kernel / plain); "
+          f"tau max {out_k[7].max().item():.3f}")
+    require(a["close"] >= GRAD_FRAC_MIN,
+            f"{name}: close fraction {a['close']}")
+    require(all(bool(torch.isfinite(t).all()) for t in out_k[7:11]),
+            f"{name}: non-finite tau or emission")
+    if vd.kappa > 10.0:
+        require(min(frozen) > 0, f"{name}: no tau_max freeze {frozen}")
+    return frozen
+
+
 def phase13_kerr_march(sky):
     """Kernel #7 against march_kerr_plain on the card: the example's bare
     view at 960 x 540, Kerr-Newman at 256^2, the disk tracker, the
@@ -1555,12 +1638,10 @@ def phase13_kerr_march(sky):
     import torch
     from curvis_tpu_torch.metrics.kerr import make_kerr, make_kerr_newman
     from curvis_tpu_torch.ops import kerr_cuda as kc
-    from curvis_tpu_torch.physics.hamiltonian import spawn_photon
     from curvis_tpu_torch.render import kerr as rk
     from curvis_tpu_torch.render.disk import DiskParams
     from curvis_tpu_torch.render.starlight import (
-        _cosine_hemisphere, compute_kerr_starlight_map,
-        starlight_scatter_block)
+        compute_kerr_starlight_map, starlight_scatter_block)
     kerr = make_kerr(1.0, KERR_A, device=DEVICE)
     kn = make_kerr_newman(1.0, 0.7, 0.5, device=DEVICE)
     far_bare = 8.0
@@ -1575,18 +1656,6 @@ def phase13_kerr_march(sky):
         escape_radius=30.0, dt=KERR_DT, max_steps=20_000, boost="orbit")
     block = starlight_scatter_block(smap, dataclasses.replace(
         bb, starlight=True, starlight_scatter=0.4))
-
-    def map_bundle():
-        # the starlight map's 48 x 128 secondary rays
-        rr = torch.linspace(KERR_BAND[0], KERR_BAND[1], 48, device=DEVICE)
-        hemi = [torch.as_tensor(h, dtype=torch.float32, device=DEVICE)
-                for h in _cosine_hemisphere(128)]
-        r0 = rr[:, None].expand(48, 128).reshape(-1)
-        z = torch.zeros_like(r0)
-        x0 = torch.stack([z, r0, torch.full_like(r0, math.pi / 2), z], -1)
-        d3 = torch.stack([h[None, :].expand(48, 128).reshape(-1)
-                          for h in (hemi[0], -hemi[2], hemi[1])], -1)
-        return x0, spawn_photon(kerr, x0, d3)
 
     # name, metric, ray bundle, row keywords, dt, cap, escape radius, far
     # radius, NaN rays
@@ -1629,7 +1698,7 @@ def phase13_kerr_march(sky):
     frozen_seen = [0, 0]
     for name, metric, cams, row_kw, dt, cap, esc_r, far_r0, n_nan in configs:
         if cams is None:
-            x0, p0 = map_bundle()
+            x0, p0 = kerr_map_bundle(kerr)
         else:
             x0, p0, _ = rk._spawn_kerr_rays(metric, cams[0])
         scal = kc.kerr_scalars(metric, dt, esc_r, axis_u0=0.01,
@@ -1668,34 +1737,9 @@ def phase13_kerr_march(sky):
                 f"kerr {name}: steps equal {a['steps_eq']}")
         require(a["angle_p99"] < KERR_ANGLE_P99,
                 f"kerr {name}: p99 escape angle {a['angle_p99']}")
-        if flags[0]:
-            print(f"[13]   hits {a['n_hits']} in both; presence equal "
-                  f"{a['hit_eq']:.6f}, p99 rel radius {a['rel_p99']:.3e}, "
-                  f"p99 |dphi| {a['dphi_p99']:.3e}, sides differing "
-                  f"{a['side_ne']}")
-            require(a["n_hits"] > 0, f"kerr {name}: no disk hit")
-            require(a["hit_eq"] >= HIT_EQ_MIN,
-                    f"kerr {name}: hit presence equal {a['hit_eq']}")
-            require(a["rel_p99"] < HIT_P99_MAX and a["dphi_p99"]
-                    < HIT_P99_MAX, f"kerr {name}: hit radius / phi {a}")
-            require(a["side_ne"] == 0, f"kerr {name}: {a['side_ne']} sides "
-                    "differ")
-        if flags[1]:
-            r_cap = float(metric.capture_radius)
-            frozen = [int(((o[5] == 2) & (o[0] > r_cap)).sum())
-                      for o in (out_k, out_p)]
-            frozen_seen = [f + g for f, g in zip(frozen_seen, frozen)]
-            print(f"[13]   tau and em within rtol {GRAD_RTOL} on "
-                  f"{a['close']:.6f} of rays (max |d| {a['em_max_abs']:.3e})"
-                  f"; frozen by tau_max {frozen[0]} / {frozen[1]} (kernel "
-                  f"/ plain); tau max {out_k[7].max().item():.3f}")
-            require(a["close"] >= GRAD_FRAC_MIN,
-                    f"kerr {name}: close fraction {a['close']}")
-            require(all(bool(torch.isfinite(t).all()) for t in out_k[7:11]),
-                    f"kerr {name}: non-finite tau or emission")
-            if vd.kappa > 10.0:
-                require(min(frozen) > 0, f"kerr {name}: no tau_max freeze "
-                        f"{frozen}")
+        frozen = kerr_variant_gates("[13]", f"kerr {name}", metric, flags,
+                                    vd, a, out_k, out_p)
+        frozen_seen = [f + g for f, g in zip(frozen_seen, frozen)]
         for who, o in (("kernel", out_k), ("plain", out_p)):
             require(int(o[6].max()) <= cap
                     and bool((o[6][o[5] == 0] == cap).all()),
@@ -1720,7 +1764,7 @@ def phase13_kerr_march(sky):
     return out[configs[0][0]]
 
 
-def kerr_disk_gates(name, img, dark, frac_range):
+def kerr_disk_gates(name, img, dark, frac_range, tag="[14]"):
     """Finite pixels and the disk-pixel fraction (inside ``frac_range``) of
     a Kerr disk frame: a disk pixel differs by > DISK_IMG_TOL from
     ``dark``, the same view rendered with a disk of zero brightness and
@@ -1732,7 +1776,7 @@ def kerr_disk_gates(name, img, dark, frac_range):
     darks = dark.reshape(-1, *dark.shape[-3:])
     disk = [((im - d).abs().amax(-1) > DISK_IMG_TOL).double().mean().item()
             for im, d in zip(imgs, darks)]
-    print(f"[14]   {name}: disk-pixel fraction {min(disk):.6f}.."
+    print(f"{tag}   {name}: disk-pixel fraction {min(disk):.6f}.."
           f"{max(disk):.6f}")
     require(frac_range[0] < min(disk) and max(disk) < frac_range[1],
             f"{name}: disk-pixel fraction {disk}")
@@ -1778,20 +1822,26 @@ def run_kerr_cli(tmp, sky_np, extra):
     return np.asarray(Image.open(out / "output_image.png"))
 
 
-def phase14_kerr_path(sky, sky_np, bright):
+def kerr_path(tag, sky, sky_np, bright, rk45):
     """The Kerr path end to end at 960 x 540 through its entry points (the
     six jobs of examples/render_blackholes.py, frames batched, adaptive and
-    the CLI), with the launches of kernel #7 in each job; returns their
-    total."""
+    the CLI at 256^2) with RK4 or, with ``rk45``, stepper='rk45' at
+    KERR_RTOL: each job's launches of the march kernel (#7, or #8 and none
+    of #7), the disk-pixel and shadow gates, and profiles of a thin and a
+    volumetric frame.  Returns the total launches and the (camera, disk,
+    keywords) of the bare, thin and volumetric frames."""
     import dataclasses
     import tempfile
     import numpy as np
     import torch
     from curvis_tpu_torch.metrics.kerr import make_kerr, make_kerr_newman
-    from curvis_tpu_torch.ops import kerr_cuda
+    from curvis_tpu_torch.ops import kerr_cuda, kerr_rk45_cuda
     from curvis_tpu_torch.render import kerr as rk
     from curvis_tpu_torch.render.disk import DiskParams
     from curvis_tpu_torch.render.starlight import compute_kerr_starlight_map
+    counter, knum = (kerr_rk45_cuda, "#8") if rk45 else (kerr_cuda, "#7")
+    label = "rk45 " if rk45 else ""
+    step_kw = dict(stepper="rk45", rtol=KERR_RTOL) if rk45 else {}
     kerr = make_kerr(1.0, KERR_A, device=DEVICE)
     kn = make_kerr_newman(1.0, 0.7, 0.5, device=DEVICE)
     V = KERR_VOL
@@ -1810,15 +1860,23 @@ def phase14_kerr_path(sky, sky_np, bright):
                                   albedo=(0.45, 0.45, 0.5),
                                   starlight_scatter=0.4)
     dark = DiskParams(**band, brightness=0.0, opacity=0.0)
-    kw = dict(dt=KERR_DT, max_steps=KERR_STEPS)
-    vkw = dict(dt=V["dt"], max_steps=V["steps"], escape_radius=V["R"])
+    kw = dict(dt=KERR_DT, max_steps=KERR_STEPS, **step_kw)
+    vkw = dict(dt=V["dt"], max_steps=V["steps"], escape_radius=V["R"],
+               **step_kw)
     maps = {}
 
     def smap():
         return compute_kerr_starlight_map(
             kerr, sky, **band, escape_radius=30.0, dt=KERR_DT,
             max_steps=20_000, n_r=48, n_phi=128, n_samples=128,
-            boost="orbit")
+            boost="orbit", **step_kw)
+
+    def launches():
+        return counter.launches, kerr_cuda.launches if rk45 else 0
+
+    def reset():
+        counter.launches = 0
+        kerr_cuda.launches = 0
 
     maps["star"] = smap()
     # the views with a dark disk, for the disk-pixel gates
@@ -1855,65 +1913,312 @@ def phase14_kerr_path(sky, sky_np, bright):
     total = 0
     results = {}
     for name, fn, ref in jobs:
-        kerr_cuda.launches = 0
+        reset()
         img = fn()                                         # warm-up
         ms = cuda_ms(fn, REPS)
-        n = kerr_cuda.launches
+        n, n7 = launches()
         total += n
         px = 0 if img is None else img.numel() // 3
         rate = f" = {px / ms / 1e3:.1f} Mpixels/s" if px else ""
-        print(f"[14] {name}: {ms:.2f} ms (median of {REPS}){rate}; "
-              f"launches #7 {n}")
-        require(n > 0, f"{name}: kernel #7 not launched")
+        print(f"{tag} {label}{name}: {ms:.2f} ms (median of {REPS}){rate}; "
+              f"launches {knum} {n}" + (f", #7 {n7}" if rk45 else ""))
+        require(n > 0 and n7 == 0,
+                f"{label}{name}: launches {knum} {n}, #7 {n7}")
         if ref is not None:
-            kerr_disk_gates(name, img, ref, KERR_VOL_FRAC if ref is dark_v
-                            else DISK_FRAC)
+            kerr_disk_gates(f"{label}{name}", img, ref,
+                            KERR_VOL_FRAC if ref is dark_v else DISK_FRAC,
+                            tag=tag)
         results[name] = (img, ms)
     star = maps["star"].values
     require(star.shape == (2, 48, 128, 3) and bool(torch.isfinite(star).all()),
-            "kerr starlight map: shape or non-finite values")
+            f"{label}kerr starlight map: shape or non-finite values")
 
     # the shadow: captured fraction and the spin's displacement of it
     shadow = results["bare shadow"][0]
-    require(bool(torch.isfinite(shadow).all()), "bare shadow: non-finite")
+    require(bool(torch.isfinite(shadow).all()),
+            f"{label}bare shadow: non-finite")
     frac, shift = shadow_stats(shadow)
     slow = rk.render_kerr(make_kerr(1.0, 1e-3, device=DEVICE), cam, bright,
                           **kw)
     frac0, shift0 = shadow_stats(slow)
-    print(f"[14] shadow: captured fraction {frac:.6f} (a = {KERR_A}) / "
-          f"{frac0:.6f} (a = 0.001); centroid column offset {shift:.2f} / "
-          f"{shift0:.2f} px")
+    print(f"{tag} {label}shadow: captured fraction {frac:.6f} (a = "
+          f"{KERR_A}) / {frac0:.6f} (a = 0.001); centroid column offset "
+          f"{shift:.2f} / {shift0:.2f} px")
     require(KERR_SHADOW[0] < frac < KERR_SHADOW[1],
-            f"shadow captured fraction {frac}")
+            f"{label}shadow captured fraction {frac}")
     require(abs(shift - shift0) > KERR_SHIFT_MIN,
-            f"no prograde / retrograde shadow asymmetry: {shift} vs {shift0}")
+            f"{label}no prograde / retrograde shadow asymmetry: {shift} vs "
+            f"{shift0}")
 
     # the CLI at 256^2, thin and volumetric
+    cli_step = ("--stepper", "rk45") if rk45 else ()
     with tempfile.TemporaryDirectory() as tmp:
-        for extra in (("--disk-color", "blackbody"),
-                      ("--disk-volumetric", "--disk-color", "blackbody")):
-            kerr_cuda.launches = 0
+        for extra in ((*cli_step, "--disk-color", "blackbody"),
+                      (*cli_step, "--disk-volumetric", "--disk-color",
+                       "blackbody")):
+            reset()
             t0 = time.perf_counter()
             png = run_kerr_cli(Path(tmp), sky_np, extra)
             secs = time.perf_counter() - t0
-            n = kerr_cuda.launches
+            n, n7 = launches()
             total += n
             sky_max = int((255 * sky_np).astype(np.uint8).sum(-1).max())
             frac = (png.astype(int).sum(-1) > sky_max).mean()
-            print(f"[14] cli image kerr --disk {' '.join(extra)}: "
+            print(f"{tag} cli image kerr --disk {' '.join(extra)}: "
                   f"{png.shape} in {secs:.2f} s (host clock, first call); "
-                  f"launches #7 {n}; disk-pixel fraction {frac:.6f}")
-            require(n > 0, f"cli {extra}: kernel #7 not launched")
+                  f"launches {knum} {n}" + (f", #7 {n7}" if rk45 else "")
+                  + f"; disk-pixel fraction {frac:.6f}")
+            require(n > 0 and n7 == 0,
+                    f"cli {extra}: launches {knum} {n}, #7 {n7}")
             require(png.shape == (256, 256, 3)
                     and DISK_FRAC[0] < frac < DISK_FRAC[1],
                     f"cli {extra}: shape {png.shape} or disk fraction "
                     f"{frac}")
-    print(f"[14] launches of #7 over the Kerr path: {total}")
+    print(f"{tag} launches of {knum} over the Kerr {label}path: {total}")
     profile_window(lambda: rk.render_kerr(kerr, cam, sky, disk=kdisk, **kw),
-                   "[14]", "the thin blackbody Kerr frame (960 x 540)")
+                   tag, f"the thin blackbody Kerr {label}frame (960 x 540)")
     profile_window(lambda: rk.render_kerr(kerr, vcam, sky, disk=voldisk,
                                           **vkw),
-                   "[14]", "the volumetric Kerr frame (960 x 540)")
+                   tag, f"the volumetric Kerr {label}frame (960 x 540)")
+    return total, dict(bare=(cam, None, kw), thin=(cam, kdisk, kw),
+                       vol=(vcam, voldisk, vkw))
+
+
+def phase14_kerr_path(sky, sky_np, bright):
+    """The Kerr path end to end at 960 x 540 with RK4 (kerr_path); returns
+    the launches of kernel #7."""
+    return kerr_path("[14]", sky, sky_np, bright, rk45=False)[0]
+
+
+def kerr_rk45_flops(flags, iters, steps):
+    """FP32 operations of kernel #8 for its flags over ``iters`` iterations
+    of which ``steps`` were accepted."""
+    track, vol, blackbody, beaming, scatter = flags
+    per_iter = FLOP_KERR_RK45_ITER
+    per_iter += FLOP_KERR_RK45["disk"] if track else 0
+    per_step = 0
+    if vol:
+        per_iter += FLOP_KERR_RK45["vol_clamp"]
+        per_step = FLOP_KERR["vol"] + FLOP_KERR_RK45["vol_sum"]
+        per_step += FLOP_KERR["beaming"] if beaming else 0
+        per_step += FLOP_KERR["blackbody" if blackbody else "tint"]
+        per_step += FLOP_KERR["scatter"] if scatter else 0
+    return per_iter * iters + per_step * steps
+
+
+def parked_rays(metric, R, n=128):
+    """``n`` rays parked exactly on the escape radius R, looking outward
+    (the regression of tests/test_kerr.py:655-685: a frac-only boundary
+    rule over-rejects them forever)."""
+    import torch
+    from curvis_tpu_torch.physics.hamiltonian import spawn_photon
+    x0 = torch.tensor([0.0, R, DISK_TH, 0.0], device=DEVICE).expand(n, 4)
+    d = torch.tensor([1.0, 0.3, 0.1], device=DEVICE)
+    return x0, spawn_photon(metric, x0, (d / d.norm()).expand(n, 3))
+
+
+def phase15_kerr_rk45_march(sky):
+    """Kernel #8 against march_kerr_rk45_plain on the card at rtol 1e-4:
+    the example's bare view at 960 x 540, Kerr-Newman at 256^2, the disk
+    tracker and the volumetric variants (tint / blackbody, beaming on and
+    off, the scatter source of a real rk45 Kerr starlight map) at 480 x
+    270, a kappa that freezes rays at tau_max, a step cap and a small odd
+    max_iters that most rays reach, 16 NaN rays, rays parked on the escape
+    radius and the starlight map's ray bundle.  The smaller cases run at
+    480 x 270 and 256^2 to keep the plain version's time down."""
+    import dataclasses
+    import torch
+    from curvis_tpu_torch.metrics.kerr import make_kerr, make_kerr_newman
+    from curvis_tpu_torch.ops import kerr_rk45_cuda as kr
+    from curvis_tpu_torch.render import kerr as rk
+    from curvis_tpu_torch.render.disk import DiskParams
+    from curvis_tpu_torch.render.starlight import (
+        compute_kerr_starlight_map, starlight_scatter_block)
+    kerr = make_kerr(1.0, KERR_A, device=DEVICE)
+    kn = make_kerr_newman(1.0, 0.7, 0.5, device=DEVICE)
+    R = 2.0 * KERR_L
+    V = KERR_VOL
+    tint = DiskParams(r_inner=KERR_BAND[0], r_outer=KERR_BAND[1],
+                      volumetric=True, h_rel=0.07, kappa=3.0, doppler=True)
+    bb = dataclasses.replace(tint, color_mode="blackbody", t_peak=6500.0)
+    smap = compute_kerr_starlight_map(
+        kerr, sky, r_inner=KERR_BAND[0], r_outer=KERR_BAND[1],
+        escape_radius=30.0, dt=KERR_DT, max_steps=20_000, boost="orbit",
+        stepper="rk45", rtol=KERR_RTOL)
+    block = starlight_scatter_block(smap, dataclasses.replace(
+        bb, starlight=True, starlight_scatter=0.4))
+
+    def view(res, l=KERR_L, focal=24.0, metric=kerr):
+        return lambda: rk._spawn_kerr_rays(metric, kerr_camera(res, l,
+                                                               focal))[:2]
+
+    small = (SMALL, SMALL)
+    vol_view = view(KERR_SMALL, V["l"], V["focal"])
+    vkw = (V["dt"], V["steps"], None, V["R"])
+    # name, metric, rays, row keywords, dt0, cap, max_iters, escape radius,
+    # NaN rays
+    configs = [
+        (f"bare {KERR_RES[0]}x{KERR_RES[1]} (the path's view)", kerr,
+         view(KERR_RES), {}, KERR_DT, KERR_STEPS, None, R, 0),
+        ("kerr-newman 256^2", kn, view(small, metric=kn), {}, KERR_DT,
+         KERR_STEPS, None, R, 0),
+        (f"disk tracker {KERR_SMALL[0]}x{KERR_SMALL[1]}", kerr,
+         view(KERR_SMALL), dict(disk=KERR_BAND), KERR_DT, KERR_STEPS, None,
+         R, 0),
+        (f"vol tint {KERR_SMALL[0]}x{KERR_SMALL[1]}", kerr, vol_view,
+         dict(vol_disk=tint), *vkw, 0),
+        ("vol tint, no beaming", kerr, vol_view,
+         dict(vol_disk=dataclasses.replace(tint, doppler=False,
+                                           redshift=False)), *vkw, 0),
+        ("vol blackbody", kerr, vol_view, dict(vol_disk=bb), *vkw, 0),
+        ("vol blackbody, no beaming", kerr, vol_view,
+         dict(vol_disk=dataclasses.replace(bb, doppler=False,
+                                           redshift=False)), *vkw, 0),
+        ("vol tint + scatter", kerr, vol_view,
+         dict(vol_disk=tint, scatter_block=block), *vkw, 0),
+        ("vol blackbody + scatter", kerr, vol_view,
+         dict(vol_disk=bb, scatter_block=block), *vkw, 0),
+        ("vol kappa 40 (tau_max freeze) 256^2", kerr,
+         view(small, V["l"], V["focal"]),
+         dict(vol_disk=dataclasses.replace(tint, kappa=40.0)), *vkw, 0),
+        (f"bare 256^2 cap {KERR_RK45_CAP}", kerr, view(small), {}, KERR_DT,
+         KERR_RK45_CAP, None, R, 0),
+        (f"bare 256^2 max_iters {KERR_RK45_ITERS}", kerr, view(small), {},
+         KERR_DT, KERR_STEPS, KERR_RK45_ITERS, R, 0),
+        (f"bare 256^2 with {N_POISON} NaN rays", kerr, view(small), {},
+         KERR_DT, KERR_STEPS, None, R, N_POISON),
+        ("128 rays parked on the escape radius", kerr,
+         lambda: parked_rays(kerr, R), {}, KERR_DT, KERR_STEPS, None, R, 0),
+        ("starlight map rays 48 x 128", kerr, lambda: kerr_map_bundle(kerr),
+         dict(disk=KERR_BAND), KERR_DT, 20_000, None, 30.0, 0),
+    ]
+    out = {}
+    frozen_seen = [0, 0]
+    for (name, metric, rays, row_kw, dt, cap, max_iters, esc_r,
+         n_nan) in configs:
+        x0, p0 = rays()
+        scal = kr.kerr_rk45_scalars(metric, dt, esc_r, rtol=KERR_RTOL,
+                                    atol=KERR_RTOL * 1e-3, dt_min=1e-5,
+                                    dt_max=esc_r / 8.0, **row_kw)
+        mi = kr.default_max_iters(cap, max_iters)
+        vd = row_kw.get("vol_disk")
+        flags = ("disk" in row_kw, vd is not None,
+                 vd is not None and vd.color_mode == "blackbody",
+                 vd is not None and bool(vd.redshift or vd.doppler),
+                 "scatter_block" in row_kw)
+        ins = [t.contiguous() for t in (x0[:, 1], x0[:, 2], x0[:, 3],
+                                        p0[:, 1], p0[:, 2], -p0[:, 0],
+                                        p0[:, 3])]
+        ins[0], bad = poison_rays(ins[0], n_nan)
+        kw = dict(max_steps=cap, max_iters=mi)
+        out_k = kr.launch(flags, scal, *ins, **kw)
+        sync()
+        t0 = time.perf_counter()
+        out_p = kr.march_kerr_rk45_plain(flags, scal, *ins, **kw)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        a = kerr_agreement(metric, flags, out_k, out_p, ins[5], ins[6])
+        steps_near = ((out_k[6] - out_p[6]).abs()
+                      <= STEPS_NEAR).double().mean().item()
+        iters_eq = (out_k[-1] == out_p[-1]).double().mean().item()
+        kernel_ms = cuda_ms(lambda: kr.launch(flags, scal, *ins, **kw), 3)
+        n = ins[0].numel()
+        steps, iters = out_k[6].double(), out_k[-1].double()
+        counts = {s_: int((out_k[5] == s_).sum()) for s_ in range(4)}
+        print(f"[15] kerr rk45 march {name}: {n} rays, signs {counts}; sign "
+              f"equal {a['sign_eq']:.6f}, steps within {STEPS_NEAR} "
+              f"{steps_near:.6f} (equal {a['steps_eq']:.6f}), iters equal "
+              f"{iters_eq:.6f}, p99 escape angle {a['angle_p99']:.3e} rad, "
+              f"max |dw| {a['max_abs']:.3e}")
+        print(f"[15]   steps mean / max {steps.mean().item():.2f} / "
+              f"{int(steps.max())}, iters mean / max "
+              f"{iters.mean().item():.2f} / {int(iters.max())}; kernel "
+              f"{kernel_ms:.3f} ms ({n / kernel_ms / 1e3:.1f} Mrays/s), plain "
+              f"{plain_ms:.1f} ms")
+        require(a["sign_eq"] >= SIGN_EQ_MIN,
+                f"kerr rk45 {name}: sign equal {a['sign_eq']}")
+        require(steps_near >= STEPS_EQ_MIN,
+                f"kerr rk45 {name}: steps within {STEPS_NEAR} {steps_near}")
+        require(a["angle_p99"] < KERR_ANGLE_P99,
+                f"kerr rk45 {name}: p99 escape angle {a['angle_p99']}")
+        frozen = kerr_variant_gates("[15]", f"kerr rk45 {name}", metric,
+                                    flags, vd, a, out_k, out_p)
+        frozen_seen = [f + g for f, g in zip(frozen_seen, frozen)]
+        for who, o in (("kernel", out_k), ("plain", out_p)):
+            st, it, sg = o[6], o[-1], o[5]
+            require(int(st.max()) <= cap and int(it.max()) <= mi
+                    and bool((it >= st).all())
+                    and bool((st[(sg == 0) & (it < mi)] == cap).all()),
+                    f"kerr rk45 {name}: {who} overshot or undershot a cap")
+            if n_nan:
+                require(bool((sg[bad] == 3).all())
+                        and bool((st[bad] == 0).all()),
+                        f"kerr rk45 {name}: {who} NaN rays not sign 3 "
+                        "without a step")
+            if name.startswith("128 rays parked"):
+                require(bool((sg == 1).all())
+                        and float(o[0].max()) <= R * (1.0 + 1e-3),
+                        f"kerr rk45 {name}: {who} parked rays did not "
+                        f"escape at R: {counts}")
+        if cap == KERR_RK45_CAP:
+            capped = (out_k[5] == 0).double().mean().item()
+            print(f"[15]   {capped:.4f} of rays stopped at the cap of {cap}")
+            require(capped > 0.5, f"kerr rk45 {name}: only {capped} capped")
+        if max_iters is not None:
+            at_mi = ((out_k[-1] == mi) & (out_k[5] == 0)).double().mean()
+            print(f"[15]   {at_mi.item():.4f} of rays stopped at max_iters "
+                  f"{mi} (given {max_iters})")
+            require(at_mi.item() > 0.05,
+                    f"kerr rk45 {name}: only {at_mi.item()} at max_iters")
+        # 28 bytes read; 20 + 12 written, and 24 (hits) or 16 (transfer)
+        n_bytes = (60 + (24 if flags[0] else 16 if flags[1] else 0)) * n
+        b_ms, b_by = bound(n_bytes, kerr_rk45_flops(
+            flags, iters.sum().item(), steps.sum().item()))
+        out[name] = dict(max_abs_err=a["max_abs"], ms=kernel_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"[15]   bound {b_ms:.3f} ms ({b_by}); kernel at "
+              f"{100 * b_ms / kernel_ms:.1f} % of it")
+    print(f"[15] tau_max freeze seen on {frozen_seen[0]} / {frozen_seen[1]} "
+          f"rays (kernel / plain) over the volumetric cases")
+    return out[configs[0][0]]
+
+
+def smooth_sky():
+    """The smooth sky of tests/test_kerr.py:749-820 at the path's sky size:
+    colours that vary slowly with direction, so a pixel differs between
+    two steppers only where their rays really part."""
+    import numpy as np
+    from curvis_tpu_torch.env.spherical_image import make_spherical_image
+    h, w = SKY[:2]
+    yy, xx = np.mgrid[0:h, 0:w]
+    tex = np.stack([np.sin(2 * np.pi * xx / w) * 0.5 + 0.5, yy / h,
+                    0.3 + 0.4 * np.cos(2 * np.pi * yy / h)], -1)
+    return make_spherical_image(tex.astype(np.float32), device=DEVICE)
+
+
+def phase16_kerr_rk45_path(sky, sky_np, bright):
+    """The Kerr path with stepper='rk45' (rtol 1e-4) end to end at 960 x 540
+    (kerr_path), and its bare, thin and volumetric frames against their RK4
+    renders over a smooth sky; returns the launches of kernel #8."""
+    import torch
+    from curvis_tpu_torch.metrics.kerr import make_kerr
+    from curvis_tpu_torch.render import kerr as rk
+    total, views = kerr_path("[16]", sky, sky_np, bright, rk45=True)
+    kerr = make_kerr(1.0, KERR_A, device=DEVICE)
+    smooth = smooth_sky()
+    for key, (c, disk, k45) in views.items():
+        k4 = {k: v for k, v in k45.items() if k not in ("stepper", "rtol")}
+        a4 = rk.render_kerr(kerr, c, smooth, disk=disk, **k4)
+        a45 = rk.render_kerr(kerr, c, smooth, disk=disk, **k45)
+        diff = ((a4 - a45).abs().amax(-1) > RK45_DIFF).double().mean().item()
+        flux = abs(a45.double().sum().item() / a4.double().sum().item() - 1)
+        print(f"[16] rk45 vs RK4, {key} over a smooth sky: {diff:.6f} of "
+              f"pixels differ by > {RK45_DIFF}; total flux {flux:.6f} apart")
+        require(bool(torch.isfinite(a45).all())
+                and diff < RK45_DIFF_MAX[key],
+                f"rk45 vs RK4 {key}: {diff} of pixels differ")
+        if key == "vol":
+            require(flux < RK45_FLUX_MAX, f"rk45 vs RK4 vol: flux {flux}")
     return total
 
 
@@ -1955,6 +2260,8 @@ def main():
         0.2 + 0.8 * np.random.default_rng(2).random(SKY, dtype=np.float32),
         device=DEVICE)
     kerr_launches = phase14_kerr_path(disk_sky, disk_np, bright)
+    kerr_rk45 = phase15_kerr_rk45_march(disk_sky)
+    kerr_rk45_launches = phase16_kerr_rk45_path(disk_sky, disk_np, bright)
 
     def entry(name, source, replaces, n_launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1989,8 +2296,11 @@ def main():
               vol),
         entry("march_kerr_kernel", "curvis_tpu_torch/csrc/kerr.cu",
               "curvis_tpu/ops/march_pallas.py:1521", kerr_launches, kerr),
+        entry("march_kerr_rk45_kernel", "curvis_tpu_torch/csrc/kerr_rk45.cu",
+              "curvis_tpu/ops/march_pallas.py:1861", kerr_rk45_launches,
+              kerr_rk45),
     ]
-    print(f"[14] done on {smi}")
+    print(f"[16] done on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,8 @@ path (``render_blackhole_disk``, ``render_disk_frames_batched``,
 (``ops/disk_vol_cuda.py``); and the Kerr / Kerr-Newman path
 (``render_kerr``, ``render_kerr_frames_batched``, ``render_kerr_adaptive``,
 ``compute_kerr_starlight_map``) with its Boyer-Lindquist RK4 march
-(``ops/kerr_cuda.py``).  Tensors on a GPU run the kernels;
+(``ops/kerr_cuda.py``) and DP5(4) march (``ops/kerr_rk45_cuda.py``,
+``stepper='rk45'``).  Tensors on a GPU run the kernels;
 tensors on the CPU run their plain PyTorch versions.  Factories build on
 the current CUDA device unless given ``device='cpu'``.  The package imports
 neither JAX nor ``curvis_tpu``.
@@ -41,7 +42,8 @@ from curvis_tpu_torch.render.fast import (render_frames_batched,
                                           render_planar_adaptive,
                                           render_planar_fast)
 from curvis_tpu_torch.ops.render_fused import render_planar_fused
-from curvis_tpu_torch.integrate.rk45 import march_planar_rk45
+from curvis_tpu_torch.integrate.rk45 import (march_kerr_rk45,
+                                             march_planar_rk45)
 from curvis_tpu_torch.ops.rk45_cuda import march_planar_rk45_cuda
 from curvis_tpu_torch.render.direct import render_direct
 from curvis_tpu_torch.integrate.adjoint import march_planar_adjoint
@@ -52,6 +54,7 @@ from curvis_tpu_torch.render.disk import (DiskParams, compute_starlight_map,
 from curvis_tpu_torch.metrics.kerr import (KerrMetric, KerrNewmanMetric,
                                            make_kerr, make_kerr_newman)
 from curvis_tpu_torch.ops.kerr_cuda import march_kerr_cuda
+from curvis_tpu_torch.ops.kerr_rk45_cuda import march_kerr_rk45_cuda
 from curvis_tpu_torch.render.kerr import (render_kerr, render_kerr_adaptive,
                                           render_kerr_frames_batched)
 from curvis_tpu_torch.render.starlight import compute_kerr_starlight_map
@@ -81,6 +84,8 @@ __all__ = [
     "make_metric",
     "make_spherical_image",
     "march_kerr_cuda",
+    "march_kerr_rk45",
+    "march_kerr_rk45_cuda",
     "march_planar_adjoint",
     "march_planar_rk45",
     "march_planar_rk45_cuda",

@@ -16,8 +16,9 @@ slab, blackbody, volumetric and starlit disks through
 in the JAX CLI, under any ``--renderer``); and, for a Kerr or
 Kerr-Newman metric (``kind = "kerr"`` / ``"kerr-newman"`` with ``m``, ``a``
 and ``q``), ``image`` through ``render/kerr.py`` with the fixed RK4 march
-for ``--stepper euler`` and ``rk4``, as in the JAX CLI, with or without a
-disk and ``--adaptive-aa``.  It renders on the GPU in
+for ``--stepper euler`` and ``rk4`` and the adaptive DP5(4) march for
+``--stepper rk45``, as in the JAX CLI, with or without a disk and
+``--adaptive-aa``.  It renders on the GPU in
 float32, or with ``--f64`` on the CPU in float64 (as the JAX CLI's
 ``--f64`` does); rk45 takes the tolerances of the JAX package's route on
 that device (``render/fast.py``).  Everything else raises
@@ -69,8 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
                         default="euler",
                         help="euler = reference parity; rk45 = adaptive "
                              "Dormand-Prince (quality mode); Kerr metrics "
-                             "march with RK4 for euler / rk4 (planar rk4 "
-                             "and Kerr rk45 are not ported yet)")
+                             "march with RK4 for euler / rk4 and DP5(4) for "
+                             "rk45 (planar rk4 is not ported yet)")
         sp.add_argument("--disk", action="store_true",
                         help="render an accretion disk (black-hole metrics; "
                              "Euler march)")
@@ -190,12 +191,7 @@ def image_main(args) -> int:
     sim = pick(args.simulation_settings, SimulationSettings, "simulation")
     img_s = pick(args.image_settings, ImageSettings, "image")
     kerr = metric_s.kind in KERR_KINDS
-    if kerr:
-        # BL marches have no Euler form: euler / rk4 -> fixed RK4, rk45 ->
-        # the DP5(4) kernel (not ported yet)
-        from curvis_tpu_torch.render.kerr import check_kerr_route
-        check_kerr_route("rk45" if args.stepper == "rk45" else "rk4")
-    else:
+    if not kerr:
         _check_ported(args)
 
     device, dtype = (("cpu", torch.float64) if args.f64
@@ -242,7 +238,9 @@ def image_main(args) -> int:
 def _render_kerr(args, metric, camera, bg, kw):
     """The Kerr / Kerr-Newman branch of ``image``, as the JAX CLI's: one
     exterior universe (the second sky is unused), dt at least 0.05, the
-    disk's starlight map computed once here (``boost='orbit'``), and
+    march by the BL RK4 kernel for ``--stepper euler`` / ``rk4`` (BL
+    marches have no Euler form) and the DP5(4) kernel for ``rk45``, the
+    disk's starlight map computed once here (``boost='orbit'``, RK4), and
     ``--adaptive-aa`` through render_kerr_adaptive."""
     from curvis_tpu_torch.render.kerr import (render_kerr,
                                               render_kerr_adaptive)
@@ -251,7 +249,8 @@ def _render_kerr(args, metric, camera, bg, kw):
     kerr_kw = dict(dt=max(0.05, kw["dt"]), max_steps=kw["max_steps"],
                    escape_radius=kw["escape_radius"], disk=dp,
                    filtering=args.filtering,
-                   camera_velocity=args.camera_velocity)
+                   camera_velocity=args.camera_velocity,
+                   stepper="rk45" if args.stepper == "rk45" else "rk4")
     if dp is not None and dp.starlight:
         kerr_kw["starlight_map"] = compute_kerr_starlight_map(
             metric, bg, r_inner=dp.r_inner, r_outer=dp.r_outer,

@@ -1,0 +1,42 @@
+// The Dormand-Prince 5(4) tableau as float32, shared by the planar DP5(4)
+// iteration (rk45.cuh: kernels #3 and #4) and the Boyer-Lindquist DP5(4)
+// march (kerr_rk45.cu: kernel #8).
+//
+// These are the values the TPU kernels multiply by: _DP_A, _DP_B5 and
+// _DP_B4 of curvis_tpu/ops/march_pallas.py, rounded to float32.
+#pragma once
+
+namespace curvis {
+
+constexpr float kA21 = static_cast<float>(1.0 / 5);
+constexpr float kA31 = static_cast<float>(3.0 / 40);
+constexpr float kA32 = static_cast<float>(9.0 / 40);
+constexpr float kA41 = static_cast<float>(44.0 / 45);
+constexpr float kA42 = static_cast<float>(-56.0 / 15);
+constexpr float kA43 = static_cast<float>(32.0 / 9);
+constexpr float kA51 = static_cast<float>(19372.0 / 6561);
+constexpr float kA52 = static_cast<float>(-25360.0 / 2187);
+constexpr float kA53 = static_cast<float>(64448.0 / 6561);
+constexpr float kA54 = static_cast<float>(-212.0 / 729);
+constexpr float kA61 = static_cast<float>(9017.0 / 3168);
+constexpr float kA62 = static_cast<float>(-355.0 / 33);
+constexpr float kA63 = static_cast<float>(46732.0 / 5247);
+constexpr float kA64 = static_cast<float>(49.0 / 176);
+constexpr float kA65 = static_cast<float>(-5103.0 / 18656);
+// the last row equals the 5th-order weights (FSAL); its zero a72 is
+// multiplied in, as the TPU kernels do
+constexpr float kB1 = static_cast<float>(35.0 / 384);
+constexpr float kB3 = static_cast<float>(500.0 / 1113);
+constexpr float kB4 = static_cast<float>(125.0 / 192);
+constexpr float kB5 = static_cast<float>(-2187.0 / 6784);
+constexpr float kB6 = static_cast<float>(11.0 / 84);
+constexpr float kA72 = 0.0f;
+// 4th-order weights (e2 = 0 is skipped, as in the TPU kernels' sums)
+constexpr float kE1 = static_cast<float>(5179.0 / 57600);
+constexpr float kE3 = static_cast<float>(7571.0 / 16695);
+constexpr float kE4 = static_cast<float>(393.0 / 640);
+constexpr float kE5 = static_cast<float>(-92097.0 / 339200);
+constexpr float kE6 = static_cast<float>(187.0 / 2100);
+constexpr float kE7 = static_cast<float>(1.0 / 40);
+
+}  // namespace curvis

@@ -15,10 +15,12 @@
 // The RHS is the Hamiltonian flow of 2 Sigma H = Delta p_r^2 + p_th^2 +
 // (L - a E sin^2)^2 / sin^2 - ((r^2 + a^2) E - a L)^2 / Delta written out
 // by hand, with the off-shell W d(1/2 Sigma) term; Kerr-Newman enters only
-// through Delta (the q^2 slot).  The flags of the TPU kernel are template
-// parameters: TRACK_DISK, VOL and, for VOL, BLACKBODY, BEAMING (the
-// circular-orbit g of the frame-dragged gas) and SCATTER (the lensed-sky
-// source of vol_common.cuh): 1 bare + 1 disk + 8 volumetric instances.
+// through Delta (the q^2 slot).  It and the emission live in
+// kerr_common.cuh, shared with the DP5(4) march kerr_rk45.cu (#8).  The
+// flags of the TPU kernel are template parameters: TRACK_DISK, VOL and,
+// for VOL, BLACKBODY, BEAMING (the circular-orbit g of the frame-dragged
+// gas) and SCATTER (the lensed-sky source of vol_common.cuh): 1 bare + 1
+// disk + 8 volumetric instances.
 //
 // Semantics kept from the TPU kernel:
 //   - dt scales by the polar-axis factor (sin^2 theta below ax_u0) and the
@@ -42,7 +44,7 @@
 // other march kernels, a thread leaves its loop when its ray ends.
 #include <cstring>
 
-#include "vol_common.cuh"
+#include "kerr_common.cuh"
 
 namespace curvis {
 
@@ -72,79 +74,6 @@ constexpr int kKerrVolFloats = 20;
 static_assert(sizeof(KerrScalars) ==
                   (kKerrVolFloats + kScatterBlock) * sizeof(float),
               "KerrScalars is a packed row of floats");
-
-// d(r, theta, phi, p_r, p_theta) / d lambda.
-__device__ __forceinline__ void kerr_rhs(const KerrScalars& s, float E,
-                                         float L, float r, float th,
-                                         float p_r, float p_th, float* d) {
-  const float M = s.M, a = s.a;
-  float sn, cs;
-  sincosf(th, &sn, &cs);
-  const float u = max_nan(sn * sn, 1e-12f);       // axis guard
-  const float invu = 1.0f / u;
-  const float ac = a * cs;
-  const float sigma = r * r + ac * ac;
-  const float inv_sigma = 1.0f / sigma;
-  const float delta = r * (r - 2.0f * M) + a * a + s.q2;
-  const float inv_delta = 1.0f / delta;
-  const float P = (r * r + a * a) * E - a * L;
-  const float G = L - a * E * u;
-  const float W =
-      delta * p_r * p_r + p_th * p_th + G * G * invu - P * P * inv_delta;
-  const float dDelta = 2.0f * r - 2.0f * M;
-  const float dWdr = dDelta * p_r * p_r - 4.0f * r * E * P * inv_delta +
-                     P * P * dDelta * inv_delta * inv_delta;
-  const float sin2t = 2.0f * sn * cs;
-  const float aE = a * E;
-  const float dWdth = (aE * aE - L * L * invu * invu) * sin2t;
-  const float half = 0.5f * inv_sigma;
-  d[0] = delta * p_r * inv_sigma;
-  d[1] = p_th * inv_sigma;
-  d[2] = (G * invu + a * P * inv_delta) * inv_sigma;
-  d[3] = (-dWdr + W * (2.0f * r) * inv_sigma) * half;
-  d[4] = (-dWdth - W * (a * a * sin2t) * inv_sigma) * half;
-}
-
-// (dtau, dem_r, dem_g, dem_b) per unit step at a BL state: the flared
-// Gaussian gas with zq = cos(theta) and r_cyl = r sin(theta), the
-// Kerr-Newman circular-orbit g (BEAMING) seen along b_ph = L / E.
-template <bool BLACKBODY, bool BEAMING, bool SCATTER>
-__device__ __forceinline__ void kerr_vol_emission(const KerrScalars& s,
-                                                  float r, float th,
-                                                  float b_ph, float tau,
-                                                  float* dtau, float* dem) {
-  const VolSlots& v = s.v;
-  const float ct = cosf(th);
-  const float zq2 = ct * ct;
-  const float s2 = clip_nan(1.0f - zq2, 1e-12f, 1.0f);
-  const float r_cyl = r * sqrtf(s2);
-  const float dens = expf(-zq2 / (2.0f * v.h2 * s2)) * (v.inv_norm / r_cyl);
-  const float w_edge = s.r_out - s.r_in;
-  const float edge_in =
-      clip_nan((r_cyl - s.r_in) / (0.1f * w_edge), 0.0f, 1.0f);
-  const float edge_out =
-      clip_nan((s.r_out - r_cyl) / (0.3f * w_edge), 0.0f, 1.0f);
-  const float base = dens * edge_in * edge_out;
-  const float rr = max_nan(r_cyl, s.r_in);
-  float g = 1.0f;
-  if constexpr (BEAMING) {
-    const float M = s.M, a = s.a, q2 = s.q2, sp = v.spin_sign;
-    const float sq = sqrtf(max_nan(M * rr - q2, 1e-12f));
-    const float rr2 = rr * rr;
-    const float omega = sp * sq / (rr2 + sp * a * sq);
-    const float under = max_nan(
-        1.0f - (3.0f * M - 2.0f * q2 / rr) / rr + 2.0f * sp * a * sq / rr2,
-        1e-3f);
-    g = sqrtf(under) / clip_nan(1.0f - omega * b_ph, 0.2f, 5.0f);
-  }
-  const float trans = expf(-tau);
-  *dtau = v.kappa * base;
-  float scat[3] = {0.0f, 0.0f, 0.0f};
-  if constexpr (SCATTER)
-    scatter_source(s.scatter, r_cyl, s.r_in, s.r_out, trans * base, scat);
-  vol_color<BLACKBODY, SCATTER>(v, s.r_in, rr, g, trans * base, s.scatter,
-                                scat, dem);
-}
 
 template <bool TRACK_DISK, bool VOL, bool BLACKBODY, bool BEAMING,
           bool SCATTER>
@@ -180,13 +109,13 @@ __global__ void __launch_bounds__(kKerrThreads)
     const float dte = s.dt * scale * fscale;
     const float hd = 0.5f * dte;
     float k1[5], k2[5], k3[5], k4[5];
-    kerr_rhs(s, E, L, r, th, p_r, p_th, k1);
-    kerr_rhs(s, E, L, r + hd * k1[0], th + hd * k1[1], p_r + hd * k1[3],
-             p_th + hd * k1[4], k2);
-    kerr_rhs(s, E, L, r + hd * k2[0], th + hd * k2[1], p_r + hd * k2[3],
-             p_th + hd * k2[4], k3);
-    kerr_rhs(s, E, L, r + dte * k3[0], th + dte * k3[1], p_r + dte * k3[3],
-             p_th + dte * k3[4], k4);
+    kerr_rhs(s.M, s.a, s.q2, E, L, r, th, p_r, p_th, k1);
+    kerr_rhs(s.M, s.a, s.q2, E, L, r + hd * k1[0], th + hd * k1[1],
+             p_r + hd * k1[3], p_th + hd * k1[4], k2);
+    kerr_rhs(s.M, s.a, s.q2, E, L, r + hd * k2[0], th + hd * k2[1],
+             p_r + hd * k2[3], p_th + hd * k2[4], k3);
+    kerr_rhs(s.M, s.a, s.q2, E, L, r + dte * k3[0], th + dte * k3[1],
+             p_r + dte * k3[3], p_th + dte * k3[4], k4);
     const float w = dte * (1.0f / 6.0f);
     float y1[5];
     const float y0[5] = {r, th, ph, p_r, p_th};
@@ -222,8 +151,9 @@ __global__ void __launch_bounds__(kKerrThreads)
     const bool ok = m_chk <= 1e8f;
     if constexpr (VOL) {
       float dtau, dem[3];
-      kerr_vol_emission<BLACKBODY, BEAMING, SCATTER>(s, r, th, b_ph, tau,
-                                                     &dtau, dem);
+      kerr_vol_emission<BLACKBODY, BEAMING, SCATTER>(
+          s.M, s.a, s.q2, s.r_in, s.r_out, s.v, s.scatter, r, th, b_ph, tau,
+          &dtau, dem);
       if (ok) {
 #pragma unroll
         for (int c = 0; c < 3; ++c) em[c] = em[c] + dte * dem[c];

@@ -1,0 +1,377 @@
+// Adaptive Dormand-Prince 5(4) march of Kerr / Kerr-Newman photons in
+// Boyer-Lindquist coordinates, one thread per ray (CUDA, sm_90a).
+//
+// Replaces the TPU kernel curvis_tpu/ops/march_pallas.py:_kerr_rk45_kernel
+// (wrapper march_kerr_rk45_pallas).  State per ray: (r, theta, phi, p_r,
+// p_theta) with the conserved E = -p_t and L = p_phi, and a per-ray step
+// dt; seven float inputs and (r, theta, phi, p_r, p_theta, sign, steps)
+// out, then the first two equatorial crossings in [r_in, r_out] as (r, BL
+// phi, approach side) x 2 (TRACK_DISK) or (tau, em_r, em_g, em_b) (VOL),
+// and last the ray's live iterations, accepted and rejected, which the
+// Kerr rk45 adjoint replays.  The Python wrapper is
+// curvis_tpu_torch/ops/kerr_rk45_cuda.py:march_kerr_rk45_cuda, and the
+// plain PyTorch version of this arithmetic is march_kerr_rk45_plain there.
+//
+// The RHS and the emission are kerr_common.cuh's, shared with the RK4
+// kernel kerr.cu (#7); the tableau is dp54.cuh's.  The flags are template
+// parameters: TRACK_DISK, VOL and, for VOL, BLACKBODY, BEAMING and
+// SCATTER: 1 bare + 1 disk + 8 volumetric instances.
+//
+// One iteration of a live ray, as in the TPU kernel:
+//   - seven stages advance (r, theta, p_r, p_theta); the error of a
+//     component is |dt (d5 - d4)| / (atol + rtol max(|y0|, |y1|)) over r,
+//     theta, p_r and p_theta (phi is excluded), and a trial with err <= 1
+//     is accepted (a NaN err rejects);
+//   - boundary stepping: an accepted trial that lands beyond R at a
+//     fraction frac = (R - r) / (r1 - r) < 0.9 of the step, and more than
+//     R * 1e-3 past R, is rejected and retried with dt frac 1.05 (the
+//     overshoot guard keeps a ray parked on R from over-rejecting forever);
+//   - hits (TRACK_DISK) are recorded on accepted steps only, by select;
+//   - an accepted step writes the trial back, escapes (sign 1) beyond R,
+//     is captured (2) below r_cap, or blows up (3) unless |r| + |theta| +
+//     |phi| + |p_r| + |p_theta| <= 1e8, which NaN fails; a rejected trial
+//     never touches the state;
+//   - VOL adds the emission at the post-step state with the pre-step tau,
+//     weighted by the accepted dt, where the state passed the guard; the
+//     tau_max freeze (sign 2) touches only rays still at sign 0;
+//   - a reject at dt <= dt_min * 1.01 stalls (sign 3);
+//   - the controller factor clip(0.9 exp(-0.2 log err), 0.2, 5) (0.2 for a
+//     NaN err) sets the next dt within [dt_min, dt_max]; near the disk dt
+//     is clamped: VOL to the anticipatory gas-slab bound, TRACK_DISK to
+//     dt0 inside r_out + 2M;
+//   - a ray stops at max_steps accepted steps (sign 0) or max_iters
+//     iterations (sign 0).
+// Every max, min and clip propagates NaN, as jnp.maximum / jnp.clip do.
+//
+// This file is built with --fmad=false (ops/_build.py:SOURCE_FLAGS): every
+// multiply and add rounds on its own, as in the plain version, so the
+// accept / reject decisions, which flip on the last bit near err = 1, and
+// with them the step sequences are the plain version's.  With contracted
+// FMAs the kernel took other step sequences on 1-2.5 % of rays; without,
+// it reproduced the plain version bit for bit, at 6-15 % more time (H100
+// SXM at 700 W, chip_smoke.py phase 15).
+//
+// What bounds it on the H100: FP32 and special-function issue.  An
+// iteration is seven RHS of ~77 operations (three divisions and one sincos
+// each), ~250 more for the stages, the two weighted sums, the error norm
+// and the controller (an exp and a log), and the emission (~75-185) or the
+// disk tracker where flagged.  A ray moves 28 bytes in and 32 to 72 out, so
+// memory is far from the bound.  A thread leaves its loop when its ray
+// ends; neighbouring rays near the photon ring differ ~2x in iterations,
+// which the warp pays for.
+#include <cstring>
+
+#include "dp54.cuh"
+#include "kerr_common.cuh"
+
+namespace curvis {
+
+constexpr int kKerrRk45Threads = 128;
+constexpr int kKerrRk45Capped = -128;   // sign of a ray stopped at max_steps
+
+// Kernel row.  The host rows are those of curvis_tpu/ops/march_pallas.py:
+// bare and disk [dt0, R, M, a, q2, r_cap, r_in, r_out, rtol, atol, dt_max,
+// dt_min] (12 floats, the bounds at KERR_RK45_BOUNDS[False] = 10); VOL puts
+// the eight emission slots at VOL_BLOCK_KERR = 10 and the bounds at 18 (20
+// floats); SCATTER adds the 27-float block at KERR_SCATTER_OFF = 20 (47).
+// The host entry moves a 12-float row's bounds to dt_max / dt_min.
+struct KerrRk45Scalars {
+  float dt0;     // initial step, and the step bound near the disk
+  float R;       // escape radius
+  float M;
+  float a;
+  float q2;      // Kerr-Newman charge^2 (0 for Kerr)
+  float r_cap;   // capture radius
+  float r_in;
+  float r_out;
+  float rtol;
+  float atol;
+  VolSlots v;
+  float dt_max;
+  float dt_min;
+  float scatter[kScatterBlock];
+};
+
+constexpr int kKerrRk45HeadFloats = 10;   // up to rtol, atol
+constexpr int kKerrRk45BareFloats = 12;
+constexpr int kKerrRk45VolFloats = 20;
+static_assert(sizeof(KerrRk45Scalars) ==
+                  (kKerrRk45VolFloats + kScatterBlock) * sizeof(float),
+              "KerrRk45Scalars is a packed row of floats");
+
+// Scaled error of one component: |dt e| / (atol + rtol max(|y0|, |y1|)).
+__device__ __forceinline__ float kerr_rk45_err(const KerrRk45Scalars& s,
+                                               float dt, float e, float y0,
+                                               float y1) {
+  return fabsf(dt * e) / (s.atol + s.rtol * max_nan(fabsf(y0), fabsf(y1)));
+}
+
+template <bool TRACK_DISK, bool VOL, bool BLACKBODY, bool BEAMING,
+          bool SCATTER>
+__global__ void __launch_bounds__(kKerrRk45Threads)
+    march_kerr_rk45_kernel(KerrRk45Scalars s,
+                           const float* __restrict__ rad_in,
+                           const float* __restrict__ th_in,
+                           const float* __restrict__ ph_in,
+                           const float* __restrict__ pr_in,
+                           const float* __restrict__ pth_in,
+                           const float* __restrict__ E_in,
+                           const float* __restrict__ L_in,
+                           float* __restrict__ fout, int* __restrict__ iout,
+                           long long n, int max_steps, int max_iters) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  // the tableau rows of the seven stages (the last is the 5th-order
+  // weights with its zero a72, multiplied in)
+  const float A[7][6] = {{0.0f},
+                         {kA21},
+                         {kA31, kA32},
+                         {kA41, kA42, kA43},
+                         {kA51, kA52, kA53, kA54},
+                         {kA61, kA62, kA63, kA64, kA65},
+                         {kB1, kA72, kB3, kB4, kB5, kB6}};
+  float r = rad_in[i], th = th_in[i], ph = ph_in[i];
+  float p_r = pr_in[i], p_th = pth_in[i];
+  const float E = E_in[i], L = L_in[i];
+  const float M = s.M, a = s.a, q2 = s.q2;
+  const float stall_dt = s.dt_min * 1.01f;
+  const float r_over = s.R * static_cast<float>(1.0 + 1e-3);
+  const float r_near = s.r_out + 2.0f * M;
+  float dt = s.dt0;
+  float ct_prev = cosf(th);
+  float hit[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // (r, phi, side) x 2
+  float tau = 0.0f;
+  float em[3] = {0.0f, 0.0f, 0.0f};
+  const float b_ph = VOL ? L / E : 0.0f;
+  int sign = 0, n_steps = 0, iters = 0;
+  while (sign == 0 && iters < max_iters) {
+    ++iters;
+    float k[7][5];
+#pragma unroll
+    for (int st = 0; st < 7; ++st) {
+      float ri = r, ti = th, pri = p_r, pti = p_th;
+#pragma unroll
+      for (int j = 0; j < st; ++j) {
+        const float c = dt * A[st][j];
+        ri = ri + c * k[j][0];
+        ti = ti + c * k[j][1];
+        pri = pri + c * k[j][3];
+        pti = pti + c * k[j][4];
+      }
+      kerr_rhs(M, a, q2, E, L, ri, ti, pri, pti, k[st]);
+    }
+    // 5th- and 4th-order combinations, each summed from 0 in stage order
+    float d5[5], e[5];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      d5[c] = 0.0f + kB1 * k[0][c] + kB3 * k[2][c] + kB4 * k[3][c] +
+              kB5 * k[4][c] + kB6 * k[5][c];
+      e[c] = d5[c] - (0.0f + kE1 * k[0][c] + kE3 * k[2][c] + kE4 * k[3][c] +
+                      kE5 * k[4][c] + kE6 * k[5][c] + kE7 * k[6][c]);
+    }
+    const float r1 = r + dt * d5[0];
+    const float th1 = th + dt * d5[1];
+    const float ph1 = ph + dt * d5[2];
+    const float pr1 = p_r + dt * d5[3];
+    const float pth1 = p_th + dt * d5[4];
+    const float err =
+        max_nan(max_nan(kerr_rk45_err(s, dt, e[0], r, r1),
+                        kerr_rk45_err(s, dt, e[1], th, th1)),
+                max_nan(kerr_rk45_err(s, dt, e[3], p_r, pr1),
+                        kerr_rk45_err(s, dt, e[4], p_th, pth1)));
+    bool accept = err <= 1.0f;   // false for NaN
+
+    // boundary stepping at escape
+    bool esc = accept && r1 > s.R;
+    float den = r1 - r;
+    if (fabsf(den) < 1e-30f) den = 1.0f;
+    const float frac = (s.R - r) / den;
+    const bool over = esc && frac < 0.9f && r1 > r_over;
+    accept = accept && !over;
+    esc = esc && !over;
+
+    if constexpr (TRACK_DISK) {
+      if (accept) {
+        const float ct = cosf(th1);
+        if (ct_prev * ct < 0.0f) {
+          const float cden = fabsf(ct_prev) + fabsf(ct);
+          const float cfrac = fabsf(ct_prev) / max_nan(cden, 1e-30f);
+          const float r_hit = r + cfrac * (r1 - r);
+          const float ph_hit = ph + cfrac * (ph1 - ph);
+          const float side = ct_prev > 0.0f ? 1.0f : -1.0f;
+          if (r_hit >= s.r_in && r_hit <= s.r_out) {
+            const int h = hit[0] == 0.0f ? 0 : (hit[3] == 0.0f ? 3 : -1);
+            if (h >= 0) {
+              hit[h] = r_hit;
+              hit[h + 1] = ph_hit;
+              hit[h + 2] = side;
+            }
+          }
+        }
+        ct_prev = ct;
+      }
+    }
+
+    if (accept) {
+      r = r1;
+      th = th1;
+      ph = ph1;
+      p_r = pr1;
+      p_th = pth1;
+      const float m_chk =
+          fabsf(r) + fabsf(th) + fabsf(ph) + fabsf(p_r) + fabsf(p_th);
+      const bool ok = m_chk <= 1e8f;
+      if constexpr (VOL) {
+        if (ok) {
+          float dtau, dem[3];
+          kerr_vol_emission<BLACKBODY, BEAMING, SCATTER>(
+              M, a, q2, s.r_in, s.r_out, s.v, s.scatter, r, th, b_ph, tau,
+              &dtau, dem);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) em[c] = em[c] + dt * dem[c];
+          tau = tau + dt * dtau;
+        }
+      }
+      sign = ok ? static_cast<int>(esc) + 2 * static_cast<int>(r < s.r_cap)
+                : 3;
+      ++n_steps;
+    }
+    // the tau_max freeze (OPAQUE_SIGN == CAPTURED == 2)
+    if constexpr (VOL) {
+      if (sign == 0 && tau > s.v.tau_max) sign = 2;
+    }
+    // a reject at dt_min can never pass (over-rejects included)
+    if (!accept && dt <= stall_dt) sign = 3;
+
+    // controller, from the trial's dt
+    const float err_s = max_nan(err, 1e-10f);
+    float factor = clip_nan(0.9f * expf(-0.2f * logf(err_s)), 0.2f, 5.0f);
+    if (!(factor > 0.0f)) factor = 0.2f;
+    if (sign == 0) {
+      dt = over ? clip_nan(dt * frac * 1.05f, s.dt_min, s.dt_max)
+                : clip_nan(dt * factor, s.dt_min, s.dt_max);
+      if constexpr (VOL) {
+        // the anticipatory clamp on the distance to the gas slab: the
+        // radial gap to the r_out + 2M cylinder and the vertical gap to
+        // the 5-sigma density shell
+        const float s_th = fabsf(sinf(th));
+        const float r_cyl = r * s_th;
+        const float gap_r = r_cyl - r_near;
+        const float h_rel5 = 5.0f * sqrtf(s.v.h2);
+        const float gap_z = r * fabsf(cosf(th)) - h_rel5 * r_cyl;
+        const float dt_gas = max_nan(s.dt0, 0.5f * max_nan(gap_r, gap_z));
+        dt = min_nan(dt, dt_gas);
+      } else if constexpr (TRACK_DISK) {
+        if (r < r_near) dt = min_nan(dt, s.dt0);
+      }
+      if (n_steps >= max_steps) sign = kKerrRk45Capped;
+    }
+  }
+  if (sign == kKerrRk45Capped) sign = 0;
+  // fout rows: r, theta, phi, p_r, p_theta, then the six hit rows or
+  // (tau, em_r, em_g, em_b); iout: sign, steps, iters
+  const float row[5] = {r, th, ph, p_r, p_th};
+#pragma unroll
+  for (int c = 0; c < 5; ++c) fout[c * n + i] = row[c];
+  if constexpr (TRACK_DISK) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) fout[(5 + c) * n + i] = hit[c];
+  }
+  if constexpr (VOL) {
+    fout[5 * n + i] = tau;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) fout[(6 + c) * n + i] = em[c];
+  }
+  iout[i] = sign;
+  iout[n + i] = n_steps;
+  iout[2 * n + i] = iters;
+}
+
+// Launch arguments of one call, bundled for the flag dispatch below.
+struct KerrRk45Launch {
+  unsigned blocks;
+  cudaStream_t stream;
+  const float *r, *th, *ph, *p_r, *p_th, *E, *L;
+  float* fout;
+  int* iout;
+  long long n;
+  int max_steps;
+  int max_iters;
+};
+
+template <bool TRACK, bool VOL, bool BB, bool BEAM, bool SC>
+void launch_kerr_rk45(const KerrRk45Scalars& s, const KerrRk45Launch& a) {
+  march_kerr_rk45_kernel<TRACK, VOL, BB, BEAM, SC>
+      <<<a.blocks, kKerrRk45Threads, 0, a.stream>>>(
+          s, a.r, a.th, a.ph, a.p_r, a.p_th, a.E, a.L, a.fout, a.iout, a.n,
+          a.max_steps, a.max_iters);
+}
+
+template <bool BB, bool BEAM>
+void pick_kerr_rk45_scatter(bool sc, const KerrRk45Scalars& s,
+                            const KerrRk45Launch& a) {
+  if (sc)
+    launch_kerr_rk45<false, true, BB, BEAM, true>(s, a);
+  else
+    launch_kerr_rk45<false, true, BB, BEAM, false>(s, a);
+}
+
+template <bool BB>
+void pick_kerr_rk45_beaming(bool beam, bool sc, const KerrRk45Scalars& s,
+                            const KerrRk45Launch& a) {
+  if (beam)
+    pick_kerr_rk45_scatter<BB, true>(sc, s, a);
+  else
+    pick_kerr_rk45_scatter<BB, false>(sc, s, a);
+}
+
+}  // namespace curvis
+
+// Host entry.  `scalars` is a host array of n_scalars floats in the layout
+// of the JAX package's Kerr rk45 rows: 12 for the bare and the disk march,
+// 20 with `vol`, 47 with `vol` and `scatter`.  `fout` is a (5 + 6, n) float
+// buffer with `track_disk`, (5 + 4, n) with `vol`, (5, n) otherwise, and
+// `iout` a (3, n) int buffer (sign, steps, iters).  Launches on `stream`
+// without synchronising and returns the cudaError_t of the launch.
+extern "C" int curvis_march_kerr_rk45(
+    int track_disk, int vol, int scatter, int blackbody, int beaming,
+    const float* scalars, int n_scalars, const float* r, const float* th,
+    const float* ph, const float* p_r, const float* p_th, const float* E,
+    const float* L, float* fout, int* iout, long long n, int max_steps,
+    int max_iters, int device, void* stream) {
+  using namespace curvis;
+  const int want = !vol ? kKerrRk45BareFloats
+                        : kKerrRk45VolFloats + (scatter ? kScatterBlock : 0);
+  if (n_scalars != want || (track_disk && vol) || (scatter && !vol))
+    return static_cast<int>(cudaErrorInvalidValue);
+  KerrRk45Scalars s;
+  std::memset(&s, 0, sizeof(s));
+  if (vol) {
+    std::memcpy(&s, scalars, sizeof(float) * n_scalars);
+  } else {
+    std::memcpy(&s, scalars, sizeof(float) * kKerrRk45HeadFloats);
+    s.dt_max = scalars[kKerrRk45HeadFloats];
+    s.dt_min = scalars[kKerrRk45HeadFloats + 1];
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return 0;
+  const long long blocks = (n + kKerrRk45Threads - 1) / kKerrRk45Threads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const KerrRk45Launch a{static_cast<unsigned>(blocks),
+                         static_cast<cudaStream_t>(stream),
+                         r, th, ph, p_r, p_th, E, L, fout, iout, n,
+                         max_steps, max_iters};
+  if (vol) {
+    if (blackbody)
+      pick_kerr_rk45_beaming<true>(beaming != 0, scatter != 0, s, a);
+    else
+      pick_kerr_rk45_beaming<false>(beaming != 0, scatter != 0, s, a);
+  } else if (track_disk) {
+    launch_kerr_rk45<true, false, false, false, false>(s, a);
+  } else {
+    launch_kerr_rk45<false, false, false, false, false>(s, a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -42,10 +42,14 @@ struct MarchScalars {
 
 constexpr float kPi = 3.14159265358979323846f;
 
-// max and clip that propagate NaN, as jnp.maximum / jnp.clip do (fmaxf /
-// fminf drop a NaN operand).
+// max, min and clip that propagate NaN, as jnp.maximum / jnp.minimum /
+// jnp.clip do (fmaxf / fminf drop a NaN operand).
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
 }
 
 __device__ __forceinline__ float clip_nan(float x, float lo, float hi) {

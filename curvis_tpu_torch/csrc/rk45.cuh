@@ -18,6 +18,7 @@
 // ray to max_iters with sign 0 instead of freezing it as sign 3.
 #pragma once
 
+#include "dp54.cuh"
 #include "planar.cuh"
 
 namespace curvis {
@@ -40,39 +41,7 @@ constexpr int kRk45Capped = -128;   // sign of a ray stopped at max_steps
 constexpr float kRk45DtFloor = 1e-6f;
 constexpr float kRk45StallDt = static_cast<float>(1e-6 * 1.01);
 
-// Dormand-Prince 5(4) tableau (march_pallas.py _DP_A, _DP_B5, _DP_B4) as
-// float32, the values the TPU kernel multiplies by.
-constexpr float kA21 = static_cast<float>(1.0 / 5);
-constexpr float kA31 = static_cast<float>(3.0 / 40);
-constexpr float kA32 = static_cast<float>(9.0 / 40);
-constexpr float kA41 = static_cast<float>(44.0 / 45);
-constexpr float kA42 = static_cast<float>(-56.0 / 15);
-constexpr float kA43 = static_cast<float>(32.0 / 9);
-constexpr float kA51 = static_cast<float>(19372.0 / 6561);
-constexpr float kA52 = static_cast<float>(-25360.0 / 2187);
-constexpr float kA53 = static_cast<float>(64448.0 / 6561);
-constexpr float kA54 = static_cast<float>(-212.0 / 729);
-constexpr float kA61 = static_cast<float>(9017.0 / 3168);
-constexpr float kA62 = static_cast<float>(-355.0 / 33);
-constexpr float kA63 = static_cast<float>(46732.0 / 5247);
-constexpr float kA64 = static_cast<float>(49.0 / 176);
-constexpr float kA65 = static_cast<float>(-5103.0 / 18656);
-// the last row equals the 5th-order weights (FSAL); its zero a72 is
-// multiplied in, as the TPU kernel does
-constexpr float kB1 = static_cast<float>(35.0 / 384);
-constexpr float kB3 = static_cast<float>(500.0 / 1113);
-constexpr float kB4 = static_cast<float>(125.0 / 192);
-constexpr float kB5 = static_cast<float>(-2187.0 / 6784);
-constexpr float kB6 = static_cast<float>(11.0 / 84);
-constexpr float kA72 = 0.0f;
-// 4th-order weights (e2 = 0 is skipped, as in the TPU kernel's sums)
-constexpr float kE1 = static_cast<float>(5179.0 / 57600);
-constexpr float kE3 = static_cast<float>(7571.0 / 16695);
-constexpr float kE4 = static_cast<float>(393.0 / 640);
-constexpr float kE5 = static_cast<float>(-92097.0 / 339200);
-constexpr float kE6 = static_cast<float>(187.0 / 2100);
-constexpr float kE7 = static_cast<float>(1.0 / 40);
-
+// The DP5(4) tableau kA.., kB.., kE.. is dp54.cuh's.
 
 // Scaled error of one component: |dt e| / (atol + rtol max(|y0|, |y1|)).
 __device__ __forceinline__ float rk45_err(const Rk45Control& c, float dt,

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 
 from curvis_tpu_torch.metrics.base import Metric
+from curvis_tpu_torch.physics.hamiltonian import (HamiltonianResult,
+                                                  _rhs_batched)
 from curvis_tpu_torch.physics.planar import (_CHECK_EVERY, PlanarResult,
                                              PlanarRays, _capture_radius,
                                              planar_rhs)
@@ -139,3 +141,108 @@ def march_planar_rk45(metric: Metric, rays: PlanarRays, *, escape_radius,
         sign = torch.where((sign == 0) & over, CAPPED, sign).to(torch.int32)
     sign = torch.where(sign == CAPPED, 0, sign).to(torch.int32)
     return PlanarResult(l, psi, p_l, sign, steps)
+
+
+def march_kerr_rk45(metric, x0, p0, *, escape_radius, capture_radius=None,
+                    max_steps=4_000, rtol=1e-4, atol=1e-7, dt0=0.1,
+                    dt_min=1e-5, dt_max=None, max_iters=None,
+                    return_iters=False):
+    """Error-controlled Boyer-Lindquist march: DP5(4) with per-ray adaptive
+    dt on the general Hamiltonian flow (``physics/hamiltonian.py``'s
+    autodiff RHS), the counterpart of the JAX package's XLA twin.
+
+    The error norm |y5 - y4| / (atol + rtol max(|y0|, |y5|)) runs over
+    (r, theta, p_r, p_theta); phi is excluded (its near-axis spikes are
+    coordinate artifacts).  An accepted trial that overshoots R grossly
+    (at a fraction < 0.9 of the step and more than R * 1e-3 past R) is
+    rejected and retried with dt scaled to land just past R.  A ray ends
+    escaped (1), captured (2), blown up or stalled at ``dt_min`` (3), or
+    at ``max_steps`` accepted steps or ``max_iters`` iterations (0;
+    max_iters defaults to 4 max_steps, not rounded).  Returns a
+    HamiltonianResult whose ``steps`` are accepted steps, and each ray's
+    live iterations with ``return_iters``.
+
+    This is the bare rk45 route on the CPU; the GPU route, and the disk,
+    volumetric and map marches on either device, run kernel #8
+    (``ops/kerr_rk45_cuda.py``), whose arithmetic differs by rounding."""
+    dtype, dev = x0.dtype, x0.device
+    R = torch.as_tensor(escape_radius, dtype=dtype, device=dev)
+    if capture_radius is None:
+        capture_radius = getattr(metric, "capture_radius", None)
+    if dt_max is None:
+        dt_max = escape_radius / 8.0
+    dt_min, dt_max = (torch.as_tensor(v, dtype=dtype, device=dev)
+                      for v in (dt_min, dt_max))
+    if max_iters is None:
+        max_iters = 4 * max_steps
+    shape = x0.shape[:-1]
+    x, p = x0, p0
+    dt = torch.full(shape, float(dt0), dtype=dtype, device=dev)
+    sign = torch.zeros(shape, dtype=torch.int32, device=dev)
+    steps = torch.zeros_like(sign)
+    iters = torch.zeros_like(sign)
+    for it in range(int(max_iters)):
+        if it % _CHECK_EVERY == 0 and not bool((sign == 0).any()):
+            break
+        active = sign == 0
+        iters = iters + active.to(torch.int32)
+        dte = dt[..., None]
+        ks = []                                   # 7 stages of (dx, dp)
+        for i in range(7):
+            xi, pi_ = x, p
+            for j, a in enumerate(DP_A[i]):
+                xi = xi + dte * a * ks[j][0]
+                pi_ = pi_ + dte * a * ks[j][1]
+            ks.append(_rhs_batched(metric, xi, pi_))
+        x5 = x + dte * _comb(DP_B5, ks, 0, x)
+        p5 = p + dte * _comb(DP_B5, ks, 1, x)
+        x4 = x + dte * _comb(DP_B4, ks, 0, x)
+        p4 = p + dte * _comb(DP_B4, ks, 1, x)
+
+        def err_comp(y5, y4, y0):
+            return torch.abs(y5 - y4) / (atol + rtol * torch.maximum(
+                torch.abs(y0), torch.abs(y5)))
+
+        # torch.amax and torch.maximum propagate NaN, as jnp.max / maximum
+        err = torch.maximum(
+            torch.amax(err_comp(x5[..., 1:3], x4[..., 1:3], x[..., 1:3]),
+                       dim=-1),
+            torch.amax(err_comp(p5[..., 1:3], p4[..., 1:3], p[..., 1:3]),
+                       dim=-1))
+        accept = active & (err <= 1.0)
+        esc = accept & (x5[..., 1] > R)
+        denom = x5[..., 1] - x[..., 1]
+        denom = torch.where(torch.abs(denom) < 1e-30, 1.0, denom)
+        frac = (R - x[..., 1]) / denom
+        over = esc & (frac < 0.9) & (x5[..., 1] > R * (1.0 + 1e-3))
+        accept = accept & ~over
+        esc = esc & ~over
+        am = accept[..., None]
+        x = torch.where(am, x5, x)
+        p = torch.where(am, p5, p)
+        r = x[..., 1]
+        m_chk = (torch.abs(r) + torch.abs(x[..., 2]) + torch.abs(x[..., 3])
+                 + torch.abs(p[..., 1]) + torch.abs(p[..., 2]))
+        ok = m_chk <= 1e8
+        # escape from the pre-writeback flag
+        sign = torch.where(accept & ok & esc, 1, sign)
+        if capture_radius is not None:
+            sign = torch.where(accept & ok & (r < capture_radius), 2, sign)
+        sign = torch.where(accept & ~ok, 3, sign)
+        # a reject at dt_min can never pass (over-rejects included)
+        stalled = active & ~accept & (dt <= dt_min * 1.01)
+        sign = torch.where(stalled, 3, sign).to(torch.int32)
+        steps = steps + accept.to(torch.int32)
+        err_safe = torch.clamp(err, min=1e-10)
+        factor = torch.clamp(0.9 * torch.exp(-0.2 * torch.log(err_safe)),
+                             0.2, 5.0)
+        factor = torch.where(torch.isfinite(factor), factor, 0.2)
+        dt_b = torch.clamp(dt * frac * 1.05, dt_min, dt_max)
+        dt = torch.where(active & (sign == 0),
+                         torch.clamp(dt * factor, dt_min, dt_max), dt)
+        dt = torch.where(over & (sign == 0), dt_b, dt)
+        sign = torch.where((sign == 0) & (steps >= max_steps), CAPPED,
+                           sign).to(torch.int32)
+    sign = torch.where(sign == CAPPED, 0, sign).to(torch.int32)
+    res = HamiltonianResult(x, p, sign, steps)
+    return (res, iters) if return_iters else res

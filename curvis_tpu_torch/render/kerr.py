@@ -1,7 +1,8 @@
 """Kerr / Kerr-Newman black-hole rendering: spinning shadows and
 frame-dragged disks (PyTorch).
 
-Counterpart of ``curvis_tpu/render/kerr.py`` for its fixed-step RK4 routes.
+Counterpart of ``curvis_tpu/render/kerr.py`` for its fixed-step RK4 and
+adaptive DP5(4) routes.
 Per-pixel photons spawn from the static tetrad at the camera
 (``physics/hamiltonian.py:spawn_photon``), march the full Boyer-Lindquist
 system to escape or capture and shade from the sky, with an optional
@@ -11,18 +12,26 @@ the circular-orbit g-factor
         / (1 - Omega_s b),    Omega_s = s sqrt(M r - Q^2) / (r^2 + s a ...),
 b = L / E per ray) or volumetric (transfer through the flared gas disk).
 
-Routes, by the device of the inputs:
+Routes, by the stepper and the device of the inputs:
 
-- CUDA tensors (float32) march through the hand-written RK4 kernel
-  ``ops/kerr_cuda.py`` (kernel #7) in every route, as the JAX package's
-  ``backend='pallas'`` does;
-- CPU tensors march through the ports of the JAX package's XLA marches:
+- ``stepper='rk4'`` (the default) on CUDA tensors (float32) marches
+  through the hand-written RK4 kernel ``ops/kerr_cuda.py`` (kernel #7) in
+  every route, as the JAX package's ``backend='pallas'`` does; on CPU
+  tensors through the ports of the JAX package's XLA marches:
   ``physics/hamiltonian.py:march_hamiltonian`` and ``march_kerr_disk`` /
-  ``march_kerr_volumetric`` below, whose RHS is the autodiff one.
+  ``march_kerr_volumetric`` below, whose RHS is the autodiff one;
+- ``stepper='rk45'`` (error control by ``rtol``, atol = rtol 1e-3, ``dt``
+  the initial step, ``max_steps`` accepted steps, no far-field or axis
+  scaling) marches through the hand-written DP5(4) kernel
+  ``ops/kerr_rk45_cuda.py`` (kernel #8) in every route on CUDA tensors.
+  On CPU tensors it splits as the JAX package does off the TPU: the bare
+  march runs the autodiff twin ``integrate/rk45.py:march_kerr_rk45``, the
+  disk and volumetric marches the kernel's plain version (the JAX package
+  runs the Pallas kernel in interpret mode there; it has no twin for
+  them).
 
-``stepper='rk45'`` (kernel #8), the differentiable backends ``'scan'`` /
-``'adjoint'`` and ``disk_theta=`` raise NotImplementedError naming their
-ROADMAP item.
+The differentiable backends ``'scan'`` / ``'adjoint'`` and ``disk_theta=``
+raise NotImplementedError naming their ROADMAP item, with either stepper.
 """
 from __future__ import annotations
 
@@ -33,8 +42,10 @@ import torch
 from curvis_tpu_torch.camera.camera import Camera, aberrate_directions
 from curvis_tpu_torch.env.spherical_image import SphericalImage, filter_lookup
 from curvis_tpu_torch.geometry.rotations import frame_matrix
+from curvis_tpu_torch.integrate.rk45 import march_kerr_rk45
 from curvis_tpu_torch.ops.disk_vol_cuda import scatter_source_plain
 from curvis_tpu_torch.ops.kerr_cuda import march_kerr_cuda
+from curvis_tpu_torch.ops.kerr_rk45_cuda import march_kerr_rk45_cuda
 from curvis_tpu_torch.physics import hamiltonian as ham
 from curvis_tpu_torch.render.disk import (OPAQUE_SIGN, DiskParams,
                                           _emission_rgb, _volumetric_rgb,
@@ -51,13 +62,9 @@ from curvis_tpu_torch.utils.device import common_device
 def check_kerr_route(stepper="rk4", backend="auto", disk_theta=None):
     """Raise for the options of the Kerr routes the port does not run yet
     (NotImplementedError naming the ROADMAP item) or does not know."""
-    if stepper == "rk45":
-        raise NotImplementedError(
-            "stepper='rk45' on the Kerr routes needs the BL DP5(4) kernel "
-            "#8 (_kerr_rk45_kernel), ROADMAP Queue 1 item 2")
-    if stepper != "rk4":
-        raise ValueError(f"the Kerr routes march with stepper='rk4', got "
-                         f"{stepper!r}")
+    if stepper not in ("rk4", "rk45"):
+        raise ValueError(f"the Kerr routes march with stepper='rk4' or "
+                         f"'rk45', got {stepper!r}")
     if backend in ("scan", "adjoint"):
         raise NotImplementedError(
             f"backend={backend!r}: Kerr gradients (integrate/kerr_adjoint.py"
@@ -277,12 +284,33 @@ def _asymptotic_dirs(metric, x, p):
     return w[:, 0], w[:, 1], w[:, 2]
 
 
-def _march(metric, x0, p0, *, disk, scatter_block, **kw):
-    """The march of a render route: kernel #7 on a GPU, the autodiff twins
-    on the CPU -> (x, p, sign, tau, em, h1, h2), unused parts None."""
+def _march(metric, x0, p0, *, disk, scatter_block, stepper, rtol, dt,
+           max_steps, escape_radius, far_r0):
+    """The march of a render route -> (x, p, sign, tau, em, h1, h2), unused
+    parts None.  RK4: kernel #7 on a GPU, the autodiff twins on the CPU.
+    rk45: kernel #8 on a GPU; on the CPU the autodiff twin for the bare
+    march and kernel #8's plain version for the disk and volumetric ones."""
     vol = disk is not None and disk.volumetric
     gpu = x0.device.type != "cpu"
     tau = em = h1 = h2 = None
+    if stepper == "rk45":
+        kw = dict(dt0=dt, max_steps=max_steps, escape_radius=escape_radius,
+                  rtol=rtol, atol=rtol * 1e-3)
+        if vol:
+            x, p, sign, _, (tau, em) = march_kerr_rk45_cuda(
+                metric, x0, p0, vol_disk=disk, scatter_block=scatter_block,
+                **kw)
+        elif disk is not None:
+            x, p, sign, _, (h1, h2) = march_kerr_rk45_cuda(
+                metric, x0, p0, disk=(disk.r_inner, disk.r_outer), **kw)
+        elif gpu:
+            x, p, sign, _ = march_kerr_rk45_cuda(metric, x0, p0, **kw)
+        else:
+            x, p, sign, _ = march_kerr_rk45(
+                metric, x0, p0, capture_radius=metric.capture_radius, **kw)
+        return x, p, sign, tau, em, h1, h2
+    kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius,
+              far_r0=far_r0)
     if vol:
         if gpu:
             x, p, sign, _, (tau, em) = march_kerr_cuda(
@@ -310,7 +338,7 @@ def _march(metric, x0, p0, *, disk, scatter_block, **kw):
 
 def _kerr_march_and_shade(metric, x0, p0, bg, dt, *, max_steps,
                           escape_radius, disk, filtering, far_accel=True,
-                          starlight_map=None):
+                          stepper="rk4", rtol=1e-4, starlight_map=None):
     """March an (N,)-ray BL bundle and shade it -> (N, 3) colours; shared by
     the single-frame, frames-batched and adaptive renderers."""
     scatter_block = None
@@ -322,9 +350,9 @@ def _kerr_march_and_shade(metric, x0, p0, bg, dt, *, max_steps,
         scatter_block = starlight_scatter_block(starlight_map, disk,
                                                 x0.dtype)
     x, p, sign, tau, em, h1, h2 = _march(
-        metric, x0, p0, disk=disk, scatter_block=scatter_block, dt=dt,
-        max_steps=max_steps, escape_radius=escape_radius,
-        far_r0=_far_r0(metric, disk, far_accel))
+        metric, x0, p0, disk=disk, scatter_block=scatter_block,
+        stepper=stepper, rtol=rtol, dt=dt, max_steps=max_steps,
+        escape_radius=escape_radius, far_r0=_far_r0(metric, disk, far_accel))
     return _kerr_shade(metric, x0, p0, bg, x, p, sign, disk, filtering, tau,
                        em, h1, h2, starlight_map,
                        scatter=scatter_block is not None)
@@ -390,14 +418,18 @@ def render_kerr(metric, camera: Camera, bg: SphericalImage, *, dt=0.1,
                 max_steps=20_000, escape_radius=None,
                 disk: DiskParams | None = None, filtering="bilinear",
                 backend="auto", camera_velocity=None, far_accel=True,
-                stepper="rk4", disk_theta=None, starlight_map=None):
+                stepper="rk4", rtol=1e-4, disk_theta=None,
+                starlight_map=None):
     """(H, W, 3): Kerr shadow + lensed sky (+ an optional disk).
 
     The camera position is (t, r, theta, phi) in Boyer-Lindquist; pixel
     directions are decomposed in the asymptotic frame at the camera angles.
     ``escape_radius=None`` is twice the camera radius.  ``far_accel`` grows
-    dt linearly beyond max(8M, r_out + 2M) (at most 8x).  The march is
-    kernel #7 on a GPU, the autodiff RK4 march on the CPU."""
+    dt linearly beyond max(8M, r_out + 2M) (at most 8x).  The RK4 march is
+    kernel #7 on a GPU, the autodiff RK4 march on the CPU;
+    ``stepper='rk45'`` marches with error control ``rtol`` (``dt`` the
+    initial step, ``max_steps`` accepted steps) through kernel #8 (module
+    docstring)."""
     check_kerr_route(stepper, backend, disk_theta)
     common_device(metric, camera, bg)
     return _render_kerr_impl(metric, camera, bg, dt, max_steps=max_steps,
@@ -405,13 +437,13 @@ def render_kerr(metric, camera: Camera, bg: SphericalImage, *, dt=0.1,
                              filtering=filtering,
                              camera_velocity=_velocity(camera_velocity,
                                                        camera),
-                             far_accel=far_accel,
+                             far_accel=far_accel, stepper=stepper, rtol=rtol,
                              starlight_map=starlight_map)
 
 
 def _render_kerr_impl(metric, camera, bg, dt, *, max_steps, escape_radius,
                       disk, filtering, camera_velocity=None, far_accel=True,
-                      starlight_map=None):
+                      stepper="rk4", rtol=1e-4, starlight_map=None):
     if escape_radius is None:
         escape_radius = 2.0 * camera.position[1]
     x0, p0, delta = _spawn_kerr_rays(metric, camera, camera_velocity)
@@ -419,6 +451,7 @@ def _render_kerr_impl(metric, camera, bg, dt, *, max_steps, escape_radius,
                                    max_steps=max_steps,
                                    escape_radius=escape_radius, disk=disk,
                                    filtering=filtering, far_accel=far_accel,
+                                   stepper=stepper, rtol=rtol,
                                    starlight_map=starlight_map)
     colors = _doppler_boost(colors, delta)
     W, H = camera.resolution_x, camera.resolution_y
@@ -430,7 +463,7 @@ def render_kerr_frames_batched(metric, cameras, bg: SphericalImage, *,
                                disk: DiskParams | None = None,
                                filtering="bilinear", backend="auto",
                                camera_velocities=None, far_accel=True,
-                               stepper="rk4", disk_theta=None,
+                               stepper="rk4", rtol=1e-4, disk_theta=None,
                                starlight_map=None):
     """Several Kerr camera poses with ONE march -> (F, H, W, 3): every
     stage is per ray, so the frames' bundles concatenate (the cameras must
@@ -459,6 +492,7 @@ def render_kerr_frames_batched(metric, cameras, bg: SphericalImage, *,
                                    max_steps=max_steps,
                                    escape_radius=escape_radius, disk=disk,
                                    filtering=filtering, far_accel=far_accel,
+                                   stepper=stepper, rtol=rtol,
                                    starlight_map=starlight_map)
     if camera_velocities is not None:
         colors = _doppler_boost(colors, torch.cat([b[2] for b in bundles]))
@@ -471,7 +505,7 @@ def render_kerr_adaptive(metric, camera: Camera, bg: SphericalImage, *,
                          filtering="bilinear", backend="auto",
                          refine_frac=0.1, supersample=3,
                          camera_velocity=None, far_accel=True,
-                         stepper="rk4", disk_theta=None,
+                         stepper="rk4", rtol=1e-4, disk_theta=None,
                          starlight_map=None):
     """Edge-adaptive antialiasing: a base render, then k x k centred
     sub-rays (k = ``supersample``) for the ``refine_frac`` highest-contrast
@@ -483,7 +517,8 @@ def render_kerr_adaptive(metric, camera: Camera, bg: SphericalImage, *,
     n_refine = max(1, int(refine_frac * W * H))
     velocity = _velocity(camera_velocity, camera)
     kw = dict(max_steps=max_steps, disk=disk, filtering=filtering,
-              far_accel=far_accel, starlight_map=starlight_map)
+              far_accel=far_accel, stepper=stepper, rtol=rtol,
+              starlight_map=starlight_map)
     base = _render_kerr_impl(metric, camera, bg, dt,
                              escape_radius=escape_radius,
                              camera_velocity=velocity, **kw)

@@ -14,7 +14,8 @@ depend on the camera: compute it once per (metric, sky, disk).
 The map's march is the thin-disk march of ``render/disk.py`` (annulus
 crossings give the self-shadow): kernel #5 (``ops/disk_cuda.py``) for CUDA
 tensors, the XLA twin for CPU tensors.  ``compute_kerr_starlight_map`` is
-the Kerr / Kerr-Newman map, marched by kernel #7 on a GPU.
+the Kerr / Kerr-Newman map, marched by kernel #7 (RK4) or #8 (DP5(4)) on a
+GPU.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from curvis_tpu_torch.metrics.base import (EllisMetric, FlatSphericalMetric,
                                            SchwarzschildMetric)
 from curvis_tpu_torch.ops.disk_vol_cuda import SCATTER_BLOCK, SCATTER_DEG
 from curvis_tpu_torch.ops.kerr_cuda import march_kerr_cuda
+from curvis_tpu_torch.ops.kerr_rk45_cuda import march_kerr_rk45_cuda
 from curvis_tpu_torch.physics.hamiltonian import spawn_photon
 from curvis_tpu_torch.physics import planar as pl
 from curvis_tpu_torch.render.disk import (_check_route, _emission_rgb,
@@ -220,7 +222,8 @@ def compute_kerr_starlight_map(
         metric, bg, *, r_inner, r_outer, escape_radius, dt=0.1,
         max_steps=20_000, n_r=48, n_phi=128, n_samples=128,
         sample_filtering="nearest", backend="auto", stepper="rk4",
-        boost="static", shadow_params=None, far_accel=True) -> StarlightMap:
+        rtol=1e-4, boost="static", shadow_params=None,
+        far_accel=True) -> StarlightMap:
     """The lensed-sky illumination map of a Kerr / Kerr-Newman disk.
 
     Kerr is stationary and axisymmetric: the escape direction of a
@@ -233,9 +236,12 @@ def compute_kerr_starlight_map(
     (``shadow_params``).  Each escaped sample is weighted by the
     bolometric boost (nu_loc / nu_inf)^4: nu_loc = 1 (``boost='static'``)
     or the circular-orbit material frame's u^t (E - Omega L) (``'orbit'``,
-    ratio clipped to [0.2, 4]); captured samples are black.  The march is
-    kernel #7 with its disk tracker on a GPU, ``render/kerr.py:
-    march_kerr_disk`` on the CPU.  Camera-independent: compute once per
+    ratio clipped to [0.2, 4]); captured samples are black.  The RK4 march
+    is kernel #7 with its disk tracker on a GPU, ``render/kerr.py:
+    march_kerr_disk`` on the CPU; ``stepper='rk45'`` (error control
+    ``rtol``, ``dt`` the initial step) is kernel #8 with its disk tracker,
+    or its plain version on the CPU (the JAX package runs that kernel in
+    interpret mode off the TPU).  Camera-independent: compute once per
     (metric, sky, disk) and pass to every frame."""
     from curvis_tpu_torch.render import kerr as rk
     rk.check_kerr_route(stepper, backend)
@@ -265,7 +271,12 @@ def compute_kerr_starlight_map(
         far_r0 = torch.maximum(8.0 * metric.m, r_outer + 2.0 * metric.m)
     kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius,
               far_r0=far_r0)
-    if dev.type == "cpu":
+    if stepper == "rk45":
+        x, p, sign, _, (h1, h2) = march_kerr_rk45_cuda(
+            metric, x0, p0, dt0=dt, max_steps=max_steps,
+            escape_radius=escape_radius, rtol=rtol, atol=rtol * 1e-3,
+            disk=(r_inner, r_outer))
+    elif dev.type == "cpu":
         x, p, sign, (h1, h2) = rk.march_kerr_disk(
             metric, x0, p0, r_inner=r_inner, r_outer=r_outer, **kw)
     else:

@@ -547,18 +547,19 @@ def test_unported_kerr_options_raise():
              lambda **k: trk.render_kerr_frames_batched(tm, [tc], tb, **k),
              lambda **k: trk.render_kerr_adaptive(tm, tc, tb, **k))
     for call in calls:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            call(stepper="rk45", **kw)
-        for backend in ("scan", "adjoint"):
+        for stepper in ("rk4", "rk45"):
+            for backend in ("scan", "adjoint"):
+                with pytest.raises(NotImplementedError,
+                                   match="Queue 1 item 3"):
+                    call(stepper=stepper, backend=backend, **kw)
             with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-                call(backend=backend, **kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            call(disk_theta={"kappa": torch.tensor(2.0)}, **kw)
+                call(stepper=stepper, disk_theta={"kappa": torch.tensor(2.0)},
+                     **kw)
         with pytest.raises(ValueError, match="backend"):
             call(backend="pallas", **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         ts.compute_kerr_starlight_map(tm, tb, r_inner=3.0, r_outer=9.0,
-                                      stepper="rk45", **kw)
+                                      stepper="rk45", backend="adjoint", **kw)
     with pytest.raises(ValueError, match="OR vol_disk"):
         kerr_cuda.kerr_scalars(tm, 0.1, 30.0, disk=(3.0, 9.0),
                                vol_disk=DiskParams(volumetric=True))
