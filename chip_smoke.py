@@ -83,7 +83,26 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      job's launches of #8 (and none of #7), the disk-fraction and shadow
      gates, the bare, thin and volumetric frames against their RK4
      renders over a smooth sky, and profiles of a thin and a volumetric
-     frame.
+     frame;
+ 17. kernel #4's surface variants (csrc/planar_rk45_disk.cu) against
+     their plain version at rtol 1e-5 on the disk view of phases 10-12:
+     the disk tracker at 1024^2, the volumetric variant with every flag
+     set (tint / blackbody, redshift and Doppler on and off, the scatter
+     source of a real rk45 starlight map) at 512^2 and 256^2, an Ellis
+     wormhole disk with far-sheet hits, a kappa that freezes rays at
+     tau_max, a step cap that most rays reach, 16 NaN rays in the tracker
+     (sign 3) and in the gas (sign 0 at max_iters, as in the TPU kernel:
+     the gas clamp turns their dt NaN) and the starlight map's 64 x 256
+     bundle; exact equality, as the source is built without FMA
+     contraction;
+ 18. the disk path with stepper='rk45' (rtol 1e-5) end to end at 1024^2:
+     the thin blackbody frame, the rk45 starlight map and the starlit
+     frame, the volumetric blackbody frame, the volumetric starlit frame
+     (in-gas scatter) and render_disk_frames_batched over 4 poses, with
+     each job's launches of the new kernel (and none of #5 or #6), the
+     thin, starlit and volumetric frames against their Euler renders over
+     a smooth sky, tau and emission against the Euler quadrature, and
+     profiles of a thin and a volumetric frame.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -234,6 +253,29 @@ RK45_FLUX_MAX = 0.02       # relative total flux, volumetric rk45 vs RK4
 # emission of an accepted step as #7's (FLOP_KERR) plus 8 for its sums.
 FLOP_KERR_RK45_ITER = 910
 FLOP_KERR_RK45 = dict(disk=8, vol_clamp=15, vol_sum=8)
+# The disk path with stepper='rk45' (kernel #4's surface variants): the JAX
+# disk routes' default rtol 1e-5 (atol = rtol 1e-3, dt_max 10; dt the
+# initial step, to which the step clamps near the disk, and max_steps
+# counts accepted steps).
+RK45_DISK_RTOL = 1e-5
+RK45_DISK_CAP = 40         # below the mean accepted steps of the path's
+                           # thin view (~69): most rays stop at it
+RK45_DISK_NAN_CAP = 100    # the vol NaN case's cap: NaN rays run to
+                           # max_iters = 4 x this (module docstring)
+RK45_DISK_DIFF_MAX = 0.03  # rk45 vs Euler frames over a smooth sky: share
+                           # of pixels differing by > RK45_DIFF
+                           # (tests/test_rk45.py:233-259)
+RK45_DISK_L1_MAX = 0.03    # relative L1 of tau and emission, rk45 vs the
+                           # Euler quadrature (tests/test_rk45.py:209-230)
+# One DP5(4) iteration of kernel #4 on a lapse kind (csrc/rk45.cuh): the
+# bare iteration of FLOP_RK45_ITER with seven Schwarzschild RHS of 18 in
+# place of Ellis's 8 (350); the surface variants (csrc/planar_rk45_disk.cu)
+# add per iteration zq (sincos as two, 5) and the crossing test and plane
+# clamp (10), or zq and the gas clamp (22), and per accepted vol step the
+# emission's density, edges and transmittance and the four sums (48), the
+# shifts, colour and scatter source as kernel #6's (FLOP_VOL).
+FLOP_RK45_ITER_LAPSE = 350
+FLOP_RK45_DISK = dict(track=15, vol_clamp=22, emission=48)
 
 
 def require(ok, what):
@@ -1094,11 +1136,12 @@ def phase9_quality(bgp, bgn):
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def disk_camera(res, phi=0.0):
-    """The example's camera at azimuth ``phi``, looking at the hole."""
+def disk_camera(res, phi=0.0, l=DISK_L):
+    """The example's camera at azimuth ``phi`` (and radius ``l``), looking
+    at the hole."""
     from curvis_tpu_torch.camera.camera import make_camera
     st, ct = math.sin(DISK_TH), math.cos(DISK_TH)
-    return make_camera([0.0, DISK_L, DISK_TH, phi],
+    return make_camera([0.0, l, DISK_TH, phi],
                        [-st * math.cos(phi), -st * math.sin(phi), -ct],
                        [0.0, 0.0, 1.0], DISK_FOCAL, 43.0, res, res,
                        device=DEVICE)
@@ -1331,7 +1374,7 @@ def phase11_disk_vol(sky):
     return out[f"tint {RES}^2 (the path's view)"]
 
 
-def disk_image_gates(name, imgs, bare):
+def disk_image_gates(name, imgs, bare, tag="[12]"):
     """Shape, finite pixels, lit and disk-pixel fractions of disk frames;
     a disk pixel differs by > DISK_IMG_TOL from ``bare``, the same frames
     rendered with a disk of zero brightness and opacity (the lensed sky
@@ -1345,7 +1388,7 @@ def disk_image_gates(name, imgs, bare):
     lit = min((im.sum(-1) > 0).double().mean().item() for im in imgs)
     disk = [((im - b).abs().amax(-1) > DISK_IMG_TOL).double().mean().item()
             for im, b in zip(imgs, bare)]
-    print(f"[12]   {name}: lit fraction {lit:.6f}, disk-pixel fraction "
+    print(f"{tag}   {name}: lit fraction {lit:.6f}, disk-pixel fraction "
           f"{min(disk):.6f}..{max(disk):.6f}")
     require(lit > DISK_LIT_MIN, f"{name}: lit fraction {lit}")
     require(DISK_FRAC[0] < min(disk) and max(disk) < DISK_FRAC[1],
@@ -1456,8 +1499,9 @@ def phase12_disk_path(sky, sky_np):
             "starlight map: shape or non-finite values")
 
     # the thin frame against the same route with kernel #5's plain version
-    def plain_thin(metric, rays, c1, c2, *, dt, max_steps, escape_radius,
-                   r_inner, r_outer):
+    def plain_thin(metric, rays, c1, c2, *, stepper, rtol, dt, max_steps,
+                   escape_radius, r_inner, r_outer):
+        require(stepper == "euler", f"plain thin route with {stepper}")
         kind, scal = disk_cuda.disk_scalars(metric, dt, escape_radius,
                                             r_inner, r_outer)
         out = disk_cuda.march_planar_disk_plain(
@@ -2222,6 +2266,341 @@ def phase16_kerr_rk45_path(sky, sky_np, bright):
     return total
 
 
+def rk45_disk_flops(kind, flags, iters, steps):
+    """FP32 operations of kernel #4's surface variants for a kind and its
+    flags over ``iters`` iterations of which ``steps`` were accepted."""
+    vol, blackbody, redshift, doppler, scatter = flags
+    lapse = kind in ("schwarzschild", "rn")
+    per_iter = FLOP_RK45_ITER_LAPSE if lapse else FLOP_RK45_ITER
+    if not vol:
+        return (per_iter + FLOP_RK45_DISK["track"]) * iters
+    per_step = FLOP_RK45_DISK["emission"]
+    per_step += FLOP_VOL["shift"] if lapse and (redshift or doppler) else 0
+    per_step += FLOP_VOL["blackbody" if blackbody else "tint"]
+    per_step += FLOP_VOL["scatter"] if scatter else 0
+    return (per_iter + FLOP_RK45_DISK["vol_clamp"]) * iters \
+        + per_step * steps
+
+
+def outputs_differ(out_k, out_p):
+    """Entries of the kernel's outputs that differ from the plain
+    version's (NaN equals NaN), and the largest finite difference."""
+    import torch
+    n, worst = 0, 0.0
+    for k, p in zip(out_k, out_p):
+        same = k == p
+        if k.is_floating_point():
+            same |= torch.isnan(k) & torch.isnan(p)
+            both = torch.isfinite(k) & torch.isfinite(p)
+            if bool(both.any()):
+                d = (k.double() - p.double()).abs()[both].max().item()
+                worst = max(worst, d)
+        n += int((~same).sum())
+    return n, worst
+
+
+def phase17_rk45_disk_march(sky):
+    """Kernel #4's surface variants against march_planar_rk45_disk_plain on
+    the card at rtol 1e-5 (the disk view of phases 10-12)."""
+    import dataclasses
+    import torch
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.ops import _build
+    from curvis_tpu_torch.ops import rk45_disk_cuda as rd
+    from curvis_tpu_torch.render.disk import DiskParams, compute_starlight_map
+    from curvis_tpu_torch.render.starlight import (map_rays,
+                                                   starlight_scatter_block)
+    exact = "--fmad=false" in _build.SOURCE_FLAGS.get("planar_rk45_disk.cu",
+                                                      [])
+    bh = make_metric("schwarzschild", m=1.0, device=DEVICE)
+    ellis = make_metric("ellis", rho=1.0, device=DEVICE)
+    band = (5.2, 14.0)
+    tint = DiskParams(**DISK_VOL)
+    bb = dataclasses.replace(tint, color_mode="blackbody", t_peak=7000.0)
+    smap = compute_starlight_map(
+        bh, sky, dataclasses.replace(bb, starlight=True, starlight_samples=256,
+                                     starlight_grid=(64, 128)),
+        dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R, stepper="rk45",
+        rtol=RK45_DISK_RTOL)
+    block = starlight_scatter_block(smap, bb)
+    V, S = DISK_VOL_RES, SMALL
+    # name, metric, side (None: the map bundle), row keywords, cap, NaN rays;
+    # the wormhole's camera at l = 10, close enough that rays through the
+    # throat cross the disk on the far sheet
+    configs = [
+        (f"disk tracker {RES}^2 (the path's view)", bh, RES,
+         dict(disk=band), MAX_STEPS, 0),
+        (f"vol tint {V}^2", bh, V, dict(vol_disk=tint), MAX_STEPS, 0),
+        (f"vol blackbody {V}^2", bh, V, dict(vol_disk=bb), MAX_STEPS, 0),
+        (f"vol tint, redshift only {S}^2", bh, S,
+         dict(vol_disk=dataclasses.replace(tint, doppler=False)), MAX_STEPS,
+         0),
+        (f"vol tint, Doppler only {S}^2", bh, S,
+         dict(vol_disk=dataclasses.replace(tint, redshift=False)), MAX_STEPS,
+         0),
+        (f"vol blackbody, no shift {S}^2", bh, S,
+         dict(vol_disk=dataclasses.replace(bb, redshift=False,
+                                           doppler=False)), MAX_STEPS, 0),
+        (f"vol tint + scatter {S}^2", bh, S,
+         dict(vol_disk=tint, scatter_block=block), MAX_STEPS, 0),
+        (f"vol blackbody + scatter {V}^2", bh, V,
+         dict(vol_disk=bb, scatter_block=block), MAX_STEPS, 0),
+        (f"vol tint kappa 40 (tau_max freeze) {S}^2", bh, S,
+         dict(vol_disk=dataclasses.replace(tint, kappa=40.0)), MAX_STEPS,
+         0),
+        (f"ellis disk tracker {S}^2 (wormhole disk)", ellis, S,
+         dict(disk=(1.5, 14.0)), MAX_STEPS, 0),
+        (f"ellis vol blackbody {S}^2", ellis, S,
+         dict(vol_disk=dataclasses.replace(bb, r_inner=1.5)), MAX_STEPS, 0),
+        (f"disk tracker {S}^2 cap {RK45_DISK_CAP}", bh, S, dict(disk=band),
+         RK45_DISK_CAP, 0),
+        (f"disk tracker {S}^2 with {N_POISON} NaN rays", bh, S,
+         dict(disk=band), MAX_STEPS, N_POISON),
+        (f"vol tint {S}^2 with {N_POISON} NaN rays, cap "
+         f"{RK45_DISK_NAN_CAP}", bh, S, dict(vol_disk=tint),
+         RK45_DISK_NAN_CAP, N_POISON),
+        ("starlight map rays 64 x 256", bh, None, dict(disk=band), MAX_STEPS,
+         0),
+    ]
+    out = {}
+    frozen_seen = [0, 0]
+    for name, metric, side, row_kw, cap, n_nan in configs:
+        if side is None:
+            _, rays, _, _ = map_rays(metric, *band, 64, 256, torch.float32,
+                                     DEVICE)
+            state = [t.contiguous() for t in rays[:4]]
+            planes = [torch.zeros_like(rays.l), torch.ones_like(rays.l),
+                      torch.zeros_like(rays.l)]
+        else:
+            l_cam = 10.0 if metric is ellis else DISK_L
+            state, planes = disk_rays(metric, [disk_camera(side, l=l_cam)])
+        state[0], bad = poison_rays(state[0], n_nan)
+        kind, scal = rd.rk45_disk_scalars(metric, DT, DISK_R, RK45_DISK_RTOL,
+                                          RK45_DISK_RTOL * 1e-3, 10.0,
+                                          **row_kw)
+        vd = row_kw.get("vol_disk")
+        flags = rd.disk_flags(vd, row_kw.get("scatter_block"))
+        ins = state + planes[:2] + [planes[2] if flags[0] else None]
+        mi = 4 * cap
+        kw = dict(max_steps=cap, max_iters=mi)
+        out_k = rd.launch(kind, flags, scal, *ins, **kw)
+        sync()
+        t0 = time.perf_counter()
+        out_p = rd.march_planar_rk45_disk_plain(kind, flags, scal, *ins,
+                                                **kw)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        n_diff, worst = outputs_differ(out_k, out_p)
+        sign_k, steps_k, iters_k = out_k[-3:]
+        sign_eq = (sign_k == out_p[-3]).double().mean().item()
+        steps_near = ((steps_k - out_p[-2]).abs()
+                      <= STEPS_NEAR).double().mean().item()
+        iters_eq = (iters_k == out_p[-1]).double().mean().item()
+        kernel_ms = cuda_ms(lambda: rd.launch(kind, flags, scal, *ins, **kw),
+                            3)
+        n = state[0].numel()
+        steps, iters = steps_k.double(), iters_k.double()
+        counts = {s_: int((sign_k == s_).sum()) for s_ in (-1, 0, 1, 2, 3)}
+        print(f"[17] rk45 disk march {name}: {n} rays, signs {counts}; sign "
+              f"equal {sign_eq:.6f}, steps within {STEPS_NEAR} "
+              f"{steps_near:.6f}, iters equal {iters_eq:.6f}; {n_diff} "
+              f"output entries differ, max finite |d| {worst:.3e}")
+        print(f"[17]   steps mean / max {steps.mean().item():.2f} / "
+              f"{int(steps.max())}, iters mean / max "
+              f"{iters.mean().item():.2f} / {int(iters.max())}; kernel "
+              f"{kernel_ms:.3f} ms ({n / kernel_ms / 1e3:.1f} Mrays/s), plain "
+              f"{plain_ms:.1f} ms")
+        require(sign_eq >= SIGN_EQ_MIN, f"rk45 disk {name}: sign equal "
+                f"{sign_eq}")
+        require(steps_near >= STEPS_EQ_MIN,
+                f"rk45 disk {name}: steps within {STEPS_NEAR} {steps_near}")
+        if exact:
+            require(n_diff == 0, f"rk45 disk {name}: {n_diff} output "
+                    "entries differ from the plain version")
+        if flags[0]:
+            cap_r = metric.capture_radius
+            r_cap = float(cap_r) if cap_r is not None else -1e30
+            frozen = [int(((o[-3] == 2) & (o[0] > r_cap)).sum())
+                      for o in (out_k, out_p)]
+            frozen_seen = [f + g for f, g in zip(frozen_seen, frozen)]
+            ok = ~bad
+            close, em_worst = close_fraction([t[ok] for t in out_k[3:7]],
+                                             [t[ok] for t in out_p[3:7]])
+            print(f"[17]   tau and em within rtol {GRAD_RTOL} on "
+                  f"{close:.6f} of rays (max |d| {em_worst:.3e}); frozen by "
+                  f"tau_max {frozen[0]} / {frozen[1]} (kernel / plain); tau "
+                  f"max {out_k[3][ok].max().item():.3f}")
+            require(close >= GRAD_FRAC_MIN,
+                    f"rk45 disk {name}: close fraction {close}")
+            require(all(bool(torch.isfinite(t[ok]).all())
+                        for t in out_k[3:7]),
+                    f"rk45 disk {name}: non-finite tau or emission")
+            if vd.kappa > 10.0:
+                require(min(frozen) > 0, f"rk45 disk {name}: no tau_max "
+                        f"freeze {frozen}")
+        else:
+            # hit_agreement's layout: (l, psi, p_l, sign, steps, hits...)
+            a = hit_agreement(*((o[:3] + o[-3:-1] + o[3:9])
+                                for o in (out_k, out_p)))
+            hits = [int((out_k[i] != 0).sum()) for i in (3, 6)]
+            far = int((out_k[3] < 0).sum())
+            print(f"[17]   hits {hits[0]} / {hits[1]} (first / second, "
+                  f"{far} on the far sheet); presence equal "
+                  f"{a['hit_eq']:.6f}; over {a['n_hits']} hits p99 rel "
+                  f"radius {a['rel_p99']:.3e}, p99 |dpsi| "
+                  f"{a['dpsi_p99']:.3e}")
+            require(hits[0] > 0, f"rk45 disk {name}: no disk hit")
+            require(a["hit_eq"] >= HIT_EQ_MIN,
+                    f"rk45 disk {name}: hit presence equal {a['hit_eq']}")
+            require(a["rel_p99"] < HIT_P99_MAX
+                    and a["dpsi_p99"] < HIT_P99_MAX,
+                    f"rk45 disk {name}: hit radius / psi {a}")
+            if metric is ellis:
+                require(far > 0, f"rk45 disk {name}: no far-sheet hit")
+        for who, o in (("kernel", out_k), ("plain", out_p)):
+            sg, st, it = o[-3:]
+            require(int(st.max()) <= cap and int(it.max()) <= mi
+                    and bool((it >= st).all())
+                    and bool((st[(sg == 0) & (it < mi)] == cap).all()),
+                    f"rk45 disk {name}: {who} overshot or undershot a cap")
+            if n_nan:
+                want = 0 if flags[0] else 3
+                require(bool((sg[bad] == want).all())
+                        and bool((st[bad] == 0).all()),
+                        f"rk45 disk {name}: {who} NaN rays not sign {want} "
+                        f"without a step: {sg[bad].tolist()}")
+                if flags[0]:
+                    require(bool((it[bad] == mi).all()),
+                            f"rk45 disk {name}: {who} NaN rays in the gas "
+                            "did not run to max_iters")
+        if cap == RK45_DISK_CAP:
+            capped = (sign_k == 0).double().mean().item()
+            print(f"[17]   {capped:.4f} of rays stopped at the cap of {cap}")
+            require(capped > 0.5, f"rk45 disk {name}: only {capped} capped")
+        # 24 or 28 bytes read, 48 or 40 written per ray
+        n_bytes = (68 if flags[0] else 72) * n
+        b_ms, b_by = bound(n_bytes, rk45_disk_flops(
+            kind, flags, iters.sum().item(), steps.sum().item()))
+        out[name] = dict(max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        print(f"[17]   bound {b_ms:.3f} ms ({b_by}); kernel at "
+              f"{100 * b_ms / kernel_ms:.1f} % of it")
+    print(f"[17] built {'without' if exact else 'with'} FMA contraction; "
+          f"tau_max freeze seen on {frozen_seen[0]} / {frozen_seen[1]} rays "
+          f"(kernel / plain) over the volumetric cases")
+    return out[configs[0][0]]
+
+
+def phase18_rk45_disk_path(sky, sky_np):
+    """The disk path with stepper='rk45' end to end at 1024^2 through its
+    entry points, with each job's launches of the new kernel and of #5 and
+    #6; the thin, starlit and volumetric frames against their Euler
+    renders over a smooth sky; returns the new kernel's launches."""
+    import dataclasses
+    import torch
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.ops import disk_cuda, disk_vol_cuda, rk45_disk_cuda
+    from curvis_tpu_torch.physics.planar import PlanarRays
+    from curvis_tpu_torch.render import disk as rd
+    bh = make_metric("schwarzschild", m=1.0, device=DEVICE)
+    cam = disk_camera(RES)
+    kw = dict(dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R)
+    k45 = dict(kw, stepper="rk45", rtol=RK45_DISK_RTOL)
+    thin = rd.DiskParams(**DISK_THIN)
+    star = rd.DiskParams(**DISK_STAR)
+    vol_b = dataclasses.replace(rd.DiskParams(**DISK_VOL),
+                                color_mode="blackbody", t_peak=7000.0)
+    vol_s = dataclasses.replace(vol_b, starlight=True, starlight_samples=256,
+                                starlight_grid=(64, 128))
+    poses = [disk_camera(RES, 0.5 * k) for k in range(FRAMES)]
+    maps = {}
+
+    def frame(disk, smap=None, **extra):
+        return rd.render_blackhole_disk(bh, cam, sky, disk=disk,
+                                        starlight_map=smap, **k45, **extra)
+
+    dark = rd.DiskParams(brightness=0.0, opacity=0.0)
+    bare = frame(dark)
+    bare_batch = rd.render_disk_frames_batched(bh, poses, sky, disk=dark,
+                                               **k45)
+    maps["vol"] = rd.compute_starlight_map(bh, sky, vol_s, **k45)
+    jobs = [
+        ("thin blackbody frame", lambda: frame(thin), bare),
+        ("rk45 starlight map (64 x 128, 256 samples)",
+         lambda: maps.__setitem__("star", rd.compute_starlight_map(
+             bh, sky, star, **k45)), None),
+        ("starlight frame (map precomputed)",
+         lambda: frame(star, maps["star"]), bare),
+        ("volumetric blackbody frame", lambda: frame(vol_b), bare),
+        ("volumetric blackbody + scatter frame (map precomputed)",
+         lambda: frame(vol_s, maps["vol"]), bare),
+        (f"render_disk_frames_batched thin blackbody, {FRAMES} poses",
+         lambda: rd.render_disk_frames_batched(bh, poses, sky, disk=thin,
+                                               **k45), bare_batch),
+    ]
+    total = 0
+    for name, fn, ref in jobs:
+        rk45_disk_cuda.launches = 0
+        disk_cuda.launches = 0
+        disk_vol_cuda.launches = 0
+        img = fn()                                         # warm-up
+        ms = cuda_ms(fn, REPS)
+        n45 = rk45_disk_cuda.launches
+        n5, n6 = disk_cuda.launches, disk_vol_cuda.launches
+        total += n45
+        rays = 0 if ref is None else ref.numel() // 3
+        rate = f" = {rays / ms / 1e3:.1f} Mrays/s" if rays else ""
+        print(f"[18] {name}: {ms:.2f} ms (median of {REPS}){rate}; launches "
+              f"rk45 disk {n45}, #5 {n5}, #6 {n6}")
+        require(n45 > 0 and n5 == 0 and n6 == 0,
+                f"{name}: launches rk45 disk {n45}, #5 {n5}, #6 {n6}")
+        if ref is not None:
+            disk_image_gates(name, img, ref, "[18]")
+    require(maps["star"].values.shape == (2, 64, 128, 3)
+            and bool(torch.isfinite(maps["star"].values).all()),
+            "rk45 starlight map: shape or non-finite values")
+
+    # rk45 against Euler over a smooth sky: thin, starlit (each with its
+    # own stepper's map) and volumetric
+    smooth = smooth_sky()
+    for key, disk in (("thin", thin), ("starlit", star), ("vol", vol_b)):
+        imgs = []
+        for stepper_kw in (kw, k45):
+            smap = (rd.compute_starlight_map(bh, smooth, disk, **stepper_kw)
+                    if disk.starlight else None)
+            imgs.append(rd.render_blackhole_disk(bh, cam, smooth, disk=disk,
+                                                 starlight_map=smap,
+                                                 **stepper_kw))
+        diff = ((imgs[0] - imgs[1]).abs().amax(-1)
+                > RK45_DIFF).double().mean().item()
+        print(f"[18] rk45 vs Euler, {key} frame over a smooth sky: "
+              f"{diff:.6f} of pixels differ by > {RK45_DIFF}")
+        require(bool(torch.isfinite(imgs[1]).all())
+                and diff < RK45_DISK_DIFF_MAX,
+                f"rk45 vs Euler {key}: {diff} of pixels differ")
+    # tau and emission against the Euler quadrature on the path's rays
+    state, planes = disk_rays(bh, [cam])
+    rays = PlanarRays(*state, None, None)
+    _, tau_e, em_e = disk_vol_cuda.march_planar_disk_volumetric_cuda(
+        bh, rays, *planes, disk=vol_b, **kw)
+    _, tau_a, em_a = rk45_disk_cuda.march_planar_rk45_disk_cuda(
+        bh, rays, c1=planes[0], c2=planes[1], nz=planes[2], vol_disk=vol_b,
+        dt0=DT, max_steps=MAX_STEPS, escape_radius=DISK_R,
+        rtol=RK45_DISK_RTOL, atol=RK45_DISK_RTOL * 1e-3)
+    for what, a, e in (("tau", [tau_a], [tau_e]), ("emission", em_a, em_e)):
+        a, e = torch.stack(a).double(), torch.stack(e).double()
+        l1 = ((a - e).abs().sum() / e.abs().sum().clamp(min=1e-9)).item()
+        print(f"[18] volumetric {what}, rk45 vs the Euler quadrature: "
+              f"relative L1 {l1:.6f}")
+        require(l1 < RK45_DISK_L1_MAX, f"rk45 vs Euler {what}: L1 {l1}")
+    print(f"[18] launches of the rk45 disk kernel over the path: {total}")
+    profile_window(lambda: frame(thin), "[18]",
+                   f"the rk45 thin blackbody frame ({RES}^2)")
+    profile_window(lambda: frame(vol_b), "[18]",
+                   f"the rk45 volumetric blackbody frame ({RES}^2)")
+    return total
+
+
 def main():
     smi = phase0_toolchain()
     import numpy as np
@@ -2262,6 +2641,8 @@ def main():
     kerr_launches = phase14_kerr_path(disk_sky, disk_np, bright)
     kerr_rk45 = phase15_kerr_rk45_march(disk_sky)
     kerr_rk45_launches = phase16_kerr_rk45_path(disk_sky, disk_np, bright)
+    rk45_disk = phase17_rk45_disk_march(disk_sky)
+    rk45_disk_launches = phase18_rk45_disk_path(disk_sky, disk_np)
 
     def entry(name, source, replaces, n_launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -2299,8 +2680,12 @@ def main():
         entry("march_kerr_rk45_kernel", "curvis_tpu_torch/csrc/kerr_rk45.cu",
               "curvis_tpu/ops/march_pallas.py:1861", kerr_rk45_launches,
               kerr_rk45),
+        entry("march_planar_rk45_disk_kernel",
+              "curvis_tpu_torch/csrc/planar_rk45_disk.cu",
+              "curvis_tpu/ops/march_pallas.py:498", rk45_disk_launches,
+              rk45_disk),
     ]
-    print(f"[16] done on {smi}")
+    print(f"[18] done on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

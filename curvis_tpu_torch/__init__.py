@@ -11,8 +11,9 @@ checkpointed-recompute backward of the Euler march
 differentiable='adjoint')`` and ``fit``; and the black-hole accretion-disk
 path (``render_blackhole_disk``, ``render_disk_frames_batched``,
 ``compute_starlight_map``) with its disk-crossing march
-(``ops/disk_cuda.py``) and volumetric-transfer march
-(``ops/disk_vol_cuda.py``); and the Kerr / Kerr-Newman path
+(``ops/disk_cuda.py``), volumetric-transfer march (``ops/disk_vol_cuda.py``)
+and, for ``stepper='rk45'``, the adaptive march with both surfaces
+(``ops/rk45_disk_cuda.py``); and the Kerr / Kerr-Newman path
 (``render_kerr``, ``render_kerr_frames_batched``, ``render_kerr_adaptive``,
 ``compute_kerr_starlight_map``) with its Boyer-Lindquist RK4 march
 (``ops/kerr_cuda.py``) and DP5(4) march (``ops/kerr_rk45_cuda.py``,
@@ -45,6 +46,7 @@ from curvis_tpu_torch.ops.render_fused import render_planar_fused
 from curvis_tpu_torch.integrate.rk45 import (march_kerr_rk45,
                                              march_planar_rk45)
 from curvis_tpu_torch.ops.rk45_cuda import march_planar_rk45_cuda
+from curvis_tpu_torch.ops.rk45_disk_cuda import march_planar_rk45_disk_cuda
 from curvis_tpu_torch.render.direct import render_direct
 from curvis_tpu_torch.integrate.adjoint import march_planar_adjoint
 from curvis_tpu_torch.fit import FitResult, fit
@@ -89,6 +91,7 @@ __all__ = [
     "march_planar_adjoint",
     "march_planar_rk45",
     "march_planar_rk45_cuda",
+    "march_planar_rk45_disk_cuda",
     "render_blackhole_disk",
     "render_direct",
     "render_disk_frames_batched",

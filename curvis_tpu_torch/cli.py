@@ -12,8 +12,10 @@ Schwarzschild, Reissner-Nordstrom), ``--filtering``, ``--supersample``,
 ``--adaptive-aa``, ``--camera-velocity``, ``--bg1-orient`` /
 ``--bg2-orient`` and ``--flip-negative``; and ``image --disk`` (thin,
 slab, blackbody, volumetric and starlit disks through
-``render/disk.py:render_blackhole_disk``, whose march is always Euler, as
-in the JAX CLI, under any ``--renderer``); and, for a Kerr or
+``render/disk.py:render_blackhole_disk``, under any ``--renderer``; the
+CLI marches the disk with Euler whatever ``--stepper`` says, as the JAX
+CLI does, and ``stepper='rk45'`` on the disk routes is a library option);
+and, for a Kerr or
 Kerr-Newman metric (``kind = "kerr"`` / ``"kerr-newman"`` with ``m``, ``a``
 and ``q``), ``image`` through ``render/kerr.py`` with the fixed RK4 march
 for ``--stepper euler`` and ``rk4`` and the adaptive DP5(4) march for

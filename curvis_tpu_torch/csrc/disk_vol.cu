@@ -18,8 +18,9 @@
 // Schwarzschild and Reissner-Nordstrom) and SCATTER (the single-scattering
 // source of the lensed sky, a 27-scalar block after the emission slots).
 //
-// The Planck constants, the scattering source and the colour tail are
-// shared with the Kerr volumetric march through vol_common.cuh.
+// The emission (vol_emission) is shared with the DP5(4) volumetric march
+// through planar_vol.cuh; its Planck constants, scattering source and
+// colour tail with the Kerr volumetric marches through vol_common.cuh.
 //
 // Semantics kept from the TPU kernel:
 //   - emission at the post-step state with the PRE-update tau; the
@@ -36,84 +37,11 @@
 // march kernels, a thread leaves its loop when its ray ends.
 #include <cstring>
 
-#include "vol_common.cuh"
+#include "planar_vol.cuh"
 
 namespace curvis {
 
 constexpr int kVolThreads = 128;
-
-// Host row (the planar volumetric row of curvis_tpu/ops/march_pallas.py):
-// the march scalars, the band, the 8 emission slots, then the scatter
-// block [tint_r, tint_g, tint_b, 3 x (kScatterDeg + 1) monomials] when the
-// SCATTER instance runs (the host passes 16 or 43 floats).
-struct VolScalars {
-  MarchScalars m;
-  float r_in;
-  float r_out;
-  VolSlots v;
-  float scatter[kScatterBlock];
-};
-
-constexpr int kVolBaseFloats = 16;
-
-// (dtau, dem_r, dem_g, dem_b) per unit step at the post-step state.
-template <int KIND, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
-          bool SCATTER>
-__device__ __forceinline__ void vol_emission(const VolScalars& s, float l,
-                                             float p_l, float b, float zq,
-                                             float tau, float nz,
-                                             float* dtau, float* dem) {
-  constexpr bool kLapse = HasCapture<KIND>::value;
-  float r;
-  if constexpr (kLapse) {
-    r = l;
-  } else {
-    r = rsqrtf(planar_inv_r2<KIND>(s.m, l));
-  }
-  const float zq2 = zq * zq;
-  const float s2 = clip_nan(1.0f - zq2, 1e-12f, 1.0f);
-  const float r_cyl = r * sqrtf(s2);
-  const float dens =
-      expf(-zq2 / (2.0f * s.v.h2 * s2)) * (s.v.inv_norm / r_cyl);
-  const float w_edge = s.r_out - s.r_in;
-  const float edge_in = clip_nan((r_cyl - s.r_in) / (0.1f * w_edge), 0.0f,
-                                 1.0f);
-  const float edge_out = clip_nan((s.r_out - r_cyl) / (0.3f * w_edge), 0.0f,
-                                  1.0f);
-  const float base = dens * edge_in * edge_out;
-  const float rr = max_nan(r_cyl, s.r_in);
-  float g = 1.0f;
-  if constexpr (kLapse && (REDSHIFT || DOPPLER)) {
-    const float M = s.m.p0;
-    float A, vsq;
-    if constexpr (KIND == kReissnerNordstrom) {
-      const float q2 = s.m.p1;
-      A = clip_nan(1.0f - (2.0f * M - q2 / rr) / rr, 1e-3f, 1.0f);
-      vsq = (M - q2 / rr) / rr;     // r A'/2: circular-orbit speed^2
-    } else {
-      A = clip_nan(1.0f - 2.0f * M / rr, 1e-3f, 1.0f);
-      vsq = M / rr;
-    }
-    const float sqA = sqrtf(A);
-    if constexpr (REDSHIFT) g = sqA;
-    if constexpr (DOPPLER) {
-      const float v = clip_nan(sqrtf(vsq) / sqA, 0.0f, 0.99f);
-      const float gamma = rsqrtf(1.0f - v * v);
-      const float u_l = p_l * sqA;
-      const float u_psi = b / rr;
-      const float inv = rsqrtf(u_l * u_l + u_psi * u_psi + 1e-30f);
-      const float cos_xi = (u_psi * inv) * nz * s.v.spin_sign;
-      g = g / (gamma * (1.0f - v * cos_xi));
-    }
-  }
-  const float trans = expf(-tau);
-  *dtau = s.v.kappa * base;
-  float scat[3] = {0.0f, 0.0f, 0.0f};
-  if constexpr (SCATTER)
-    scatter_source(s.scatter, r_cyl, s.r_in, s.r_out, trans * base, scat);
-  vol_color<BLACKBODY, SCATTER>(s.v, s.r_in, rr, g, trans * base, s.scatter,
-                                scat, dem);
-}
 
 template <int KIND, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
           bool SCATTER>
@@ -152,7 +80,8 @@ __global__ void __launch_bounds__(kVolThreads)
     const float zq = c1 * u + c2 * v;
     float dtau, dem[3];
     vol_emission<KIND, BLACKBODY, REDSHIFT, DOPPLER, SCATTER>(
-        s, l, p_l, b, zq, tau, nz, &dtau, dem);
+        s.m, s.r_in, s.r_out, s.v, s.scatter, l, p_l, b, zq, tau, nz, &dtau,
+        dem);
 #pragma unroll
     for (int c = 0; c < 3; ++c) em[c] = em[c] + dt * dem[c];
     tau = tau + dt * dtau;

@@ -1,6 +1,7 @@
-// One adaptive Dormand-Prince 5(4) iteration of a planar ray, and the
-// per-ray adaptive march built on it; shared by planar_rk45.cu (kernel
-// #4) and render_fused.cu (kernel #3).
+// One adaptive Dormand-Prince 5(4) iteration of a planar ray, in two
+// halves, and the per-ray adaptive march built on it; shared by
+// planar_rk45.cu (kernel #4, bare), planar_rk45_disk.cu (kernel #4's
+// track_disk / vol variants) and render_fused.cu (kernel #3).
 //
 // The arithmetic is that of the TPU kernel
 // curvis_tpu/ops/march_pallas.py:_rk45_kernel, which the checkpointed
@@ -49,20 +50,28 @@ __device__ __forceinline__ float rk45_err(const Rk45Control& c, float dt,
   return fabsf(dt * e) / (c.atol + c.rtol * max_nan(fabsf(y0), fabsf(y1)));
 }
 
-// One DP5(4) iteration of a live ray (sign 0, fewer than max_steps
-// accepted steps).  Updates (l, psi, p_l) and dt, adds the accepted step
-// to *steps and sets *sign: +1 / -1 for an accepted step whose l5 lies
-// beyond +R / -R (interpolated onto it), 2 for capture below r_cap after
-// an accepted step, 3 for a reject at the dt floor (or a non-finite
-// trial), else 0.  The caller applies the step cap.
+// What the first half of an iteration hands to the second.
+struct Rk45Trial {
+  float dt;       // the trial step
+  float err;      // its scaled error (NaN for a non-finite trial)
+  bool accept;    // err <= 1
+  bool esc_pos;   // accepted with l5 beyond +R
+  bool esc_neg;   // accepted with l5 beyond -R
+};
+
+// The first half of one DP5(4) iteration of a live ray (sign 0, fewer
+// than max_steps accepted steps) with step dt: the seven stages, the error
+// norm, accept and escape, and the write-back of (l, psi, p_l) (interpolated
+// onto l = +-R on an escaping step).  A surface march (planar_rk45_disk.cu)
+// does its crossing or emission work on the written-back state between
+// this and rk45_control, as the TPU kernel does.
 template <int KIND>
-__device__ __forceinline__ void rk45_iter(const MarchScalars& s,
-                                          const Rk45Control& c, float b,
-                                          float b2, float* l_io,
-                                          float* psi_io, float* pl_io,
-                                          float* dt_io, int* sign,
-                                          int* steps) {
-  const float l = *l_io, psi = *psi_io, p_l = *pl_io, dt = *dt_io;
+__device__ __forceinline__ Rk45Trial rk45_trial(const MarchScalars& s,
+                                                const Rk45Control& c,
+                                                float b, float b2,
+                                                float* l_io, float* psi_io,
+                                                float* pl_io, float dt) {
+  const float l = *l_io, psi = *psi_io, p_l = *pl_io;
   // stages: (dl, dpsi, dp_l) at l + dt sum_j a_ij k_j (psi does not enter
   // the RHS), summed in the order of the tableau's rows
   float k1l, k1p, k1q, k2l, k2p, k2q, k3l, k3p, k3q, k4l, k4p, k4q;
@@ -128,25 +137,52 @@ __device__ __forceinline__ void rk45_iter(const MarchScalars& s,
   if (fabsf(denom) < 1e-30f) denom = 1.0f;
   const float frac = esc ? clip_nan((target - l) / denom, 0.0f, 1.0f) : 1.0f;
   const float a = accept ? frac : 0.0f;
-  const float l1 = l + a * (l5 - l);
-  *l_io = l1;
+  *l_io = l + a * (l5 - l);
   *psi_io = psi + a * (psi5 - psi);
   *pl_io = p_l + a * (pl5 - p_l);
+  return Rk45Trial{dt, err, accept, esc_pos, esc_neg};
+}
 
-  const bool captured = accept && l1 < s.r_cap;
-  int sg = (esc_pos ? 1 : 0) - (esc_neg ? 1 : 0) + (captured ? 2 : 0);
-  *steps += accept ? 1 : 0;
+// The second half: adds the accepted step to *steps, sets *sign (+1 / -1
+// for an escape, 2 for capture below r_cap at the written-back l1, then 2
+// for an `opaque` ray still at 0, then 3 for a reject at the dt floor or a
+// non-finite trial, else 0) and, for a ray still marching, the
+// controller's next step in *dt_io.  The caller applies the step cap.
+__device__ __forceinline__ void rk45_control(const MarchScalars& s,
+                                             const Rk45Control& c,
+                                             const Rk45Trial& t, float l1,
+                                             bool opaque, float* dt_io,
+                                             int* sign, int* steps) {
+  const bool captured = t.accept && l1 < s.r_cap;
+  int sg = (t.esc_pos ? 1 : 0) - (t.esc_neg ? 1 : 0) + (captured ? 2 : 0);
+  if (sg == 0 && opaque) sg = 2;
+  *steps += t.accept ? 1 : 0;
   // a reject at the dt floor can never pass: freeze as blowup
-  if (!accept && dt <= kRk45StallDt && sg == 0) sg = 3;
+  if (!t.accept && t.dt <= kRk45StallDt && sg == 0) sg = 3;
   *sign = sg;
 
   // controller: clip(0.9 err^-0.2, 0.2, 5) via exp / log; a NaN err gives
   // a NaN factor, which the guard turns into 0.2
-  const float err_s = max_nan(err, 1e-10f);
+  const float err_s = max_nan(t.err, 1e-10f);
   float factor = clip_nan(0.9f * expf(-0.2f * logf(err_s)), 0.2f, 5.0f);
   if (!(factor > 0.0f)) factor = 0.2f;
-  if (!esc && sg == 0)
-    *dt_io = clip_nan(dt * factor, kRk45DtFloor, c.dt_max);
+  if (!(t.esc_pos || t.esc_neg) && sg == 0)
+    *dt_io = clip_nan(t.dt * factor, kRk45DtFloor, c.dt_max);
+}
+
+// One DP5(4) iteration of a live ray: rk45_trial, then rk45_control.
+// Updates (l, psi, p_l) and dt, adds the accepted step to *steps and sets
+// *sign as rk45_control does (never opaque).
+template <int KIND>
+__device__ __forceinline__ void rk45_iter(const MarchScalars& s,
+                                          const Rk45Control& c, float b,
+                                          float b2, float* l_io,
+                                          float* psi_io, float* pl_io,
+                                          float* dt_io, int* sign,
+                                          int* steps) {
+  const Rk45Trial t = rk45_trial<KIND>(s, c, b, b2, l_io, psi_io, pl_io,
+                                       *dt_io);
+  rk45_control(s, c, t, *l_io, false, dt_io, sign, steps);
 }
 
 // Adaptive march of one ray until it escapes (sign +1 / -1, on |l| = R),

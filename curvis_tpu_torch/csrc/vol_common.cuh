@@ -1,6 +1,6 @@
 // The emission of the flared Gaussian gas disk shared by the volumetric
-// marches: the planar one (disk_vol.cu) and the Boyer-Lindquist one
-// (kerr.cu).  The Planck constants, the starlight scattering source and
+// marches: the planar ones (disk_vol.cu and planar_rk45_disk.cu, through
+// planar_vol.cuh) and the Boyer-Lindquist ones (kerr.cu, kerr_rk45.cu).  The Planck constants, the starlight scattering source and
 // the colour tail (blackbody or tint) are the TPU kernels' _vol_emission
 // and _kerr_vol_emission (curvis_tpu/ops/march_pallas.py), which share
 // them too.

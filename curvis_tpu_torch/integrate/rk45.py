@@ -1,24 +1,29 @@
 """Adaptive Dormand-Prince 5(4) planar march with per-ray step control
 (PyTorch).
 
-Counterpart of ``curvis_tpu/integrate/rk45.py:march_planar_rk45``, bare
-variant: the quality mode of the planar renderers.  Each iteration of a
-lock-step masked loop proposes one DP5(4) step for every live ray, accepts
-it where the embedded error estimate |y5 - y4| passes (rtol, atol), and
-retries rejected rays with a smaller dt from the controller
-``clip(0.9 err^-0.2, 0.2, 5)``.  Escaping steps are interpolated to
-|l| = R, which removes the O(dt) readout jitter of the fixed-step marches.
+Counterpart of ``curvis_tpu/integrate/rk45.py:march_planar_rk45``, with
+its disk-tracker and volumetric variants: the quality mode of the planar
+and disk renderers.  Each iteration of a lock-step masked loop proposes
+one DP5(4) step for every live ray, accepts it where the embedded error
+estimate |y5 - y4| passes (rtol, atol), and retries rejected rays with a
+smaller dt from the controller ``clip(0.9 err^-0.2, 0.2, 5)``.  Escaping
+steps are interpolated to |l| = R, which removes the O(dt) readout jitter
+of the fixed-step marches.
 
-This is the CPU route of ``render_planar_fast(stepper='rk45')``, as in the
-JAX package.  On a GPU that route is the CUDA kernel
-(``ops/rk45_cuda.py``), whose arithmetic and default tolerances are the
-Pallas kernel's, not these (the module docstring there says how).
+This is the CPU route of ``render_planar_fast(stepper='rk45')`` and of the
+disk routes' ``stepper='rk45'``, as in the JAX package.  On a GPU those
+routes are the CUDA kernels (``ops/rk45_cuda.py``,
+``ops/rk45_disk_cuda.py``), whose arithmetic is the Pallas kernel's, not
+this (the module docstrings there say how).
 """
 from __future__ import annotations
 
 import torch
 
 from curvis_tpu_torch.metrics.base import Metric
+from curvis_tpu_torch.ops.disk_vol_cuda import (inv_r2_plain,
+                                                vol_emission_plain,
+                                                vol_scalars)
 from curvis_tpu_torch.physics.hamiltonian import (HamiltonianResult,
                                                   _rhs_batched)
 from curvis_tpu_torch.physics.planar import (_CHECK_EVERY, PlanarResult,
@@ -52,19 +57,34 @@ def _comb(weights, ks, comp, like):
 
 def march_planar_rk45(metric: Metric, rays: PlanarRays, *, escape_radius,
                       max_steps=10_000, rtol=1e-6, atol=1e-9, dt0=0.05,
-                      dt_min=1e-6, dt_max=10.0, max_iters=None, disk=None,
-                      vol_disk=None) -> PlanarResult:
+                      dt_min=1e-6, dt_max=10.0, max_iters=None, c1=None,
+                      c2=None, nz=None, disk=None, vol_disk=None,
+                      scatter_block=None):
     """Adaptive march with the result contract of the fixed-step marches;
     ``steps`` counts accepted steps.  A ray ends escaped (+1 / -1, on
     |l| = R), captured (2), stalled (3: a reject at the dt floor, which the
     controller cannot pass, or a non-finite trial) or still marching at
     ``max_steps`` accepted steps (0).  The loop runs at most ``max_iters``
-    (default 4 max_steps) iterations, accepted and rejected."""
-    if disk is not None or vol_disk is not None:
-        raise NotImplementedError(
-            "march_planar_rk45: the disk / vol_disk variants come with "
-            "kernel #4's track_disk / vol variants, ROADMAP Queue 1 item 1 "
-            "(Queue 2 item 1)")
+    (default 4 max_steps) iterations, accepted and rejected.
+
+    The surface variants of the JAX twin, which clamp dt near the disk as
+    the Pallas kernel does (crossing detection and the gas quadrature keep
+    base resolution dt0):
+
+    - ``disk=(r_in, r_out)`` with the plane coefficients ``c1, c2``:
+      records the first two in-band crossings of the plane as signed
+      (l, p_l, psi) triples -> (PlanarResult, (h1, h1p, h1s),
+      (h2, h2p, h2s));
+    - ``vol_disk`` (a DiskParams) with ``c1, c2, nz`` and the optional
+      ``scatter_block``: radiative transfer per accepted step with the
+      kernel's emission (``ops/disk_vol_cuda.py:vol_emission_plain``, as
+      the JAX twin evaluates the Pallas one); a ray still marching freezes
+      as OPAQUE_SIGN (2) once tau > tau_max -> (PlanarResult, tau,
+      (em_r, em_g, em_b))."""
+    vol = vol_disk is not None
+    track_disk = disk is not None
+    if vol and track_disk:
+        raise ValueError("pass disk=(r_in, r_out) OR vol_disk, not both")
     l, psi, p_l, b = rays.l, rays.psi, rays.p_l, rays.b
     shape, dtype, dev = l.shape, l.dtype, l.device
     R = escape_radius
@@ -72,6 +92,26 @@ def march_planar_rk45(metric: Metric, rays: PlanarRays, *, escape_radius,
     if max_iters is None:
         max_iters = 4 * max_steps
     r_cap = _capture_radius(metric)
+    if track_disk or vol:
+        c1 = torch.broadcast_to(torch.as_tensor(c1, dtype=dtype,
+                                                device=dev), shape)
+        c2 = torch.broadcast_to(torch.as_tensor(c2, dtype=dtype,
+                                                device=dev), shape)
+        zq = c1 * torch.cos(psi) + c2 * torch.sin(psi)
+        acc = [torch.zeros_like(l) for _ in range(4 if vol else 6)]
+    if track_disk:
+        r_in, r_out = disk
+    if vol:
+        kind, scal = vol_scalars(metric, dt0, escape_radius, vol_disk,
+                                 scatter_block)
+        vrow = torch.tensor(scal, dtype=dtype, device=dev)
+        p = (vrow[2], vrow[3], vrow[4])
+        flags = (vol_disk.color_mode == "blackbody", vol_disk.redshift,
+                 vol_disk.doppler, scatter_block is not None)
+        r_in, r_out = vol_disk.r_inner, vol_disk.r_outer
+        h_rel5 = 5.0 * vol_disk.h_rel
+        nz = torch.broadcast_to(torch.as_tensor(nz, dtype=dtype, device=dev),
+                                shape)
     dt = torch.full(shape, dt0, dtype=dtype, device=dev)
     sign = torch.zeros(shape, dtype=torch.int32, device=dev)
     steps = torch.zeros_like(sign)
@@ -115,13 +155,45 @@ def march_planar_rk45(metric: Metric, rays: PlanarRays, *, escape_radius,
         l_new = torch.where(esc, l + frac * (l5 - l), l5)
         psi_new = torch.where(esc, psi + frac * (psi5 - psi), psi5)
         pl_new = torch.where(esc, p_l + frac * (pl5 - p_l), pl5)
+        l_prev, psi_prev, pl_prev = l, psi, p_l
         l = torch.where(accept, l_new, l)
         psi = torch.where(accept, psi_new, psi)
         p_l = torch.where(accept, pl_new, p_l)
+        if track_disk or vol:
+            zq_prev = zq
+            zq = c1 * torch.cos(psi) + c2 * torch.sin(psi)
+        if track_disk:
+            h1, h1p, h1s, h2, h2p, h2s = acc
+            crossed = accept & (zq_prev * zq < 0.0)
+            cden = torch.abs(zq_prev) + torch.abs(zq)
+            cfrac = torch.abs(zq_prev) / torch.clamp(cden, min=1e-30)
+            lh = l_prev + cfrac * (l - l_prev)       # signed: sheet
+            r_hit = torch.abs(lh)
+            pl_hit = pl_prev + cfrac * (p_l - pl_prev)
+            psi_hit = psi_prev + cfrac * (psi - psi_prev)
+            in_disk = crossed & (r_hit >= r_in) & (r_hit <= r_out)
+            new1 = in_disk & (h1 == 0.0)
+            new2 = in_disk & (h1 != 0.0) & (h2 == 0.0)
+            acc = [torch.where(new1, lh, h1), torch.where(new1, pl_hit, h1p),
+                   torch.where(new1, psi_hit, h1s),
+                   torch.where(new2, lh, h2), torch.where(new2, pl_hit, h2p),
+                   torch.where(new2, psi_hit, h2s)]
+        if vol:
+            tau = acc[0]
+            dtau, dem = vol_emission_plain(kind, flags, vrow, l, p_l, b, zq,
+                                           tau, nz)
+            acc = [tau + torch.where(accept, dt * dtau, 0.0)] + [
+                e + torch.where(accept, dt * d, 0.0)
+                for e, d in zip(acc[1:], dem)]
+            tau = acc[0]
 
         sign = torch.where(esc_pos, 1, torch.where(esc_neg, -1, sign))
         if r_cap is not None:
             sign = torch.where(accept & (l < r_cap) & (sign == 0), 2, sign)
+        if vol:
+            # the tau_max freeze: OPAQUE_SIGN == CAPTURED == 2
+            sign = torch.where((sign == 0) & (tau > vol_disk.tau_max), 2,
+                               sign)
         steps = steps + accept.to(torch.int32)
         over = steps >= max_steps
         # a reject at the dt floor can never pass -> freeze as blowup
@@ -136,11 +208,38 @@ def march_planar_rk45(metric: Metric, rays: PlanarRays, *, escape_radius,
         factor = torch.where(torch.isfinite(factor), factor, 0.2)
         dt = torch.where(active & ~esc & (sign == 0),
                          torch.clamp(dt * factor, dt_min, dt_max), dt)
+        if vol:
+            # the anticipatory slab clamp: dt <= max(dt0, half the larger
+            # of the radial gap to the r_out + 2 cylinder and the vertical
+            # gap to the 5-sigma density shell)
+            if kind in ("schwarzschild", "rn"):
+                rl = l
+            else:
+                rl = torch.rsqrt(torch.clamp(inv_r2_plain(kind, p, l),
+                                             min=1e-30))
+            s2v = torch.clamp(1.0 - zq * zq, 1e-12, 1.0)
+            r_cyl = rl * torch.sqrt(s2v)
+            gap_r = r_cyl - (r_out + 2.0)
+            gap_z = rl * torch.abs(zq) - h_rel5 * r_cyl
+            dt_gas = torch.clamp(0.5 * torch.maximum(gap_r, gap_z), min=dt0)
+            dt = torch.where(sign == 0, torch.minimum(dt, dt_gas), dt)
+        elif track_disk:
+            # the anticipatory plane clamp: dt <= max(dt0, 0.2 r |zq|), so a
+            # clamped step cannot reach the plane
+            near = torch.abs(l) < (r_out + 2.0)
+            dt_pl = torch.clamp(0.2 * torch.abs(l) * torch.abs(zq), min=dt0)
+            dt = torch.where(near & (sign == 0), torch.minimum(dt, dt_pl),
+                             dt)
         # test the current sign, not `active`: a ray whose max_steps-th
         # accepted step also escapes or is captured keeps that fate
         sign = torch.where((sign == 0) & over, CAPPED, sign).to(torch.int32)
     sign = torch.where(sign == CAPPED, 0, sign).to(torch.int32)
-    return PlanarResult(l, psi, p_l, sign, steps)
+    res = PlanarResult(l, psi, p_l, sign, steps)
+    if track_disk:
+        return res, tuple(acc[:3]), tuple(acc[3:])
+    if vol:
+        return res, acc[0], tuple(acc[1:])
+    return res
 
 
 def march_kerr_rk45(metric, x0, p0, *, escape_radius, capture_radius=None,

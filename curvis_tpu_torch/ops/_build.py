@@ -7,9 +7,10 @@ compiled by its own ``nvcc`` process, all started together,
          -Xcompiler -fPIC -Xptxas -v [SOURCE_FLAGS] -c -o <object> \\
          csrc/<source>.cu
 
-(``SOURCE_FLAGS`` adds flags for one source: ``kerr_rk45.cu`` is built
-without FMA contraction, see there), and the objects are linked into one
-shared library with a plain C interface,
+(``SOURCE_FLAGS`` adds flags for one source: ``kerr_rk45.cu`` and
+``planar_rk45_disk.cu`` are built without FMA contraction, see there),
+and the objects are linked into one shared library with a plain C
+interface,
 ``build/curvis_tpu_torch/libcurvis_kernels.so``, which is loaded with
 ``ctypes``.  The library is rebuilt when the SHA-256 of the sources
 and flags changes (kept beside it in a stamp file).  A failed build raises
@@ -32,11 +33,13 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v"]    # register / spill report in build.log
 LINK_FLAGS = [*ARCH, "-shared"]
-# kerr_rk45.cu rounds every operation as its plain PyTorch version does:
-# an adaptive march's accept / reject decisions at err ~ 1 flip on the last
-# bit, and with contracted FMAs the kernel took other step sequences than
-# its plain version on 1-2.5 % of rays (measured on the H100)
-SOURCE_FLAGS = {"kerr_rk45.cu": ["--fmad=false"]}
+# kerr_rk45.cu and planar_rk45_disk.cu round every operation as their plain
+# PyTorch versions do: an adaptive march's accept / reject decisions at
+# err ~ 1 flip on the last bit, and with contracted FMAs the Kerr kernel
+# took other step sequences than its plain version on 1-2.5 % of rays
+# (measured on the H100)
+SOURCE_FLAGS = {"kerr_rk45.cu": ["--fmad=false"],
+                "planar_rk45_disk.cu": ["--fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +57,12 @@ _PROTOTYPES = {
     # stream
     "curvis_march_planar_rk45": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    # kind, vol, blackbody, redshift, doppler, scatter, scalars, n_scalars,
+    # l, psi, p_l, b, c1, c2, nz, fout (9 | 7 x n), iout (3 x n), n,
+    # max_steps, max_iters, device, stream
+    "curvis_march_planar_rk45_disk": [_I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
+                                      _P, _P, _P, _P, _P, _P, _P,
+                                      ctypes.c_longlong, _I, _I, _I, _P],
     # kind, scalars, n_scalars, wx, wy, wz, sign, H, n, max_steps,
     # max_iters, device, stream
     "curvis_render_fused_rk45": [_I, _P, _I, _P, _P, _P, _P, _I,

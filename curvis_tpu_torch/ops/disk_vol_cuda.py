@@ -68,29 +68,36 @@ def vol_scalars(metric: Metric, dt, escape_radius, disk,
     the metric parameters and, with scattering, one of the block."""
     kind, head = march_scalars(metric, dt, escape_radius)
     row = head + [float(disk.r_inner), float(disk.r_outer)]
-    row += vol_param_slots(disk)
-    if scatter_block is not None:
-        block = torch.as_tensor(scatter_block).detach().reshape(-1)
-        if block.numel() != SCATTER_BLOCK:
-            raise ValueError(f"scatter_block has {block.numel()} values, "
-                             f"not {SCATTER_BLOCK}")
-        row += [float(x) for x in block.cpu().tolist()]
-    return kind, row
+    return kind, row + vol_param_slots(disk) + scatter_row(scatter_block)
+
+
+def scatter_row(scatter_block):
+    """The scatter block as Python floats (one host read), [] for None."""
+    if scatter_block is None:
+        return []
+    block = torch.as_tensor(scatter_block).detach().reshape(-1)
+    if block.numel() != SCATTER_BLOCK:
+        raise ValueError(f"scatter_block has {block.numel()} values, "
+                         f"not {SCATTER_BLOCK}")
+    return [float(x) for x in block.cpu().tolist()]
+
+
+def inv_r2_plain(kind, p, l):
+    """1 / r^2 of a capture-free kind, as csrc/planar.cuh:planar_inv_r2."""
+    p0, p1, p2 = p
+    if kind == "ellis":
+        return 1.0 / (p0 * p0 + l * l)
+    if kind == "interstellar":
+        ir = 1.0 / _dneg_shape(p0, p1, p2, l)[0]
+        return ir * ir
+    return 1.0 / (l * l)
 
 
 def _radius(kind, p, l):
     """r of the kernel: l for the lapse kinds, else rsqrt(1 / r^2)."""
     if kind in LAPSE_KINDS:
         return l
-    p0, p1, p2 = p
-    if kind == "ellis":
-        inv = 1.0 / (p0 * p0 + l * l)
-    elif kind == "interstellar":
-        ir = 1.0 / _dneg_shape(p0, p1, p2, l)[0]
-        inv = ir * ir
-    else:
-        inv = 1.0 / (l * l)
-    return torch.rsqrt(inv)
+    return torch.rsqrt(inv_r2_plain(kind, p, l))
 
 
 def vol_emission_plain(kind, flags, row, l, p_l, b, zq, tau, nz):

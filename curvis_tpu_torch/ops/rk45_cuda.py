@@ -48,6 +48,73 @@ def default_max_iters(max_steps, max_iters):
     return 4 * max_steps if max_iters is None else int(max_iters)
 
 
+def rk45_trial_plain(kind, p, R, rtol, atol, l, psi, p_l, b, dt, alive):
+    """The first half of one iteration of the live rays ``alive``
+    (csrc/rk45.cuh:rk45_trial): the seven stages, the error, accept and
+    escape and the write-back -> (l, psi, p_l, err, accept, esc_pos,
+    esc_neg)."""
+    ks = []
+    for i in range(7):
+        li, pli = l, p_l
+        for j, a in enumerate(DP_A[i]):
+            li = li + dt * a * ks[j][0]
+            pli = pli + dt * a * ks[j][2]
+        ks.append(planar_deriv(kind, p, li, pli, b))
+    d5l, d5p, d5q = (_comb(DP_B5, ks, c, l) for c in range(3))
+    e_l = d5l - _comb(DP_B4, ks, 0, l)
+    e_p = d5p - _comb(DP_B4, ks, 1, l)
+    e_q = d5q - _comb(DP_B4, ks, 2, l)
+    l5 = l + dt * d5l
+    psi5 = psi + dt * d5p
+    pl5 = p_l + dt * d5q
+
+    def ec(e, y0, y1):
+        return torch.abs(dt * e) / (atol + rtol * torch.maximum(
+            torch.abs(y0), torch.abs(y1)))
+
+    # torch.maximum propagates NaN, as the kernel's max_nan
+    err = torch.maximum(ec(e_l, l, l5),
+                        torch.maximum(ec(e_p, psi, psi5), ec(e_q, p_l, pl5)))
+    accept = alive & (err <= 1.0)
+    esc_pos = accept & (l5 > R)
+    esc_neg = accept & (l5 < -R)
+    esc = esc_pos | esc_neg
+    target = torch.where(esc_pos, R, -R)
+    denom = l5 - l
+    denom = torch.where(torch.abs(denom) < 1e-30, 1.0, denom)
+    frac = torch.where(esc, torch.clamp((target - l) / denom, 0.0, 1.0), 1.0)
+    a = torch.where(accept, frac, 0.0)
+    l = torch.where(alive, l + a * (l5 - l), l)
+    psi = torch.where(alive, psi + a * (psi5 - psi), psi)
+    p_l = torch.where(alive, p_l + a * (pl5 - p_l), p_l)
+    return l, psi, p_l, err, accept, esc_pos, esc_neg
+
+
+def rk45_control_plain(r_cap, dt_max, alive, trial, l, dt, sign, steps,
+                       opaque=None):
+    """The second half (csrc/rk45.cuh:rk45_control) after ``trial`` =
+    (err, accept, esc_pos, esc_neg) at the written-back ``l``: the sign
+    (escape, capture, then 2 where ``opaque`` for a ray still at 0, then
+    the stall), the accepted steps and the next dt -> (sign, steps, dt)."""
+    err, accept, esc_pos, esc_neg = trial
+    captured = accept & (l < r_cap)
+    sign = torch.where(alive, esc_pos.to(torch.int32)
+                       - esc_neg.to(torch.int32)
+                       + 2 * captured.to(torch.int32), sign)
+    if opaque is not None:
+        sign = torch.where(alive & (sign == 0) & opaque, 2, sign)
+    steps = steps + accept.to(torch.int32)
+    # the stall threshold is the dtype's value of 1e-6 * 1.01
+    stalled = alive & ~accept & (dt <= DT_FLOOR * 1.01) & (sign == 0)
+    sign = torch.where(stalled, 3, sign).to(torch.int32)
+    err_s = torch.clamp(err, min=1e-10)
+    factor = torch.clamp(0.9 * torch.exp(-0.2 * torch.log(err_s)), 0.2, 5.0)
+    factor = torch.where(factor > 0.0, factor, 0.2)
+    newdt = torch.minimum(torch.clamp(dt * factor, min=DT_FLOOR), dt_max)
+    dt = torch.where(alive & ~(esc_pos | esc_neg) & (sign == 0), newdt, dt)
+    return sign, steps, dt
+
+
 def march_planar_rk45_plain(kind, scal, l, psi, p_l, b, *, max_steps,
                             max_iters):
     """Plain version of kernel #4 on rays of any dtype and device, with the
@@ -65,56 +132,10 @@ def march_planar_rk45_plain(kind, scal, l, psi, p_l, b, *, max_steps,
             break
         alive = (sign == 0) & (steps < max_steps)
         iters = iters + alive.to(torch.int32)
-        ks = []
-        for i in range(7):
-            li, pli = l, p_l
-            for j, a in enumerate(DP_A[i]):
-                li = li + dt * a * ks[j][0]
-                pli = pli + dt * a * ks[j][2]
-            ks.append(planar_deriv(kind, p, li, pli, b))
-        d5l, d5p, d5q = (_comb(DP_B5, ks, c, l) for c in range(3))
-        e_l = d5l - _comb(DP_B4, ks, 0, l)
-        e_p = d5p - _comb(DP_B4, ks, 1, l)
-        e_q = d5q - _comb(DP_B4, ks, 2, l)
-        l5 = l + dt * d5l
-        psi5 = psi + dt * d5p
-        pl5 = p_l + dt * d5q
-
-        def ec(e, y0, y1):
-            return torch.abs(dt * e) / (atol + rtol * torch.maximum(
-                torch.abs(y0), torch.abs(y1)))
-
-        # torch.maximum propagates NaN, as the kernel's max_nan
-        err = torch.maximum(ec(e_l, l, l5),
-                            torch.maximum(ec(e_p, psi, psi5),
-                                          ec(e_q, p_l, pl5)))
-        accept = alive & (err <= 1.0)
-        esc_pos = accept & (l5 > R)
-        esc_neg = accept & (l5 < -R)
-        esc = esc_pos | esc_neg
-        target = torch.where(esc_pos, R, -R)
-        denom = l5 - l
-        denom = torch.where(torch.abs(denom) < 1e-30, 1.0, denom)
-        frac = torch.where(esc, torch.clamp((target - l) / denom, 0.0, 1.0),
-                           1.0)
-        a = torch.where(accept, frac, 0.0)
-        l = torch.where(alive, l + a * (l5 - l), l)
-        psi = torch.where(alive, psi + a * (psi5 - psi), psi)
-        p_l = torch.where(alive, p_l + a * (pl5 - p_l), p_l)
-        captured = accept & (l < r_cap)
-        sign = torch.where(alive, esc_pos.to(torch.int32)
-                           - esc_neg.to(torch.int32)
-                           + 2 * captured.to(torch.int32), sign)
-        steps = steps + accept.to(torch.int32)
-        # the stall threshold is the dtype's value of 1e-6 * 1.01
-        stalled = alive & ~accept & (dt <= DT_FLOOR * 1.01) & (sign == 0)
-        sign = torch.where(stalled, 3, sign)
-        err_s = torch.clamp(err, min=1e-10)
-        factor = torch.clamp(0.9 * torch.exp(-0.2 * torch.log(err_s)), 0.2,
-                             5.0)
-        factor = torch.where(factor > 0.0, factor, 0.2)
-        newdt = torch.minimum(torch.clamp(dt * factor, min=DT_FLOOR), dt_max)
-        dt = torch.where(alive & ~esc & (sign == 0), newdt, dt)
+        l, psi, p_l, *trial = rk45_trial_plain(kind, p, R, rtol, atol, l,
+                                               psi, p_l, b, dt, alive)
+        sign, steps, dt = rk45_control_plain(r_cap, dt_max, alive, trial, l,
+                                             dt, sign, steps)
         sign = torch.where((sign == 0) & (steps >= max_steps), CAPPED,
                            sign).to(torch.int32)
     sign = torch.where(sign == CAPPED, 0, sign).to(torch.int32)

@@ -9,20 +9,27 @@ incrementally; a sign change of z within a step is a disk crossing, and
 the first two in-band crossings are recorded as signed (l, p_l, psi)
 triples (sign = sheet: a wormhole's far-sheet hits are negative).
 
-Routes, by the device of the inputs:
+Routes, by the stepper and the device of the inputs:
 
-- CUDA tensors (float32) march through the hand-written kernels:
-  ``ops/disk_cuda.py`` (thin disk and the starlight map) and
+- Euler on CUDA tensors (float32) marches through the hand-written
+  kernels ``ops/disk_cuda.py`` (thin disk and the starlight map) and
   ``ops/disk_vol_cuda.py`` (volumetric);
-- CPU tensors march through ``march_planar_disk`` and
+- Euler on CPU tensors marches through ``march_planar_disk`` and
   ``march_planar_disk_volumetric`` below, the ports of the JAX package's
   XLA marches (what it runs off the TPU).  Their arithmetic is the XLA
-  march's (z = r(l) zq, ``blackbody_rgb``'s expm1 form), not the kernels'.
+  march's (z = r(l) zq, ``blackbody_rgb``'s expm1 form), not the kernels';
+- ``stepper='rk45'`` (the error-controlled DP5(4) pair, accuracy set by
+  ``rtol``, atol = rtol 1e-3; ``dt`` is the initial step, to which the
+  step clamps near the disk, and ``max_steps`` counts accepted steps)
+  marches through kernel #4's surface variants
+  (``ops/rk45_disk_cuda.py``) on CUDA tensors and through the port of the
+  JAX package's XLA twin (``integrate/rk45.py:march_planar_rk45``) on CPU
+  tensors.
 
 The shading (``DiskParams``, ``blackbody_rgb``, ``disk_temperature``,
 ``_emission_rgb``, ``_disk_rgb``, ``_volumetric_rgb``) is the JAX
-package's, form for form.  ``stepper='rk45'``, ``differentiable=`` and
-``disk_theta=`` raise NotImplementedError naming their ROADMAP item.
+package's, form for form.  ``differentiable=`` and ``disk_theta=`` raise
+NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,10 +40,12 @@ import torch
 
 from curvis_tpu_torch.camera.camera import Camera
 from curvis_tpu_torch.env.spherical_image import SphericalImage
+from curvis_tpu_torch.integrate.rk45 import march_planar_rk45
 from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops.disk_cuda import march_planar_disk_cuda
 from curvis_tpu_torch.ops.disk_vol_cuda import (
     march_planar_disk_volumetric_cuda, scatter_source_plain)
+from curvis_tpu_torch.ops.rk45_disk_cuda import march_planar_rk45_disk_cuda
 from curvis_tpu_torch.physics import planar as pl
 from curvis_tpu_torch.render.fast import (_readout, _shade_two_skies,
                                           _spawn_frames)
@@ -85,12 +94,7 @@ OPAQUE_SIGN = pl.CAPTURED
 def _check_route(stepper, differentiable=None, disk_theta=None):
     """Raise NotImplementedError, naming the ROADMAP item, for the options
     the disk routes do not run yet."""
-    if stepper == "rk45":
-        raise NotImplementedError(
-            "stepper='rk45' on the disk routes needs kernel #4's track_disk "
-            "/ vol / scatter variants, ROADMAP Queue 1 item 1 (Queue 2 item "
-            "1)")
-    pl.check_stepper(stepper)
+    pl.check_stepper(stepper, ported=("euler", "rk45"))
     if differentiable:
         raise NotImplementedError(
             "differentiable disk renders (the planar surface adjoints, "
@@ -386,44 +390,68 @@ def _disk_rgb(metric, r_hit, pl_hit, b, nz, params: DiskParams, dtype,
                          starlight=starlight)
 
 
-def _march_thin(metric, rays, c1, c2, **kw):
-    """The thin-disk march of a render route: kernel #5 on a GPU, the XLA
-    twin on the CPU."""
-    if rays.l.device.type == "cpu":
-        return march_planar_disk(metric, rays, c1, c2, **kw)
-    return march_planar_disk_cuda(metric, rays, c1, c2, **kw)
+def _rk45_kw(dt, max_steps, escape_radius, rtol):
+    """The DP5(4) march keywords of a render route: dt is the initial step
+    and atol = rtol 1e-3, as in the JAX package."""
+    return dict(dt0=dt, max_steps=max_steps, escape_radius=escape_radius,
+                rtol=rtol, atol=rtol * 1e-3)
 
 
-def _march_vol(metric, rays, c1, c2, nz, *, disk, scatter_block, **kw):
-    """The volumetric march of a render route: kernel #6 on a GPU, the XLA
-    twin on the CPU."""
-    if rays.l.device.type == "cpu":
+def _march_thin(metric, rays, c1, c2, *, stepper, rtol, dt, max_steps,
+                escape_radius, r_inner, r_outer):
+    """The thin-disk march of a render route: Euler by kernel #5 on a GPU
+    and the XLA twin on the CPU; rk45 by kernel #4's disk tracker on a GPU
+    and the XLA twin on the CPU."""
+    cpu = rays.l.device.type == "cpu"
+    if stepper == "rk45":
+        march = march_planar_rk45 if cpu else march_planar_rk45_disk_cuda
+        return march(metric, rays, c1=c1, c2=c2, disk=(r_inner, r_outer),
+                     **_rk45_kw(dt, max_steps, escape_radius, rtol))
+    march = march_planar_disk if cpu else march_planar_disk_cuda
+    return march(metric, rays, c1, c2, dt=dt, max_steps=max_steps,
+                 escape_radius=escape_radius, r_inner=r_inner,
+                 r_outer=r_outer)
+
+
+def _march_vol(metric, rays, c1, c2, nz, *, disk, scatter_block, stepper,
+               rtol, dt, max_steps, escape_radius):
+    """The volumetric march of a render route: Euler by kernel #6 on a GPU
+    and the XLA twin on the CPU; rk45 by kernel #4's vol variant on a GPU
+    and the XLA twin on the CPU."""
+    cpu = rays.l.device.type == "cpu"
+    if stepper == "rk45":
+        march = march_planar_rk45 if cpu else march_planar_rk45_disk_cuda
+        return march(metric, rays, c1=c1, c2=c2, nz=nz, vol_disk=disk,
+                     scatter_block=scatter_block,
+                     **_rk45_kw(dt, max_steps, escape_radius, rtol))
+    kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius,
+              scatter_block=scatter_block)
+    if cpu:
         return march_planar_disk_volumetric(metric, rays, c1, c2, nz,
-                                            params=disk,
-                                            scatter_block=scatter_block,
-                                            **kw)
+                                            params=disk, **kw)
     return march_planar_disk_volumetric_cuda(metric, rays, c1, c2, nz,
-                                             disk=disk,
-                                             scatter_block=scatter_block,
-                                             **kw)
+                                             disk=disk, **kw)
 
 
 def render_blackhole_disk(metric: Metric, camera: Camera,
                           bg: SphericalImage, *, dt=0.02, max_steps=100_000,
                           escape_radius=100.0, disk: DiskParams = None,
-                          filtering="bilinear", stepper="euler",
+                          filtering="bilinear", stepper="euler", rtol=1e-5,
                           starlight_map=None, differentiable=None,
                           disk_theta=None):
     """(H, W, 3): lensed background + shadow + accretion disk (thin two-
     crossing, slab or volumetric, with optional starlight).  The march
     runs as a CUDA kernel when the inputs lie on a GPU and as the XLA
-    twin on the CPU.  ``starlight_map``: a precomputed
+    twin on the CPU.  ``stepper='rk45'``: the error-controlled DP5(4)
+    march at tolerance ``rtol`` (``dt`` the initial step, ``max_steps``
+    accepted steps).  ``starlight_map``: a precomputed
     render/starlight.StarlightMap (camera-independent; None computes it
-    in this call when the disk asks for starlight)."""
+    in this call, with the same stepper, when the disk asks for
+    starlight)."""
     return render_disk_frames_batched(
         metric, [camera], bg, dt=dt, max_steps=max_steps,
         escape_radius=escape_radius, disk=disk, filtering=filtering,
-        stepper=stepper, starlight_map=starlight_map,
+        stepper=stepper, rtol=rtol, starlight_map=starlight_map,
         differentiable=differentiable, disk_theta=disk_theta)[0]
 
 
@@ -431,8 +459,8 @@ def render_disk_frames_batched(metric: Metric, cameras, bg: SphericalImage,
                                *, dt=0.02, max_steps=100_000,
                                escape_radius=100.0, disk: DiskParams = None,
                                filtering="bilinear", stepper="euler",
-                               starlight_map=None, differentiable=None,
-                               disk_theta=None):
+                               rtol=1e-5, starlight_map=None,
+                               differentiable=None, disk_theta=None):
     """Several disk frames with ONE march -> (F, H, W, 3): all frames'
     rays in one bundle (the cameras must share a resolution).
     ``starlight_map``: see render_blackhole_disk (precompute it once per
@@ -442,37 +470,40 @@ def render_disk_frames_batched(metric: Metric, cameras, bg: SphericalImage,
     common_device(metric, bg, *cams)
     return _render_disk_impl(metric, cams, bg, dt, escape_radius,
                              starlight_map, max_steps=max_steps,
-                             disk=disk or DiskParams(), filtering=filtering)
+                             disk=disk or DiskParams(), filtering=filtering,
+                             stepper=stepper, rtol=rtol)
 
 
 def compute_starlight_map(metric: Metric, bg: SphericalImage,
                           disk: DiskParams, *, dt=0.02, max_steps=100_000,
                           escape_radius=100.0, filtering="bilinear",
-                          stepper="euler"):
+                          stepper="euler", rtol=1e-5):
     """The camera-independent starlight map for ``disk`` around ``metric``
     under sky ``bg``: compute it once and pass it as ``starlight_map=`` to
-    the disk renderers of every frame.  Its march is kernel #5 on a GPU."""
+    the disk renderers of every frame.  Its march is kernel #5 on a GPU
+    (kernel #4's disk tracker with ``stepper='rk45'``)."""
     _check_route(stepper)
     common_device(metric, bg)
     return _starlight_map(metric, bg, dt, escape_radius,
-                          max_steps=max_steps, disk=disk, filtering=filtering)
+                          max_steps=max_steps, disk=disk, filtering=filtering,
+                          stepper=stepper, rtol=rtol)
 
 
 def _starlight_map(metric, bg, dt, escape_radius, *, max_steps, disk,
-                   filtering):
+                   filtering, stepper, rtol):
     from curvis_tpu_torch.render.starlight import compute_disk_starlight_map
     n_r, n_phi = disk.starlight_grid
     return compute_disk_starlight_map(
         metric, bg, bg, r_inner=disk.r_inner, r_outer=disk.r_outer,
         escape_radius=escape_radius, dt=dt, max_steps=max_steps, n_r=n_r,
         n_phi=n_phi, n_samples=disk.starlight_samples, filtering=filtering,
-        blueshift=disk.starlight_blueshift,
+        stepper=stepper, rtol=rtol, blueshift=disk.starlight_blueshift,
         shadow_params=disk if disk.starlight_self_shadow else None,
         two_sheet=disk.starlight_two_sheet)
 
 
 def _render_disk_impl(metric, cams, bg, dt, escape_radius, smap, *,
-                      max_steps, disk, filtering):
+                      max_steps, disk, filtering, stepper, rtol):
     from curvis_tpu_torch.render.starlight import (hit_phi_side,
                                                    starlight_lookup,
                                                    starlight_scatter_block)
@@ -485,11 +516,13 @@ def _render_disk_impl(metric, cams, bg, dt, escape_radius, smap, *,
     c1, c2 = r_hat[2], e2[2]
     nz = r_hat[0] * e2[1] - r_hat[1] * e2[0]
     rays = pl.PlanarRays(l, psi, p_l, b, None, None)
-    kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius)
+    kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius,
+              stepper=stepper, rtol=rtol)
     if disk.starlight and smap is None:
         smap = _starlight_map(metric, bg, dt, escape_radius,
                               max_steps=max_steps, disk=disk,
-                              filtering=filtering)
+                              filtering=filtering, stepper=stepper,
+                              rtol=rtol)
     if disk.volumetric:
         scatter_block = (starlight_scatter_block(smap, disk, dtype)
                          if disk.starlight else None)

@@ -13,9 +13,10 @@ depend on the camera: compute it once per (metric, sky, disk).
 
 The map's march is the thin-disk march of ``render/disk.py`` (annulus
 crossings give the self-shadow): kernel #5 (``ops/disk_cuda.py``) for CUDA
-tensors, the XLA twin for CPU tensors.  ``compute_kerr_starlight_map`` is
-the Kerr / Kerr-Newman map, marched by kernel #7 (RK4) or #8 (DP5(4)) on a
-GPU.
+tensors, the XLA twin for CPU tensors; with ``stepper='rk45'`` kernel #4's
+disk tracker (``ops/rk45_disk_cuda.py``) and the DP5(4) twin.
+``compute_kerr_starlight_map`` is the Kerr / Kerr-Newman map, marched by
+kernel #7 (RK4) or #8 (DP5(4)) on a GPU.
 """
 from __future__ import annotations
 
@@ -128,7 +129,7 @@ def compute_disk_starlight_map(
         metric: Metric, bg_positive, bg_negative=None, *, r_inner, r_outer,
         escape_radius, dt=0.02, max_steps=100_000, n_r=48, n_phi=128,
         n_samples=128, filtering="bilinear", sample_filtering="nearest",
-        stepper="euler", blueshift=True, shadow_params=None,
+        stepper="euler", rtol=1e-5, blueshift=True, shadow_params=None,
         two_sheet=False) -> StarlightMap:
     """March the (n_r x n_samples) reduced secondary-ray table and expand
     it to the (2, n_r, n_phi, 3) reflected-sky map.
@@ -151,8 +152,8 @@ def compute_disk_starlight_map(
     # psi = m pi for every sample
     c1 = torch.zeros_like(rays.l)
     c2 = torch.ones_like(rays.l)
-    res, h1, h2 = _march_thin(metric, rays, c1, c2, dt=dt,
-                              max_steps=max_steps,
+    res, h1, h2 = _march_thin(metric, rays, c1, c2, stepper=stepper,
+                              rtol=rtol, dt=dt, max_steps=max_steps,
                               escape_radius=escape_radius, r_inner=r_inner,
                               r_outer=r_outer)
 
@@ -211,7 +212,7 @@ def compute_disk_starlight_map(
             r_inner=r_inner, r_outer=r_outer, escape_radius=escape_radius,
             dt=dt, max_steps=max_steps, n_r=n_r, n_phi=n_phi,
             n_samples=n_samples, filtering=filtering,
-            sample_filtering=sample_filtering, stepper=stepper,
+            sample_filtering=sample_filtering, stepper=stepper, rtol=rtol,
             blueshift=blueshift, shadow_params=shadow_params,
             two_sheet=False)
         values_neg = neg.values

@@ -619,8 +619,7 @@ def test_unported_disk_options_raise():
                  lambda **k: td.render_disk_frames_batched(tm, [tc], tb,
                                                            **k),
                  lambda **k: td.compute_starlight_map(tm, tb, disk, **k)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1 "):
-            call(stepper="rk45", **kw)
+        assert torch.isfinite(call(stepper="rk45", **kw)[0]).all()
         with pytest.raises(NotImplementedError, match="item 7"):
             call(stepper="rk4", **kw)
     for opt in (dict(differentiable="adjoint"),

@@ -291,20 +291,22 @@ def test_march_wrapper_refuses_what_it_cannot_run():
 def test_build_command_targets_hopper():
     """The nvcc commands (never run on import or on the CPU) compile each
     csrc/*.cu for sm_90a in a process of its own and link the objects into
-    one shared library; only kerr_rk45.cu is built without FMA
+    one shared library; only the DP5(4) kernels with surfaces,
+    kerr_rk45.cu and planar_rk45_disk.cu, are built without FMA
     contraction."""
     compiles, link = _build.nvcc_commands("nvcc", _build.BUILD_DIR /
                                           _build.LIB_NAME)
     cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert cu == ["ckpt_adjoint.cu", "disk.cu", "disk_vol.cu", "kerr.cu",
                   "kerr_rk45.cu", "planar_march.cu", "planar_rk45.cu",
-                  "render_fused.cu"]
+                  "planar_rk45_disk.cu", "render_fused.cu"]
     assert [c[-1].rsplit("/", 1)[-1] for c in compiles] == cu
     for cmd in [*compiles, link]:
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert not any("fast_math" in a for a in cmd)
     assert [c[-1].rsplit("/", 1)[-1] for c in compiles
-            if "--fmad=false" in c] == ["kerr_rk45.cu"]
+            if "--fmad=false" in c] == ["kerr_rk45.cu",
+                                        "planar_rk45_disk.cu"]
     assert all("-O3" in c and "-c" in c for c in compiles)
     objects = [c[c.index("-o") + 1] for c in compiles]
     assert "-shared" in link and link[-len(objects):] == objects

@@ -296,6 +296,7 @@ def test_import_loads_no_jax_and_runs_no_nvcc(tmp_path):
         import curvis_tpu_torch.render.starlight
         import curvis_tpu_torch.ops.disk_cuda
         import curvis_tpu_torch.ops.disk_vol_cuda
+        import curvis_tpu_torch.ops.rk45_disk_cuda
         import curvis_tpu_torch.metrics.kerr
         import curvis_tpu_torch.physics.hamiltonian
         import curvis_tpu_torch.ops.kerr_cuda

@@ -180,10 +180,15 @@ def test_march_rk45_cap_boundary_ray_keeps_escape_fate():
 
 
 def test_march_rk45_refuses_disk_variants():
+    """The disk and volumetric variants run (tests/test_torch_rk45_disk.py
+    holds them against the JAX package); the two together are refused, as
+    in the JAX twin."""
     _, tm, _, tr, _ = _ray_pair("ellis", np.float64, res=(2, 2))
-    for kw in (dict(disk=(3.0, 9.0)), dict(vol_disk=object())):
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            march_planar_rk45(tm, tr, escape_radius=30.0, **kw)
+    one = torch.ones_like(tr.l)
+    with pytest.raises(ValueError, match="not both"):
+        march_planar_rk45(tm, tr, escape_radius=30.0, c1=0.0 * one,
+                          c2=one, nz=one, disk=(3.0, 9.0),
+                          vol_disk=object())
 
 
 # ------------------------------- module 4: the kernel's plain version
