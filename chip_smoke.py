@@ -102,7 +102,25 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      each job's launches of the new kernel (and none of #5 or #6), the
      thin, starlit and volumetric frames against their Euler renders over
      a smooth sky, tau and emission against the Euler quadrature, and
-     profiles of a thin and a volumetric frame.
+     profiles of a thin and a volumetric frame;
+ 19. the surface variants of the checkpoint kernels #9 / #10
+     (csrc/ckpt_surface.cu) against their plain versions with a step cap
+     of 640: the thin disk on the path's view at 1024^2 and an Ellis
+     wormhole disk (far-sheet hits) at 256^2, the volumetric tint,
+     blackbody + redshift + Doppler and blackbody + scatter at 256^2;
+     checkpoints, lam and g_theta within rtol 1e-3, the ray-summed slot
+     cotangents, gen's final state against the forward kernel (hits equal
+     on >= 99.9 % of rays, tau and emission within rtol 1e-3);
+ 20. the differentiable disk path at 1024^2: render_blackhole_disk(...,
+     differentiable='adjoint', disk_theta=...) on the thin blackbody, the
+     volumetric tint and the starlit volumetric frame (map precomputed),
+     each image equal to the non-differentiable render, the launches of
+     #5 / #6 and the surface kernels (none of #1 or #4), the step's time
+     split and the checkpoint buffer; d loss / d brightness (1 %),
+     kappa and M (5 %) against central differences over a black sky;
+     fit() of kappa from 30 % off on the volumetric frame, the loss
+     falling every step; profiles of a thin frame's and a volumetric
+     trainer step's forward + backward.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -276,6 +294,26 @@ RK45_DISK_L1_MAX = 0.03    # relative L1 of tau and emission, rk45 vs the
 # shifts, colour and scatter source as kernel #6's (FLOP_VOL).
 FLOP_RK45_ITER_LAPSE = 350
 FLOP_RK45_DISK = dict(track=15, vol_clamp=22, emission=48)
+# The surface checkpoint kernels (csrc/ckpt_surface.cu; an FMA counts as
+# two, a division, exp, log or sqrt as one): gen takes the forward step
+# (FLOP_DISK_STEP, or kernel #6's FLOP_VOL); bwd re-takes it and adds its
+# VJP: thin 150 (the step recomputed 34, the crossing's and rotation's
+# reverse 68, a Schwarzschild RHS VJP 48); volumetric the step and the
+# RHS VJP 90, the emission's reverse by part as FLOP_SURF_VOL_VJP.
+FLOP_SURF_THIN_VJP = 150
+FLOP_SURF_VOL_VJP = dict(base=90, emission=70, shift=50, tint=20,
+                         blackbody=90, scatter=100)
+SURF_CAP = 640             # step cap of the surface kernel-vs-plain checks:
+                           # rays reach the disk (~280-560 steps from r = 28)
+                           # and the plain pair takes seconds
+SURF_EQ_MIN = 0.999        # rays whose gen final hits equal kernel #5's
+SURF_FD = dict(brightness=0.01, kappa=0.01, m=1e-4)   # relative CD steps
+SURF_FD_LIN = 0.1          # a pixel channel whose second difference at
+                           # the CD step exceeds this share of its first
+                           # is not in the linear regime there
+SURF_FD_KEEP = 0.9         # least share of pixel channels in that regime
+SURF_FD_TOL = dict(brightness=0.01, kappa=0.05, m=0.05)
+SURF_TRAIN = dict(iters=5, lr=0.15, start=1.3)   # kappa from 30 % off
 
 
 def require(ok, what):
@@ -2601,6 +2639,539 @@ def phase18_rk45_disk_path(sky, sky_np):
     return total
 
 
+def surf_flops(kind, flags):
+    """(FP32 operations of one step, of its VJP) of a surface family:
+    ``flags`` None for the thin disk, else (blackbody, redshift, doppler,
+    scatter)."""
+    if flags is None:
+        return FLOP_DISK_STEP, FLOP_SURF_THIN_VJP
+    blackbody, redshift, doppler, scatter = flags
+    v = FLOP_SURF_VOL_VJP
+    n = v["base"] + v["emission"]
+    if kind in ("schwarzschild", "rn") and (redshift or doppler):
+        n += v["shift"]
+    n += v["blackbody" if blackbody else "tint"]
+    return vol_flops(kind, flags), n + (v["scatter"] if scatter else 0)
+
+
+def surface_inputs(metric, cams, flags, cap, seed, band=None, disk=None,
+                   block=None):
+    """The inputs of the surface kernel pair at a view: the forward
+    kernel's (#5 or #6) outputs with step cap ``cap`` and a seeded random
+    cotangent of the final state, with the Function's fate policy (state
+    cotangents only for signs 0 and +-1; u, v none)."""
+    import numpy as np
+    import torch
+    from curvis_tpu_torch.ops import ckpt_surface_cuda as cs
+    from curvis_tpu_torch.ops import disk_cuda, disk_vol_cuda
+    state, planes = disk_rays(metric, cams)
+    if flags is None:
+        kind, scal = disk_cuda.disk_scalars(metric, DT, DISK_R, *band)
+        fwd = disk_cuda.launch(kind, scal, *state, *planes[:2],
+                               max_steps=cap)
+        planes[2] = torch.zeros_like(planes[2])
+    else:
+        kind, scal = disk_vol_cuda.vol_scalars(metric, DT, DISK_R, disk,
+                                               block)
+        fwd = disk_vol_cuda.launch(kind, flags, scal, *state, *planes,
+                                   max_steps=cap)
+    sign, steps = fwd[3], fwd[4]
+    counts = torch.where(sign != 3, steps, torch.zeros_like(steps))
+    n = steps.numel()
+    ns = cs.n_state(flags)
+    cot = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (ns, n)).astype(np.float32)).to(DEVICE)
+    smooth = (sign.abs() <= 1)
+    cot[:3] = torch.where(smooth, cot[:3], torch.zeros_like(cot[:3]))
+    cot[3:5] = 0.0
+    return kind, scal, state, planes, counts, cot.contiguous(), fwd
+
+
+def entry_fraction(kernel, plain):
+    """Fraction of entries within SURF rtol (GRAD_RTOL) of the plain
+    version's, |k - p| <= GRAD_RTOL (|p| + 1e-6 max|p|) per row, and the
+    largest absolute difference."""
+    import torch
+    k, p = kernel.double(), plain.double()
+    floor = 1e-6 * p.abs().amax(dim=-1, keepdim=True)
+    good = (k - p).abs() <= GRAD_RTOL * (p.abs() + floor)
+    return good.double().mean().item(), float((k - p).abs().max())
+
+
+def surface_vs_plain(label, kind, flags, scal, state, planes, counts, cot,
+                     fwd):
+    """Kernels #9 / #10's surface variant against their plain versions on
+    the same inputs, gen's final state against the forward kernel, and the
+    timings and bounds."""
+    import torch
+    from curvis_tpu_torch.ops import ckpt_surface_cuda as cs
+    y0 = state[:3]
+    b, (c1, c2, nz) = state[3], planes
+    off, total = cs.segment_offsets(counts, SEG)
+    ck, fin = cs.launch_gen(kind, flags, scal, *y0, b, c1, c2, nz, counts,
+                            seg=SEG, offsets=off, total=total)
+    g_k, lam_k = cs.launch_bwd(kind, flags, scal, ck, b, c1, c2, nz, counts,
+                               cot, seg=SEG, offsets=off)
+    sync()
+    t0 = time.perf_counter()
+    ck_p, _ = cs.ckpt_surface_gen_plain(kind, flags, scal, *y0, b, c1, c2,
+                                        nz, counts, seg=SEG, offsets=off,
+                                        total=total)
+    sync()
+    t1 = time.perf_counter()
+    g_p, lam_p = cs.ckpt_surface_bwd_plain(kind, flags, scal, ck_p, b, c1,
+                                           c2, nz, counts, cot, seg=SEG,
+                                           offsets=off)
+    sync()
+    gen_plain_ms = 1e3 * (t1 - t0)
+    bwd_plain_ms = 1e3 * (time.perf_counter() - t1)
+    gen_ms = cuda_ms(lambda: cs.launch_gen(
+        kind, flags, scal, *y0, b, c1, c2, nz, counts, seg=SEG, offsets=off,
+        total=total), 3)
+    bwd_ms = cuda_ms(lambda: cs.launch_bwd(
+        kind, flags, scal, ck, b, c1, c2, nz, counts, cot, seg=SEG,
+        offsets=off), 3)
+    n = counts.numel()
+    ns, nt = cs.n_state(flags), cs.n_theta(flags)
+    # gen's final state against the forward kernel's outputs: the same
+    # step code, but nvcc contracts the hit interpolation differently in
+    # the two kernels, so hits are held by presence and to rtol 1e-3
+    if flags is None:
+        pres = ((fin[5] != 0) == (fwd[5] != 0)) & \
+            ((fin[8] != 0) == (fwd[8] != 0))
+        vals = min(entry_fraction(fin[c][None], fwd[c][None])[0]
+                   for c in range(5, 11))
+        exact = torch.ones_like(pres)
+        for c in range(5, 11):
+            exact &= fin[c] == fwd[c]
+        fin_eq = min(pres.double().mean().item(), vals)
+        what = (f"hit presence equal {pres.double().mean().item():.6f}, "
+                f"values within rtol {GRAD_RTOL} {vals:.6f}, bit-equal "
+                f"{exact.double().mean().item():.6f}; min")
+    else:
+        fin_eq = min(entry_fraction(fin[5 + c][None], fwd[5 + c][None])[0]
+                     for c in range(4))
+        what = f"tau / emission within rtol {GRAD_RTOL}"
+    state_ne = int((~((fin[0] == fwd[0]) & (fin[1] == fwd[1])
+                      & (fin[2] == fwd[2]))).sum())
+    ck_frac, ck_err = entry_fraction(ck.T, ck_p.T)
+    # (lam_u, lam_v), the cotangents of (u0, v0) = (cos, sin) psi0, are
+    # held by what reaches psi0, -lam_u sin psi0 + lam_v cos psi0: the
+    # thin family's crossing fraction does not change when (u, v) is
+    # scaled, so the component along (u0, v0) is 0 in exact arithmetic
+    # and its float32 values are rounding noise
+    psi0 = state[1]
+
+    def to_psi0(lam):
+        return torch.cat([lam[:3], (lam[4] * torch.cos(psi0)
+                                    - lam[3] * torch.sin(psi0))[None],
+                          lam[5:]])
+    lam_frac, lam_err = entry_fraction(to_psi0(lam_k), to_psi0(lam_p))
+    raw_frac = entry_fraction(lam_k, lam_p)[0]
+    g_rows = [r for r in range(nt) if bool((g_p[r] != 0).any())]
+    g_frac, g_err = entry_fraction(g_k[g_rows], g_p[g_rows])
+    sums = []
+    for r in g_rows:
+        if r in (3, 4, 5, 6):              # b, c1, c2, nz: per ray
+            continue
+        sk, sp = g_k[r].double().sum().item(), g_p[r].double().sum().item()
+        mag = g_p[r].double().abs().sum().item()
+        sums.append((r, sk, sp, abs(sk - sp) / max(abs(sp), 1e-300), mag))
+    total_steps = counts.double().sum().item()
+    segs = (-(-counts.long() // SEG)).double().sum().item()
+    hits = (int((fwd[5] != 0).sum()), int((fwd[8] != 0).sum())) \
+        if flags is None else None
+    signs = {s_: int((fwd[3] == s_).sum()) for s_ in (-1, 0, 1, 2)}
+    print(f"[19] {label}: {n} rays, signs {signs}"
+          + (f", hits {hits[0]} / {hits[1]}" if hits else "")
+          + f", mean / max steps {total_steps / n:.1f} / "
+          f"{int(counts.max())}, {total} checkpoint rows "
+          f"({total * ns * 4 / 2**20:.1f} MiB)")
+    print(f"[19]   gen final state == forward kernel: (l, psi, p_l) "
+          f"differs on {state_ne} of {n} rays (bound 0: one step source), "
+          f"{what} {fin_eq:.6f} of rays (bound >= {SURF_EQ_MIN})")
+    print(f"[19]   within rtol {GRAD_RTOL}: checkpoints {ck_frac:.6f}, lam "
+          f"{lam_frac:.6f}, g_theta {g_frac:.6f} of entries (bound >= "
+          f"{GRAD_FRAC_MIN}; lam with raw lam_u, lam_v {raw_frac:.6f}); "
+          f"max |d| ckpt {ck_err:.3e}, lam {lam_err:.3e}, g {g_err:.3e}")
+    if sums:
+        r, sk, sp, rel, mag = max(sums, key=lambda t: t[3])
+        print(f"[19]   {len(sums)} ray-summed slot cotangents, the worst "
+              f"g_theta[{r}]: kernel {sk:.9e}, plain {sp:.9e}, rel "
+              f"{rel:.3e} (sum |g| {mag:.3e}; bound {GRAD_RTOL})")
+    print(f"[19]   gen {gen_ms:.3f} ms (plain {gen_plain_ms:.1f} ms), bwd "
+          f"{bwd_ms:.3f} ms (plain {bwd_plain_ms:.1f} ms)")
+    require(state_ne == 0, f"surface {label}: gen's (l, psi, p_l) differ "
+            f"from the forward kernel's on {state_ne} rays")
+    require(fin_eq >= SURF_EQ_MIN, f"surface {label}: gen final {fin_eq}")
+    require(ck_frac >= GRAD_FRAC_MIN, f"surface {label}: ckpt {ck_frac}")
+    require(lam_frac >= GRAD_FRAC_MIN, f"surface {label}: lam {lam_frac}")
+    require(g_frac >= GRAD_FRAC_MIN, f"surface {label}: g_theta {g_frac}")
+    for r, sk, sp, rel, mag in sums:
+        require(rel <= GRAD_RTOL, f"surface {label}: sum g_theta[{r}] {sk} "
+                f"vs {sp}")
+    require(all(bool(torch.isfinite(t).all()) for t in (lam_k, g_k, ck)),
+            f"surface {label}: non-finite output")
+    if hits is not None:
+        require(hits[0] > 0, f"surface {label}: no disk hit")
+    step_f, vjp_f = surf_flops(kind, flags)
+    # gen reads 7 floats, steps and the offset a ray, writes ns floats a
+    # segment and the final state; bwd reads the segments, 6 values and
+    # the cotangent a ray, writes lam and g_theta
+    gen_b = bound(40 * n + 4 * ns * (segs + n), step_f * total_steps)
+    bwd_b = bound(4 * ns * segs + (32 + 4 * ns) * n + 4 * (ns + nt) * n,
+                  (step_f + vjp_f) * total_steps)
+    print(f"[19]   bound gen {gen_b[0]:.3f} ms ({gen_b[1]}), bwd "
+          f"{bwd_b[0]:.3f} ms ({bwd_b[1]})")
+    return dict(gen=dict(max_abs_err=ck_err, ms=gen_ms,
+                         plain_ms=gen_plain_ms, bound_ms=gen_b[0],
+                         bound_by=gen_b[1]),
+                bwd=dict(max_abs_err=max(lam_err, g_err), ms=bwd_ms,
+                         plain_ms=bwd_plain_ms, bound_ms=bwd_b[0],
+                         bound_by=bwd_b[1]))
+
+
+def phase19_surface_ckpt(sky):
+    """Kernels #9 / #10's surface variants (csrc/ckpt_surface.cu) against
+    their plain versions: the thin disk on the path's view at 1024^2 and
+    an Ellis wormhole disk (far-sheet hits) at 256^2; the volumetric tint
+    at 1024^2 (the path's ray count) and 256^2, blackbody + redshift +
+    Doppler, and blackbody + scatter (a real map's block) at 256^2; every
+    case with the step cap SURF_CAP."""
+    import dataclasses
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.render.disk import DiskParams, compute_starlight_map
+    from curvis_tpu_torch.render.starlight import starlight_scatter_block
+    bh = make_metric("schwarzschild", m=1.0, device=DEVICE)
+    ellis = make_metric("ellis", rho=1.0, device=DEVICE)
+    tint = DiskParams(**DISK_VOL)
+    bb = dataclasses.replace(tint, color_mode="blackbody", t_peak=7000.0)
+    smap = compute_starlight_map(
+        bh, sky, dataclasses.replace(bb, starlight=True, starlight_samples=64,
+                                     starlight_grid=(64, 128)),
+        dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R)
+    block = starlight_scatter_block(smap, bb)
+    cases = [
+        (f"schwarzschild thin {RES}^2 (the path's view)", bh, RES, None,
+         dict(band=(5.2, 14.0))),
+        (f"ellis thin {SMALL}^2 (wormhole disk)", ellis, SMALL, None,
+         dict(band=(1.5, 14.0))),
+        (f"schwarzschild vol tint {RES}^2 (the path's view)", bh, RES,
+         (False, True, True, False), dict(disk=tint)),
+        (f"schwarzschild vol tint {SMALL}^2", bh, SMALL,
+         (False, True, True, False), dict(disk=tint)),
+        (f"schwarzschild vol blackbody + redshift + doppler {SMALL}^2", bh,
+         SMALL, (True, True, True, False), dict(disk=bb)),
+        (f"schwarzschild vol blackbody + scatter {SMALL}^2", bh, SMALL,
+         (True, False, False, True),
+         dict(disk=dataclasses.replace(bb, redshift=False, doppler=False),
+              block=block)),
+    ]
+    out = {}
+    for k, (label, metric, res, flags, extra) in enumerate(cases):
+        inputs = surface_inputs(metric, [disk_camera(res)], flags, SURF_CAP,
+                                seed=19 + k, **extra)
+        out[label] = surface_vs_plain(f"{label}, cap {SURF_CAP}",
+                                      inputs[0], flags, *inputs[1:])
+    return out[cases[0][0]]
+
+
+def surface_frame(bh, cam, sky, disk, theta, smap=None, differentiable=None):
+    """One render_blackhole_disk call on the path's view with the overrides
+    ``theta`` (a dict of floats, made tensors that require grad)."""
+    import torch
+    from curvis_tpu_torch.render import disk as rd
+    params = {k: torch.tensor(v, device=DEVICE, requires_grad=True)
+              for k, v in theta.items()}
+    metric = bh
+    if "m" in params:
+        from curvis_tpu_torch.metrics.base import SchwarzschildMetric
+        metric = SchwarzschildMetric(params["m"], device=DEVICE)
+    img = rd.render_blackhole_disk(
+        metric, cam, sky, disk=disk, starlight_map=smap,
+        dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R,
+        differentiable=differentiable,
+        disk_theta={k: v for k, v in params.items() if k != "m"})
+    return img, params
+
+
+def twin_witness(cam, disk, linear, fd_out):
+    """d loss / d M over the pixel channels outside the linear regime of a
+    volumetric frame on a black sky, through the kernel route
+    (backend 'auto': #6, then the surface kernels) and the twin pair
+    (backend 'twin', what differentiable='scan' runs: the PyTorch step
+    under autograd) on those pixels' rays alone: if the two agree, the gap
+    to the central difference there is the method's (fate flips,
+    photon-ring rays), not the kernels'."""
+    import torch
+    from curvis_tpu_torch.integrate.planar_surface_adjoint import \
+        march_planar_vol_adjoint
+    from curvis_tpu_torch.metrics.base import SchwarzschildMetric
+    from curvis_tpu_torch.render.disk import _volumetric_rgb, disk_view
+    out = (linear == 0)                           # (H, W, 3)
+    hh, ww = torch.nonzero(out.any(-1), as_tuple=True)
+    idx = ww * RES + hh                           # ray order (W, H)
+    ch = out[hh, ww].double()
+    got, fates = {}, {}
+    t0 = time.perf_counter()
+    for backend in ("auto", "twin"):
+        m = torch.tensor(1.0, device=DEVICE, requires_grad=True)
+        metric = SchwarzschildMetric(m, device=DEVICE)
+        state, planes = disk_rays(metric, [cam])
+        state = [t[idx] for t in state]
+        planes = [t[idx] for t in planes]
+        res = march_planar_vol_adjoint(
+            metric, state[:3], state[3], *planes, disk, dt=DT,
+            max_steps=MAX_STEPS, escape_radius=DISK_R, backend=backend)
+        tau, em = res[5]
+        rgb, _ = _volumetric_rgb(tau, em, disk_view(disk, None),
+                                 torch.float32)
+        loss = (torch.clamp(rgb, 0.0, 1.0).double() * ch).sum() \
+            / linear.numel()
+        (g,) = torch.autograd.grad(loss, [m])
+        got[backend] = float(g)
+        fates[backend] = (res[3], res[4])
+    sync()
+    same = ((fates["auto"][0] == fates["twin"][0])
+            & (fates["auto"][1] == fates["twin"][1])).double().mean().item()
+    rel = abs(got["auto"] - got["twin"]) / max(abs(got["twin"]), 1e-300)
+    print(f"[20]   witness on the {idx.numel()} rays of the "
+          f"{int(out.sum())} channels outside the linear regime: d / d m "
+          f"kernels {got['auto']:.9e}, twin pair {got['twin']:.9e}, rel "
+          f"{rel:.3e} (bound {SURF_FD_TOL['m']}); central difference there "
+          f"{fd_out:.9e}; sign and steps equal on {same:.6f} of the rays; "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(rel <= SURF_FD_TOL["m"], f"witness d/dm: kernels {got['auto']} "
+            f"vs twin {got['twin']}")
+
+
+def phase20_surface_path(sky):
+    """The differentiable disk path at 1024^2: render_blackhole_disk(...,
+    differentiable='adjoint') on the thin, volumetric and starlit
+    volumetric frames; the image against the non-differentiable render,
+    d loss / d (brightness, kappa, M) against central differences, a fit of
+    kappa from 30 % off, the time split and the launches."""
+    import dataclasses
+    import torch
+    from curvis_tpu_torch.env.spherical_image import make_spherical_image
+    from curvis_tpu_torch.fit import fit
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.ops import ckpt_surface_cuda as cs
+    from curvis_tpu_torch.ops import (disk_cuda, disk_vol_cuda, march_cuda,
+                                      rk45_cuda, rk45_disk_cuda)
+    from curvis_tpu_torch.render import disk as rd
+    from curvis_tpu_torch.render.disk import DiskParams, compute_starlight_map
+    bh = make_metric("schwarzschild", m=1.0, device=DEVICE)
+    cam = disk_camera(RES)
+    dark = make_spherical_image(torch.zeros(SKY), device=DEVICE)
+    thin = DiskParams(**DISK_THIN)
+    vol = DiskParams(**DISK_VOL)
+    vol_s = dataclasses.replace(vol, starlight=True, starlight_samples=256,
+                                starlight_grid=(64, 128))
+    smap = compute_starlight_map(bh, sky, vol_s, dt=DT, max_steps=MAX_STEPS,
+                                 escape_radius=DISK_R)
+    # every frame differentiates a parameter of the march (M, kappa), so
+    # that its backward runs the surface kernels
+    frames = [("thin blackbody", thin, None,
+               dict(m=1.0, brightness=thin.brightness)),
+              ("volumetric tint", vol, None,
+               dict(brightness=vol.brightness, kappa=vol.kappa)),
+              ("volumetric tint + scatter (map precomputed)", vol_s, smap,
+               dict(brightness=vol.brightness, kappa=vol.kappa))]
+    counters = (disk_cuda, disk_vol_cuda, march_cuda, rk45_cuda,
+                rk45_disk_cuda)
+
+    def reset():
+        for mod in counters:
+            mod.launches = 0
+        cs.launches.update(surface_gen=0, surface_bwd=0)
+
+    total = {"surface_gen": 0, "surface_bwd": 0}
+    for name, disk, sm, theta in frames:
+        reset()
+        img, params = surface_frame(bh, cam, sky, disk, theta, sm,
+                                    "adjoint")
+        loss = img.double().mean()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        n5, n6 = disk_cuda.launches, disk_vol_cuda.launches
+        n1 = march_cuda.launches
+        n4 = rk45_cuda.launches + rk45_disk_cuda.launches
+        launches = dict(cs.launches)
+        for k in total:
+            total[k] += launches[k]
+        with torch.no_grad():
+            ref, _ = surface_frame(bh, cam, sky, disk, theta, sm)
+        diff = float((img.detach() - ref).abs().max())
+        print(f"[20] {name}: launches #5 {n5}, #6 {n6}, surface gen / bwd "
+              f"{launches['surface_gen']} / {launches['surface_bwd']}, #1 "
+              f"{n1}, #4 {n4}; image vs the non-differentiable render: "
+              f"max |d| {diff:.3e}; d loss / d "
+              + ", ".join(f"{k} {float(g):.9e}"
+                          for k, g in zip(params, grads)))
+        require((n5 if disk.volumetric is False else n6) > 0
+                and launches["surface_gen"] > 0
+                and launches["surface_bwd"] > 0 and n1 == 0 and n4 == 0,
+                f"{name}: launches #5 {n5} #6 {n6} {launches} #1 {n1} #4 "
+                f"{n4}")
+        require(diff == 0.0, f"{name}: image differs from the "
+                f"non-differentiable render by {diff}")
+        require(all(math.isfinite(float(g)) for g in grads),
+                f"{name}: non-finite gradient")
+        # time split: forward, backward (CUDA events, median of 3)
+        fwd, bwd = [], []
+        for _ in range(3):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            img, params = surface_frame(bh, cam, sky, disk, theta, sm,
+                                        "adjoint")
+            loss = img.double().mean()
+            e[1].record()
+            torch.autograd.grad(loss, list(params.values()))
+            e[2].record()
+            e[2].synchronize()
+            fwd.append(e[0].elapsed_time(e[1]))
+            bwd.append(e[1].elapsed_time(e[2]))
+        # the kernel pair alone on this frame's rays, full step counts
+        flags = None if not disk.volumetric else (
+            disk.color_mode == "blackbody", disk.redshift, disk.doppler,
+            disk.starlight)
+        block = None
+        if disk.starlight:
+            from curvis_tpu_torch.render.starlight import \
+                starlight_scatter_block
+            block = starlight_scatter_block(sm, disk)
+        extra = (dict(band=(disk.r_inner, disk.r_outer)) if flags is None
+                 else dict(disk=disk, block=block))
+        kind, scal, state, planes, counts, cot, _ = surface_inputs(
+            bh, [cam], flags, MAX_STEPS, seed=20, **extra)
+        off, n_rows = cs.segment_offsets(counts, SEG)
+        args = (kind, flags, scal, *state[:3], state[3], *planes, counts)
+        ck, _ = cs.launch_gen(*args, seg=SEG, offsets=off, total=n_rows)
+        gen_ms = cuda_ms(lambda: cs.launch_gen(*args, seg=SEG, offsets=off,
+                                               total=n_rows), 3)
+        bwd_ms = cuda_ms(lambda: cs.launch_bwd(
+            kind, flags, scal, ck, state[3], *planes, counts, cot, seg=SEG,
+            offsets=off), 3)
+        mib = n_rows * cs.n_state(flags) * 4 / 2**20
+        print(f"[20]   step (median of 3, CUDA events): forward "
+              f"{statistics.median(fwd):.2f} ms + backward "
+              f"{statistics.median(bwd):.2f} ms; the kernel pair alone: gen "
+              f"{gen_ms:.2f} ms, bwd {bwd_ms:.2f} ms, mean steps "
+              f"{counts.double().mean().item():.1f}, checkpoint buffer "
+              f"{mib:.1f} MiB")
+        del ck
+
+    # differentiable=True is the 'adjoint' route (the kernels), as in JAX
+    reset()
+    img, params = surface_frame(bh, cam, sky, thin, frames[0][3], None, True)
+    torch.autograd.grad(img.double().mean(), list(params.values()))
+    n5, launches = disk_cuda.launches, dict(cs.launches)
+    print(f"[20] thin blackbody, differentiable=True: launches #5 {n5}, "
+          f"surface gen / bwd {launches['surface_gen']} / "
+          f"{launches['surface_bwd']}")
+    require(n5 > 0 and launches["surface_gen"] > 0
+            and launches["surface_bwd"] > 0,
+            f"differentiable=True: launches #5 {n5} {launches}")
+    for k in total:
+        total[k] += launches[k]
+
+    # central differences on a black sky (no shadow-edge jumps), over the
+    # pixels in the linear regime at step h, |f(+h) - 2 f(0) + f(-h)| <=
+    # SURF_FD_LIN |f(+h) - f(-h)| + 1e-6: a ray whose fate flips between
+    # the renders (captured against escaping past the gas) jumps, a
+    # boundary term that no pathwise derivative has, and a ray near the
+    # photon sphere has a derivative that changes over far less than h;
+    # the adjoint differentiates the same masked mean
+    checks = [("thin blackbody", thin, None, "brightness",
+               dict(brightness=thin.brightness)),
+              ("volumetric tint", vol, None, "brightness",
+               dict(brightness=vol.brightness, kappa=vol.kappa)),
+              ("volumetric tint", vol, None, "kappa",
+               dict(brightness=vol.brightness, kappa=vol.kappa)),
+              ("volumetric tint", vol, None, "m",
+               dict(m=1.0, kappa=vol.kappa)),
+              ("volumetric tint + scatter", vol_s, smap, "brightness",
+               dict(brightness=vol.brightness, kappa=vol.kappa))]
+    for name, disk, sm, key, theta in checks:
+        h = SURF_FD[key] * theta[key]
+        ims = []
+        for sgn_ in (1.0, -1.0):
+            # the differentiable route's forward: the volumetric march
+            # reads the overrides only there
+            with torch.no_grad():
+                im, _ = surface_frame(bh, cam, dark, disk,
+                                      dict(theta, **{key: theta[key]
+                                                     + sgn_ * h}), sm,
+                                      "adjoint")
+            ims.append(im.double())
+        img, params = surface_frame(bh, cam, dark, disk, theta, sm,
+                                    "adjoint")
+        curv = (ims[0] - 2.0 * img.detach().double() + ims[1]).abs()
+        linear = (curv <= SURF_FD_LIN * (ims[0] - ims[1]).abs()
+                  + 1e-6).double()
+        fd = ((ims[0] - ims[1]) * linear).mean().item() / (2 * h)
+        (g,) = torch.autograd.grad((img.double() * linear).mean(),
+                                   [params[key]])
+        rel = abs(float(g) - fd) / max(abs(fd), 1e-300)
+        kept = linear.mean().item()
+        print(f"[20] {name}: d loss / d {key} adjoint {float(g):.9e}, "
+              f"central difference (h = {h:.3g}) {fd:.9e}, rel {rel:.3e} "
+              f"(bound {SURF_FD_TOL[key]}); {int((linear == 0).sum())} of "
+              f"{linear.numel()} pixel channels outside the linear regime, "
+              f"{kept:.6f} kept (bound >= {SURF_FD_KEEP})")
+        require(rel <= SURF_FD_TOL[key], f"{name}: d/d{key} {float(g)} vs "
+                f"{fd}")
+        require(kept >= SURF_FD_KEEP, f"{name}: d/d{key} kept only {kept} "
+                f"of the pixel channels")
+        if key == "m":
+            fd_out = ((ims[0] - ims[1]) * (1.0 - linear)).mean().item() \
+                / (2 * h)
+            twin_witness(cam, disk, linear, fd_out)
+
+    # the trainer: fit kappa from 30 % off on the volumetric frame
+    with torch.no_grad():
+        target, _ = surface_frame(bh, cam, sky, vol, dict(kappa=vol.kappa))
+
+    def loss(p):
+        img = rd.render_blackhole_disk(
+            bh, cam, sky, disk=vol, dt=DT, max_steps=MAX_STEPS,
+            escape_radius=DISK_R, differentiable="adjoint",
+            disk_theta={"kappa": p["kappa"]})
+        return torch.mean((img - target) ** 2)
+
+    reset()
+    k0 = SURF_TRAIN["start"] * vol.kappa
+    t0 = time.perf_counter()
+    res = fit(loss, {"kappa": torch.tensor(k0, device=DEVICE)},
+              iters=SURF_TRAIN["iters"], lr=SURF_TRAIN["lr"])
+    sync()
+    fit_s = time.perf_counter() - t0
+    hist = res.history
+    print(f"[20] fit: {SURF_TRAIN['iters']} Adam steps (lr "
+          f"{SURF_TRAIN['lr']}) in {fit_s:.2f} s, kappa {k0:.3f} -> "
+          f"{float(res.params['kappa']):.6f} (target {vol.kappa}); history "
+          f"{', '.join(f'{h:.6e}' for h in hist)}; launches {cs.launches}")
+    require(all(math.isfinite(h) for h in hist), f"fit history {hist}")
+    require(all(b < a for a, b in zip(hist[:-1], hist[1:])),
+            f"fit: the loss did not fall every step: {hist}")
+    for k in total:
+        total[k] += cs.launches[k]
+    def thin_step():
+        img, params = surface_frame(bh, cam, sky, thin, frames[0][3], None,
+                                    "adjoint")
+        torch.autograd.grad(img.double().mean(), list(params.values()))
+
+    profile_window(thin_step, "[20]", f"a differentiable thin frame, "
+                   f"forward + backward ({RES}^2)")
+    profile_window(lambda: loss({"kappa": torch.tensor(
+        vol.kappa, device=DEVICE, requires_grad=True)}).backward(), "[20]",
+        f"a volumetric trainer step, forward + backward ({RES}^2)")
+    print(f"[20] launches of the surface kernels over the path: {total}")
+    require(total["surface_gen"] > 0 and total["surface_bwd"] > 0,
+            f"surface kernels not launched: {total}")
+    return total
+
+
 def main():
     smi = phase0_toolchain()
     import numpy as np
@@ -2643,6 +3214,8 @@ def main():
     kerr_rk45_launches = phase16_kerr_rk45_path(disk_sky, disk_np, bright)
     rk45_disk = phase17_rk45_disk_march(disk_sky)
     rk45_disk_launches = phase18_rk45_disk_path(disk_sky, disk_np)
+    surf = phase19_surface_ckpt(disk_sky)
+    surf_launches = phase20_surface_path(disk_sky)
 
     def entry(name, source, replaces, n_launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -2684,8 +3257,19 @@ def main():
               "curvis_tpu_torch/csrc/planar_rk45_disk.cu",
               "curvis_tpu/ops/march_pallas.py:498", rk45_disk_launches,
               rk45_disk),
+        entry("ckpt_surface_gen_kernel",
+              "curvis_tpu_torch/csrc/ckpt_surface.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              surf_launches["surface_gen"], surf["gen"]),
+        entry("ckpt_surface_bwd_kernel",
+              "curvis_tpu_torch/csrc/ckpt_surface.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              surf_launches["surface_bwd"], surf["bwd"]),
     ]
-    print(f"[18] done on {smi}")
+    print(f"[20] done on {smi}; the surface kernels' ms, plain_ms and "
+          f"bound_ms in the kernels line are phase 19's thin 1024^2 case "
+          f"with every ray capped at {SURF_CAP} steps (phase 20 prints "
+          f"the full counts)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,10 @@ path (``render_blackhole_disk``, ``render_disk_frames_batched``,
 ``compute_starlight_map``) with its disk-crossing march
 (``ops/disk_cuda.py``), volumetric-transfer march (``ops/disk_vol_cuda.py``)
 and, for ``stepper='rk45'``, the adaptive march with both surfaces
-(``ops/rk45_disk_cuda.py``); and the Kerr / Kerr-Newman path
+(``ops/rk45_disk_cuda.py``), and its Euler renders differentiable
+(``differentiable='adjoint'``, ``disk_theta=``) through the surface
+variants of the checkpoint kernels (``ops/ckpt_surface_cuda.py``); and
+the Kerr / Kerr-Newman path
 (``render_kerr``, ``render_kerr_frames_batched``, ``render_kerr_adaptive``,
 ``compute_kerr_starlight_map``) with its Boyer-Lindquist RK4 march
 (``ops/kerr_cuda.py``) and DP5(4) march (``ops/kerr_rk45_cuda.py``,

@@ -87,3 +87,12 @@ def starlight_map(radii, values, values_neg=None, *, device=None,
     neg = None if values_neg is None else _t(values_neg, device, dtype)
     return StarlightMap(radii=_t(radii, device, dtype),
                         values=_t(values, device, dtype), values_neg=neg)
+
+
+def disk_theta_from_arrays(d, *, device=None, dtype=torch.float32):
+    """A ``disk_theta`` dict of the port from a JAX-side one, e.g.
+    ``{k: np.asarray(v) for k, v in jax_theta.items()}``: each value (a
+    numpy scalar, or a (3,) array for ``tint`` and ``albedo``) becomes a
+    tensor of ``dtype`` on ``device``.  Set ``requires_grad`` on the values
+    to differentiate the port's render with respect to them."""
+    return {k: _t(v, device, dtype) for k, v in d.items()}

@@ -10,7 +10,8 @@
 // curvis_tpu_torch/ops/disk_cuda.py:march_planar_disk_cuda and the plain
 // PyTorch version of this arithmetic is march_planar_disk_plain there.
 //
-// Semantics kept from the TPU kernel:
+// The step is csrc/planar.cuh:disk_step, which the checkpoint kernels'
+// replay (ckpt_surface.cu) shares.  Semantics kept from the TPU kernel:
 //   - (cos psi, sin psi) advance incrementally, u <- u - v du,
 //     v <- v + u du, and zq = c1 u + c2 v (z / r(l), no r) detects the
 //     crossing; the drift of that rotation in norm is part of the march;
@@ -58,44 +59,15 @@ __global__ void __launch_bounds__(kDiskThreads)
   float l = l_in[i], psi = psi_in[i], p_l = pl_in[i];
   const float b = b_in[i], c1 = c1_in[i], c2 = c2_in[i];
   const float b2 = b * b;
-  const float dt = s.m.dt;
   float u = cosf(psi), v = sinf(psi);
   float zq = c1 * u + c2 * v;
-  float h1 = 0.0f, h1p = 0.0f, h1s = 0.0f;
-  float h2 = 0.0f, h2p = 0.0f, h2s = 0.0f;
+  float h[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   int sign = 0;
   int n_steps = 0;
   while (n_steps < max_steps && sign == 0) {
-    float dl, dpsi, dpl;
-    planar_deriv<KIND>(s.m, l, p_l, b, b2, &dl, &dpsi, &dpl);
-    const float l1 = l + dt * dl;
-    const float pl1 = p_l + dt * dpl;
-    const float du = dt * dpsi;
-    const float u1 = u - v * du;
-    const float v1 = v + u * du;
-    const float zq1 = c1 * u1 + c2 * v1;
-    // crossing: z changes sign within the step (r > 0, so zq's sign is z's)
-    const bool crossed = zq * zq1 < 0.0f;
-    const float frac = fabsf(zq) / max_nan(fabsf(zq) + fabsf(zq1), 1e-30f);
-    const float lh = l + frac * (l1 - l);
-    const float r_hit = fabsf(lh);
-    const bool in_disk = crossed && r_hit >= s.r_in && r_hit <= s.r_out;
-    const float pl_hit = p_l + frac * (pl1 - p_l);
-    const float psi_hit = psi + frac * du;
-    const float new1 = (in_disk && h1 == 0.0f) ? 1.0f : 0.0f;
-    const float new2 = (in_disk && h1 != 0.0f && h2 == 0.0f) ? 1.0f : 0.0f;
-    h1 = h1 + new1 * lh;
-    h1p = h1p + new1 * pl_hit;
-    h1s = h1s + new1 * psi_hit;
-    h2 = h2 + new2 * lh;
-    h2p = h2p + new2 * pl_hit;
-    h2s = h2s + new2 * psi_hit;
-    l = l1;
-    psi = psi + du;
-    p_l = pl1;
-    u = u1;
-    v = v1;
-    zq = zq1;
+    bool new1, new2;
+    disk_step<KIND>(s.m, s.r_in, s.r_out, b, b2, c1, c2, &l, &psi, &p_l, &u,
+                    &v, &zq, h, &new1, &new2);
     ++n_steps;
     if (l > s.m.R) {
       sign = 1;
@@ -106,7 +78,7 @@ __global__ void __launch_bounds__(kDiskThreads)
     }
   }
   // fout rows: l, psi, p_l, h1, h1p, h1s, h2, h2p, h2s; iout: sign, steps
-  const float row[9] = {l, psi, p_l, h1, h1p, h1s, h2, h2p, h2s};
+  const float row[9] = {l, psi, p_l, h[0], h[1], h[2], h[3], h[4], h[5]};
 #pragma unroll
   for (int k = 0; k < 9; ++k) fout[k * n + i] = row[k];
   iout[i] = sign;

@@ -18,8 +18,9 @@
 // Schwarzschild and Reissner-Nordstrom) and SCATTER (the single-scattering
 // source of the lensed sky, a 27-scalar block after the emission slots).
 //
-// The emission (vol_emission) is shared with the DP5(4) volumetric march
-// through planar_vol.cuh; its Planck constants, scattering source and
+// The step (vol_step) is shared with the replay of the checkpoint kernels
+// (ckpt_surface.cu) and the emission (vol_emission) with the DP5(4)
+// volumetric march, through planar_vol.cuh; its Planck constants, scattering source and
 // colour tail with the Kerr volumetric marches through vol_common.cuh.
 //
 // Semantics kept from the TPU kernel:
@@ -61,30 +62,14 @@ __global__ void __launch_bounds__(kVolThreads)
   float l = l_in[i], psi = psi_in[i], p_l = pl_in[i];
   const float b = b_in[i], c1 = c1_in[i], c2 = c2_in[i], nz = nz_in[i];
   const float b2 = b * b;
-  const float dt = s.m.dt;
   float u = cosf(psi), v = sinf(psi);
   float tau = 0.0f;
   float em[3] = {0.0f, 0.0f, 0.0f};
   int sign = 0;
   int n_steps = 0;
   while (n_steps < max_steps && sign == 0) {
-    float dl, dpsi, dpl;
-    planar_deriv<KIND>(s.m, l, p_l, b, b2, &dl, &dpsi, &dpl);
-    l = l + dt * dl;
-    psi = psi + dt * dpsi;
-    p_l = p_l + dt * dpl;
-    const float du = dt * dpsi;
-    const float u1 = u - v * du;
-    v = v + u * du;
-    u = u1;
-    const float zq = c1 * u + c2 * v;
-    float dtau, dem[3];
-    vol_emission<KIND, BLACKBODY, REDSHIFT, DOPPLER, SCATTER>(
-        s.m, s.r_in, s.r_out, s.v, s.scatter, l, p_l, b, zq, tau, nz, &dtau,
-        dem);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) em[c] = em[c] + dt * dem[c];
-    tau = tau + dt * dtau;
+    vol_step<KIND, BLACKBODY, REDSHIFT, DOPPLER, SCATTER>(
+        s, b, b2, c1, c2, nz, &l, &psi, &p_l, &u, &v, &tau, em);
     ++n_steps;
     if (l > s.m.R) {
       sign = 1;

@@ -1,6 +1,7 @@
-// Planar null-geodesic right-hand sides, the per-ray Euler march and the
-// hand-written VJP of one Euler step, shared by planar_march.cu,
-// render_fused.cu, ckpt_adjoint.cu, disk.cu and disk_vol.cu.
+// Planar null-geodesic right-hand sides, the per-ray Euler march, the
+// thin-disk step and the hand-written VJP of one Euler step, shared by
+// planar_march.cu, render_fused.cu, ckpt_adjoint.cu, disk.cu, disk_vol.cu
+// and ckpt_surface.cu.
 //
 // State per ray: (l, psi, p_l) with conserved angular momentum b.  The
 // metric kind is a template parameter, so each kernel instance carries only
@@ -282,6 +283,57 @@ __device__ __forceinline__ void euler_step_vjp(const MarchScalars& s,
   }
   *lam_l = g_l;
   *lam_pl = g_pl;
+}
+
+// One step of the thin-disk march (kernel #5, disk.cu), shared with the
+// replay of its checkpoint kernels (ckpt_surface.cu), so that both take
+// the same crossing decisions bit for bit.  The state is (l, psi, p_l),
+// the incrementally rotated (u, v) = (cos psi, sin psi), zq = c1 u + c2 v
+// (z / r(l)) carried from the last step, and the hit slots h = (h1, h1p,
+// h1s, h2, h2p, h2s): a crossing of zq within the step at signed radius
+// lh = l + frac (l1 - l) inside [r_in, r_out] fills the first empty slot
+// with (lh, p_l, psi) interpolated at frac = |zq| / (|zq| + |zq1|).
+// *new1 / *new2 say which slot this step filled.
+template <int KIND>
+__device__ __forceinline__ void disk_step(const MarchScalars& s, float r_in,
+                                          float r_out, float b, float b2,
+                                          float c1, float c2, float* l,
+                                          float* psi, float* p_l, float* u,
+                                          float* v, float* zq, float h[6],
+                                          bool* new1, bool* new2) {
+  const float dt = s.dt;
+  float dl, dpsi, dpl;
+  planar_deriv<KIND>(s, *l, *p_l, b, b2, &dl, &dpsi, &dpl);
+  const float l1 = *l + dt * dl;
+  const float pl1 = *p_l + dt * dpl;
+  const float du = dt * dpsi;
+  const float u1 = *u - *v * du;
+  const float v1 = *v + *u * du;
+  const float zq1 = c1 * u1 + c2 * v1;
+  // crossing: z changes sign within the step (r > 0, so zq's sign is z's)
+  const bool crossed = *zq * zq1 < 0.0f;
+  const float frac = fabsf(*zq) / max_nan(fabsf(*zq) + fabsf(zq1), 1e-30f);
+  const float lh = *l + frac * (l1 - *l);
+  const float r_hit = fabsf(lh);
+  const bool in_disk = crossed && r_hit >= r_in && r_hit <= r_out;
+  const float pl_hit = *p_l + frac * (pl1 - *p_l);
+  const float psi_hit = *psi + frac * du;
+  *new1 = in_disk && h[0] == 0.0f;
+  *new2 = in_disk && h[0] != 0.0f && h[3] == 0.0f;
+  const float n1 = *new1 ? 1.0f : 0.0f;
+  const float n2 = *new2 ? 1.0f : 0.0f;
+  h[0] = h[0] + n1 * lh;
+  h[1] = h[1] + n1 * pl_hit;
+  h[2] = h[2] + n1 * psi_hit;
+  h[3] = h[3] + n2 * lh;
+  h[4] = h[4] + n2 * pl_hit;
+  h[5] = h[5] + n2 * psi_hit;
+  *l = l1;
+  *psi = *psi + du;
+  *p_l = pl1;
+  *u = u1;
+  *v = v1;
+  *zq = zq1;
 }
 
 // Euler march of one ray until it escapes (sign +1 / -1), is captured

@@ -1,7 +1,8 @@
 // The per-step emission of the flared Gaussian gas disk along a planar ray,
 // shared by the two planar volumetric marches: the Euler one (disk_vol.cu,
 // kernel #6) and the DP5(4) one (planar_rk45_disk.cu, kernel #4's vol
-// variant).  Both TPU kernels call the same
+// variant); and the Euler volumetric step, shared by disk_vol.cu and the
+// replay of its checkpoint kernels (ckpt_surface.cu).  Both TPU kernels call the same
 // curvis_tpu/ops/march_pallas.py:_vol_emission, so one function keeps the
 // two marches' emission identical by construction.
 //
@@ -91,6 +92,38 @@ __device__ __forceinline__ void vol_emission(const MarchScalars& m,
     scatter_source(scatter, r_cyl, r_in, r_out, trans * base, scat);
   vol_color<BLACKBODY, SCATTER>(v, r_in, rr, g, trans * base, scatter, scat,
                                 dem);
+}
+
+// One step of the Euler volumetric march (kernel #6, disk_vol.cu), shared
+// with the replay of its checkpoint kernels (ckpt_surface.cu): the Euler
+// update of (l, psi, p_l), the incremental rotation of (u, v) = (cos psi,
+// sin psi), zq = c1 u + c2 v, and the emission at the post-step state with
+// the pre-step tau, accumulated into tau and em over the step.
+template <int KIND, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
+          bool SCATTER>
+__device__ __forceinline__ void vol_step(const VolScalars& s, float b,
+                                         float b2, float c1, float c2,
+                                         float nz, float* l, float* psi,
+                                         float* p_l, float* u, float* v,
+                                         float* tau, float em[3]) {
+  const float dt = s.m.dt;
+  float dl, dpsi, dpl;
+  planar_deriv<KIND>(s.m, *l, *p_l, b, b2, &dl, &dpsi, &dpl);
+  *l = *l + dt * dl;
+  *psi = *psi + dt * dpsi;
+  *p_l = *p_l + dt * dpl;
+  const float du = dt * dpsi;
+  const float u1 = *u - *v * du;
+  *v = *v + *u * du;
+  *u = u1;
+  const float zq = c1 * *u + c2 * *v;
+  float dtau, dem[3];
+  vol_emission<KIND, BLACKBODY, REDSHIFT, DOPPLER, SCATTER>(
+      s.m, s.r_in, s.r_out, s.v, s.scatter, *l, *p_l, b, zq, *tau, nz, &dtau,
+      dem);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) em[c] = em[c] + dt * dem[c];
+  *tau = *tau + dt * dtau;
 }
 
 }  // namespace curvis

@@ -75,6 +75,16 @@ _PROTOTYPES = {
     # lam_l, lam_psi, lam_pl, g0, g1, g2, gb, n, seg, device, stream
     "curvis_ckpt_bwd": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    # kind, vol, flags, scalars, n_scalars, l, psi, p_l, b, c1, c2, nz,
+    # steps, offsets, ckpt, final, n, seg, device, stream
+    "curvis_ckpt_surface_gen": [_I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                                _I, _P],
+    # kind, vol, flags, scalars, n_scalars, ckpt, b, c1, c2, nz, steps,
+    # offsets, cot, lam, g_theta, n, seg, device, stream
+    "curvis_ckpt_surface_bwd": [_I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
+                                _P],
     # kind, scalars, n_scalars, l, psi, p_l, b, c1, c2, fout (9 x n),
     # iout (2 x n), n, max_steps, device, stream
     "curvis_march_disk": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,

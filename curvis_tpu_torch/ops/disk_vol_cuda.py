@@ -49,10 +49,17 @@ _BB_L5 = tuple(-5.0 * math.log(lam) for lam in (610e-9, 550e-9, 465e-9))
 launches = 0             # kernel launches since the last reset
 
 
+# The 8 emission scalars after (r_in, r_out), in the order of the row (and
+# of curvis::VolSlots in csrc/vol_common.cuh).
+VOL_SLOT_NAMES = ("h2", "inv_norm", "kappa", "tau_max", "t_peak", "emis_q",
+                  "spin_sign", "t_scale")
+
+
 def vol_param_slots(disk):
-    """The 8 emission scalars after (r_in, r_out): [h^2, inv_norm, kappa,
-    tau_max, t_peak, emissivity_index, spin_sign, t_scale], as Python
-    floats (``disk``: a DiskParams)."""
+    """The 8 emission scalars after (r_in, r_out), in the order of
+    ``VOL_SLOT_NAMES``: [h^2, inv_norm, kappa, tau_max, t_peak,
+    emissivity_index, spin_sign, t_scale], as Python floats (``disk``: a
+    DiskParams)."""
     h2 = disk.h_rel * disk.h_rel
     inv_norm = 1.0 / (math.sqrt(2.0 * math.pi) * disk.h_rel)
     rp = (49.0 / 36.0) * disk.r_inner       # Shakura-Sunyaev peak radius

@@ -28,8 +28,17 @@ Routes, by the stepper and the device of the inputs:
 
 The shading (``DiskParams``, ``blackbody_rgb``, ``disk_temperature``,
 ``_emission_rgb``, ``_disk_rgb``, ``_volumetric_rgb``) is the JAX
-package's, form for form.  ``differentiable=`` and ``disk_theta=`` raise
-NotImplementedError naming their ROADMAP item.
+package's, form for form.
+
+``differentiable='adjoint' | 'scan' | True`` (Euler only; with
+``stepper='rk45'`` it is ROADMAP Queue 1 item 3) marches through the
+planar surface adjoints (``integrate/planar_surface_adjoint.py``):
+'adjoint' and True run kernel #5 or #6 forward and the surface checkpoint
+kernels backward on CUDA tensors, the step twins on CPU tensors; 'scan'
+runs the twins on any device (as the JAX package maps only 'scan' to its
+XLA pair).  ``disk_theta`` (tensors keyed by
+``DIFF_DISK_KEYS``) overrides the shading knobs on every route, and the
+volumetric march's emission row on the differentiable one.
 """
 from __future__ import annotations
 
@@ -91,19 +100,76 @@ _BB_LAMBDA = (610e-9, 550e-9, 465e-9)   # RGB sample wavelengths [m]
 # emission only; they share the captured rays' black background.
 OPAQUE_SIGN = pl.CAPTURED
 
-def _check_route(stepper, differentiable=None, disk_theta=None):
-    """Raise NotImplementedError, naming the ROADMAP item, for the options
-    the disk routes do not run yet."""
+# The numeric DiskParams fields that a differentiable render may override
+# with tensors (the smooth knobs; mode switches such as color_mode,
+# volumetric, starlight and thickness stay static).
+DIFF_DISK_KEYS = frozenset({
+    "r_inner", "r_outer", "h_rel", "kappa", "t_peak", "emissivity_index",
+    "spin_sign", "brightness", "opacity", "tint", "albedo",
+    "starlight_scatter"})
+
+
+class DiskView:
+    """A DiskParams with some numeric fields overridden by tensors.
+
+    The static ``DiskParams`` keeps the mode flags and the thin march's
+    recording band; ``disk_theta`` (tensors keyed by the names of
+    ``DIFF_DISK_KEYS``) overrides the smooth shading and emission knobs, so
+    that gradients reach them.  The THIN disk's march records crossings in
+    the static [r_inner, r_outer] band while the shader reads the
+    overridden edges, which should stay inside it; the volumetric march
+    reads the overrides itself on the differentiable route
+    (``integrate/kerr_surface_adjoint.py:build_vol_row``)."""
+
+    __slots__ = ("_base", "_over")
+
+    def __init__(self, base, over):
+        bad = set(over) - DIFF_DISK_KEYS
+        if bad:
+            raise ValueError(f"disk_theta: non-differentiable or unknown "
+                             f"keys {sorted(bad)}; allowed: "
+                             f"{sorted(DIFF_DISK_KEYS)}")
+        object.__setattr__(self, "_base", base)
+        object.__setattr__(self, "_over", dict(over))
+
+    def __getattr__(self, name):
+        over = object.__getattribute__(self, "_over")
+        if name in over:
+            return over[name]
+        return getattr(object.__getattribute__(self, "_base"), name)
+
+
+def disk_view(params, disk_theta=None):
+    """``params`` itself without overrides, else a DiskView."""
+    if not disk_theta:
+        return params
+    return DiskView(params, disk_theta)
+
+
+def _rgb(value, dtype, device):
+    """An RGB triple (a tensor, or a sequence of floats or tensors) as a
+    (3,) tensor that keeps a tensor-valued triple in the graph."""
+    if torch.is_tensor(value):
+        return value.to(device=device, dtype=dtype).reshape(3)
+    return torch.stack([torch.as_tensor(v, dtype=dtype, device=device)
+                        for v in value])
+
+
+_DIFFERENTIABLE = (None, False, True, "scan", "adjoint")
+
+
+def _check_route(stepper, differentiable=None):
+    """Raise for a stepper the disk routes do not run, and
+    NotImplementedError, naming the ROADMAP item, for gradients through
+    the rk45 march."""
     pl.check_stepper(stepper, ported=("euler", "rk45"))
-    if differentiable:
+    if differentiable not in _DIFFERENTIABLE:
+        raise ValueError(f"differentiable must be one of {_DIFFERENTIABLE}, "
+                         f"got {differentiable!r}")
+    if differentiable and stepper == "rk45":
         raise NotImplementedError(
-            "differentiable disk renders (the planar surface adjoints, "
-            "integrate/planar_surface_adjoint.py) are ROADMAP Queue 1 "
-            "item 3")
-    if disk_theta:
-        raise NotImplementedError(
-            "disk_theta (traced disk parameters) comes with the planar "
-            "surface adjoints, ROADMAP Queue 1 item 3")
+            "differentiable disk renders with stepper='rk45' (the rk45 half "
+            "of the planar surface adjoints) are ROADMAP Queue 1 item 3")
 
 
 def blackbody_rgb(T):
@@ -124,10 +190,17 @@ def blackbody_rgb(T):
 
 def disk_temperature(r, params: DiskParams):
     """Shakura-Sunyaev T(r) ~ r^{-3/4} (1 - sqrt(r_in/r))^{1/4}, peaking at
-    ``t_peak`` at r = 49/36 r_in; zero at the inner edge."""
+    ``t_peak`` at r = 49/36 r_in; zero at the inner edge.  The fourth root
+    is taken of 1 where its argument is 0 and the result selected away:
+    the same values, but a finite gradient at the inner edge (and for
+    pixels without a hit, which sit there), where d/dx x^{1/4} is
+    infinite and a zero cotangent times it is NaN."""
     r_in = params.r_inner
     r = torch.clamp(r, min=r_in)
-    f = r ** -0.75 * (1.0 - torch.sqrt(r_in / r)) ** 0.25
+    x = 1.0 - torch.sqrt(r_in / r)
+    pos = x > 0.0
+    f = torch.where(pos, r ** -0.75 * torch.where(pos, x, 1.0) ** 0.25,
+                    0.0)
     rp = (49.0 / 36.0) * r_in
     f_peak = rp ** -0.75 * (1.0 / 7.0) ** 0.25   # 1 - sqrt(36/49) = 1/7
     return params.t_peak * f / f_peak
@@ -154,7 +227,7 @@ def _emission_rgb(r_hit, g, params: DiskParams, dtype, path=None,
         emis = (params.r_inner / rr) ** params.emissivity_index
         glow = params.brightness * emis * edge_in * edge_out * column
         glow = glow * torch.clamp(g, 0.0, 4.0) ** 3
-        tint = torch.tensor(params.tint, dtype=dtype, device=r_hit.device)
+        tint = _rgb(params.tint, dtype, r_hit.device)
         rgb = glow[:, None] * tint[None, :]
     if starlight is not None:
         beam = edge_in * edge_out * torch.clamp(g, 0.0, 4.0) ** 3
@@ -344,7 +417,7 @@ def _volumetric_rgb(tau, em, params: DiskParams, dtype, scatter=False):
         rgb = torch.clamp(params.brightness
                           * torch.stack([emr, emg, emb], dim=-1), 0.0, 1.0)
     else:
-        tint = torch.tensor(params.tint, dtype=dtype, device=tau.device)
+        tint = _rgb(params.tint, dtype, tau.device)
         rgb = torch.clamp(params.brightness * emr, 0.0, 1.0)[:, None] * tint
     return rgb, torch.exp(-tau)
 
@@ -358,6 +431,10 @@ def _disk_rgb(metric, r_hit, pl_hit, b, nz, params: DiskParams, dtype,
     rr = torch.clamp(r_hit, min=params.r_inner)
     g = torch.ones_like(r_hit)
     general = not pl._unit_lapse(metric)
+    # a pixel without a hit has no colour whatever g and the chord are;
+    # its photon speed is set to 1, so that a ray with b = 0 (the image
+    # centre) gets a finite gradient (rsqrt and sqrt of ~0 overflow)
+    hit = r_hit > 0.0
     A = (torch.clamp(metric.lapse(rr), 1e-3, 1.0) if general
          else torch.ones_like(rr))
     if general and (params.redshift or params.doppler):
@@ -372,7 +449,8 @@ def _disk_rgb(metric, r_hit, pl_hit, b, nz, params: DiskParams, dtype,
             gamma = torch.rsqrt(1.0 - v * v)
             u_l = pl_hit * torch.sqrt(A)
             u_psi = b / rr
-            inv = torch.rsqrt(u_l * u_l + u_psi * u_psi + 1e-30)
+            inv = torch.rsqrt(torch.where(
+                hit, u_l * u_l + u_psi * u_psi + 1e-30, 1.0))
             cos_xi = (u_psi * inv) * nz * params.spin_sign
             g = g / (gamma * (1.0 - v * cos_xi))
     path = None
@@ -381,7 +459,8 @@ def _disk_rgb(metric, r_hit, pl_hit, b, nz, params: DiskParams, dtype,
         # the crossing's z-velocity is u_psi sqrt(1 - nz^2)
         u_l = pl_hit * torch.sqrt(A)
         u_psi = b / rr
-        speed = torch.sqrt(u_l * u_l + u_psi * u_psi)
+        speed = torch.sqrt(torch.where(hit, u_l * u_l + u_psi * u_psi,
+                                       1.0))
         tz = torch.sqrt(torch.clamp(1.0 - nz * nz, 0.0, 1.0))
         zvel = torch.abs(u_psi) * tz
         cap = float(np.clip(1.0 / params.thickness, 1.0, 8.0))
@@ -447,7 +526,16 @@ def render_blackhole_disk(metric: Metric, camera: Camera,
     accepted steps).  ``starlight_map``: a precomputed
     render/starlight.StarlightMap (camera-independent; None computes it
     in this call, with the same stepper, when the disk asks for
-    starlight)."""
+    starlight).
+
+    ``differentiable='adjoint' | 'scan' | True`` makes the image
+    differentiable through the march (module docstring; a differentiable
+    volumetric starlit render needs ``starlight_map``), and
+    ``disk_theta`` (a dict of tensors keyed by ``DIFF_DISK_KEYS``)
+    overrides smooth disk parameters so that d(image)/d(brightness,
+    kappa, r_inner, ...) flows.  The thin march records crossings in the
+    static [disk.r_inner, disk.r_outer] band while the shader reads the
+    overridden edges."""
     return render_disk_frames_batched(
         metric, [camera], bg, dt=dt, max_steps=max_steps,
         escape_radius=escape_radius, disk=disk, filtering=filtering,
@@ -465,13 +553,15 @@ def render_disk_frames_batched(metric: Metric, cameras, bg: SphericalImage,
     rays in one bundle (the cameras must share a resolution).
     ``starlight_map``: see render_blackhole_disk (precompute it once per
     video)."""
-    _check_route(stepper, differentiable, disk_theta)
+    _check_route(stepper, differentiable)
     cams = list(cameras)
     common_device(metric, bg, *cams)
     return _render_disk_impl(metric, cams, bg, dt, escape_radius,
                              starlight_map, max_steps=max_steps,
                              disk=disk or DiskParams(), filtering=filtering,
-                             stepper=stepper, rtol=rtol)
+                             stepper=stepper, rtol=rtol,
+                             differentiable=differentiable,
+                             disk_theta=disk_theta)
 
 
 def compute_starlight_map(metric: Metric, bg: SphericalImage,
@@ -502,8 +592,34 @@ def _starlight_map(metric, bg, dt, escape_radius, *, max_steps, disk,
         two_sheet=disk.starlight_two_sheet)
 
 
+def _march_adjoint(metric, state, planes, *, disk, disk_theta,
+                   scatter_block, differentiable, dt, max_steps,
+                   escape_radius):
+    """The differentiable march of a render route
+    (``integrate/planar_surface_adjoint.py``): 'adjoint' and True run
+    kernel #5 or #6 forward and the surface checkpoint kernels backward on
+    a GPU, the twin pair on the CPU; 'scan' runs the twin pair on any
+    device.  Returns (PlanarResult, extras) as the non-differentiable
+    marches do."""
+    from curvis_tpu_torch.integrate.planar_surface_adjoint import (
+        march_planar_disk_adjoint, march_planar_vol_adjoint)
+    c1, c2, nz = planes
+    kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius,
+              backend="twin" if differentiable == "scan" else "auto")
+    if disk.volumetric:
+        out = march_planar_vol_adjoint(metric, state[:3], state[3], c1, c2,
+                                       nz, disk, disk_theta=disk_theta,
+                                       scatter_block=scatter_block, **kw)
+        return pl.PlanarResult(*out[:5]), out[5]
+    out = march_planar_disk_adjoint(metric, state[:3], state[3], c1, c2,
+                                    r_inner=disk.r_inner,
+                                    r_outer=disk.r_outer, **kw)
+    return pl.PlanarResult(*out[:5]), out[5]
+
+
 def _render_disk_impl(metric, cams, bg, dt, escape_radius, smap, *,
-                      max_steps, disk, filtering, stepper, rtol):
+                      max_steps, disk, filtering, stepper, rtol,
+                      differentiable=None, disk_theta=None):
     from curvis_tpu_torch.render.starlight import (hit_phi_side,
                                                    starlight_lookup,
                                                    starlight_scatter_block)
@@ -518,14 +634,31 @@ def _render_disk_impl(metric, cams, bg, dt, escape_radius, smap, *,
     rays = pl.PlanarRays(l, psi, p_l, b, None, None)
     kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius,
               stepper=stepper, rtol=rtol)
+    # the shading reads the overrides; the thin march keeps the static band
+    shade = disk_view(disk, disk_theta)
     if disk.starlight and smap is None:
+        if differentiable and disk.volumetric:
+            raise ValueError(
+                "differentiable volumetric starlight needs a precomputed "
+                "starlight_map= (the map is data to the gradient: compute "
+                "it once with compute_starlight_map)")
         smap = _starlight_map(metric, bg, dt, escape_radius,
                               max_steps=max_steps, disk=disk,
                               filtering=filtering, stepper=stepper,
                               rtol=rtol)
-    if disk.volumetric:
-        scatter_block = (starlight_scatter_block(smap, disk, dtype)
-                         if disk.starlight else None)
+    scatter_block = (starlight_scatter_block(smap, shade, dtype)
+                     if disk.starlight and disk.volumetric else None)
+    if differentiable:
+        res, extra = _march_adjoint(
+            metric, (l, psi, p_l, b), (c1, c2, nz), disk=disk,
+            disk_theta=disk_theta, scatter_block=scatter_block,
+            differentiable=differentiable, dt=dt, max_steps=max_steps,
+            escape_radius=escape_radius)
+        if disk.volumetric:
+            tau, em = extra
+        else:
+            h1, h2 = extra
+    elif disk.volumetric:
         res, tau, em = _march_vol(metric, rays, c1, c2, nz, disk=disk,
                                   scatter_block=scatter_block, **kw)
     else:
@@ -537,21 +670,20 @@ def _render_disk_impl(metric, cams, bg, dt, escape_radius, smap, *,
     wx, wy, wz = _readout(metric, res, b, r_hat, e2)
     bg_colors = _shade_two_skies(bg, bg, wx, wy, wz, res.sign, filtering)
     if disk.volumetric:
-        rgb, trans = _volumetric_rgb(tau, em, disk, dtype,
+        rgb, trans = _volumetric_rgb(tau, em, shade, dtype,
                                      scatter=disk.starlight)
         out = torch.clamp(rgb + trans[:, None] * bg_colors, 0.0, 1.0)
         return out.reshape(F, W, H, 3).permute(0, 2, 1, 3)
     star1 = star2 = None
     if disk.starlight:
-        albedo = torch.tensor(disk.albedo, dtype=dtype,
-                              device=l.device)[None, :]
+        albedo = _rgb(shade.albedo, dtype, l.device)[None, :]
         phi1, side1 = hit_phi_side(h1[0], h1[2], b, c1, c2, r_hat, e2)
         phi2, side2 = hit_phi_side(h2[0], h2[2], b, c1, c2, r_hat, e2)
         star1 = albedo * starlight_lookup(smap, h1[0], phi1, side1)
         star2 = albedo * starlight_lookup(smap, h2[0], phi2, side2)
-    rgb1, a1 = _disk_rgb(metric, h1[0], h1[1], b, nz, disk, dtype,
+    rgb1, a1 = _disk_rgb(metric, h1[0], h1[1], b, nz, shade, dtype,
                          starlight=star1)
-    rgb2, a2 = _disk_rgb(metric, h2[0], h2[1], b, nz, disk, dtype,
+    rgb2, a2 = _disk_rgb(metric, h2[0], h2[1], b, nz, shade, dtype,
                          starlight=star2)
     # composite: hit1 over hit2 over background
     behind = rgb2 * a2[:, None] + bg_colors * (1.0 - a2[:, None])

@@ -36,7 +36,7 @@ from curvis_tpu_torch.ops.kerr_rk45_cuda import march_kerr_rk45_cuda
 from curvis_tpu_torch.physics.hamiltonian import spawn_photon
 from curvis_tpu_torch.physics import planar as pl
 from curvis_tpu_torch.render.disk import (_check_route, _emission_rgb,
-                                          _march_thin)
+                                          _march_thin, _rgb)
 from curvis_tpu_torch.render.fast import _shade_soa
 from curvis_tpu_torch.utils.device import common_device
 
@@ -381,11 +381,12 @@ def starlight_scatter_block(smap: StarlightMap, disk, dtype=torch.float32):
     pinv = np.linalg.pinv(np.vander(t, SCATTER_DEG + 1, increasing=True))
     dev = prof.device
     coefs = torch.as_tensor(pinv, dtype=dtype, device=dev) @ prof.to(dtype)
-    albedo = torch.tensor(disk.albedo, dtype=dtype, device=dev)
-    ks = torch.tensor(disk.starlight_scatter * disk.kappa, dtype=dtype,
-                      device=dev)
+    # tensors of a DiskView (render/disk.py) stay in the graph
+    albedo = _rgb(disk.albedo, dtype, dev)
+    ks = torch.as_tensor(disk.starlight_scatter * disk.kappa, dtype=dtype,
+                         device=dev)
     coefs = coefs * albedo[None, :] * ks
-    tint = torch.tensor(disk.tint, dtype=dtype, device=dev)
+    tint = _rgb(disk.tint, dtype, dev)
     block = torch.cat([tint, coefs.T.reshape(-1)])
     assert block.shape == (SCATTER_BLOCK,)
     return block

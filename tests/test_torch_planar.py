@@ -297,8 +297,9 @@ def test_build_command_targets_hopper():
     compiles, link = _build.nvcc_commands("nvcc", _build.BUILD_DIR /
                                           _build.LIB_NAME)
     cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert cu == ["ckpt_adjoint.cu", "disk.cu", "disk_vol.cu", "kerr.cu",
-                  "kerr_rk45.cu", "planar_march.cu", "planar_rk45.cu",
+    assert cu == ["ckpt_adjoint.cu", "ckpt_surface.cu", "disk.cu",
+                  "disk_vol.cu", "kerr.cu", "kerr_rk45.cu",
+                  "planar_march.cu", "planar_rk45.cu",
                   "planar_rk45_disk.cu", "render_fused.cu"]
     assert [c[-1].rsplit("/", 1)[-1] for c in compiles] == cu
     for cmd in [*compiles, link]:
