@@ -32,7 +32,9 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      its default tolerances (rtol 1e-5, atol 1e-7): Ellis on the headline
      ray bundle, DNEG and Schwarzschild at 256^2, Schwarzschild with a cap
      of 20 accepted steps that most rays reach (exactly), and Ellis 256^2
-     with 16 rays poisoned to NaN (which must freeze as sign 3);
+     with 16 rays poisoned to NaN (which must freeze as sign 3); exact
+     equality (the source is built without FMA contraction), with a
+     digest of the outputs;
   9. the fused rk45 kernel (#3) against its plain version (Ellis 1024^2,
      rtol 1e-3), the fused rk45 image against the rk45 march-kernel image,
      rk45 against the Euler march kernel on the headline view, and the
@@ -120,7 +122,30 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      kappa and M (5 %) against central differences over a black sky;
      fit() of kappa from 30 % off on the volumetric frame, the loss
      falling every step; profiles of a thin frame's and a volumetric
-     trainer step's forward + backward.
+     trainer step's forward + backward;
+ 21. the planar rk45 variants of the checkpoint kernels #9 / #10
+     (csrc/ckpt_rk45.cu, csrc/ckpt_surface_rk45.cu) against their plain
+     versions at rtol 1e-5: bare Ellis on the trainer view at 1024^2 (and
+     256^2 with freeze_controller), DNEG, Schwarzschild (captured rays) and
+     RN (freeze_controller) at 256^2, a max_iters of 30 that most rays
+     reach, 16 NaN rays (sign 3, zero lam); the thin disk and the
+     volumetric tint on the disk view at 1024^2, blackbody + redshift +
+     Doppler (freeze_controller) and blackbody + scatter at 256^2, RN and
+     Ellis thin and Ellis vol at 256^2, every surface case capped at 128
+     iterations; gen's final state bit for bit against #4 on every ray
+     (one step source), checkpoints equal, lam and g_theta within rtol
+     1e-3, the ray-summed slot cotangents;
+ 22. the planar rk45 gradients at full width: the 1024^2 Ellis trainer
+     through render_direct(stepper='rk45', differentiable='adjoint'):
+     one step's launches (#4 and the rk45 pair once, no Euler kernel),
+     the image against render_planar_fast(stepper='rk45'), the time split,
+     d / d rho of the kernel pair against the plain pair at 128^2 and
+     against a central difference, fit() 5 Adam steps on rho; one
+     differentiable rk45 disk step at the disk view, 1024^2: thin
+     blackbody (d / d M, brightness) and volumetric tint (d / d kappa,
+     brightness), each image equal to the non-differentiable rk45 render,
+     central differences over a black sky, differentiable=True through
+     the kernels.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -314,6 +339,40 @@ SURF_FD_LIN = 0.1          # a pixel channel whose second difference at
 SURF_FD_KEEP = 0.9         # least share of pixel channels in that regime
 SURF_FD_TOL = dict(brightness=0.01, kappa=0.05, m=0.05)
 SURF_TRAIN = dict(iters=5, lr=0.15, start=1.3)   # kappa from 30 % off
+# The planar rk45 gradients (the rk45 checkpoint kernels, csrc/ckpt_rk45.cu
+# and csrc/ckpt_surface_rk45.cu): segments of 16 iterations (the JAX
+# package's _PALLAS_SEG); the trainer marches from dt 0.05 as the first
+# step, up to 4 000 accepted steps, at #4's defaults (rtol 1e-5, atol 1e-7).
+RK45_SEG = 16
+RK45_TRAIN_STEPS = 4000
+RK45_ADJ_ITERS = 26        # a max_iters most rays of the 256^2 view reach
+RK45_SURF_ITERS = 128      # the iteration cap of the surface kernel-vs-
+                           # plain cases: the plain pair takes ~30 ms an
+                           # iteration at 1024^2 (the path's rays take ~70
+                           # on the thin view, ~170 through the gas)
+RK45_GRAD_FRAC_MIN = 0.999 # entries of lam and g_theta within GRAD_RTOL
+RK45_FD_H = 0.1            # the trainer's central-difference step in rho:
+                           # an accept that flips between the two renders
+                           # moves a ray by ~rtol, so the step must make
+                           # the weak-deflection view's change large
+                           # against that (the JAX tests take rtol 1e-9,
+                           # below float32)
+RK45_FD_TOL = 0.01
+RK45_DISK_FD = dict(brightness=0.01, kappa=0.01, m=1e-4)   # relative steps
+RK45_DISK_FD_RTOL = 1e-6   # the central differences' rtol: at 1e-5 the
+                           # float32 march's d/dM (kernels and twin pair
+                           # alike) missed the float64 difference by 6-15 %
+                           # on the H100, at 1e-6 by 1.1 % (PERF.md);
+                           # the 1e-5 comparison is printed beside it
+# The VJP of one DP5(4) iteration (csrc/rk45_vjp.cuh; an FMA counts as
+# two): the iteration recomputed (FLOP_RK45_ITER), then seven RHS VJPs (25
+# Ellis, 45 lapse), the 21 stage terms reversed on l and p_l (168), the
+# combinations (63), the error norm (40), escape, write-back and
+# controller (30).  The surface VJPs (csrc/ckpt_surface_rk45.cu) add the
+# crossing or the gas clamp and the emission's reverse.
+FLOP_RK45_VJP = FLOP_RK45_ITER + 476
+FLOP_RK45_VJP_LAPSE = FLOP_RK45_ITER_LAPSE + 616
+FLOP_RK45_SURF_VJP = dict(track=40, vol=150)
 
 
 def require(ok, what):
@@ -374,6 +433,10 @@ def phase1_build():
                 m = re.search(pat, line)
                 if m:
                     st[key].append(int(m.group(1)))
+    secs_by_src = re.findall(r"^== (\S+) \(([\d.]+) s\)$", log, re.M)
+    slow = sorted(secs_by_src, key=lambda t: -float(t[1]))[:4]
+    print("[1]   slowest nvcc: " + ", ".join(
+        f"{Path(src).name} {secs} s" for src, secs in slow))
     for name, st in sorted(stats.items()):
         rng = {k: (f"{min(v)}-{max(v)}" if v and min(v) != max(v)
                    else str(v[0]) if v else "?")
@@ -987,6 +1050,14 @@ def phase8_rk45_march():
               f"{iters.mean().item():.2f} / {int(iters.max())}; kernel "
               f"{kernel_ms:.3f} ms ({n / kernel_ms / 1e3:.1f} Mrays/s), plain "
               f"{plain_ms:.1f} ms")
+        # built without FMA contraction, as its plain version rounds:
+        # every output equal
+        n_diff, worst = outputs_differ(out_k, out_p)
+        print(f"[8]   {n_diff} output entries differ from the plain "
+              f"version's (bound 0), max finite |d| {worst:.3e}; digest of "
+              f"the kernel's outputs {digest(out_k)}, of the plain "
+              f"version's {digest(out_p)}")
+        require(n_diff == 0, f"rk45 {name}: {n_diff} output entries differ")
         require(sign_eq >= SIGN_EQ_MIN, f"rk45 {name}: sign equal {sign_eq}")
         require(steps_near >= STEPS_EQ_MIN,
                 f"rk45 {name}: steps within {STEPS_NEAR} {steps_near}")
@@ -2443,6 +2514,8 @@ def phase17_rk45_disk_march(sky):
               f"equal {sign_eq:.6f}, steps within {STEPS_NEAR} "
               f"{steps_near:.6f}, iters equal {iters_eq:.6f}; {n_diff} "
               f"output entries differ, max finite |d| {worst:.3e}")
+        print(f"[17]   digest of the kernel's outputs {digest(out_k)}, of "
+              f"the plain version's {digest(out_p)}")
         print(f"[17]   steps mean / max {steps.mean().item():.2f} / "
               f"{int(steps.max())}, iters mean / max "
               f"{iters.mean().item():.2f} / {int(iters.max())}; kernel "
@@ -2876,9 +2949,11 @@ def phase19_surface_ckpt(sky):
     return out[cases[0][0]]
 
 
-def surface_frame(bh, cam, sky, disk, theta, smap=None, differentiable=None):
+def surface_frame(bh, cam, sky, disk, theta, smap=None, differentiable=None,
+                  **kw):
     """One render_blackhole_disk call on the path's view with the overrides
-    ``theta`` (a dict of floats, made tensors that require grad)."""
+    ``theta`` (a dict of floats, made tensors that require grad); ``kw``
+    (stepper, rtol) passes on."""
     import torch
     from curvis_tpu_torch.render import disk as rd
     params = {k: torch.tensor(v, device=DEVICE, requires_grad=True)
@@ -2891,7 +2966,7 @@ def surface_frame(bh, cam, sky, disk, theta, smap=None, differentiable=None):
         metric, cam, sky, disk=disk, starlight_map=smap,
         dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R,
         differentiable=differentiable,
-        disk_theta={k: v for k, v in params.items() if k != "m"})
+        disk_theta={k: v for k, v in params.items() if k != "m"}, **kw)
     return img, params
 
 
@@ -3172,6 +3247,653 @@ def phase20_surface_path(sky):
     return total
 
 
+def bits_differ(a, b):
+    """Rays whose float32 values differ in any bit (NaN payloads too)."""
+    import torch
+    return a.contiguous().view(torch.int32) != b.contiguous().view(
+        torch.int32)
+
+
+def digest(tensors):
+    """SHA-256 (first 16 hex digits) of the tensors' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def rk45_family_vs_plain(label, kind, flags, scal, state, planes, fwd, seed,
+                         freeze=False):
+    """Kernels #9 / #10's rk45 variant of one family (``flags`` 'bare',
+    None for the thin disk, else the vol flags) against their plain
+    versions on the forward kernel's outputs ``fwd`` (#4 bare or surface):
+    gen's final state bit for bit against #4 on every ray, then the
+    checkpoints, lam and g_theta with the Function's fate policy (state
+    cotangents for signs 0, +-1; the replay for every sign but 3)."""
+    import numpy as np
+    import torch
+    from curvis_tpu_torch.ops import ckpt_rk45_cuda as cr
+    from curvis_tpu_torch.ops import ckpt_surface_cuda as cs
+    bare = flags == "bare"
+    l, psi, p_l, b = state
+    c1, c2, nz = planes if planes is not None else (None,) * 3
+    sign, iters = fwd[-3], fwd[-1]
+    n = l.numel()
+    if bare:
+        ns, nt, n_out = cr.N_STATE, 4, 3
+        gen = lambda cnt, off, tot: cr.launch_gen(          # noqa: E731
+            kind, scal, l, psi, p_l, b, cnt, seg=RK45_SEG, offsets=off,
+            total=tot)
+        bwd = lambda ck, cnt, cot, off: cr.launch_bwd(      # noqa: E731
+            kind, scal, freeze, ck, b, cnt, cot, seg=RK45_SEG, offsets=off)
+        gen_p = lambda cnt, off, tot: cr.ckpt_rk45_gen_plain(  # noqa: E731
+            kind, scal, l, psi, p_l, b, cnt, seg=RK45_SEG, offsets=off,
+            total=tot)
+        bwd_p = lambda ck, cnt, cot, off: cr.ckpt_rk45_bwd_plain(  # noqa
+            kind, scal, freeze, ck, b, cnt, cot, seg=RK45_SEG, offsets=off)
+    else:
+        ns, nt = cs.n_state_rk45(flags), cs.n_theta(flags)
+        n_out = ns - 1                          # #4 returns no dt
+        args = (kind, flags, scal)
+        gen = lambda cnt, off, tot: cs.launch_rk45_gen(     # noqa: E731
+            *args, l, psi, p_l, b, c1, c2, nz, cnt, seg=RK45_SEG,
+            offsets=off, total=tot)
+        bwd = lambda ck, cnt, cot, off: cs.launch_rk45_bwd(  # noqa: E731
+            kind, flags, scal, freeze, ck, b, c1, c2, nz, cnt, cot,
+            seg=RK45_SEG, offsets=off)
+        gen_p = lambda cnt, off, tot: cs.ckpt_surface_rk45_gen_plain(  # noqa
+            *args, l, psi, p_l, b, c1, c2, nz, cnt, seg=RK45_SEG,
+            offsets=off, total=tot)
+        bwd_p = lambda ck, cnt, cot, off: cs.ckpt_surface_rk45_bwd_plain(  # noqa
+            kind, flags, scal, freeze, ck, b, c1, c2, nz, cnt, cot,
+            seg=RK45_SEG, offsets=off)
+    # gen replays every ray's live iterations: its final state is #4's
+    off_all, tot_all = cs.segment_offsets(iters, RK45_SEG)
+    _, fin = gen(iters, off_all, tot_all)
+    fin_out = torch.cat([fin[:3], fin[4:]]) if not bare else fin[:3]
+    ne = torch.zeros(n, dtype=torch.bool, device=l.device)
+    for c in range(n_out):
+        ne |= bits_differ(fin_out[c], fwd[c])
+    fin_ne = int(ne.sum())
+    # the Function's fate policy
+    smooth = sign.abs() <= 1
+    counts = torch.where(sign != 3, iters, torch.zeros_like(iters))
+    if bare:
+        counts = torch.where(smooth, iters, torch.zeros_like(iters))
+    cot = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (ns, n)).astype(np.float32)).to(DEVICE)
+    cot[:3] = torch.where(smooth, cot[:3], torch.zeros_like(cot[:3]))
+    cot[3] = 0.0
+    if bare:
+        cot = torch.where(smooth, cot, torch.zeros_like(cot))
+    cot = cot.contiguous()
+    off, total = cs.segment_offsets(counts, RK45_SEG)
+    ck, _ = gen(counts, off, total)
+    g_k, lam_k = bwd(ck, counts, cot, off)
+    sync()
+    t0 = time.perf_counter()
+    ck_p, _ = gen_p(counts, off, total)
+    sync()
+    t1 = time.perf_counter()
+    g_p, lam_p = bwd_p(ck_p, counts, cot, off)
+    sync()
+    gen_plain_ms = 1e3 * (t1 - t0)
+    bwd_plain_ms = 1e3 * (time.perf_counter() - t1)
+    gen_ms = cuda_ms(lambda: gen(counts, off, total), 3)
+    bwd_ms = cuda_ms(lambda: bwd(ck, counts, cot, off), 3)
+    ck_ne = int((ck[:total] != ck_p).any(dim=1).sum()) if total else 0
+    ck_err = float((ck[:total] - ck_p).abs().max()) if total else 0.0
+    lam_frac, lam_err = entry_fraction(lam_k, lam_p)
+    g_rows = [r for r in range(nt) if bool((g_p[r] != 0).any())]
+    g_frac, g_err = entry_fraction(g_k[g_rows], g_p[g_rows])
+    sums = []
+    shared = (0, 1, 2) if bare else [r for r in g_rows
+                                     if r not in (3, 4, 5, 6)]
+    for r in shared:
+        sk, sp = g_k[r].double().sum().item(), g_p[r].double().sum().item()
+        if sp != 0.0 or sk != 0.0:
+            mag = g_p[r].double().abs().sum().item()
+            sums.append((r, sk, sp, abs(sk - sp) / max(abs(sp), 1e-300),
+                         mag))
+    tot_it = counts.double().sum().item()
+    segs = (-(-counts.long() // RK45_SEG)).double().sum().item()
+    signs = {s_: int((sign == s_).sum()) for s_ in (-1, 0, 1, 2, 3)}
+    print(f"[21] {label}{' (freeze)' if freeze else ''}: {n} rays, signs "
+          f"{signs}, replayed iterations mean / max {tot_it / n:.1f} / "
+          f"{int(counts.max())}, {total} checkpoint rows "
+          f"({total * ns * 4 / 2**20:.1f} MiB)")
+    print(f"[21]   gen's final state (every ray, its full iters) == #4's "
+          f"outputs: {fin_ne} of {n} rays differ in a bit (bound 0); "
+          f"checkpoints == plain gen's on {total - ck_ne} of {total} rows, "
+          f"max |d| {ck_err:.3e}")
+    print(f"[21]   within rtol {GRAD_RTOL}: lam {lam_frac:.6f}, g_theta "
+          f"{g_frac:.6f} of entries (bound >= {RK45_GRAD_FRAC_MIN}); max "
+          f"|d| lam {lam_err:.3e}, g {g_err:.3e}")
+    for r, sk, sp, rel, mag in sums:
+        print(f"[21]   sum g_theta[{r}]: kernel {sk:.9e}, plain {sp:.9e}, "
+              f"rel {rel:.3e} (bound {GRAD_RTOL})")
+    print(f"[21]   gen {gen_ms:.3f} ms (plain {gen_plain_ms:.1f} ms), bwd "
+          f"{bwd_ms:.3f} ms (plain {bwd_plain_ms:.1f} ms)")
+    require(fin_ne == 0, f"rk45 ckpt {label}: gen's final state differs "
+            f"from #4 on {fin_ne} rays")
+    require(ck_ne == 0, f"rk45 ckpt {label}: {ck_ne} checkpoint rows differ "
+            f"from the plain gen's")
+    require(lam_frac >= RK45_GRAD_FRAC_MIN,
+            f"rk45 ckpt {label}: lam {lam_frac}")
+    require(g_frac >= RK45_GRAD_FRAC_MIN, f"rk45 ckpt {label}: g {g_frac}")
+    for r, sk, sp, rel, mag in sums:
+        require(rel <= GRAD_RTOL, f"rk45 ckpt {label}: sum g_theta[{r}] "
+                f"{sk} vs {sp}")
+    require(all(bool(torch.isfinite(t).all()) for t in (lam_k, g_k)),
+            f"rk45 ckpt {label}: non-finite output")
+    lapse = kind in ("schwarzschild", "rn")
+    it_f = FLOP_RK45_ITER_LAPSE if lapse else FLOP_RK45_ITER
+    vjp_f = FLOP_RK45_VJP_LAPSE if lapse else FLOP_RK45_VJP
+    if not bare:
+        extra = (FLOP_RK45_DISK["track"] if flags is None
+                 else FLOP_RK45_DISK["vol_clamp"] + FLOP_RK45_DISK["emission"])
+        it_f += extra
+        vjp_f += 2 * extra + (FLOP_RK45_SURF_VJP["track"] if flags is None
+                              else FLOP_RK45_SURF_VJP["vol"])
+    # gen reads the rays (4 or 7 floats), iters and the offset a ray and
+    # writes ns floats a segment and the final state; bwd reads the
+    # segments, the per-ray inputs and the cotangent and writes lam and g
+    n_in = 4 if bare else 7
+    gen_b = bound((4 * n_in + 12) * n + 4 * ns * (segs + n), it_f * tot_it)
+    bwd_b = bound(4 * ns * segs + (4 * (n_in - 3) + 12) * n
+                  + 4 * (2 * ns + nt) * n, (it_f + vjp_f) * tot_it)
+    print(f"[21]   bound gen {gen_b[0]:.3f} ms ({gen_b[1]}), bwd "
+          f"{bwd_b[0]:.3f} ms ({bwd_b[1]})")
+    return dict(gen=dict(max_abs_err=ck_err, ms=gen_ms,
+                         plain_ms=gen_plain_ms, bound_ms=gen_b[0],
+                         bound_by=gen_b[1]),
+                bwd=dict(max_abs_err=max(lam_err, g_err), ms=bwd_ms,
+                         plain_ms=bwd_plain_ms, bound_ms=bwd_b[0],
+                         bound_by=bwd_b[1]),
+                lam=lam_k, sign=sign)
+
+
+def phase21_rk45_ckpt(sky):
+    """Kernels #9 / #10's planar rk45 families (csrc/ckpt_rk45.cu,
+    csrc/ckpt_surface_rk45.cu) against their plain versions at rtol 1e-5."""
+    import dataclasses
+    import torch
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.ops import rk45_cuda, rk45_disk_cuda
+    from curvis_tpu_torch.render.disk import DiskParams, compute_starlight_map
+    from curvis_tpu_torch.render.fast import _spawn_frames
+    from curvis_tpu_torch.render.starlight import starlight_scatter_block
+    t_start = time.perf_counter()
+    ellis = make_metric("ellis", rho=1.0, device=DEVICE)
+    bh = make_metric("schwarzschild", m=1.0, device=DEVICE)
+    rn = make_metric("rn", m=1.0, q=0.6, device=DEVICE)
+    dneg = make_metric("interstellar", m=0.1, a=0.5, rho=1.0, device=DEVICE)
+    out = {}
+    bare = [
+        (f"bare ellis {RES}^2 (the trainer view)", ellis,
+         trainer_camera(RES), RK45_TRAIN_STEPS, None, 0, False),
+        (f"bare ellis {SMALL}^2 (the trainer view)", ellis,
+         trainer_camera(SMALL), RK45_TRAIN_STEPS, None, 0, True),
+        (f"bare dneg {SMALL}^2", dneg, camera(5.0, 0.0, SMALL),
+         RK45_TRAIN_STEPS, None, 0, True),
+        (f"bare schwarzschild {SMALL}^2", bh, camera(15.0, 0.0, SMALL),
+         RK45_TRAIN_STEPS, None, 0, False),
+        (f"bare rn {SMALL}^2", rn, camera(12.0, 0.0, SMALL),
+         RK45_TRAIN_STEPS, None, 0, False),
+        (f"bare ellis {SMALL}^2, max_iters {RK45_ADJ_ITERS}", ellis,
+         camera(5.0, 0.0, SMALL), RK45_TRAIN_STEPS, RK45_ADJ_ITERS, 0,
+         False),
+        (f"bare ellis {SMALL}^2 with {N_POISON} NaN rays", ellis,
+         camera(5.0, 0.0, SMALL), RK45_TRAIN_STEPS, None, N_POISON, False),
+    ]
+    for k, (label, metric, cam, cap, mi, n_nan, freeze) in enumerate(bare):
+        state, _, _ = _spawn_frames(metric, [cam])
+        l, bad = poison_rays(state[0].reshape(-1).contiguous(), n_nan)
+        flat = [l] + [t.reshape(-1).contiguous() for t in state[1:]]
+        kind, scal = rk45_cuda.rk45_scalars(metric, DT, R_ESC, rtol=1e-5,
+                                            atol=1e-7, dt_max=10.0)
+        mi = rk45_cuda.default_max_iters(cap, mi)
+        fwd = rk45_cuda.launch(kind, scal, *flat, max_steps=cap, max_iters=mi)
+        nums = rk45_family_vs_plain(label, kind, "bare", scal, flat, None,
+                                    fwd, seed=21 + k, freeze=freeze)
+        if mi < 4 * cap:
+            at = (fwd[5] == mi).double().mean().item()
+            print(f"[21]   {at:.4f} of rays ran to max_iters = {mi}")
+            require(at > 0.5, f"{label}: only {at} at max_iters")
+        if n_nan:
+            lam_bad = nums["lam"][:, bad]
+            print(f"[21]   NaN rays: signs {nums['sign'][bad].tolist()}, "
+                  f"max |lam| {float(lam_bad.abs().max()):.1e}")
+            require(bool((nums["sign"][bad] == 3).all())
+                    and bool((lam_bad == 0).all()),
+                    f"{label}: NaN rays not frozen with zero lam")
+        out.setdefault(label, nums)
+    tint = DiskParams(**DISK_VOL)
+    bb = dataclasses.replace(tint, color_mode="blackbody", t_peak=7000.0)
+    smap = compute_starlight_map(
+        bh, sky, dataclasses.replace(bb, starlight=True, starlight_samples=64,
+                                     starlight_grid=(64, 128)),
+        dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R, stepper="rk45")
+    block = starlight_scatter_block(smap, bb)
+    surf = [
+        (f"thin schwarzschild {RES}^2 (the path's view)", bh, RES, None,
+         dict(disk=(5.2, 14.0)), False),
+        (f"vol tint schwarzschild {RES}^2 (the path's view)", bh, RES,
+         (False, True, True, False), dict(vol_disk=tint), False),
+        (f"vol blackbody + redshift + doppler {SMALL}^2", bh, SMALL,
+         (True, True, True, False), dict(vol_disk=bb), True),
+        (f"vol blackbody + scatter {SMALL}^2", bh, SMALL,
+         (True, False, False, True),
+         dict(vol_disk=dataclasses.replace(bb, redshift=False,
+                                           doppler=False),
+              scatter_block=block), False),
+        (f"thin rn {SMALL}^2", rn, SMALL, None, dict(disk=(3.0, 14.0)), True),
+        (f"thin ellis {SMALL}^2 (wormhole disk)", ellis, SMALL, None,
+         dict(disk=(1.5, 14.0)), False),
+        (f"vol tint ellis {SMALL}^2", ellis, SMALL,
+         (False, True, True, False), dict(vol_disk=tint), False),
+    ]
+    for k, (label, metric, res, flags, extra, freeze) in enumerate(surf):
+        state, planes = disk_rays(metric, [disk_camera(res)])
+        kind, scal = rk45_disk_cuda.rk45_disk_scalars(
+            metric, DT, DISK_R, RK45_DISK_RTOL, RK45_DISK_RTOL * 1e-3, 10.0,
+            **extra)
+        mode = rk45_disk_cuda.disk_flags(extra.get("vol_disk"),
+                                         extra.get("scatter_block"))
+        ins = state + (planes if flags is not None else planes[:2] + [None])
+        fwd = rk45_disk_cuda.launch(kind, mode, scal, *ins,
+                                    max_steps=MAX_STEPS,
+                                    max_iters=RK45_SURF_ITERS)
+        if flags is None:
+            planes = [planes[0], planes[1], torch.zeros_like(planes[2])]
+            hits = int((fwd[3] != 0).sum())
+            print(f"[21] {label}: {hits} rays hit the disk")
+            require(hits > 0, f"{label}: no disk hit")
+        out.setdefault(label, rk45_family_vs_plain(
+            label, kind, flags, scal, state, planes, fwd, seed=40 + k,
+            freeze=freeze))
+    print(f"[21] {time.perf_counter() - t_start:.1f} s")
+    return out[bare[0][0]], out[surf[0][0]]
+
+
+def phase22_rk45_paths(bgp, bgn, sky):
+    """The planar rk45 gradients at full width: the 1024^2 Ellis trainer
+    through render_direct(stepper='rk45', differentiable='adjoint') and one
+    differentiable rk45 disk step (thin blackbody, volumetric tint) at the
+    disk view; returns the launches of the rk45 checkpoint kernels."""
+    import torch
+    from curvis_tpu_torch.env.spherical_image import make_spherical_image
+    from curvis_tpu_torch.fit import fit
+    from curvis_tpu_torch.geometry.rotations import normalize
+    from curvis_tpu_torch.metrics.base import EllisMetric, make_metric
+    from curvis_tpu_torch.ops import ckpt_adjoint_cuda as ca
+    from curvis_tpu_torch.ops import ckpt_rk45_cuda as cr
+    from curvis_tpu_torch.ops import ckpt_surface_cuda as cs
+    from curvis_tpu_torch.ops import (disk_cuda, disk_vol_cuda, march_cuda,
+                                      rk45_cuda, rk45_disk_cuda)
+    from curvis_tpu_torch.physics import planar as pl
+    from curvis_tpu_torch.camera.camera import make_camera
+    from curvis_tpu_torch.metrics.base import SchwarzschildMetric
+    from curvis_tpu_torch.render import disk as rd
+    from curvis_tpu_torch.render.direct import render_direct, shade
+    from curvis_tpu_torch.render.disk import DiskParams
+    from curvis_tpu_torch.render.fast import (_pixel_dirs_soa,
+                                              render_planar_fast)
+    t_start = time.perf_counter()
+    counters = (march_cuda, rk45_cuda, rk45_disk_cuda, disk_cuda,
+                disk_vol_cuda)
+
+    def reset():
+        for mod in counters:
+            mod.launches = 0
+        ca.launches.update(ckpt_gen=0, ckpt_bwd=0)
+        cr.launches.update(rk45_gen=0, rk45_bwd=0)
+        cs.launches.update(surface_gen=0, surface_bwd=0, surface_rk45_gen=0,
+                           surface_rk45_bwd=0)
+
+    def counts():
+        return dict(euler=march_cuda.launches + ca.launches["ckpt_gen"]
+                    + disk_cuda.launches + disk_vol_cuda.launches
+                    + cs.launches["surface_gen"],
+                    rk45=rk45_cuda.launches,
+                    rk45_disk=rk45_disk_cuda.launches, **cr.launches,
+                    surface_rk45_gen=cs.launches["surface_rk45_gen"],
+                    surface_rk45_bwd=cs.launches["surface_rk45_bwd"])
+
+    total = dict(rk45_gen=0, rk45_bwd=0, surface_rk45_gen=0,
+                 surface_rk45_bwd=0)
+    # (a) the trainer
+    cam = trainer_camera(RES)
+    kw = dict(dt=DT, max_steps=RK45_TRAIN_STEPS, escape_radius=R_ESC,
+              filtering="bilinear", stepper="rk45")
+    with torch.no_grad():
+        target = render_direct(EllisMetric(1.6, device=DEVICE), cam, bgp,
+                               bgn, differentiable="adjoint", **kw)
+
+    def loss(p):
+        img = render_direct(EllisMetric(rho=p["rho"], device=DEVICE), cam,
+                            bgp, bgn, differentiable="adjoint", **kw)
+        return torch.mean((img - target) ** 2)
+
+    reset()
+    rho = torch.tensor(1.0, device=DEVICE, requires_grad=True)
+    img = render_direct(EllisMetric(rho=rho, device=DEVICE), cam, bgp, bgn,
+                        differentiable="adjoint", **kw)
+    (g,) = torch.autograd.grad(torch.mean((img - target) ** 2), rho)
+    step = counts()
+    # the image against render_planar_fast's: the two routes spawn the rays
+    # with other operations (ulps apart), so the adaptive marches differ
+    # at their tolerance; held as phase 9 holds its rk45 images, with the
+    # nearest lookup, and the bilinear difference printed
+    with torch.no_grad():
+        ell = EllisMetric(1.0, device=DEVICE)
+        fast = render_planar_fast(ell, cam, bgp, bgn, **kw)
+        near = dict(kw, filtering="nearest")
+        img_n = render_direct(ell, cam, bgp, bgn, differentiable="adjoint",
+                              **near)
+        fast_n = render_planar_fast(ell, cam, bgp, bgn, **near)
+    d = (img.detach() - fast).abs()
+    off = ((img_n - fast_n).abs().amax(-1) > 1e-6).double().mean().item()
+    print(f"[22] trainer ellis {RES}^2 rk45: d loss / d rho {float(g):.9e}; "
+          f"launches of one step {step}; image vs render_planar_fast("
+          f"stepper='rk45'): nearest lookup {off:.6f} of pixels beyond 1e-6 "
+          f"(bound {IMAGE_DIFF_MAX}); bilinear max |d| {float(d.max()):.3e}, "
+          f"mean {float(d.mean()):.3e}")
+    require(math.isfinite(float(g)) and float(g) != 0.0,
+            f"rk45 trainer gradient {float(g)}")
+    require(step["rk45"] == 1 and step["rk45_gen"] == 1
+            and step["rk45_bwd"] == 1 and step["euler"] == 0,
+            f"rk45 trainer launches {step}")
+    require(off <= IMAGE_DIFF_MAX, f"rk45 trainer image vs render_planar_"
+            f"fast: {off} of pixels differ")
+    for k_ in total:
+        total[k_] += step.get(k_, 0)
+    # the step's time split (CUDA events, median of 3), the kernel pair
+    # alone on the step's rays
+    fwd_t, bwd_t = [], []
+    for _ in range(3):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        v = loss({"rho": rho})
+        e[1].record()
+        torch.autograd.grad(v, rho)
+        e[2].record()
+        e[2].synchronize()
+        fwd_t.append(e[0].elapsed_time(e[1]))
+        bwd_t.append(e[1].elapsed_time(e[2]))
+    metric = EllisMetric(1.0, device=DEVICE)
+    dirs = torch.stack(_pixel_dirs_soa(cam), dim=-1)
+    rays = pl.spawn_planar(metric, cam.position, dirs)
+    flat = [t.expand(rays.psi.shape).reshape(-1).contiguous()
+            for t in rays[:4]]
+    kind, scal = rk45_cuda.rk45_scalars(metric, DT, R_ESC, 1e-5, 1e-7, 10.0)
+    fwd = rk45_cuda.launch(kind, scal, *flat, max_steps=RK45_TRAIN_STEPS,
+                           max_iters=4 * RK45_TRAIN_STEPS)
+    cnt = torch.where(fwd[3].abs() <= 1, fwd[5], torch.zeros_like(fwd[5]))
+    off_, tot_ = cs.segment_offsets(cnt, RK45_SEG)
+    ck, _ = cr.launch_gen(kind, scal, *flat, cnt, seg=RK45_SEG, offsets=off_,
+                          total=tot_)
+    cot = torch.ones((4, cnt.numel()), device=DEVICE)
+    gen_ms = cuda_ms(lambda: cr.launch_gen(kind, scal, *flat, cnt,
+                                           seg=RK45_SEG, offsets=off_,
+                                           total=tot_), 3)
+    bwd_ms = cuda_ms(lambda: cr.launch_bwd(kind, scal, False, ck, flat[3],
+                                           cnt, cot, seg=RK45_SEG,
+                                           offsets=off_), 3)
+    fwd_ms = cuda_ms(lambda: rk45_cuda.launch(
+        kind, scal, *flat, max_steps=RK45_TRAIN_STEPS,
+        max_iters=4 * RK45_TRAIN_STEPS), 3)
+    print(f"[22]   step (median of 3, CUDA events): forward "
+          f"{statistics.median(fwd_t):.2f} ms + backward "
+          f"{statistics.median(bwd_t):.2f} ms; #4 alone {fwd_ms:.2f} ms, "
+          f"gen {gen_ms:.2f} ms, bwd {bwd_ms:.2f} ms; mean / max iterations "
+          f"{fwd[5].double().mean().item():.1f} / {int(fwd[5].max())}, "
+          f"checkpoint buffer {tot_ * 16 / 2**20:.1f} MiB")
+    del ck
+    # d / d rho of the kernel pair against the plain pair at GRAD_RES^2,
+    # the march's pullback called by hand
+    small = trainer_camera(GRAD_RES)
+    with torch.no_grad():
+        tgt = render_direct(EllisMetric(1.6, device=DEVICE), small, bgp, bgn,
+                            differentiable="adjoint", **kw)
+    tgt = tgt.permute(1, 0, 2).reshape(-1, 3)
+
+    def by_hand(pullback):
+        rho = torch.tensor(1.0, device=DEVICE, requires_grad=True)
+        metric = EllisMetric(rho, device=DEVICE)
+        rays = pl.spawn_planar(metric, small.position, torch.stack(
+            _pixel_dirs_soa(small), dim=-1))
+        y0 = [t.expand(rays.psi.shape).detach().reshape(-1).contiguous()
+              for t in rays[:4]]
+        kind, scal = rk45_cuda.rk45_scalars(metric, DT, R_ESC, 1e-5, 1e-7,
+                                            10.0)
+        out = rk45_cuda.launch(kind, scal, *y0, max_steps=RK45_TRAIN_STEPS,
+                               max_iters=4 * RK45_TRAIN_STEPS)
+        ys = [t.clone().requires_grad_() for t in out[:3]]
+        res = pl.PlanarResult(*ys, out[3], out[4])
+        w = normalize(pl.planar_world_directions(metric, rays, res))
+        lo = torch.mean((shade(bgp, bgn, w, res.sign, filtering="bilinear")
+                         - tgt) ** 2)
+        g_direct, *cot = torch.autograd.grad(lo, [rho, *ys],
+                                             retain_graph=True)
+        keep = out[3].abs() <= 1
+        cnt = torch.where(keep, out[5], torch.zeros_like(out[5]))
+        cot = torch.stack([torch.where(keep, c, torch.zeros_like(c))
+                           for c in cot] + [torch.zeros_like(cot[0])])
+        g, lam = pullback(kind, scal, y0[:3], y0[3], cnt, cot.contiguous())
+        outs = [(t, c) for t, c in zip(rays[:4], (*lam[:3], g[3]))
+                if t.requires_grad]
+        (g_spawn,) = torch.autograd.grad([t for t, _ in outs], rho,
+                                         grad_outputs=[c for _, c in outs])
+        return (g_direct + g_spawn + g[0].double().sum()).item()
+
+    def plain(kind, scal, y0, b, cnt, cot):
+        off, tot = cs.segment_offsets(cnt, RK45_SEG)
+        ck, _ = cr.ckpt_rk45_gen_plain(kind, scal, *y0, b, cnt, seg=RK45_SEG,
+                                       offsets=off, total=tot)
+        return cr.ckpt_rk45_bwd_plain(kind, scal, False, ck, b, cnt, cot,
+                                      seg=RK45_SEG, offsets=off)
+
+    g_k = by_hand(lambda *a: cr.ckpt_rk45_backward_cuda(
+        a[0], a[1], False, *a[2:], seg=RK45_SEG))
+    g_p = by_hand(plain)
+    rel = abs(g_k - g_p) / abs(g_p)
+    print(f"[22]   d loss / d rho at {GRAD_RES}^2: kernel pair {g_k:.9e}, "
+          f"plain pair {g_p:.9e}; rel {rel:.3e} (bound {GRAD_RTOL})")
+    require(rel <= GRAD_RTOL, f"rk45 gradient kernel vs plain: {g_k} vs "
+            f"{g_p}")
+    # central difference over the pixels in the linear regime, on a smooth
+    # sky (the noise sky's bilinear texels bend each pixel's colour within
+    # the step)
+    h = RK45_FD_H
+    sm = smooth_sky()
+    ims = []
+    for s_ in (1.0, -1.0):
+        with torch.no_grad():
+            ims.append(render_direct(EllisMetric(1.0 + s_ * h, device=DEVICE),
+                                     cam, sm, sm, differentiable="adjoint",
+                                     **kw).double())
+    rho = torch.tensor(1.0, device=DEVICE, requires_grad=True)
+    img = render_direct(EllisMetric(rho=rho, device=DEVICE), cam, sm, sm,
+                        differentiable="adjoint", **kw)
+    curv = (ims[0] - 2.0 * img.detach().double() + ims[1]).abs()
+    linear = (curv <= SURF_FD_LIN * (ims[0] - ims[1]).abs() + 1e-6).double()
+    fd = ((ims[0] - ims[1]) * linear).mean().item() / (2 * h)
+    (g,) = torch.autograd.grad((img.double() * linear).mean(), rho)
+    rel = abs(float(g) - fd) / max(abs(fd), 1e-300)
+    kept = linear.mean().item()
+    print(f"[22]   d mean(image) / d rho adjoint {float(g):.9e}, central "
+          f"difference (h = {h}) {fd:.9e}, rel {rel:.3e} (bound "
+          f"{RK45_FD_TOL}); {kept:.6f} of pixel channels in the linear "
+          f"regime (bound >= {SURF_FD_KEEP})")
+    require(rel <= RK45_FD_TOL, f"rk45 trainer d/drho {float(g)} vs {fd}")
+    require(kept >= SURF_FD_KEEP, f"rk45 trainer: kept only {kept}")
+    # fit: 5 Adam steps on rho
+    fit(loss, {"rho": torch.tensor(1.0, device=DEVICE)}, iters=1,
+        lr=TRAIN_LR)
+    reset()
+    t0 = time.perf_counter()
+    res = fit(loss, {"rho": torch.tensor(1.0, device=DEVICE)},
+              iters=TRAIN_ITERS, lr=TRAIN_LR)
+    sync()
+    fit_s = time.perf_counter() - t0
+    step = counts()
+    hist = res.history
+    print(f"[22]   fit: {TRAIN_ITERS} Adam steps in {fit_s:.2f} s, rho 1.0 "
+          f"-> {float(res.params['rho']):.6f} (target 1.6); history "
+          f"{', '.join(f'{x:.6e}' for x in hist)}; launches {step}")
+    require(all(math.isfinite(x) for x in hist), f"rk45 fit {hist}")
+    require(hist[-1] < hist[0], f"rk45 fit: the loss did not drop: {hist}")
+    require(step["euler"] == 0 and step["rk45_gen"] >= TRAIN_ITERS
+            and step["rk45_bwd"] >= TRAIN_ITERS, f"rk45 fit launches {step}")
+    for k_ in total:
+        total[k_] += step.get(k_, 0)
+
+    # (b) one differentiable rk45 disk step at the disk view
+    bh = make_metric("schwarzschild", m=1.0, device=DEVICE)
+    dcam = disk_camera(RES)
+    dark = make_spherical_image(torch.zeros(SKY), device=DEVICE)
+    thin = DiskParams(**DISK_THIN)
+    vol = DiskParams(**DISK_VOL)
+    rk = dict(stepper="rk45", rtol=RK45_DISK_RTOL)
+    f64 = torch.float64
+    st, ct_ = math.sin(DISK_TH), math.cos(DISK_TH)
+    dcam64 = make_camera([0.0, DISK_L, DISK_TH, 0.0], [-st, 0.0, -ct_],
+                         [0.0, 0.0, 1.0], DISK_FOCAL, 43.0, RES, RES,
+                         device=DEVICE, dtype=f64)
+    dark64 = make_spherical_image(torch.zeros(SKY, dtype=f64), device=DEVICE,
+                                  dtype=f64)
+
+    def f64_frame(disk, theta, kw):
+        """The frame of ``theta`` through the twin route in float64."""
+        th = {k: torch.tensor(v, dtype=f64, device=DEVICE)
+              for k, v in theta.items()}
+        metric = SchwarzschildMetric(th.pop("m", torch.tensor(
+            1.0, dtype=f64, device=DEVICE)), device=DEVICE, dtype=f64)
+        return rd.render_blackhole_disk(
+            metric, dcam64, dark64, disk=disk, dt=DT, max_steps=MAX_STEPS,
+            escape_radius=DISK_R, differentiable="scan", disk_theta=th,
+            **kw)
+
+    frames = [("thin blackbody", thin, dict(m=1.0, brightness=thin.brightness),
+               ("m", "brightness")),
+              ("volumetric tint", vol, dict(brightness=vol.brightness,
+                                            kappa=vol.kappa),
+               ("kappa", "brightness"))]
+    for name, disk, theta, keys in frames:
+        reset()
+        img, params = surface_frame(bh, dcam, sky, disk, theta, None,
+                                    "adjoint", **rk)
+        grads = torch.autograd.grad(img.double().mean(),
+                                    list(params.values()))
+        step = counts()
+        with torch.no_grad():
+            ref, _ = surface_frame(bh, dcam, sky, disk, theta, None, **rk)
+        diff = float((img.detach() - ref).abs().max())
+        print(f"[22] disk {name} rk45 {RES}^2: launches {step}; image vs "
+              f"the non-differentiable rk45 render: max |d| {diff:.3e}; "
+              f"d loss / d " + ", ".join(f"{k} {float(g_):.9e}"
+                                         for k, g_ in zip(params, grads)))
+        require(diff == 0.0, f"rk45 disk {name}: image differs by {diff}")
+        require(step["rk45_disk"] == 1 and step["surface_rk45_gen"] == 1
+                and step["surface_rk45_bwd"] == 1 and step["euler"] == 0,
+                f"rk45 disk {name}: launches {step}")
+        for k_ in total:
+            total[k_] += step.get(k_, 0)
+        fwd_t, bwd_t = [], []
+        for _ in range(3):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            img, params = surface_frame(bh, dcam, sky, disk, theta, None,
+                                        "adjoint", **rk)
+            v = img.double().mean()
+            e[1].record()
+            torch.autograd.grad(v, list(params.values()))
+            e[2].record()
+            e[2].synchronize()
+            fwd_t.append(e[0].elapsed_time(e[1]))
+            bwd_t.append(e[1].elapsed_time(e[2]))
+        print(f"[22]   step (median of 3, CUDA events): forward "
+              f"{statistics.median(fwd_t):.2f} ms + backward "
+              f"{statistics.median(bwd_t):.2f} ms")
+        checks = [(key, RK45_DISK_FD_RTOL, True) for key in keys]
+        if "m" in keys:
+            checks.append(("m", RK45_DISK_RTOL, False))
+        mids = {}
+        for key, fd_rtol, gate in checks:
+            fd_kw = dict(stepper="rk45", rtol=fd_rtol)
+            # the central difference of the same march in float64 (the
+            # twin route, 'scan', on the card): in float32 the error
+            # norm's slope d5 - d4 keeps ~3 digits, so the renders at
+            # +-h take other accepts on some rays (jumps of ~rtol), which
+            # no pathwise derivative has
+            hh = RK45_DISK_FD[key] * theta[key]
+            ims = []
+            for s_ in (1.0, -1.0):
+                with torch.no_grad():
+                    ims.append(f64_frame(disk, dict(
+                        theta, **{key: theta[key] + s_ * hh}), fd_kw))
+            if fd_rtol not in mids:
+                with torch.no_grad():
+                    mids[fd_rtol] = f64_frame(disk, theta, fd_kw)
+            mid = mids[fd_rtol]
+            img, params = surface_frame(bh, dcam, dark, disk, theta, None,
+                                        "adjoint", **fd_kw)
+            # the kernel route's float32 renders at +-h: their linear
+            # regime, and their difference printed beside the gated one
+            ims32 = []
+            for s_ in (1.0, -1.0):
+                with torch.no_grad():
+                    im, _ = surface_frame(bh, dcam, dark, disk, dict(
+                        theta, **{key: theta[key] + s_ * hh}), None,
+                        "adjoint", **fd_kw)
+                ims32.append(im.double())
+            # the linear regime of both precisions: a pixel channel whose
+            # float32 renders jump (accepts flipped by rounding) or whose
+            # float64 ones bend within the step is left out
+            linear = None
+            for a, m_, b_ in ((ims[0], mid, ims[1]),
+                              (ims32[0], img.detach().double(), ims32[1])):
+                lin = ((a - 2.0 * m_ + b_).abs()
+                       <= SURF_FD_LIN * (a - b_).abs() + 1e-6)
+                linear = lin if linear is None else linear & lin
+            linear = linear.double()
+            fd = ((ims[0] - ims[1]) * linear).mean().item() / (2 * hh)
+            (g_,) = torch.autograd.grad((img.double() * linear).mean(),
+                                        [params[key]])
+            rel = abs(float(g_) - fd) / max(abs(fd), 1e-300)
+            kept = linear.mean().item()
+            fd32 = ((ims32[0] - ims32[1]) * linear).mean().item() / (2 * hh)
+            print(f"[22]   d loss / d {key} at rtol {fd_rtol:g}: adjoint "
+                  f"(kernels, float32) {float(g_):.9e}, central difference "
+                  f"(float64, h = {hh:.3g}) {fd:.9e}, rel {rel:.3e} "
+                  + (f"(bound {SURF_FD_TOL[key]})" if gate else
+                     "(not gated)")
+                  + f"; of the float32 renders {fd32:.9e}; {kept:.6f} of "
+                  f"pixel channels kept"
+                  + (f" (bound >= {SURF_FD_KEEP})" if gate else ""))
+            if gate:
+                require(rel <= SURF_FD_TOL[key], f"rk45 disk {name}: "
+                        f"d/d{key} {float(g_)} vs {fd}")
+                require(kept >= SURF_FD_KEEP, f"rk45 disk {name}: d/d{key} "
+                        f"kept only {kept}")
+    # differentiable=True is the 'adjoint' route (the kernels)
+    reset()
+    img, params = surface_frame(bh, dcam, sky, thin, frames[0][2], None,
+                                True, **rk)
+    torch.autograd.grad(img.double().mean(), list(params.values()))
+    step = counts()
+    print(f"[22] thin blackbody rk45, differentiable=True: launches {step}")
+    require(step["surface_rk45_gen"] == 1 and step["surface_rk45_bwd"] == 1,
+            f"differentiable=True: launches {step}")
+    for k_ in total:
+        total[k_] += step.get(k_, 0)
+    print(f"[22] launches of the rk45 checkpoint kernels over the paths: "
+          f"{total}; {time.perf_counter() - t_start:.1f} s")
+    return total
+
+
 def main():
     smi = phase0_toolchain()
     import numpy as np
@@ -3216,6 +3938,8 @@ def main():
     rk45_disk_launches = phase18_rk45_disk_path(disk_sky, disk_np)
     surf = phase19_surface_ckpt(disk_sky)
     surf_launches = phase20_surface_path(disk_sky)
+    rk45_ckpt, rk45_surf = phase21_rk45_ckpt(disk_sky)
+    rk45_launches = phase22_rk45_paths(bgp, bgn, disk_sky)
 
     def entry(name, source, replaces, n_launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -3265,11 +3989,27 @@ def main():
               "curvis_tpu_torch/csrc/ckpt_surface.cu",
               "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
               surf_launches["surface_bwd"], surf["bwd"]),
+        entry("ckpt_rk45_gen_kernel", "curvis_tpu_torch/csrc/ckpt_rk45.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              rk45_launches["rk45_gen"], rk45_ckpt["gen"]),
+        entry("ckpt_rk45_bwd_kernel", "curvis_tpu_torch/csrc/ckpt_rk45.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              rk45_launches["rk45_bwd"], rk45_ckpt["bwd"]),
+        entry("ckpt_surface_rk45_gen_kernel",
+              "curvis_tpu_torch/csrc/ckpt_surface_rk45.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              rk45_launches["surface_rk45_gen"], rk45_surf["gen"]),
+        entry("ckpt_surface_rk45_bwd_kernel",
+              "curvis_tpu_torch/csrc/ckpt_surface_rk45.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              rk45_launches["surface_rk45_bwd"], rk45_surf["bwd"]),
     ]
-    print(f"[20] done on {smi}; the surface kernels' ms, plain_ms and "
+    print(f"[22] done on {smi}; the surface kernels' ms, plain_ms and "
           f"bound_ms in the kernels line are phase 19's thin 1024^2 case "
           f"with every ray capped at {SURF_CAP} steps (phase 20 prints "
-          f"the full counts)")
+          f"the full counts); the rk45 pair's are phase 21's ellis trainer "
+          f"view at {RES}^2 and the rk45 surface pair's its thin {RES}^2 "
+          f"case capped at {RK45_SURF_ITERS} iterations")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,8 @@
 // _DP_B4 of curvis_tpu/ops/march_pallas.py, rounded to float32.
 #pragma once
 
+#include <cuda_runtime.h>
+
 namespace curvis {
 
 constexpr float kA21 = static_cast<float>(1.0 / 5);
@@ -38,5 +40,37 @@ constexpr float kE4 = static_cast<float>(393.0 / 640);
 constexpr float kE5 = static_cast<float>(-92097.0 / 339200);
 constexpr float kE6 = static_cast<float>(187.0 / 2100);
 constexpr float kE7 = static_cast<float>(1.0 / 40);
+
+// The same tableau indexed by stage, for loops that the compiler unrolls
+// (constant indices fold to the constants above): a_ij of stage i < 7,
+// j < i; the 5th- and 4th-order weights of stage i (0 where the tableau
+// has none).
+__host__ __device__ constexpr float dp_a(int i, int j) {
+  return i == 1   ? kA21
+         : i == 2 ? (j == 0 ? kA31 : kA32)
+         : i == 3 ? (j == 0 ? kA41 : j == 1 ? kA42 : kA43)
+         : i == 4 ? (j == 0 ? kA51 : j == 1 ? kA52 : j == 2 ? kA53 : kA54)
+         : i == 5 ? (j == 0   ? kA61
+                     : j == 1 ? kA62
+                     : j == 2 ? kA63
+                     : j == 3 ? kA64
+                              : kA65)
+                  : (j == 0   ? kB1
+                     : j == 1 ? kA72
+                     : j == 2 ? kB3
+                     : j == 3 ? kB4
+                     : j == 4 ? kB5
+                              : kB6);
+}
+
+__host__ __device__ constexpr float dp_b5(int i) {
+  return i == 0 ? kB1 : i == 2 ? kB3 : i == 3 ? kB4 : i == 4 ? kB5
+       : i == 5 ? kB6 : 0.0f;
+}
+
+__host__ __device__ constexpr float dp_b4(int i) {
+  return i == 0 ? kE1 : i == 2 ? kE3 : i == 3 ? kE4 : i == 4 ? kE5
+       : i == 5 ? kE6 : i == 6 ? kE7 : 0.0f;
+}
 
 }  // namespace curvis

@@ -57,6 +57,28 @@ __device__ __forceinline__ float clip_nan(float x, float lo, float hi) {
   return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
 }
 
+// Helpers of the hand-written VJPs (ckpt_surface.cu, the rk45 families).
+// sign(x) with sign(0) = 0 and NaN kept, as torch.sign
+__device__ __forceinline__ float sgn(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}
+
+// 1 where a clamp to [lo, hi] passes the cotangent, else 0
+__device__ __forceinline__ float pass(float x, float lo, float hi) {
+  return (x >= lo && x <= hi) ? 1.0f : 0.0f;
+}
+
+// a's share of the cotangent of max(a, b): 1, 0 or 1/2 at a tie
+__device__ __forceinline__ float max_share(float a, float b) {
+  return a > b ? 1.0f : (a < b ? 0.0f : 0.5f);
+}
+
+// x's share of the cotangent of min(max(x, lo), hi), jnp.clip's form:
+// halves at either tie
+__device__ __forceinline__ float clip_share(float x, float lo, float hi) {
+  return max_share(x, lo) * max_share(hi, x);
+}
+
 // DNEG: r(l) and r'(l) with x = 2(|l| - a) / (pi m); r = rho, r' = 0 inside
 // the throat |l| <= a.
 __device__ __forceinline__ void dneg_shape(float m, float a, float rho,

@@ -21,27 +21,9 @@
 // so the capture-free kinds have one instance for all four settings) and
 // SCATTER (the 27-scalar lensed-sky source after the emission slots).
 //
-// Semantics kept from the TPU kernel, iteration by iteration:
-//   - rk45_trial writes back (l, psi, p_l); zq = c1 cos psi + c2 sin psi is
-//     then recomputed for every ray (a rejected ray keeps psi);
-//   - TRACK: a crossing counts only on an accepted step, on the written-
-//     back state: zq changes sign, frac = |zq0| / max(|zq0| + |zq1|,
-//     1e-30), the hit coordinate l0 + frac (l1 - l0) is SIGNED (its sign is
-//     the sheet) and recorded when its radius lies in [r_in, r_out]; a slot
-//     counts as free while it holds exactly 0;
-//   - vol: on an accepted step, the emission at the written-back state
-//     with the PRE-update tau, weighted by the trial dt (also on the step
-//     that escapes);
-//   - rk45_control: escape and capture, then the tau_max freeze (sign 2,
-//     OPAQUE_SIGN), then the stall test at the dt floor with the unclamped
-//     dt, then the controller;
-//   - then, for a ray still at sign 0, the anticipatory clamps that keep
-//     base resolution (dt0) near the surface: TRACK dt <= max(dt0,
-//     0.2 |l| |zq|) where |l| < r_out + 2; vol dt <= max(dt0, half the
-//     larger of the radial gap to the r_out + 2 cylinder and the vertical
-//     gap to the 5-sigma density shell), with r = l for the lapse kinds and
-//     rsqrt(max(1/r^2, 1e-30)) for the others;
-//   - then the step cap; every max, min and clip propagates NaN.
+// The iteration is rk45_surface.cuh's rk45_surface_iter, which the
+// checkpoint kernels of the rk45 surface families (ckpt_surface_rk45.cu)
+// replay; its header lists the semantics kept from the TPU kernel.
 //
 // The file is built without FMA contraction (ops/_build.py:SOURCE_FLAGS):
 // an adaptive march turns a last-bit difference at err ~ 1 into another
@@ -57,8 +39,7 @@
 // one loop per thread, no ray regrouping, no fast-math.
 #include <cstring>
 
-#include "planar_vol.cuh"
-#include "rk45.cuh"
+#include "rk45_surface.cuh"
 
 namespace curvis {
 
@@ -100,8 +81,7 @@ __global__ void __launch_bounds__(kRk45DiskThreads)
   const float b = b_in[i], c1 = c1_in[i], c2 = c2_in[i];
   const float nz = TRACK ? 0.0f : nz_in[i];
   const float b2 = b * b;
-  const float dt0 = s.m.dt;
-  float dt = dt0;
+  float dt = s.m.dt;
   float zq = c1 * cosf(psi) + c2 * sinf(psi);
   // TRACK: h1, h1p, h1s, h2, h2p, h2s; vol: tau, em_r, em_g, em_b
   float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -109,57 +89,10 @@ __global__ void __launch_bounds__(kRk45DiskThreads)
   for (int it = 0; it < max_iters && sign == 0; ++it) {
     if (n_acc < max_steps) {
       ++live;
-      const float l0 = l, psi0 = psi, pl0 = p_l;
-      const Rk45Trial t =
-          rk45_trial<KIND>(s.m, s.c, b, b2, &l, &psi, &p_l, dt);
-      const float zq1 = c1 * cosf(psi) + c2 * sinf(psi);
-      bool opaque = false;
-      if constexpr (TRACK) {
-        if (t.accept && zq * zq1 < 0.0f) {
-          const float frac =
-              fabsf(zq) / max_nan(fabsf(zq) + fabsf(zq1), 1e-30f);
-          const float lh = l0 + frac * (l - l0);
-          const float r_hit = fabsf(lh);
-          if (r_hit >= s.r_in && r_hit <= s.r_out) {
-            const int k = acc[0] == 0.0f ? 0 : acc[3] == 0.0f ? 3 : -1;
-            if (k >= 0) {
-              acc[k] = lh;
-              acc[k + 1] = pl0 + frac * (p_l - pl0);
-              acc[k + 2] = psi0 + frac * (psi - psi0);
-            }
-          }
-        }
-      } else if (t.accept) {
-        float dtau, dem[3];
-        vol_emission<KIND, BLACKBODY, REDSHIFT, DOPPLER, SCATTER>(
-            s.m, s.r_in, s.r_out, s.v, s.scatter, l, p_l, b, zq1, acc[0],
-            nz, &dtau, dem);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) acc[1 + c] = acc[1 + c] + t.dt * dem[c];
-        acc[0] = acc[0] + t.dt * dtau;
-        opaque = acc[0] > s.v.tau_max;
-      }
-      zq = zq1;
-      rk45_control(s.m, s.c, t, l, opaque, &dt, &sign, &n_acc);
-      if (sign == 0) {
-        if constexpr (TRACK) {
-          if (fabsf(l) < s.r_out + 2.0f)
-            dt = min_nan(dt, max_nan(dt0, 0.2f * fabsf(l) * fabsf(zq)));
-        } else {
-          float rl;
-          if constexpr (HasCapture<KIND>::value) {
-            rl = l;
-          } else {
-            rl = rsqrtf(max_nan(planar_inv_r2<KIND>(s.m, l), 1e-30f));
-          }
-          const float s2v = clip_nan(1.0f - zq * zq, 1e-12f, 1.0f);
-          const float r_cyl = rl * sqrtf(s2v);
-          const float gap_r = r_cyl - (s.r_out + 2.0f);
-          const float h_rel5 = 5.0f * sqrtf(s.v.h2);
-          const float gap_z = rl * fabsf(zq) - h_rel5 * r_cyl;
-          dt = min_nan(dt, max_nan(dt0, 0.5f * max_nan(gap_r, gap_z)));
-        }
-      }
+      int slot;
+      rk45_surface_iter<KIND, TRACK, BLACKBODY, REDSHIFT, DOPPLER, SCATTER>(
+          s.m, s.c, s.r_in, s.r_out, s.v, s.scatter, b, b2, c1, c2, nz, &l,
+          &psi, &p_l, &dt, &zq, acc, &slot, &sign, &n_acc);
     }
     if (sign == 0 && n_acc >= max_steps) sign = kRk45Capped;
   }

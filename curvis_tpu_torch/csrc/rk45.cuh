@@ -1,7 +1,9 @@
 // One adaptive Dormand-Prince 5(4) iteration of a planar ray, in two
 // halves, and the per-ray adaptive march built on it; shared by
-// planar_rk45.cu (kernel #4, bare), planar_rk45_disk.cu (kernel #4's
-// track_disk / vol variants) and render_fused.cu (kernel #3).
+// planar_rk45.cu (kernel #4, bare), rk45_surface.cuh (kernel #4's
+// track_disk / vol variants), render_fused.cu (kernel #3) and the
+// checkpoint kernels of the rk45 families (ckpt_rk45.cu,
+// ckpt_surface_rk45.cu).
 //
 // The arithmetic is that of the TPU kernel
 // curvis_tpu/ops/march_pallas.py:_rk45_kernel, which the checkpointed
@@ -42,12 +44,108 @@ constexpr int kRk45Capped = -128;   // sign of a ray stopped at max_steps
 constexpr float kRk45DtFloor = 1e-6f;
 constexpr float kRk45StallDt = static_cast<float>(1e-6 * 1.01);
 
-// The DP5(4) tableau kA.., kB.., kE.. is dp54.cuh's.
+// The DP5(4) tableau (dp_a, dp_b5, dp_b4) is dp54.cuh's.
 
-// Scaled error of one component: |dt e| / (atol + rtol max(|y0|, |y1|)).
-__device__ __forceinline__ float rk45_err(const Rk45Control& c, float dt,
-                                          float e, float y0, float y1) {
-  return fabsf(dt * e) / (c.atol + c.rtol * max_nan(fabsf(y0), fabsf(y1)));
+// The seven stages of one DP5(4) trial from (l, p_l) with step dt: stage
+// i's inputs li[i], pli[i] = (l, p_l) + dt sum_j a_ij k_j (summed in the
+// order of the tableau's rows; the zero a72 is multiplied in) and its
+// slopes k[i] = (dl, dpsi, dp_l) there (psi does not enter the RHS).  The
+// trial and the replay's VJP (rk45_vjp.cuh) both take their stages from
+// here, so they see the same bits.
+struct Rk45Stages {
+  float li[7];
+  float pli[7];
+  float k[7][3];
+};
+
+template <int KIND>
+__device__ __forceinline__ void rk45_stages(const MarchScalars& s, float b,
+                                            float b2, float l, float p_l,
+                                            float dt, Rk45Stages* st) {
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    float li = l, pli = p_l;
+#pragma unroll
+    for (int j = 0; j < i; ++j) {
+      li = li + dt * dp_a(i, j) * st->k[j][0];
+      pli = pli + dt * dp_a(i, j) * st->k[j][2];
+    }
+    st->li[i] = li;
+    st->pli[i] = pli;
+    planar_deriv<KIND>(s, li, pli, b, b2, &st->k[i][0], &st->k[i][1],
+                       &st->k[i][2]);
+  }
+}
+
+// The 5th-order slope d5 and the error slope e = d5 - d4 of component c,
+// each weighted sum from 0 in stage order (zero weights skipped).
+__device__ __forceinline__ void rk45_combine(const Rk45Stages& st, int c,
+                                             float* d5, float* e) {
+  float a5 = 0.0f, a4 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 7; ++i)
+    if (dp_b5(i) != 0.0f) a5 = a5 + dp_b5(i) * st.k[i][c];
+#pragma unroll
+  for (int i = 0; i < 7; ++i)
+    if (dp_b4(i) != 0.0f) a4 = a4 + dp_b4(i) * st.k[i][c];
+  *d5 = a5;
+  *e = a5 - a4;
+}
+
+// The first half of one DP5(4) iteration from (l, psi, p_l) with step dt,
+// with what the replay's VJP (rk45_vjp.cuh) reads: the seven stages, the
+// error norm, accept and escape, and the write-back of (l, psi, p_l)
+// (interpolated onto l = +-R on an escaping step).
+struct Rk45Rec {
+  Rk45Stages st;
+  float y[3];      // l, psi, p_l at the start
+  float y5[3];     // the 5th-order solution
+  float d5[3];     // its slopes
+  float e[3];      // the error slopes d5 - d4
+  float ec[3];     // the scaled errors |dt e| / den
+  float den[3];    // their denominators atol + rtol max(|y|, |y5|)
+  float out[3];    // the written-back state
+  float dt, err, q, denom, a;
+  bool accept, esc_pos, esc_neg, small;
+};
+
+template <int KIND>
+__device__ __forceinline__ void rk45_trial_rec(const MarchScalars& s,
+                                               const Rk45Control& c,
+                                               float b, float b2, float l,
+                                               float psi, float p_l, float dt,
+                                               Rk45Rec* r) {
+  rk45_stages<KIND>(s, b, b2, l, p_l, dt, &r->st);
+  r->y[0] = l;
+  r->y[1] = psi;
+  r->y[2] = p_l;
+  r->dt = dt;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    rk45_combine(r->st, k, &r->d5[k], &r->e[k]);
+    r->y5[k] = r->y[k] + dt * r->d5[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r->den[k] = c.atol + c.rtol * max_nan(fabsf(r->y[k]), fabsf(r->y5[k]));
+    r->ec[k] = fabsf(dt * r->e[k]) / r->den[k];
+  }
+  r->err = max_nan(r->ec[0], max_nan(r->ec[1], r->ec[2]));
+  r->accept = r->err <= 1.0f;   // false for NaN
+  // escape on an accepted step: interpolate the step onto l = +-R
+  r->esc_pos = r->accept && r->y5[0] > s.R;
+  r->esc_neg = r->accept && r->y5[0] < -s.R;
+  const float target = r->esc_pos ? s.R : -s.R;
+  r->denom = r->y5[0] - l;
+  r->small = fabsf(r->denom) < 1e-30f;
+  if (r->small) r->denom = 1.0f;
+  r->q = (target - l) / r->denom;
+  const float frac =
+      (r->esc_pos || r->esc_neg) ? clip_nan(r->q, 0.0f, 1.0f) : 1.0f;
+  r->a = r->accept ? frac : 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    r->out[k] = r->y[k] + r->a * (r->y5[k] - r->y[k]);
 }
 
 // What the first half of an iteration hands to the second.
@@ -60,87 +158,33 @@ struct Rk45Trial {
 };
 
 // The first half of one DP5(4) iteration of a live ray (sign 0, fewer
-// than max_steps accepted steps) with step dt: the seven stages, the error
-// norm, accept and escape, and the write-back of (l, psi, p_l) (interpolated
-// onto l = +-R on an escaping step).  A surface march (planar_rk45_disk.cu)
-// does its crossing or emission work on the written-back state between
-// this and rk45_control, as the TPU kernel does.
+// than max_steps accepted steps) with step dt (rk45_trial_rec): writes
+// back (l, psi, p_l).  A surface march (rk45_surface.cuh) does its
+// crossing or emission work on the written-back state between this and
+// rk45_control, as the TPU kernel does.
 template <int KIND>
 __device__ __forceinline__ Rk45Trial rk45_trial(const MarchScalars& s,
                                                 const Rk45Control& c,
                                                 float b, float b2,
                                                 float* l_io, float* psi_io,
                                                 float* pl_io, float dt) {
-  const float l = *l_io, psi = *psi_io, p_l = *pl_io;
-  // stages: (dl, dpsi, dp_l) at l + dt sum_j a_ij k_j (psi does not enter
-  // the RHS), summed in the order of the tableau's rows
-  float k1l, k1p, k1q, k2l, k2p, k2q, k3l, k3p, k3q, k4l, k4p, k4q;
-  float k5l, k5p, k5q, k6l, k6p, k6q, k7l, k7p, k7q;
-  planar_deriv<KIND>(s, l, p_l, b, b2, &k1l, &k1p, &k1q);
-  planar_deriv<KIND>(s, l + dt * kA21 * k1l, p_l + dt * kA21 * k1q, b, b2,
-                     &k2l, &k2p, &k2q);
-  planar_deriv<KIND>(s, l + dt * kA31 * k1l + dt * kA32 * k2l,
-                     p_l + dt * kA31 * k1q + dt * kA32 * k2q, b, b2, &k3l,
-                     &k3p, &k3q);
-  planar_deriv<KIND>(
-      s, l + dt * kA41 * k1l + dt * kA42 * k2l + dt * kA43 * k3l,
-      p_l + dt * kA41 * k1q + dt * kA42 * k2q + dt * kA43 * k3q, b, b2,
-      &k4l, &k4p, &k4q);
-  planar_deriv<KIND>(s,
-                     l + dt * kA51 * k1l + dt * kA52 * k2l + dt * kA53 * k3l +
-                         dt * kA54 * k4l,
-                     p_l + dt * kA51 * k1q + dt * kA52 * k2q +
-                         dt * kA53 * k3q + dt * kA54 * k4q,
-                     b, b2, &k5l, &k5p, &k5q);
-  planar_deriv<KIND>(s,
-                     l + dt * kA61 * k1l + dt * kA62 * k2l + dt * kA63 * k3l +
-                         dt * kA64 * k4l + dt * kA65 * k5l,
-                     p_l + dt * kA61 * k1q + dt * kA62 * k2q +
-                         dt * kA63 * k3q + dt * kA64 * k4q + dt * kA65 * k5q,
-                     b, b2, &k6l, &k6p, &k6q);
-  planar_deriv<KIND>(s,
-                     l + dt * kB1 * k1l + dt * kA72 * k2l + dt * kB3 * k3l +
-                         dt * kB4 * k4l + dt * kB5 * k5l + dt * kB6 * k6l,
-                     p_l + dt * kB1 * k1q + dt * kA72 * k2q +
-                         dt * kB3 * k3q + dt * kB4 * k4q + dt * kB5 * k5q +
-                         dt * kB6 * k6q,
-                     b, b2, &k7l, &k7p, &k7q);
+  Rk45Rec r;
+  rk45_trial_rec<KIND>(s, c, b, b2, *l_io, *psi_io, *pl_io, dt, &r);
+  *l_io = r.out[0];
+  *psi_io = r.out[1];
+  *pl_io = r.out[2];
+  return Rk45Trial{dt, r.err, r.accept, r.esc_pos, r.esc_neg};
+}
 
-  // 5th- and 4th-order combinations, each summed from 0 in stage order
-  const float d5l = 0.0f + kB1 * k1l + kB3 * k3l + kB4 * k4l + kB5 * k5l +
-                    kB6 * k6l;
-  const float d5p = 0.0f + kB1 * k1p + kB3 * k3p + kB4 * k4p + kB5 * k5p +
-                    kB6 * k6p;
-  const float d5q = 0.0f + kB1 * k1q + kB3 * k3q + kB4 * k4q + kB5 * k5q +
-                    kB6 * k6q;
-  const float e_l = d5l - (0.0f + kE1 * k1l + kE3 * k3l + kE4 * k4l +
-                           kE5 * k5l + kE6 * k6l + kE7 * k7l);
-  const float e_p = d5p - (0.0f + kE1 * k1p + kE3 * k3p + kE4 * k4p +
-                           kE5 * k5p + kE6 * k6p + kE7 * k7p);
-  const float e_q = d5q - (0.0f + kE1 * k1q + kE3 * k3q + kE4 * k4q +
-                           kE5 * k5q + kE6 * k6q + kE7 * k7q);
-  const float l5 = l + dt * d5l;
-  const float psi5 = psi + dt * d5p;
-  const float pl5 = p_l + dt * d5q;
-
-  const float err = max_nan(rk45_err(c, dt, e_l, l, l5),
-                            max_nan(rk45_err(c, dt, e_p, psi, psi5),
-                                    rk45_err(c, dt, e_q, p_l, pl5)));
-  const bool accept = err <= 1.0f;   // false for NaN
-
-  // escape on an accepted step: interpolate the step onto l = +-R
-  const bool esc_pos = accept && l5 > s.R;
-  const bool esc_neg = accept && l5 < -s.R;
-  const bool esc = esc_pos || esc_neg;
-  const float target = esc_pos ? s.R : -s.R;
-  float denom = l5 - l;
-  if (fabsf(denom) < 1e-30f) denom = 1.0f;
-  const float frac = esc ? clip_nan((target - l) / denom, 0.0f, 1.0f) : 1.0f;
-  const float a = accept ? frac : 0.0f;
-  *l_io = l + a * (l5 - l);
-  *psi_io = psi + a * (psi5 - psi);
-  *pl_io = p_l + a * (pl5 - p_l);
-  return Rk45Trial{dt, err, accept, esc_pos, esc_neg};
+// The controller's next step after a trial of step dt and error err:
+// clip(dt 0.9 err^-0.2) via exp / log, the factor clipped to [0.2, 5]; a
+// NaN err gives a NaN factor, which the guard turns into 0.2.
+__device__ __forceinline__ float rk45_next_dt(const Rk45Control& c,
+                                              float err, float dt) {
+  const float err_s = max_nan(err, 1e-10f);
+  float factor = clip_nan(0.9f * expf(-0.2f * logf(err_s)), 0.2f, 5.0f);
+  if (!(factor > 0.0f)) factor = 0.2f;
+  return clip_nan(dt * factor, kRk45DtFloor, c.dt_max);
 }
 
 // The second half: adds the accepted step to *steps, sets *sign (+1 / -1
@@ -161,13 +205,8 @@ __device__ __forceinline__ void rk45_control(const MarchScalars& s,
   if (!t.accept && t.dt <= kRk45StallDt && sg == 0) sg = 3;
   *sign = sg;
 
-  // controller: clip(0.9 err^-0.2, 0.2, 5) via exp / log; a NaN err gives
-  // a NaN factor, which the guard turns into 0.2
-  const float err_s = max_nan(t.err, 1e-10f);
-  float factor = clip_nan(0.9f * expf(-0.2f * logf(err_s)), 0.2f, 5.0f);
-  if (!(factor > 0.0f)) factor = 0.2f;
   if (!(t.esc_pos || t.esc_neg) && sg == 0)
-    *dt_io = clip_nan(t.dt * factor, kRk45DtFloor, c.dt_max);
+    *dt_io = rk45_next_dt(c, t.err, t.dt);
 }
 
 // One DP5(4) iteration of a live ray: rk45_trial, then rk45_control.

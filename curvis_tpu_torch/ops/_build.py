@@ -7,8 +7,8 @@ compiled by its own ``nvcc`` process, all started together,
          -Xcompiler -fPIC -Xptxas -v [SOURCE_FLAGS] -c -o <object> \\
          csrc/<source>.cu
 
-(``SOURCE_FLAGS`` adds flags for one source: ``kerr_rk45.cu`` and
-``planar_rk45_disk.cu`` are built without FMA contraction, see there),
+(``SOURCE_FLAGS`` adds flags for one source: the DP5(4) marches and the
+checkpoint kernels that replay them are built without FMA contraction),
 and the objects are linked into one shared library with a plain C
 interface,
 ``build/curvis_tpu_torch/libcurvis_kernels.so``, which is loaded with
@@ -24,6 +24,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -33,13 +35,19 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v"]    # register / spill report in build.log
 LINK_FLAGS = [*ARCH, "-shared"]
-# kerr_rk45.cu and planar_rk45_disk.cu round every operation as their plain
-# PyTorch versions do: an adaptive march's accept / reject decisions at
-# err ~ 1 flip on the last bit, and with contracted FMAs the Kerr kernel
-# took other step sequences than its plain version on 1-2.5 % of rays
-# (measured on the H100)
-SOURCE_FLAGS = {"kerr_rk45.cu": ["--fmad=false"],
-                "planar_rk45_disk.cu": ["--fmad=false"]}
+# The DP5(4) marches (kernels #4 and #8) and the checkpoint kernels that
+# replay #4 round every operation as their plain PyTorch versions do: an
+# adaptive march's accept / reject decisions at err ~ 1 flip on the last
+# bit (with contracted FMAs the Kerr kernel took other step sequences than
+# its plain version on 1-2.5 % of rays, measured on the H100), and a
+# replay that accepts where the forward rejected marches another
+# trajectory.  One source per iteration (csrc/rk45.cuh, rk45_surface.cuh)
+# and one set of flags make #4 and its replay take the same decisions.
+_NO_FMA = ["--fmad=false"]
+SOURCE_FLAGS = {src: _NO_FMA for src in (
+    "kerr_rk45.cu", "planar_rk45.cu", "planar_rk45_disk.cu", "ckpt_rk45.cu",
+    "ckpt_surface_rk45.cu", "ckpt_surface_rk45_schwarzschild.cu",
+    "ckpt_surface_rk45_rn.cu")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,6 +93,24 @@ _PROTOTYPES = {
     "curvis_ckpt_surface_bwd": [_I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
                                 _P],
+    # kind, scalars, n_scalars, l, psi, p_l, b, iters, offsets, ckpt, final,
+    # n, seg, device, stream
+    "curvis_ckpt_rk45_gen": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             ctypes.c_longlong, _I, _I, _P],
+    # kind, scalars, n_scalars, freeze, ckpt, b, iters, offsets, cot, lam,
+    # g_theta, n, seg, device, stream
+    "curvis_ckpt_rk45_bwd": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                             ctypes.c_longlong, _I, _I, _P],
+    # kind, vol, flags, scalars, n_scalars, l, psi, p_l, b, c1, c2, nz,
+    # iters, offsets, ckpt, final, n, seg, device, stream
+    "curvis_ckpt_surface_rk45_gen": [_I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _P, _P,
+                                     ctypes.c_longlong, _I, _I, _P],
+    # kind, vol, flags, scalars, n_scalars, freeze, ckpt, b, c1, c2, nz,
+    # iters, offsets, cot, lam, g_theta, n, seg, device, stream
+    "curvis_ckpt_surface_rk45_bwd": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _P, _P,
+                                     ctypes.c_longlong, _I, _I, _P],
     # kind, scalars, n_scalars, l, psi, p_l, b, c1, c2, fout (9 x n),
     # iout (2 x n), n, max_steps, device, stream
     "curvis_march_disk": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -147,6 +173,14 @@ def nvcc_commands(nvcc: str, out: Path):
     return compiles, [nvcc, *LINK_FLAGS, "-o", str(out), *objects]
 
 
+def _run(cmd):
+    """(source, exit code, stdout, stderr, seconds) of one nvcc command."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return (cmd[-1], proc.returncode, proc.stdout, proc.stderr,
+            time.perf_counter() - t0)
+
+
 def build() -> Path:
     """Compile the library unless an up-to-date one exists; its path."""
     lib = BUILD_DIR / LIB_NAME
@@ -158,18 +192,14 @@ def build() -> Path:
     tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
     compiles, link = nvcc_commands(find_nvcc(), tmp)
     try:
-        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for c in compiles]
-        outs = [p.communicate() for p in procs]
-        runs = [(c[-1], p.returncode, out, err)
-                for c, p, (out, err) in zip(compiles, procs, outs)]
-        if all(rc == 0 for _, rc, _, _ in runs):
-            proc = subprocess.run(link, capture_output=True, text=True)
-            runs.append(("link", proc.returncode, proc.stdout, proc.stderr))
-        (BUILD_DIR / "build.log").write_text(
-            "".join(f"== {src}\n{out}{err}" for src, _, out, err in runs))
-        failed = [(src, rc, err) for src, rc, _, err in runs if rc != 0]
+        with ThreadPoolExecutor(len(compiles)) as pool:
+            runs = list(pool.map(_run, compiles))
+        if all(rc == 0 for _, rc, _, _, _ in runs):
+            runs.append(("link", *_run(link)[1:]))
+        (BUILD_DIR / "build.log").write_text("".join(
+            f"== {src} ({secs:.1f} s)\n{out}{err}"
+            for src, _, out, err, secs in runs))
+        failed = [(src, rc, err) for src, rc, _, err, _ in runs if rc != 0]
         if failed:
             src, rc, err = failed[0]
             raise RuntimeError(f"nvcc failed on {src} with exit code {rc}:"

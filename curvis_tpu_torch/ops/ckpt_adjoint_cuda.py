@@ -192,6 +192,16 @@ def n_segments(steps, seg):
     return -(-int(steps.max()) // seg) if steps.numel() else 0
 
 
+def segment_offsets(steps, seg):
+    """(offsets, total): ray i's first checkpoint row, the exclusive
+    prefix sum of ceil(steps / seg), and the number of rows (one
+    device-to-host read)."""
+    counts = torch.div(steps.long() + (seg - 1), seg, rounding_mode="floor")
+    ends = torch.cumsum(counts, 0)
+    total = int(ends[-1]) if ends.numel() else 0
+    return ends - counts, total
+
+
 def ckpt_gen_plain(kind, scal, y0, b, steps, *, seg, n_seg):
     """Plain version of kernel #9: the masked march from ``y0`` writing the
     state at the start of each segment -> (n_seg, 3, n).  A ray past its

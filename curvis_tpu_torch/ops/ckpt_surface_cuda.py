@@ -1,11 +1,12 @@
 """Checkpointed-recompute adjoint of the planar disk marches on the GPU:
-wrapper of the CUDA kernels ``csrc/ckpt_surface.cu``, the variants of
+wrapper of the CUDA kernels ``csrc/ckpt_surface.cu`` (Euler) and
+``csrc/ckpt_surface_rk45*.cu`` (DP5(4)), the variants of
 ``curvis_tpu/ops/ckpt_adjoint_pallas.py``'s ``_ckpt_gen_kernel`` (#9) and
-``_ckpt_bwd_kernel`` (#10) for the two step families of
-``curvis_tpu/integrate/planar_surface_adjoint.py`` (Euler), and their plain
+``_ckpt_bwd_kernel`` (#10) for the step families of
+``curvis_tpu/integrate/planar_surface_adjoint.py``, and their plain
 PyTorch versions.
 
-The families are the steps of the two disk marches:
+The Euler families are the steps of the two Euler disk marches:
 
   * thin (kernel #5, ``csrc/disk.cu``): state y = (l, psi, p_l, u, v, h1,
     h1p, h1s, h2, h2p, h2s), parameters theta = (p0, p1, p2, b, c1, c2,
@@ -40,24 +41,41 @@ too; ``disk_step_vjp_plain`` and ``vol_step_vjp_plain`` transcribe the
 kernels' hand-written VJPs line by line.  At a clamp the cotangent passes on the
 closed interval and a max of two equal values splits it in halves, as
 torch's autograd does, so these VJPs equal ``torch.func.vjp`` of the steps.
+
+The DP5(4) families (the rk45 section below) are one iteration of kernel
+#4's surface variants, ``ops/rk45_disk_cuda.py:rk45_surface_iter_plain``:
+thin y = (l, psi, p_l, dt, h1, h1p, h1s, h2, h2p, h2s), volumetric y =
+(l, psi, p_l, dt, tau, em_r, em_g, em_b), theta as the Euler families',
+the scalar row kernel #4's (``rk45_disk_scalars``), ``iters[i]``
+iterations from (l, psi, p_l, dt0, 0...).  ``rk45_thin_iter_vjp_plain``
+and ``rk45_vol_iter_vjp_plain`` transcribe the kernels' iteration VJPs
+(``csrc/ckpt_surface_rk45.cuh`` on ``csrc/rk45_vjp.cuh``), reusing the
+crossing, hit and emission VJPs above, and add their theta terms to the
+running sums in the kernels' order.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from curvis_tpu_torch.integrate.rk45_adjoint_planar import _guarded_deriv_fns
 from curvis_tpu_torch.ops import _build
+from curvis_tpu_torch.ops import ckpt_rk45_cuda as ckr
+from curvis_tpu_torch.ops import rk45_disk_cuda as r4
 from curvis_tpu_torch.ops.ckpt_adjoint_cuda import (_dneg_shape,
                                                     euler_step_vjp,
-                                                    planar_deriv)
+                                                    planar_deriv,
+                                                    segment_offsets)
 from curvis_tpu_torch.ops.disk_cuda import LAPSE_KINDS
 from curvis_tpu_torch.ops.disk_vol_cuda import (_BB_K, _BB_L5,
                                                 N_VOL_SCALARS, SCATTER_BLOCK,
                                                 SCATTER_DEG, inv_r2_plain,
-                                                vol_emission_plain)
+                                                vol_emission_plain,
+                                                vol_row_of)
 from curvis_tpu_torch.ops.march_cuda import KINDS
+from curvis_tpu_torch.ops.rk45_cuda import next_dt_plain, trial_rec_plain
 
 SEG = 32                 # default segment: 32 Euler steps per recompute
 MAX_SEG = 64             # longest segment the backward kernel can hold
@@ -128,13 +146,6 @@ def disk_step(kind, dt, theta, y):
     return y1, new1, new2
 
 
-def _vol_row(p, surf):
-    """The kernel's scalar row for ``vol_emission_plain`` (dt, R and r_cap,
-    which it does not read, as zeros) from traced pieces."""
-    zero = torch.zeros_like(surf[0])
-    return torch.cat([torch.stack([zero, zero, *p, zero]), surf])
-
-
 def vol_step(kind, flags, dt, theta, y):
     """One step of the volumetric map: theta = (p0, p1, p2, b, c1, c2, nz,
     surf), ``surf`` the emission row (with the scatter block when
@@ -151,7 +162,7 @@ def vol_step(kind, flags, dt, theta, y):
     du = dt * dpsi
     u, v = u - v * du, v + u * du
     zq = c1 * u + c2 * v
-    dtau, dem = vol_emission_plain(kind, flags, _vol_row((p0, p1, p2), surf),
+    dtau, dem = vol_emission_plain(kind, flags, vol_row_of((p0, p1, p2), surf),
                                    l, p_l, b, zq, tau, nz)
     return (l, psi, p_l, u, v, tau + dt * dtau, emr + dt * dem[0],
             emg + dt * dem[1], emb + dt * dem[2])
@@ -190,6 +201,40 @@ def _max_split(a, b):
     return sa, 1.0 - sa
 
 
+def crossing_frac(zq, zq1):
+    """csrc/surface_vjp.cuh:crossing_frac: (a0, a1, inv_den, big, frac) of
+    frac = |zq| / max(|zq| + |zq1|, 1e-30)."""
+    a0, a1 = torch.abs(zq), torch.abs(zq1)
+    den = a0 + a1
+    inv_den = 1.0 / torch.clamp(den, min=1e-30)
+    return a0, a1, inv_den, den >= 1e-30, a0 * inv_den
+
+
+def crossing_frac_vjp(cf, zq, zq1, g_frac):
+    """csrc/surface_vjp.cuh:crossing_frac_vjp: cotangents of (zq, zq1)."""
+    a0, a1, inv_den, big, _ = cf
+    g_a0 = torch.where(big, g_frac * a1 * inv_den * inv_den,
+                       g_frac * inv_den)
+    g_a1 = torch.where(big, -g_frac * a0 * inv_den * inv_den,
+                       torch.zeros_like(g_frac))
+    return g_a0 * torch.sign(zq), g_a1 * torch.sign(zq1)
+
+
+def take_hit_cotangent(new1, new2, lam_h):
+    """csrc/surface_vjp.cuh:take_hit_cotangent: the cotangent (g_lh, g_plh,
+    g_psih) of the hit triple a step wrote (slot 1 where ``new1``, slot 2
+    where ``new2``), and the six hit cotangents with the filled slot's
+    zeroed, as through a select."""
+    zero = torch.zeros_like(lam_h[0])
+    g = tuple(torch.where(new1, lam_h[c], torch.where(new2, lam_h[3 + c],
+                                                      zero))
+              for c in range(3))
+    keep1 = lambda x: torch.where(new1, zero, x)        # noqa: E731
+    keep2 = lambda x: torch.where(new2, zero, x)        # noqa: E731
+    return g, (keep1(lam_h[0]), keep1(lam_h[1]), keep1(lam_h[2]),
+               keep2(lam_h[3]), keep2(lam_h[4]), keep2(lam_h[5]))
+
+
 def disk_step_vjp_plain(kind, row, start, new1, new2, b, c1, c2, lam):
     """VJP of ``disk_step`` at the step's start (l, p_l, u, v) (psi
     and the hits do not enter its arithmetic), with the slots it filled
@@ -199,8 +244,7 @@ def disk_step_vjp_plain(kind, row, start, new1, new2, b, c1, c2, lam):
     gets no cotangent, as through a select."""
     dt, p = row[0], _p(row)
     l, p_l, u, v = start
-    (lam_l, lam_psi, lam_pl, lam_u, lam_v,
-     l_h1, l_h1p, l_h1s, l_h2, l_h2p, l_h2s) = lam
+    lam_l, lam_psi, lam_pl, lam_u, lam_v = lam[:5]
     zero = torch.zeros_like(l)
     dl, dpsi, dpl = planar_deriv(kind, p, l, p_l, b)
     l1 = l + dt * dl
@@ -210,29 +254,15 @@ def disk_step_vjp_plain(kind, row, start, new1, new2, b, c1, c2, lam):
     v1 = v + u * du
     zq = c1 * u + c2 * v
     zq1 = c1 * u1 + c2 * v1
-    a0, a1 = torch.abs(zq), torch.abs(zq1)
-    den = a0 + a1
-    big = den >= 1e-30
-    inv_den = 1.0 / torch.clamp(den, min=1e-30)
-    frac = a0 * inv_den
+    cf = crossing_frac(zq, zq1)
+    frac = cf[4]
     # the hit triple written this step: lh, pl_hit, psi_hit
-    g_lh = torch.where(new1, l_h1, torch.where(new2, l_h2, zero))
-    g_plh = torch.where(new1, l_h1p, torch.where(new2, l_h2p, zero))
-    g_psih = torch.where(new1, l_h1s, torch.where(new2, l_h2s, zero))
-    keep1 = lambda g: torch.where(new1, zero, g)        # noqa: E731
-    keep2 = lambda g: torch.where(new2, zero, g)        # noqa: E731
-    hits = (keep1(l_h1), keep1(l_h1p), keep1(l_h1s), keep2(l_h2),
-            keep2(l_h2p), keep2(l_h2s))
+    (g_lh, g_plh, g_psih), hits = take_hit_cotangent(new1, new2, lam[5:])
     g_frac = g_lh * (l1 - l) + g_plh * (pl1 - p_l) + g_psih * du
     g_l1 = lam_l + frac * g_lh
     g_pl1 = lam_pl + frac * g_plh
     g_du = lam_psi + frac * g_psih
-    # frac = a0 / max(a0 + a1, 1e-30)
-    g_a0 = torch.where(big, g_frac * a1 * inv_den * inv_den,
-                       g_frac * inv_den)
-    g_a1 = torch.where(big, -g_frac * a0 * inv_den * inv_den, zero)
-    g_zq = g_a0 * torch.sign(zq)
-    g_zq1 = g_a1 * torch.sign(zq1)
+    g_zq, g_zq1 = crossing_frac_vjp(cf, zq, zq1, g_frac)
     # zq = c1 u + c2 v, zq1 = c1 u1 + c2 v1, u1 = u - v du, v1 = v + u du
     g_u1 = lam_u + c1 * g_zq1
     g_v1 = lam_v + c2 * g_zq1
@@ -594,16 +624,6 @@ def vol_step_vjp_plain(kind, flags, row, start, b, c1, c2, nz, lam):
 
 # ------------------------------------------------------- plain kernel pair
 
-def segment_offsets(steps, seg):
-    """(offsets, total): ray i's first checkpoint row, the exclusive
-    prefix sum of ceil(steps / seg), and the number of rows (one
-    device-to-host read)."""
-    counts = torch.div(steps.long() + (seg - 1), seg, rounding_mode="floor")
-    ends = torch.cumsum(counts, 0)
-    total = int(ends[-1]) if ends.numel() else 0
-    return ends - counts, total
-
-
 def _y0(flags, l, psi, p_l):
     zero = torch.zeros_like(l)
     return ((l, psi, p_l, torch.cos(psi), torch.sin(psi))
@@ -779,3 +799,327 @@ def ckpt_surface_backward_cuda(kind, flags, scal, y0, b, c1, c2, nz, steps,
                          seg=seg, offsets=offsets, total=total)
     return launch_bwd(kind, flags, scal, ckpt, b, c1, c2, nz, steps, cot,
                       seg=seg, offsets=offsets)
+
+
+# ----------------------------------------------- the DP5(4) families
+
+RK45_SEG = 16            # default segment: the JAX package's _PALLAS_SEG_RK45
+RK45_MAX_SEG = 32        # longest segment the rk45 backward kernel can hold
+N_DISK_RK45 = 10         # thin: l, psi, p_l, dt, h1, h1p, h1s, h2, h2p, h2s
+N_VOL_RK45 = 8           # vol: l, psi, p_l, dt, tau, em_r, em_g, em_b
+
+launches.update(surface_rk45_gen=0, surface_rk45_bwd=0)
+
+
+def n_state_rk45(flags):
+    return N_DISK_RK45 if flags is None else N_VOL_RK45
+
+
+def _vol_rk45_row(row):
+    """Kernel #4's vol row [dt0, R, p0, p1, p2, r_cap, rtol, atol, dt_max,
+    r_in, r_out, slots, block] as the Euler vol row that
+    ``vol_emission_vjp_plain`` reads (the controller dropped)."""
+    return torch.cat([row[:6], row[9:]])
+
+
+def rk45_thin_iter_vjp_plain(kind, row, start, new1, new2, b, c1, c2, lam,
+                             freeze=False, g=None, act=None):
+    """VJP of ``ops/rk45_disk_cuda.py:rk45_surface_iter_plain`` (disk
+    tracker) at the start (l, psi, p_l, dt), with the hit slot it filled as
+    data, as csrc/ckpt_surface_rk45.cu:rk45_thin_iter_vjp.  ``lam`` (10) is
+    the cotangent of the state after it -> (that of the state before it
+    (10), the per-ray theta sums ``g`` (8) with this iteration's terms
+    added as the kernel adds them (from zeros when None; ``act`` masks
+    them))."""
+    p = _p(row)
+    dt0, r_out = row[0], row[10]
+    l, psi, p_l, dt = start
+    zero = torch.zeros_like(l)
+    r = trial_rec_plain(kind, p, row[1], row[6], row[7], l, psi, p_l, b, dt)
+    ln, psin, pln = r["out"]
+    cs0, sn0 = torch.cos(psi), torch.sin(psi)
+    cs1, sn1 = torch.cos(psin), torch.sin(psin)
+    zq0, zq1 = c1 * cs0 + c2 * sn0, c1 * cs1 + c2 * sn1
+    terminal = ckr.terminal_plain(row, r)
+    g_out = list(lam[:3])
+    g_y = [zero, zero, zero]
+    g_zq0 = g_zq1 = g_dt = g_err = zero
+    if not freeze:
+        g_next = lam[3]
+        clamp = ~terminal & (torch.abs(ln) < r_out + 2.0)
+        nxt = next_dt_plain(row[8], r["err"], r["dt"])
+        lim_raw = 0.2 * torch.abs(ln) * torch.abs(zq1)
+        lim = torch.maximum(dt0, lim_raw)
+        g_raw = torch.where(clamp, g_next * ckr._max_share(nxt, lim)
+                            * ckr._max_share(lim_raw, dt0), zero)
+        g_next = torch.where(clamp, g_next * ckr._max_share(lim, nxt),
+                             g_next)
+        g_out[0] = g_out[0] + g_raw * 0.2 * torch.abs(zq1) * torch.sign(ln)
+        g_zq1 = g_zq1 + g_raw * (0.2 * torch.abs(ln)) * torch.sign(zq1)
+        g_dt, g_err = ckr.control_vjp_plain(row, r, terminal, g_next)
+    (g_lh, g_plh, g_psih), hits = take_hit_cotangent(new1, new2, lam[4:])
+    cf = crossing_frac(zq0, zq1)
+    frac = cf[4]
+    g_frac = g_lh * (ln - l) + g_plh * (pln - p_l) + g_psih * (psin - psi)
+    g_out[0] = g_out[0] + frac * g_lh
+    g_out[1] = g_out[1] + frac * g_psih
+    g_out[2] = g_out[2] + frac * g_plh
+    g_y = [g_y[0] + (1.0 - frac) * g_lh, g_y[1] + (1.0 - frac) * g_psih,
+           g_y[2] + (1.0 - frac) * g_plh]
+    gz0, gz1 = crossing_frac_vjp(cf, zq0, zq1, g_frac)
+    filled = new1 | new2
+    g_zq0 = g_zq0 + torch.where(filled, gz0, zero)
+    g_zq1 = g_zq1 + torch.where(filled, gz1, zero)
+    g_out[1] = g_out[1] + g_zq1 * (c2 * cs1 - c1 * sn1)
+    g_y[1] = g_y[1] + g_zq0 * (c2 * cs0 - c1 * sn0)
+    g = [zero] * N_THETA_DISK if g is None else list(g)
+    g[4] = g[4] + ckr.masked(act, g_zq0 * cs0 + g_zq1 * cs1)
+    g[5] = g[5] + ckr.masked(act, g_zq0 * sn0 + g_zq1 * sn1)
+    g_y, g_dt, g = ckr.trial_vjp_plain(kind, row, p, b, r, g_out, g_err, g_y,
+                                       g_dt, g, act)
+    return (*g_y, g_dt, *hits), tuple(g)
+
+
+def rk45_vol_iter_vjp_plain(kind, flags, row, start, b, c1, c2, nz, lam,
+                            freeze=False, g=None, act=None):
+    """VJP of ``rk45_surface_iter_plain`` (vol) at the start (l, psi, p_l,
+    dt, tau), as csrc/ckpt_surface_rk45.cu:rk45_vol_iter_vjp.  ``lam`` (8)
+    is the cotangent of the state after it -> (that of the state before it
+    (8), the per-ray theta sums ``g`` (17, or 44 with the scatter block)
+    with this iteration's terms added (from zeros when None; ``act`` masks
+    them): the gas clamp's and the emission's first, then (c1, c2) and
+    the stages', in the kernel's order of the terms that carry the
+    controller's chain."""
+    p = _p(row)
+    vrow = _vol_rk45_row(row)
+    dt0, r_out, h2, tau_max = row[0], row[10], row[11], row[14]
+    l, psi, p_l, dt, tau = start
+    zero = torch.zeros_like(l)
+    r = trial_rec_plain(kind, p, row[1], row[6], row[7], l, psi, p_l, b, dt)
+    ln, psin, pln = r["out"]
+    accept = r["accept"]
+    cs1, sn1 = torch.cos(psin), torch.sin(psin)
+    zq1 = c1 * cs1 + c2 * sn1
+    dtau, dem = vol_emission_plain(kind, flags, vrow, ln, pln, b, zq1, tau,
+                                   nz)
+    opaque = accept & (tau + dt * dtau > tau_max)
+    terminal = ckr.terminal_plain(row, r, opaque)
+    m = functools.partial(ckr.masked, act)
+    g = [zero] * n_theta(flags) if g is None else list(g)
+    g_out = list(lam[:3])
+    g_zq1 = g_dt = g_err = zero
+    if not freeze:
+        g_next = lam[3]
+        nxt = next_dt_plain(row[8], r["err"], r["dt"])
+        if kind in LAPSE_KINDS:
+            rl = ln
+        else:
+            q = inv_r2_plain(kind, p, ln)
+            rl = torch.rsqrt(torch.clamp(q, min=1e-30))
+        s2_raw = 1.0 - zq1 * zq1
+        sq = torch.sqrt(torch.clamp(s2_raw, 1e-12, 1.0))
+        r_cyl = rl * sq
+        gap_r = r_cyl - (r_out + 2.0)
+        sh2 = torch.sqrt(h2)
+        h_rel5 = 5.0 * sh2
+        gap_z = rl * torch.abs(zq1) - h_rel5 * r_cyl
+        lim_raw = 0.5 * torch.maximum(gap_r, gap_z)
+        lim = torch.maximum(dt0, lim_raw)
+        g_gap = torch.where(terminal, zero, 0.5 * g_next
+                            * ckr._max_share(nxt, lim)
+                            * ckr._max_share(lim_raw, dt0))
+        g_next = torch.where(terminal, g_next,
+                             g_next * ckr._max_share(lim, nxt))
+        s_r = ckr._max_share(gap_r, gap_z)
+        g_gr, g_gz = g_gap * s_r, g_gap * (1.0 - s_r)
+        g_rcyl = g_gr - g_gz * h_rel5
+        g[8] = g[8] + m(-g_gr)                     # r_out
+        g[9] = g[9] + m(-g_gz * r_cyl * 5.0 * 0.5 / sh2)   # h2 (slot 0)
+        g_zq1 = g_zq1 + g_gz * rl * torch.sign(zq1)
+        g_rl = g_gz * torch.abs(zq1) + g_rcyl * sq
+        g_s2 = g_rcyl * rl * 0.5 / sq
+        g_zq1 = g_zq1 - 2.0 * zq1 * g_s2 * ckr._clip_share(s2_raw, 1e-12,
+                                                             1.0)
+        if kind in LAPSE_KINDS:
+            g_out[0] = g_out[0] + g_rl
+        else:
+            g_lr, g_pr = _radius_vjp(kind, p, ln,
+                                     g_rl * ckr._max_share(q, 1e-30))
+            g_out[0] = g_out[0] + g_lr
+            g[:3] = [a + m(c) for a, c in zip(g[:3], g_pr)]
+        g_dt, g_err = ckr.control_vjp_plain(row, r, terminal, g_next)
+    # tau += dt dtau, em += dt dem on an accepted iteration (the trial dt)
+    lam_em = [torch.where(accept, e, zero) for e in lam[5:]]
+    lam_tau = torch.where(accept, lam[4], zero)
+    g_dt = g_dt + lam_tau * dtau + sum(e * d for e, d in zip(lam_em, dem))
+    (g_le, g_ple, g_be, g_zqe, g_taue, g_nze, g_pe, g_surf,
+     g_blk) = vol_emission_vjp_plain(kind, flags, vrow, ln, pln, b, zq1, tau,
+                                     nz, dt * lam_tau,
+                                     [dt * e for e in lam_em])
+    g_out[0] = g_out[0] + g_le
+    g_out[2] = g_out[2] + g_ple
+    g_zq1 = g_zq1 + g_zqe
+    g_out[1] = g_out[1] + g_zq1 * (c2 * cs1 - c1 * sn1)
+    g[:3] = [a + m(c) for a, c in zip(g[:3], g_pe)]
+    g[3] = g[3] + m(g_be)
+    g[6] = g[6] + m(g_nze)
+    for i, gs in enumerate(g_surf):
+        g[7 + i] = g[7 + i] + m(gs)
+    if g_blk is not None:
+        for i, gs in enumerate(g_blk):
+            g[17 + i] = g[17 + i] + m(gs)
+    g[4] = g[4] + m(g_zq1 * cs1)
+    g[5] = g[5] + m(g_zq1 * sn1)
+    g_y, g_dt, g = ckr.trial_vjp_plain(kind, row, p, b, r, g_out, g_err,
+                                       (zero, zero, zero), g_dt, g, act)
+    return (*g_y, g_dt, lam[4] + g_taue, *lam[5:]), tuple(g)
+
+
+def ckpt_surface_rk45_gen_plain(kind, flags, scal, l, psi, p_l, b, c1, c2,
+                                nz, iters, *, seg, offsets, total):
+    """Plain version of kernel #9's rk45 surface variant: the masked march
+    of ``iters[i]`` iterations from (l, psi, p_l, dt0, 0...), writing each
+    ray's segment starts into the compacted (total, n_state) buffer ->
+    (ckpt, final state (n_state, n))."""
+    row = torch.tensor(scal, dtype=l.dtype, device=l.device)
+    theta = r4.surface_theta(flags, row, b, c1, c2, nz)
+    n_s = n_state_rk45(flags)
+    zero = torch.zeros_like(l)
+    y = (l, psi, p_l, torch.ones_like(l) * row[0]) + (zero,) * (n_s - 4)
+    ckpt = torch.zeros((total, n_s), dtype=l.dtype, device=l.device)
+    n_seg = -(-int(iters.max()) // seg) if iters.numel() else 0
+    for s in range(n_seg):
+        has = s * seg < iters
+        ckpt[offsets[has] + s] = torch.stack(y, 1)[has]
+        for k in range(seg):
+            act = s * seg + k < iters
+            y1, _ = r4.rk45_surface_iter_plain(kind, flags, row, theta, y)
+            y = tuple(torch.where(act, a1, a0) for a0, a1 in zip(y, y1))
+    return ckpt, torch.stack(y)
+
+
+def ckpt_surface_rk45_bwd_plain(kind, flags, scal, freeze, ckpt, b, c1, c2,
+                                nz, iters, cot, *, seg, offsets):
+    """Plain version of kernel #10's rk45 surface variant: each segment,
+    last to first, re-marched from its checkpoint and pulled back through
+    its iterations with the iteration VJP -> (per-ray theta cotangents
+    (n_theta, n), lam (n_state, n)).  An iteration at or past a ray's count
+    is the identity."""
+    row = torch.tensor(scal, dtype=b.dtype, device=b.device)
+    theta = r4.surface_theta(flags, row, b, c1, c2, nz)
+    lam = tuple(cot)
+    g = [torch.zeros_like(b) for _ in range(n_theta(flags))]
+    n_seg = -(-int(iters.max()) // seg) if iters.numel() else 0
+    for s in range(n_seg - 1, -1, -1):
+        has = s * seg < iters
+        rows = ckpt[torch.where(has, offsets + s, 0)]
+        y = tuple(rows[:, c] for c in range(rows.shape[1]))
+        starts = []
+        for _ in range(seg):
+            y1, (_, _, new1, new2) = r4.rk45_surface_iter_plain(
+                kind, flags, row, theta, y)
+            starts.append((y[:4], new1, new2) if flags is None else y[:5])
+            y = y1
+        for k in range(seg - 1, -1, -1):
+            act = s * seg + k < iters
+            if flags is None:
+                st, new1, new2 = starts[k]
+                new, g = rk45_thin_iter_vjp_plain(kind, row, st, new1, new2,
+                                                  b, c1, c2, lam, freeze, g,
+                                                  act)
+            else:
+                new, g = rk45_vol_iter_vjp_plain(kind, flags, row, starts[k],
+                                                 b, c1, c2, nz, lam, freeze,
+                                                 g, act)
+            lam = tuple(torch.where(act, a1, a0) for a0, a1 in zip(lam, new))
+    return torch.stack(g), torch.stack(lam)
+
+
+def launch_rk45_gen(kind, flags, scal, l, psi, p_l, b, c1, c2, nz, iters, *,
+                    seg, offsets, total):
+    """Kernel #9's rk45 surface variant on flat contiguous CUDA tensors of
+    one device (float32 rays, int32 iters, int64 offsets; ``scal`` kernel
+    #4's surface row) -> (the (total, n_state) checkpoint buffer, the final
+    state (n_state, n))."""
+    _flat_f32(l, psi, p_l, b, c1, c2, nz)
+    n = l.numel()
+    if iters.dtype != torch.int32 or offsets.dtype != torch.int64:
+        raise TypeError("iters must be int32 and offsets int64")
+    dev = l.device
+    n_s = n_state_rk45(flags)
+    ckpt = torch.empty((max(total, 1), n_s), dtype=torch.float32, device=dev)
+    final = torch.empty((n_s, n), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    row = _build.host_floats(scal)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.curvis_ckpt_surface_rk45_gen(
+        KINDS[kind], int(flags is not None), flag_mask(flags), row,
+        len(scal), l.data_ptr(), psi.data_ptr(), p_l.data_ptr(),
+        b.data_ptr(), c1.data_ptr(), c2.data_ptr(), nz.data_ptr(),
+        iters.data_ptr(), offsets.data_ptr(), ckpt.data_ptr(),
+        final.data_ptr(), n, seg, dev.index, stream)
+    _build.check(lib, err, "ckpt_surface_rk45_gen_kernel")
+    launches["surface_rk45_gen"] += 1
+    return ckpt, final
+
+
+def launch_rk45_bwd(kind, flags, scal, freeze, ckpt, b, c1, c2, nz, iters,
+                    cot, *, seg, offsets):
+    """Kernel #10's rk45 surface variant on the buffer of
+    ``launch_rk45_gen`` and the (n_state, n) cotangent ``cot`` -> (per-ray
+    theta cotangents (n_theta, n), lam (n_state, n))."""
+    _flat_f32(b, c1, c2, nz)
+    n = b.numel()
+    dev = b.device
+    n_s = n_state_rk45(flags)
+    if cot.dtype != torch.float32 or cot.shape != (n_s, n) \
+            or not cot.is_contiguous():
+        raise ValueError(f"bad cotangent {tuple(cot.shape)}")
+    if ckpt.dtype != torch.float32 or ckpt.shape[1:] != (n_s,) \
+            or not ckpt.is_contiguous():
+        raise ValueError(f"bad checkpoint buffer {tuple(ckpt.shape)}")
+    lam = torch.empty((n_s, n), dtype=torch.float32, device=dev)
+    g = torch.empty((n_theta(flags), n), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    row = _build.host_floats(scal)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.curvis_ckpt_surface_rk45_bwd(
+        KINDS[kind], int(flags is not None), flag_mask(flags), row,
+        len(scal), int(bool(freeze)), ckpt.data_ptr(), b.data_ptr(),
+        c1.data_ptr(), c2.data_ptr(), nz.data_ptr(), iters.data_ptr(),
+        offsets.data_ptr(), cot.data_ptr(), lam.data_ptr(), g.data_ptr(), n,
+        seg, dev.index, stream)
+    _build.check(lib, err, "ckpt_surface_rk45_bwd_kernel")
+    launches["surface_rk45_bwd"] += 1
+    return g, lam
+
+
+def ckpt_surface_rk45_backward_cuda(kind, flags, scal, freeze, y0, b, c1,
+                                    c2, nz, iters, cot, *, seg=RK45_SEG):
+    """Exact pullback of kernel #4's masked surface march (thin for
+    ``flags`` None, else vol) with its scalar row ``scal``: ray i takes
+    ``iters[i]`` iterations from y0 = (l, psi, p_l) extended with dt0 and
+    zeros; ``cot`` is the (n_state, n) cotangent of the final state ->
+    ``(g_theta (n_theta, n), lam (n_state, n))``.  CUDA tensors run kernels
+    #9 / #10, CPU tensors their plain versions."""
+    if not 1 <= seg <= RK45_MAX_SEG:
+        raise ValueError(f"segment {seg} outside [1, {RK45_MAX_SEG}]")
+    offsets, total = segment_offsets(iters, seg)
+    dev = b.device
+    if total == 0:
+        return (torch.zeros((n_theta(flags), b.numel()), dtype=b.dtype,
+                            device=dev), cot.clone())
+    if dev.type == "cpu":
+        ckpt, _ = ckpt_surface_rk45_gen_plain(kind, flags, scal, *y0, b, c1,
+                                              c2, nz, iters, seg=seg,
+                                              offsets=offsets, total=total)
+        return ckpt_surface_rk45_bwd_plain(kind, flags, scal, freeze, ckpt, b,
+                                           c1, c2, nz, iters, cot, seg=seg,
+                                           offsets=offsets)
+    if dev.type != "cuda":
+        raise ValueError(f"ckpt_surface_rk45_backward_cuda: unsupported "
+                         f"device {dev}")
+    ckpt, _ = launch_rk45_gen(kind, flags, scal, *y0, b, c1, c2, nz, iters,
+                              seg=seg, offsets=offsets, total=total)
+    return launch_rk45_bwd(kind, flags, scal, freeze, ckpt, b, c1, c2, nz,
+                           iters, cot, seg=seg, offsets=offsets)

@@ -107,6 +107,15 @@ def _radius(kind, p, l):
     return torch.rsqrt(inv_r2_plain(kind, p, l))
 
 
+def vol_row_of(p, surf):
+    """The scalar row that ``vol_emission_plain`` reads, from traced pieces:
+    the metric slots ``p`` = (p0, p1, p2) and ``surf`` = (r_in, r_out, the
+    8 slots[, the scatter block]); dt, R and r_cap, which it does not read,
+    are zeros."""
+    zero = torch.zeros_like(surf[0])
+    return torch.cat([torch.stack([zero, zero, *p, zero]), surf])
+
+
 def vol_emission_plain(kind, flags, row, l, p_l, b, zq, tau, nz):
     """(dtau, (dem_r, dem_g, dem_b)) at the post-step state, as the
     kernel's vol_emission; ``row`` is the scalar row as a tensor and

@@ -48,46 +48,81 @@ def default_max_iters(max_steps, max_iters):
     return 4 * max_steps if max_iters is None else int(max_iters)
 
 
+def jclip(x, lo, hi):
+    """min(max(x, lo), hi), jnp.clip's form: the values of torch.clamp
+    (NaN propagates), and at a tie with either bound autograd passes half
+    the cotangent, as the JAX package's gradients do.  ``lo`` or ``hi``
+    None is no bound."""
+    if lo is not None:
+        x = torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype,
+                                             device=x.device))
+    if hi is not None:
+        x = torch.minimum(x, torch.as_tensor(hi, dtype=x.dtype,
+                                             device=x.device))
+    return x
+
+
+def trial_rec_plain(kind, p, R, rtol, atol, l, psi, p_l, b, dt):
+    """One trial on every ray with what the replay's VJP reads, as a dict
+    (csrc/rk45.cuh:rk45_trial_rec): the seven stages, the error |dt (d5 -
+    d4)| / (atol + rtol max(|y|, |y5|)), accept and escape, the write-back
+    y + a (y5 - y) with a = frac on accept (interpolated onto |l| = R on an
+    escaping step), else 0."""
+    li, pli, ks = [], [], []
+    for i in range(7):
+        a_, b_ = l, p_l
+        for j, a in enumerate(DP_A[i]):
+            a_ = a_ + dt * a * ks[j][0]
+            b_ = b_ + dt * a * ks[j][2]
+        li.append(a_)
+        pli.append(b_)
+        ks.append(planar_deriv(kind, p, a_, b_, b))
+    y = (l, psi, p_l)
+    d5, e, y5 = [], [], []
+    for c in range(3):
+        d5.append(_comb(DP_B5, ks, c, l))
+        e.append(d5[c] - _comb(DP_B4, ks, c, l))
+        y5.append(y[c] + dt * d5[c])
+    # torch.maximum propagates NaN, as the kernel's max_nan
+    den = [atol + rtol * torch.maximum(torch.abs(y[c]), torch.abs(y5[c]))
+           for c in range(3)]
+    ec = [torch.abs(dt * e[c]) / den[c] for c in range(3)]
+    err = torch.maximum(ec[0], torch.maximum(ec[1], ec[2]))
+    accept = err <= 1.0
+    esc_pos = accept & (y5[0] > R)
+    esc_neg = accept & (y5[0] < -R)
+    target = torch.where(esc_pos, R, -R)
+    denom = y5[0] - l
+    small = torch.abs(denom) < 1e-30
+    denom = torch.where(small, 1.0, denom)
+    q = (target - l) / denom
+    frac = torch.where(esc_pos | esc_neg, jclip(q, 0.0, 1.0), 1.0)
+    a = torch.where(accept, frac, 0.0)
+    out = tuple(y[c] + a * (y5[c] - y[c]) for c in range(3))
+    return dict(li=li, pli=pli, k=ks, y=y, y5=y5, d5=d5, e=e, ec=ec, den=den,
+                out=out, dt=dt, err=err, q=q, denom=denom, a=a, small=small,
+                accept=accept, esc_pos=esc_pos, esc_neg=esc_neg)
+
+
 def rk45_trial_plain(kind, p, R, rtol, atol, l, psi, p_l, b, dt, alive):
     """The first half of one iteration of the live rays ``alive``
-    (csrc/rk45.cuh:rk45_trial): the seven stages, the error, accept and
-    escape and the write-back -> (l, psi, p_l, err, accept, esc_pos,
-    esc_neg)."""
-    ks = []
-    for i in range(7):
-        li, pli = l, p_l
-        for j, a in enumerate(DP_A[i]):
-            li = li + dt * a * ks[j][0]
-            pli = pli + dt * a * ks[j][2]
-        ks.append(planar_deriv(kind, p, li, pli, b))
-    d5l, d5p, d5q = (_comb(DP_B5, ks, c, l) for c in range(3))
-    e_l = d5l - _comb(DP_B4, ks, 0, l)
-    e_p = d5p - _comb(DP_B4, ks, 1, l)
-    e_q = d5q - _comb(DP_B4, ks, 2, l)
-    l5 = l + dt * d5l
-    psi5 = psi + dt * d5p
-    pl5 = p_l + dt * d5q
+    (csrc/rk45.cuh:rk45_trial): ``trial_rec_plain`` written back where
+    live -> (l, psi, p_l, err, accept, esc_pos, esc_neg)."""
+    r = trial_rec_plain(kind, p, R, rtol, atol, l, psi, p_l, b, dt)
+    l, psi, p_l = (torch.where(alive, o, y) for o, y in zip(r["out"],
+                                                          (l, psi, p_l)))
+    return (l, psi, p_l, r["err"], alive & r["accept"], alive & r["esc_pos"],
+            alive & r["esc_neg"])
 
-    def ec(e, y0, y1):
-        return torch.abs(dt * e) / (atol + rtol * torch.maximum(
-            torch.abs(y0), torch.abs(y1)))
 
-    # torch.maximum propagates NaN, as the kernel's max_nan
-    err = torch.maximum(ec(e_l, l, l5),
-                        torch.maximum(ec(e_p, psi, psi5), ec(e_q, p_l, pl5)))
-    accept = alive & (err <= 1.0)
-    esc_pos = accept & (l5 > R)
-    esc_neg = accept & (l5 < -R)
-    esc = esc_pos | esc_neg
-    target = torch.where(esc_pos, R, -R)
-    denom = l5 - l
-    denom = torch.where(torch.abs(denom) < 1e-30, 1.0, denom)
-    frac = torch.where(esc, torch.clamp((target - l) / denom, 0.0, 1.0), 1.0)
-    a = torch.where(accept, frac, 0.0)
-    l = torch.where(alive, l + a * (l5 - l), l)
-    psi = torch.where(alive, psi + a * (psi5 - psi), psi)
-    p_l = torch.where(alive, p_l + a * (pl5 - p_l), p_l)
-    return l, psi, p_l, err, accept, esc_pos, esc_neg
+def next_dt_plain(dt_max, err, dt):
+    """csrc/rk45.cuh:rk45_next_dt: clip(dt 0.9 exp(-0.2 log max(err,
+    1e-10)), the dt floor, dt_max), the factor clipped to [0.2, 5] and a
+    NaN factor 0.2."""
+    err_s = jclip(err, 1e-10, None)
+    factor = jclip(0.9 * torch.exp(-0.2 * torch.log(err_s)), 0.2, 5.0)
+    factor = torch.where(factor > 0.0, factor, 0.2)
+    return jclip(dt * factor, DT_FLOOR, dt_max)
 
 
 def rk45_control_plain(r_cap, dt_max, alive, trial, l, dt, sign, steps,
@@ -107,11 +142,8 @@ def rk45_control_plain(r_cap, dt_max, alive, trial, l, dt, sign, steps,
     # the stall threshold is the dtype's value of 1e-6 * 1.01
     stalled = alive & ~accept & (dt <= DT_FLOOR * 1.01) & (sign == 0)
     sign = torch.where(stalled, 3, sign).to(torch.int32)
-    err_s = torch.clamp(err, min=1e-10)
-    factor = torch.clamp(0.9 * torch.exp(-0.2 * torch.log(err_s)), 0.2, 5.0)
-    factor = torch.where(factor > 0.0, factor, 0.2)
-    newdt = torch.minimum(torch.clamp(dt * factor, min=DT_FLOOR), dt_max)
-    dt = torch.where(alive & ~(esc_pos | esc_neg) & (sign == 0), newdt, dt)
+    dt = torch.where(alive & ~(esc_pos | esc_neg) & (sign == 0),
+                     next_dt_plain(dt_max, err, dt), dt)
     return sign, steps, dt
 
 

@@ -36,9 +36,9 @@ from curvis_tpu_torch.ops import _build
 from curvis_tpu_torch.ops.disk_cuda import LAPSE_KINDS, _flat_f32
 from curvis_tpu_torch.ops.disk_vol_cuda import (inv_r2_plain, scatter_row,
                                                 vol_emission_plain,
-                                                vol_param_slots)
+                                                vol_param_slots, vol_row_of)
 from curvis_tpu_torch.ops.march_cuda import KINDS
-from curvis_tpu_torch.ops.rk45_cuda import (default_max_iters,
+from curvis_tpu_torch.ops.rk45_cuda import (default_max_iters, jclip,
                                             rk45_control_plain,
                                             rk45_scalars, rk45_trial_plain)
 from curvis_tpu_torch.physics.planar import (_CHECK_EVERY, PlanarResult,
@@ -76,28 +76,106 @@ def disk_flags(vol_disk, scatter_block):
             scatter_block is not None)
 
 
+def surface_theta(flags, row, b, c1, c2, nz):
+    """theta of ``rk45_surface_iter_plain`` from the scalar row tensor of
+    ``rk45_disk_scalars``: (p0, p1, p2, b, c1, c2, r_in, r_out) for the disk
+    tracker (``flags`` None), (p0, p1, p2, b, c1, c2, nz, surf) for vol,
+    surf = (r_in, r_out, the 8 slots[, the scatter block])."""
+    p = (row[2], row[3], row[4])
+    if flags is None:
+        return (*p, b, c1, c2, row[9], row[10])
+    return (*p, b, c1, c2, nz, row[N_RK45:])
+
+
+def rk45_surface_iter_plain(kind, flags, row, theta, y, freeze=False):
+    """One iteration of kernel #4's surface variants on every ray
+    (csrc/rk45_surface.cuh:rk45_surface_iter): ``flags`` None for the disk
+    tracker, else the vol (blackbody, redshift, doppler, scatter); ``row``
+    the scalar row tensor of ``rk45_disk_scalars``; theta of
+    ``surface_theta``; y = (l, psi, p_l, dt, h1, h1p, h1s, h2, h2p, h2s) or
+    (l, psi, p_l, dt, tau, em_r, em_g, em_b) -> (the state after it, (sign,
+    accept, new1, new2)), new1 / new2 the hit slot it filled (None for
+    vol).  ``freeze`` detaches the next dt.  The clips are jnp.clip's max /
+    min forms, so autograd splits ties as the JAX package does."""
+    vol = flags is not None
+    if vol:
+        p0, p1, p2, b, c1, c2, nz, surf = theta
+        r_out = surf[1]
+    else:
+        p0, p1, p2, b, c1, c2, r_in, r_out = theta
+    p = (p0, p1, p2)
+    dt0, R, r_cap = row[0], row[1], row[5]
+    l0, psi0, pl0, dt = y[:4]
+    alive = torch.ones(l0.shape, dtype=torch.bool, device=l0.device)
+    zq = c1 * torch.cos(psi0) + c2 * torch.sin(psi0)
+    l, psi, p_l, *trial = rk45_trial_plain(kind, p, R, row[6], row[7], l0,
+                                           psi0, pl0, b, dt, alive)
+    accept = trial[1]
+    zq1 = c1 * torch.cos(psi) + c2 * torch.sin(psi)
+    opaque = new1 = new2 = None
+    if vol:
+        tau, emr, emg, emb = y[4:]
+        dtau, dem = vol_emission_plain(kind, flags, vol_row_of(p, surf), l,
+                                       p_l, b, zq1, tau, nz)
+        acc = [torch.where(accept, e + dt * d, e)
+               for e, d in zip((emr, emg, emb), dem)]
+        tau = torch.where(accept, tau + dt * dtau, tau)
+        acc.insert(0, tau)
+        opaque = tau > surf[5]                  # the tau_max slot
+    else:
+        h1, h1p, h1s, h2_, h2p, h2s = y[4:]
+        crossed = accept & (zq * zq1 < 0.0)
+        frac = torch.abs(zq) / jclip(torch.abs(zq) + torch.abs(zq1), 1e-30,
+                                     None)
+        lh = l0 + frac * (l - l0)
+        r_hit = torch.abs(lh)
+        in_disk = crossed & (r_hit >= r_in) & (r_hit <= r_out)
+        new1 = in_disk & (h1 == 0.0)
+        new2 = in_disk & (h1 != 0.0) & (h2_ == 0.0)
+        pl_hit = pl0 + frac * (p_l - pl0)
+        psi_hit = psi0 + frac * (psi - psi0)
+        acc = [torch.where(new1, lh, h1), torch.where(new1, pl_hit, h1p),
+               torch.where(new1, psi_hit, h1s),
+               torch.where(new2, lh, h2_), torch.where(new2, pl_hit, h2p),
+               torch.where(new2, psi_hit, h2s)]
+    zero = torch.zeros(l0.shape, dtype=torch.int32, device=l0.device)
+    sign, _, dt = rk45_control_plain(r_cap, row[8], alive, trial, l, dt,
+                                     zero, zero, opaque)
+    # the anticipatory clamps of a ray still marching
+    if vol:
+        if kind in LAPSE_KINDS:
+            rl = l
+        else:
+            rl = torch.rsqrt(jclip(inv_r2_plain(kind, p, l), 1e-30, None))
+        r_cyl = rl * torch.sqrt(jclip(1.0 - zq1 * zq1, 1e-12, 1.0))
+        gap_r = r_cyl - (r_out + 2.0)
+        gap_z = rl * torch.abs(zq1) - 5.0 * torch.sqrt(surf[2]) * r_cyl
+        lim = torch.maximum(dt0, 0.5 * torch.maximum(gap_r, gap_z))
+        dt = torch.where(sign == 0, torch.minimum(dt, lim), dt)
+    else:
+        near = torch.abs(l) < (r_out + 2.0)
+        lim = torch.maximum(dt0, 0.2 * torch.abs(l) * torch.abs(zq1))
+        dt = torch.where(near & (sign == 0), torch.minimum(dt, lim), dt)
+    if freeze:
+        dt = dt.detach()
+    return (l, psi, p_l, dt, *acc), (sign, accept, new1, new2)
+
+
 def march_planar_rk45_disk_plain(kind, flags, scal, l, psi, p_l, b, c1, c2,
                                  nz, *, max_steps, max_iters):
     """Plain version of kernel #4's surface variants on rays of any dtype
     and device, with the scalar row of ``rk45_disk_scalars`` and ``flags``
     of ``disk_flags`` (``nz`` is read only by vol) -> (l, psi, p_l, h1,
     h1p, h1s, h2, h2p, h2s, sign, steps, iters) for the disk tracker and
-    (l, psi, p_l, tau, em_r, em_g, em_b, sign, steps, iters) for vol."""
+    (l, psi, p_l, tau, em_r, em_g, em_b, sign, steps, iters) for vol: the
+    lock-step loop of ``rk45_surface_iter_plain`` over the live rays."""
     vol, *vflags = flags
+    vflags = tuple(vflags) if vol else None
     row = torch.tensor(scal, dtype=l.dtype, device=l.device)
-    dt0, R, r_cap = row[0], row[1], row[5]
-    p = (row[2], row[3], row[4])
-    rtol, atol, dt_max = row[6], row[7], row[8]
-    r_in, r_out = row[9], row[10]
-    if vol:
-        # the planar volumetric row of vol_emission_plain: the march
-        # scalars, then the band, slots and scatter block
-        vrow = torch.cat([row[:6], row[N_RK45:]])
-        tau_max, h2 = vrow[11], vrow[8]
-        h_rel5 = 5.0 * torch.sqrt(h2)
-    dt = torch.ones_like(l) * dt0
-    zq = c1 * torch.cos(psi) + c2 * torch.sin(psi)
-    acc = [torch.zeros_like(l) for _ in range(4 if vol else 6)]
+    theta = surface_theta(vflags, row, b, c1, c2, nz)
+    zero = torch.zeros_like(l)
+    y = (l, psi, p_l, torch.ones_like(l) * row[0]) + (zero,) * (4 if vol
+                                                                else 6)
     sign = torch.zeros(l.shape, dtype=torch.int32, device=l.device)
     steps = torch.zeros_like(sign)
     iters = torch.zeros_like(sign)
@@ -106,64 +184,15 @@ def march_planar_rk45_disk_plain(kind, flags, scal, l, psi, p_l, b, c1, c2,
             break
         alive = (sign == 0) & (steps < max_steps)
         iters = iters + alive.to(torch.int32)
-        l0, psi0, pl0 = l, psi, p_l
-        l, psi, p_l, *trial = rk45_trial_plain(kind, p, R, rtol, atol, l,
-                                               psi, p_l, b, dt, alive)
-        accept = trial[1]
-        zq1 = torch.where(alive, c1 * torch.cos(psi) + c2 * torch.sin(psi),
-                          zq)
-        opaque = None
-        if vol:
-            tau, emr, emg, emb = acc
-            dtau, dem = vol_emission_plain(kind, vflags, vrow, l, p_l, b,
-                                           zq1, tau, nz)
-            acc = [torch.where(accept, e + dt * d, e)
-                   for e, d in zip((emr, emg, emb), dem)]
-            tau = torch.where(accept, tau + dt * dtau, tau)
-            acc.insert(0, tau)
-            opaque = tau > tau_max
-        else:
-            h1, h1p, h1s, h2_, h2p, h2s = acc
-            crossed = accept & (zq * zq1 < 0.0)
-            # torch.clamp propagates NaN, as the kernel's max_nan
-            frac = torch.abs(zq) / torch.clamp(torch.abs(zq) + torch.abs(zq1),
-                                               min=1e-30)
-            lh = l0 + frac * (l - l0)
-            r_hit = torch.abs(lh)
-            in_disk = crossed & (r_hit >= r_in) & (r_hit <= r_out)
-            new1 = in_disk & (h1 == 0.0)
-            new2 = in_disk & (h1 != 0.0) & (h2_ == 0.0)
-            pl_hit = pl0 + frac * (p_l - pl0)
-            psi_hit = psi0 + frac * (psi - psi0)
-            acc = [torch.where(new1, lh, h1), torch.where(new1, pl_hit, h1p),
-                   torch.where(new1, psi_hit, h1s),
-                   torch.where(new2, lh, h2_), torch.where(new2, pl_hit, h2p),
-                   torch.where(new2, psi_hit, h2s)]
-        zq = zq1
-        sign, steps, dt = rk45_control_plain(r_cap, dt_max, alive, trial, l,
-                                             dt, sign, steps, opaque)
-        # the anticipatory clamps of a ray still marching
-        if vol:
-            if kind in LAPSE_KINDS:
-                rl = l
-            else:
-                rl = torch.rsqrt(torch.clamp(inv_r2_plain(kind, p, l),
-                                             min=1e-30))
-            s2v = torch.clamp(1.0 - zq * zq, 1e-12, 1.0)
-            r_cyl = rl * torch.sqrt(s2v)
-            gap_r = r_cyl - (r_out + 2.0)
-            gap_z = rl * torch.abs(zq) - h_rel5 * r_cyl
-            lim = torch.maximum(dt0, 0.5 * torch.maximum(gap_r, gap_z))
-            dt = torch.where(alive & (sign == 0), torch.minimum(dt, lim), dt)
-        else:
-            near = torch.abs(l) < (r_out + 2.0)
-            lim = torch.maximum(dt0, 0.2 * torch.abs(l) * torch.abs(zq))
-            dt = torch.where(alive & near & (sign == 0),
-                             torch.minimum(dt, lim), dt)
+        y1, (sg, accept, _, _) = rk45_surface_iter_plain(kind, vflags, row,
+                                                         theta, y)
+        y = tuple(torch.where(alive, a1, a0) for a0, a1 in zip(y, y1))
+        sign = torch.where(alive, sg, sign)
+        steps = steps + (alive & accept).to(torch.int32)
         sign = torch.where((sign == 0) & (steps >= max_steps), CAPPED,
                            sign).to(torch.int32)
     sign = torch.where(sign == CAPPED, 0, sign).to(torch.int32)
-    return (l, psi, p_l, *acc, sign, steps, iters)
+    return (y[0], y[1], y[2], *y[4:], sign, steps, iters)
 
 
 def march_planar_rk45_disk_cuda(metric: Metric, rays: PlanarRays, *, c1, c2,

@@ -132,8 +132,10 @@ _STEPPER_ITEMS = {
     "rk4": "the planar RK4 stepper is ROADMAP Queue 1 item 7",
     "rk45": "rk45 runs in the render routes (render_planar_fast, "
             "render_frames_batched, render_planar_adaptive, "
-            "render_planar_fused); its gradients are ROADMAP Queue 1 "
-            "item 3",
+            "render_planar_fused), which give the non-differentiable rk45 "
+            "image (render_planar_fast(stepper='rk45')); its gradients "
+            "come from render_direct(stepper='rk45', "
+            "differentiable='adjoint'), as in the JAX package",
 }
 
 

@@ -10,7 +10,14 @@ by ``differentiable``:
   - ``True`` or ``'scan'``: ``physics/planar.py:march_planar_scan``, plain
     autograd through the masked march, checkpointed per segment;
   - ``'adjoint'``: ``integrate/adjoint.py:march_planar_adjoint_rays``,
-    kernel #1 forward and the checkpoint kernels #9/#10 backward on CUDA.
+    kernel #1 forward and the checkpoint kernels #9/#10 backward on CUDA;
+    with ``stepper='rk45'``, ``integrate/rk45_adjoint_planar.py:
+    march_planar_rk45_adjoint_rays`` (``dt`` the initial step), kernel #4
+    forward and the rk45 variant of #9/#10 backward on CUDA.
+
+Every other rk45 combination raises, as it does in the JAX package: the
+non-differentiable rk45 image is ``render/fast.py:render_planar_fast(
+stepper='rk45')``.
 
 Gradients reach the metric's parameters and the camera position, through
 the spawn, the march, the readout and the bilinear lookup.
@@ -23,6 +30,8 @@ from curvis_tpu_torch.camera.camera import Camera
 from curvis_tpu_torch.env.spherical_image import SphericalImage, sample
 from curvis_tpu_torch.geometry.rotations import normalize
 from curvis_tpu_torch.integrate.adjoint import march_planar_adjoint_rays
+from curvis_tpu_torch.integrate.rk45_adjoint_planar import \
+    march_planar_rk45_adjoint_rays
 from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops.march_cuda import march_planar_cuda
 from curvis_tpu_torch.physics import planar as pl
@@ -47,19 +56,25 @@ def render_direct(metric: Metric, camera: Camera,
                   filtering="nearest", center_pixels=False,
                   differentiable=False, method="planar"):
     """Render an (H, W, 3) image; ``differentiable`` picks the march (see
-    the module docstring).  Only ``method='planar'`` with the Euler stepper
-    is ported."""
+    the module docstring).  ``method='planar'`` with the Euler stepper, or
+    rk45 with ``differentiable='adjoint'``, is ported."""
     if method == "frame3d":
         raise NotImplementedError(
             "method='frame3d': the 3-D frame march is ROADMAP Queue 1 item 6")
     if method != "planar":
         raise ValueError(f"unknown method {method!r}")
-    pl.check_stepper(stepper)
+    rk45 = stepper == "rk45" and differentiable == "adjoint"
+    if not rk45:
+        pl.check_stepper(stepper)
     common_device(metric, camera, bg_positive, bg_negative)
     d_world = torch.stack(_pixel_dirs_soa(camera, center_pixels), dim=-1)
     rays = pl.spawn_planar(metric, camera.position, d_world)
     kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius)
-    if differentiable == "adjoint":
+    if rk45:
+        res = march_planar_rk45_adjoint_rays(
+            metric, rays, dt0=dt, max_steps=max_steps,
+            escape_radius=escape_radius)
+    elif differentiable == "adjoint":
         res = march_planar_adjoint_rays(metric, rays, **kw)
     elif differentiable is True or differentiable == "scan":
         res = pl.march_planar_scan(metric, rays, **kw)

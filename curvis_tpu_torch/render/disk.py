@@ -30,13 +30,14 @@ The shading (``DiskParams``, ``blackbody_rgb``, ``disk_temperature``,
 ``_emission_rgb``, ``_disk_rgb``, ``_volumetric_rgb``) is the JAX
 package's, form for form.
 
-``differentiable='adjoint' | 'scan' | True`` (Euler only; with
-``stepper='rk45'`` it is ROADMAP Queue 1 item 3) marches through the
-planar surface adjoints (``integrate/planar_surface_adjoint.py``):
-'adjoint' and True run kernel #5 or #6 forward and the surface checkpoint
-kernels backward on CUDA tensors, the step twins on CPU tensors; 'scan'
-runs the twins on any device (as the JAX package maps only 'scan' to its
-XLA pair).  ``disk_theta`` (tensors keyed by
+``differentiable='adjoint' | 'scan' | True`` marches through the planar
+surface adjoints (``integrate/planar_surface_adjoint.py``) with either
+stepper (rk45 with ``rtol`` and atol = rtol 1e-3, as the JAX package
+passes them): 'adjoint' and True run the forward kernel (#5 or #6 for
+Euler, #4's surface variants for rk45) and the surface checkpoint kernels
+backward on CUDA tensors, the step twins on CPU tensors; 'scan' runs the
+twins on any device (as the JAX package maps only 'scan' to its XLA
+pair).  ``disk_theta`` (tensors keyed by
 ``DIFF_DISK_KEYS``) overrides the shading knobs on every route, and the
 volumetric march's emission row on the differentiable one.
 """
@@ -159,17 +160,12 @@ _DIFFERENTIABLE = (None, False, True, "scan", "adjoint")
 
 
 def _check_route(stepper, differentiable=None):
-    """Raise for a stepper the disk routes do not run, and
-    NotImplementedError, naming the ROADMAP item, for gradients through
-    the rk45 march."""
+    """Raise for a stepper the disk routes do not run, or an unknown
+    ``differentiable``."""
     pl.check_stepper(stepper, ported=("euler", "rk45"))
     if differentiable not in _DIFFERENTIABLE:
         raise ValueError(f"differentiable must be one of {_DIFFERENTIABLE}, "
                          f"got {differentiable!r}")
-    if differentiable and stepper == "rk45":
-        raise NotImplementedError(
-            "differentiable disk renders with stepper='rk45' (the rk45 half "
-            "of the planar surface adjoints) are ROADMAP Queue 1 item 3")
 
 
 def blackbody_rgb(T):
@@ -593,19 +589,22 @@ def _starlight_map(metric, bg, dt, escape_radius, *, max_steps, disk,
 
 
 def _march_adjoint(metric, state, planes, *, disk, disk_theta,
-                   scatter_block, differentiable, dt, max_steps,
-                   escape_radius):
+                   scatter_block, differentiable, stepper, rtol, dt,
+                   max_steps, escape_radius):
     """The differentiable march of a render route
-    (``integrate/planar_surface_adjoint.py``): 'adjoint' and True run
-    kernel #5 or #6 forward and the surface checkpoint kernels backward on
-    a GPU, the twin pair on the CPU; 'scan' runs the twin pair on any
-    device.  Returns (PlanarResult, extras) as the non-differentiable
-    marches do."""
+    (``integrate/planar_surface_adjoint.py``): 'adjoint' and True run the
+    forward kernel (#5 or #6 for Euler, #4's surface variants for rk45) and
+    the surface checkpoint kernels backward on a GPU, the twin pair on the
+    CPU; 'scan' runs the twin pair on any device.  Returns (PlanarResult,
+    extras) as the non-differentiable marches do."""
     from curvis_tpu_torch.integrate.planar_surface_adjoint import (
         march_planar_disk_adjoint, march_planar_vol_adjoint)
     c1, c2, nz = planes
     kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius,
+              stepper=stepper,
               backend="twin" if differentiable == "scan" else "auto")
+    if stepper == "rk45":
+        kw.update(rtol=rtol, atol=rtol * 1e-3)
     if disk.volumetric:
         out = march_planar_vol_adjoint(metric, state[:3], state[3], c1, c2,
                                        nz, disk, disk_theta=disk_theta,
@@ -652,8 +651,8 @@ def _render_disk_impl(metric, cams, bg, dt, escape_radius, smap, *,
         res, extra = _march_adjoint(
             metric, (l, psi, p_l, b), (c1, c2, nz), disk=disk,
             disk_theta=disk_theta, scatter_block=scatter_block,
-            differentiable=differentiable, dt=dt, max_steps=max_steps,
-            escape_radius=escape_radius)
+            differentiable=differentiable, stepper=stepper, rtol=rtol,
+            dt=dt, max_steps=max_steps, escape_radius=escape_radius)
         if disk.volumetric:
             tau, em = extra
         else:

@@ -445,7 +445,7 @@ def test_render_direct_scan_and_refusals():
     m = EllisMetric(1.0, device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         render_direct(m, tc, tp, tn, method="frame3d", **kw)
-    with pytest.raises(NotImplementedError, match="item"):
+    with pytest.raises(NotImplementedError, match="render_planar_fast"):
         render_direct(m, tc, tp, tn, stepper="rk45", **kw)
 
 

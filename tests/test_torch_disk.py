@@ -622,10 +622,10 @@ def test_unported_disk_options_raise():
         assert torch.isfinite(call(stepper="rk45", **kw)[0]).all()
         with pytest.raises(NotImplementedError, match="item 7"):
             call(stepper="rk4", **kw)
-    # the Euler routes are differentiable; the rk45 surfaces are not yet
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        td.render_blackhole_disk(tm, tc, tb, stepper="rk45",
-                                 differentiable="adjoint", **kw)
+    # both steppers' routes are differentiable
+    img = td.render_blackhole_disk(tm, tc, tb, stepper="rk45",
+                                   differentiable="adjoint", **kw)
+    assert torch.isfinite(img).all()
     with pytest.raises(NotImplementedError, match="item 4"):
         ts.mirror_metric(_Tabulated())
     _, tr, (c1, c2, nz), _ = _rays("schwarzschild")

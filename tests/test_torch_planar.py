@@ -291,13 +291,16 @@ def test_march_wrapper_refuses_what_it_cannot_run():
 def test_build_command_targets_hopper():
     """The nvcc commands (never run on import or on the CPU) compile each
     csrc/*.cu for sm_90a in a process of its own and link the objects into
-    one shared library; only the DP5(4) kernels with surfaces,
-    kerr_rk45.cu and planar_rk45_disk.cu, are built without FMA
+    one shared library; the DP5(4) marches (kerr_rk45.cu, planar_rk45.cu,
+    planar_rk45_disk.cu) and the checkpoint kernels that replay #4
+    (ckpt_rk45.cu, ckpt_surface_rk45*.cu) are built without FMA
     contraction."""
     compiles, link = _build.nvcc_commands("nvcc", _build.BUILD_DIR /
                                           _build.LIB_NAME)
     cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert cu == ["ckpt_adjoint.cu", "ckpt_surface.cu", "disk.cu",
+    assert cu == ["ckpt_adjoint.cu", "ckpt_rk45.cu", "ckpt_surface.cu",
+                  "ckpt_surface_rk45.cu", "ckpt_surface_rk45_rn.cu",
+                  "ckpt_surface_rk45_schwarzschild.cu", "disk.cu",
                   "disk_vol.cu", "kerr.cu", "kerr_rk45.cu",
                   "planar_march.cu", "planar_rk45.cu",
                   "planar_rk45_disk.cu", "render_fused.cu"]
@@ -306,8 +309,10 @@ def test_build_command_targets_hopper():
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert not any("fast_math" in a for a in cmd)
     assert [c[-1].rsplit("/", 1)[-1] for c in compiles
-            if "--fmad=false" in c] == ["kerr_rk45.cu",
-                                        "planar_rk45_disk.cu"]
+            if "--fmad=false" in c] == [
+        "ckpt_rk45.cu", "ckpt_surface_rk45.cu", "ckpt_surface_rk45_rn.cu",
+        "ckpt_surface_rk45_schwarzschild.cu", "kerr_rk45.cu",
+        "planar_rk45.cu", "planar_rk45_disk.cu"]
     assert all("-O3" in c and "-c" in c for c in compiles)
     objects = [c[c.index("-o") + 1] for c in compiles]
     assert "-shared" in link and link[-len(objects):] == objects

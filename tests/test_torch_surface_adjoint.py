@@ -524,13 +524,16 @@ def test_unported_differentiable_options_raise():
     _, _, tb, tc = _render_scene()
     met = SchwarzschildMetric(1.0, device="cpu", dtype=F64)
     kw = dict(dt=0.1, max_steps=10, escape_radius=25.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        td.render_blackhole_disk(met, tc, tb, stepper="rk45",
-                                 differentiable="adjoint", **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tpsa.march_planar_disk_adjoint(
-            met, (_t([18.0]), _t([0.0]), _t([-1.0])), _t([1.0]), _t([0.1]),
-            _t([0.2]), r_inner=3.0, r_outer=12.0, stepper="rk45", **kw)
+    # the rk45 marches are differentiable now: finite images and gradients
+    img = td.render_blackhole_disk(met, tc, tb, stepper="rk45",
+                                   differentiable="adjoint", **kw)
+    assert torch.isfinite(img).all()
+    b = _t([1.0]).requires_grad_()
+    out = tpsa.march_planar_disk_adjoint(
+        met, (_t([18.0]), _t([0.0]), _t([-1.0])), b, _t([0.1]), _t([0.2]),
+        r_inner=3.0, r_outer=12.0, stepper="rk45", **kw)
+    (g,) = torch.autograd.grad(out[1].sum(), b)
+    assert torch.isfinite(g).all() and float(g.abs().sum()) > 0
     star = td.DiskParams(**_VDISK, starlight=True)
     with pytest.raises(ValueError, match="starlight_map"):
         td.render_blackhole_disk(met, tc, tb, disk=star,
