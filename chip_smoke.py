@@ -79,7 +79,8 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      disk tracker and the volumetric variants at 480 x 270, a tau_max
      freeze, a step cap of 8 and a max_iters of 15 (16) that most rays
      reach, 16 NaN rays (sign 3), rays parked on the escape radius (which
-     must escape) and the starlight map's 48 x 128 bundle;
+     must escape) and the starlight map's 48 x 128 bundle, with a digest
+     of each case's outputs;
  16. the Kerr path with stepper='rk45' end to end at 960 x 540: the jobs
      of phase 14 and the CLI's image --stepper rk45 at 256^2, with each
      job's launches of #8 (and none of #7), the disk-fraction and shadow
@@ -145,7 +146,29 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      blackbody (d / d M, brightness) and volumetric tint (d / d kappa,
      brightness), each image equal to the non-differentiable rk45 render,
      central differences over a black sky, differentiable=True through
-     the kernels.
+     the kernels;
+ 23. the Kerr RK4 and DP5(4) families of the checkpoint kernels #9 / #10
+     (csrc/ckpt_kerr.cu, csrc/ckpt_kerr_rk45.cu) against their plain
+     versions: RK4 on the bare 960 x 540 view of phase 13 capped at 640
+     steps, Kerr-Newman (q 0.6) at 256^2 and 16 NaN rays (sign 3, zero
+     lam) capped at 320; DP5(4) at rtol 1e-4 on the bare view, frozen at
+     256^2, Kerr-Newman at 256^2, a max_iters of 16 most rays reach, 16
+     NaN rays; gen's final state bit for bit against #7 / #8 on every ray
+     (one step source, one set of flags), checkpoints equal, lam and
+     g_theta within rtol 1e-3, the ray-summed metric slots;
+ 24. the Kerr gradients at full width: one render_kerr(backend='adjoint')
+     loss-and-gradient step on the a = 0.9 view at 960 x 540 (RK4, dt 0.1,
+     32 000 steps; and stepper='rk45', rtol 1e-4), each image equal to the
+     non-differentiable render, #7 or #8 launched once and its pair once
+     (no other kernel), the time split and the checkpoint buffer; d / d(M,
+     a) of the kernel pair against the plain pair at 128^2; d / da against
+     a central difference on the spin-recovery view of
+     examples/inverse_problem.py (r = 15, shadow out of view, escape
+     radius 20) over a smooth sky, and descent steps on a with the loss
+     falling every step; render_kerr(backend='scan') on that view at
+     128^2 for each stepper (the plain-PyTorch routes: RK4 through
+     march_hamiltonian_scan, DP5(4) through the twin pair), its image and
+     d / da against the adjoint's, and no kernel launched.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -364,15 +387,55 @@ RK45_DISK_FD_RTOL = 1e-6   # the central differences' rtol: at 1e-5 the
                            # alike) missed the float64 difference by 6-15 %
                            # on the H100, at 1e-6 by 1.1 % (PERF.md);
                            # the 1e-5 comparison is printed beside it
-# The VJP of one DP5(4) iteration (csrc/rk45_vjp.cuh; an FMA counts as
-# two): the iteration recomputed (FLOP_RK45_ITER), then seven RHS VJPs (25
-# Ellis, 45 lapse), the 21 stage terms reversed on l and p_l (168), the
-# combinations (63), the error norm (40), escape, write-back and
-# controller (30).  The surface VJPs (csrc/ckpt_surface_rk45.cu) add the
-# crossing or the gas clamp and the emission's reverse.
-FLOP_RK45_VJP = FLOP_RK45_ITER + 476
-FLOP_RK45_VJP_LAPSE = FLOP_RK45_ITER_LAPSE + 616
+# The reverse work of one DP5(4) iteration's VJP (csrc/rk45_vjp.cuh; an
+# FMA counts as two): seven RHS VJPs (25 Ellis, 45 lapse), the 21 stage
+# terms reversed on l and p_l (168), the combinations (63), the error norm
+# (40), escape, write-back and controller (30).  The surface VJPs
+# (csrc/ckpt_surface_rk45.cu) add the reverse of the crossing or the gas
+# clamp and of the emission.  The bound counts the iteration once (bwd's
+# re-march); the kernels recompute it in the VJP on top.
+FLOP_RK45_VJP = 476
+FLOP_RK45_VJP_LAPSE = 616
 FLOP_RK45_SURF_VJP = dict(track=40, vol=150)
+# The Kerr gradients (the checkpoint kernels' Kerr families,
+# csrc/ckpt_kerr.cu and csrc/ckpt_kerr_rk45.cu): RK4 in segments of 32
+# steps, DP5(4) in segments of 16 iterations (the JAX package's
+# _PALLAS_SEG of each).
+KERR_SEG = {"rk4": 32, "rk45": 16}
+KERR_CKPT_CAP = 640        # step cap of the RK4 kernel-vs-plain checks: the
+                           # plain pair takes ~12 ms a step at 960 x 540
+                           # (the view's rays take ~320 on average)
+KERR_ADJ_ITERS = 16        # a max_iters most rays of the 256^2 rk45 view
+                           # reach (~25 iterations on average)
+# The VJPs' reverse work (csrc/kerr_vjp.cuh; an FMA counts as two, a
+# division, sin, cos, exp or log as one): one Carter RHS's VJP reverses its
+# ~60 forward operations in ~150 (~10 more guarded); the RK4 step's VJP
+# reverses four RHS (840), the stage sums and the dt scales (~110): 950;
+# the DP5(4) iteration's VJP reverses seven guarded RHS (1540), the 21
+# stage terms on four components (~340), y1, the error norm and the
+# controller (~130): 2010.  The bound counts the forward work once a step
+# (bwd's re-march, FLOP_KERR_STEP or FLOP_KERR_RK45_ITER), as a bwd that
+# kept the re-march's stages would; the kernels recompute the stages in
+# the VJP (~350 an RK4 step, ~850 a DP5(4) iteration) on top.
+FLOP_KERR_VJP = 950
+FLOP_KERR_RK45_VJP = 2010
+# The spin-recovery view of examples/inverse_problem.py:116-121: r = 15,
+# theta = pi/2 - 0.3, 35 mm, tilted (forward (-sin, 1.3, -cos)), the shadow
+# out of view; RK4 dt 0.1, 800 steps, escape radius 20.
+SPIN_L = 15.0
+SPIN_TH = math.pi / 2 - 0.3
+SPIN_FD_H = 0.02           # the central difference's step in a
+SPIN_FD_TOL = 0.02         # d/da of the kernels vs the central difference
+SPIN_DESCENT = dict(steps=4, start=0.6, target=0.85, gain=2e2, cap=0.08)
+# backend='scan' against 'adjoint' on the spin-recovery view at
+# GRAD_RES^2: the scan marches plain PyTorch (the autodiff-Hamiltonian RK4
+# or the DP5(4) twin with its guarded RHS), the adjoint kernels #7 / #8,
+# so the two round apart in float32 (and DP5(4) accepts may flip, moving a
+# ray by ~rtol): each pixel channel within SCAN_IMG_TOL on a share of at
+# least SCAN_IMG_FRAC, d mean(image) / da within SCAN_GRAD_RTOL.
+SCAN_IMG_TOL = 1e-3
+SCAN_IMG_FRAC = 0.999
+SCAN_GRAD_RTOL = dict(rk4=1e-3, rk45=1e-2)
 
 
 def require(ok, what):
@@ -418,9 +481,9 @@ def phase1_build():
     log = (_build.BUILD_DIR / "build.log").read_text()
     stats, name = {}, None
     for line in log.splitlines():
-        # mangled entry names: _ZN6curvis<len><name>IL{i,b}<first>E...
-        entry = re.search(r"entry function '_ZN6curvis(\d+)(\w+?)IL[ib](\d)E",
-                          line)
+        # mangled entry names: _ZN6curvis<len><name>, then the template
+        # arguments (IL{i,b}<first>E...) or the parameters
+        entry = re.search(r"entry function '_ZN6curvis(\d+)(\w+)", line)
         if entry:
             name = entry.group(2)[:int(entry.group(1))]
             stats.setdefault(name, {"n": 0, "regs": [], "stack": [],
@@ -2288,6 +2351,8 @@ def phase15_kerr_rk45_march(sky):
               f"{iters.mean().item():.2f} / {int(iters.max())}; kernel "
               f"{kernel_ms:.3f} ms ({n / kernel_ms / 1e3:.1f} Mrays/s), plain "
               f"{plain_ms:.1f} ms")
+        print(f"[15]   digest of the kernel's outputs {digest(out_k)}, of "
+              f"the plain version's {digest(out_p)}")
         require(a["sign_eq"] >= SIGN_EQ_MIN,
                 f"kerr rk45 {name}: sign equal {a['sign_eq']}")
         require(steps_near >= STEPS_EQ_MIN,
@@ -3394,8 +3459,8 @@ def rk45_family_vs_plain(label, kind, flags, scal, state, planes, fwd, seed,
         extra = (FLOP_RK45_DISK["track"] if flags is None
                  else FLOP_RK45_DISK["vol_clamp"] + FLOP_RK45_DISK["emission"])
         it_f += extra
-        vjp_f += 2 * extra + (FLOP_RK45_SURF_VJP["track"] if flags is None
-                              else FLOP_RK45_SURF_VJP["vol"])
+        vjp_f += extra + (FLOP_RK45_SURF_VJP["track"] if flags is None
+                          else FLOP_RK45_SURF_VJP["vol"])
     # gen reads the rays (4 or 7 floats), iters and the offset a ray and
     # writes ns floats a segment and the final state; bwd reads the
     # segments, the per-ray inputs and the cotangent and writes lam and g
@@ -3894,6 +3959,554 @@ def phase22_rk45_paths(bgp, bgn, sky):
     return total
 
 
+def kerr_family_vs_plain(label, family, scal, ins, fwd, seed, freeze=False):
+    """Kernels #9 / #10's Kerr ``family`` ('rk4' or 'rk45') against their
+    plain versions on the forward kernel's outputs ``fwd`` (#7 or #8) for
+    the rays ``ins`` (r, theta, phi, p_r, p_theta, E, L): gen's final state
+    bit for bit against the forward kernel on every ray (its full steps or
+    iterations), then the checkpoints, lam and g_theta with the Function's
+    fate policy (state cotangents and replays for signs 0 and 1)."""
+    import numpy as np
+    import torch
+    from curvis_tpu_torch.ops import ckpt_kerr_cuda as ck
+    seg = KERR_SEG[family]
+    y0, E, L = ins[:5], ins[5], ins[6]
+    sign = fwd[5]
+    full = fwd[-1] if family == "rk45" else fwd[6]
+    n, ns = E.numel(), ck.N_STATE[family]
+
+    def gen(cnt, off, tot):
+        return ck.launch_gen(family, scal, y0, E, L, cnt, seg=seg,
+                             offsets=off, total=tot)
+
+    def bwd(ckpt, cnt, cot, off):
+        return ck.launch_bwd(family, scal, ckpt, E, L, cnt, cot, seg=seg,
+                             offsets=off, freeze=freeze)
+
+    # gen replays every ray's steps: its final state is the forward's
+    off_all, tot_all = ck.segment_offsets(full, seg)
+    _, fin = gen(full, off_all, tot_all)
+    ne = torch.zeros(n, dtype=torch.bool, device=E.device)
+    for c in range(5):
+        ne |= bits_differ(fin[c], fwd[c])
+    fin_ne = int(ne.sum())
+    # the Function's fate policy
+    smooth = (sign == 0) | (sign == 1)
+    counts = torch.where(smooth, full, torch.zeros_like(full))
+    cot = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (ns, n)).astype(np.float32)).to(DEVICE)
+    if family == "rk45":
+        cot[5] = 0.0
+    cot = torch.where(smooth, cot, torch.zeros_like(cot)).contiguous()
+    off, total = ck.segment_offsets(counts, seg)
+    ck_k, _ = gen(counts, off, total)
+    g_k, lam_k = bwd(ck_k, counts, cot, off)
+    sync()
+    t0 = time.perf_counter()
+    ck_p, _ = ck.ckpt_kerr_gen_plain(family, scal, y0, E, L, counts,
+                                     seg=seg, offsets=off, total=total)
+    sync()
+    t1 = time.perf_counter()
+    g_p, lam_p = ck.ckpt_kerr_bwd_plain(family, scal, ck_p, E, L, counts,
+                                        cot, seg=seg, offsets=off,
+                                        freeze=freeze)
+    sync()
+    gen_plain_ms = 1e3 * (t1 - t0)
+    bwd_plain_ms = 1e3 * (time.perf_counter() - t1)
+    gen_ms = cuda_ms(lambda: gen(counts, off, total), 3)
+    bwd_ms = cuda_ms(lambda: bwd(ck_k, counts, cot, off), 3)
+    ck_ne = int((ck_k[:total] != ck_p).any(dim=1).sum()) if total else 0
+    ck_err = float((ck_k[:total] - ck_p).abs().max()) if total else 0.0
+    lam_frac, lam_err = entry_fraction(lam_k, lam_p)
+    g_rows = [r for r in range(5) if bool((g_p[r] != 0).any())]
+    g_frac, g_err = entry_fraction(g_k[g_rows], g_p[g_rows])
+    sums = []
+    for r in (0, 1, 2):
+        sk, sp = g_k[r].double().sum().item(), g_p[r].double().sum().item()
+        if sp != 0.0 or sk != 0.0:
+            sums.append((r, sk, sp, abs(sk - sp) / max(abs(sp), 1e-300)))
+    tot_steps = counts.double().sum().item()
+    segs = (-(-counts.long() // seg)).double().sum().item()
+    signs = {s_: int((sign == s_).sum()) for s_ in range(4)}
+    what = "iterations" if family == "rk45" else "steps"
+    print(f"[23] {label}{' (freeze)' if freeze else ''}: {n} rays, signs "
+          f"{signs}, replayed {what} mean / max {tot_steps / n:.1f} / "
+          f"{int(counts.max())}, {total} checkpoint rows "
+          f"({total * ns * 4 / 2**20:.1f} MiB)")
+    print(f"[23]   gen's final state (every ray, its full {what}) == the "
+          f"forward kernel's: {fin_ne} of {n} rays differ in a bit (bound "
+          f"0); checkpoints == plain gen's on {total - ck_ne} of {total} "
+          f"rows, max |d| {ck_err:.3e}")
+    print(f"[23]   within rtol {GRAD_RTOL}: lam {lam_frac:.6f}, g_theta "
+          f"{g_frac:.6f} of entries (bound >= {RK45_GRAD_FRAC_MIN}); max "
+          f"|d| lam {lam_err:.3e}, g {g_err:.3e}")
+    for r, sk, sp, rel in sums:
+        print(f"[23]   sum g_theta[{'M a q2'.split()[r]}]: kernel {sk:.9e}, "
+              f"plain {sp:.9e}, rel {rel:.3e} (bound {GRAD_RTOL})")
+    print(f"[23]   gen {gen_ms:.3f} ms (plain {gen_plain_ms:.1f} ms), bwd "
+          f"{bwd_ms:.3f} ms (plain {bwd_plain_ms:.1f} ms)")
+    require(fin_ne == 0, f"kerr ckpt {label}: gen's final state differs "
+            f"from the forward kernel on {fin_ne} rays")
+    require(ck_ne == 0, f"kerr ckpt {label}: {ck_ne} checkpoint rows "
+            f"differ from the plain gen's")
+    require(lam_frac >= RK45_GRAD_FRAC_MIN,
+            f"kerr ckpt {label}: lam {lam_frac}")
+    require(g_frac >= RK45_GRAD_FRAC_MIN, f"kerr ckpt {label}: g {g_frac}")
+    for r, sk, sp, rel in sums:
+        require(rel <= GRAD_RTOL, f"kerr ckpt {label}: sum g_theta[{r}] "
+                f"{sk} vs {sp}")
+    require(all(bool(torch.isfinite(t).all()) for t in (lam_k, g_k)),
+            f"kerr ckpt {label}: non-finite output")
+    step_f = FLOP_KERR_RK45_ITER if family == "rk45" else FLOP_KERR_STEP
+    vjp_f = FLOP_KERR_RK45_VJP if family == "rk45" else FLOP_KERR_VJP
+    # gen reads 7 floats, the count and the offset a ray and writes ns
+    # floats a segment and the final state; bwd reads the segments, E, L,
+    # the count, the offset and the cotangent, and writes lam and g
+    gen_b = bound(40 * n + 4 * ns * (segs + n), step_f * tot_steps)
+    bwd_b = bound(4 * ns * segs + 20 * n + 4 * (2 * ns + 5) * n,
+                  (step_f + vjp_f) * tot_steps)
+    print(f"[23]   bound gen {gen_b[0]:.3f} ms ({gen_b[1]}), bwd "
+          f"{bwd_b[0]:.3f} ms ({bwd_b[1]})")
+    return dict(gen=dict(max_abs_err=ck_err, ms=gen_ms,
+                         plain_ms=gen_plain_ms, bound_ms=gen_b[0],
+                         bound_by=gen_b[1]),
+                bwd=dict(max_abs_err=max(lam_err, g_err), ms=bwd_ms,
+                         plain_ms=bwd_plain_ms, bound_ms=bwd_b[0],
+                         bound_by=bwd_b[1]),
+                lam=lam_k, sign=sign)
+
+
+def phase23_kerr_ckpt():
+    """Kernels #9 / #10's Kerr RK4 and DP5(4) families (csrc/ckpt_kerr.cu,
+    csrc/ckpt_kerr_rk45.cu) against their plain versions: RK4 on the bare
+    960 x 540 view capped at KERR_CKPT_CAP steps, Kerr-Newman (q 0.6) and
+    16 NaN rays at 256^2 capped at half that; DP5(4) at rtol 1e-4 on the
+    bare view, frozen at 256^2, Kerr-Newman at 256^2, a max_iters most
+    rays reach, 16 NaN rays."""
+    import torch
+    from curvis_tpu_torch.metrics.kerr import make_kerr, make_kerr_newman
+    from curvis_tpu_torch.ops import kerr_cuda as kc
+    from curvis_tpu_torch.ops import kerr_rk45_cuda as k45
+    from curvis_tpu_torch.render import kerr as rk
+    t_start = time.perf_counter()
+    kerr = make_kerr(1.0, KERR_A, device=DEVICE)
+    kn = make_kerr_newman(1.0, 0.7, 0.6, device=DEVICE)
+    R = 2.0 * KERR_L
+    full = kerr_camera(KERR_RES)
+    small = kerr_camera((SMALL, SMALL))
+    res = f"{KERR_RES[0]}x{KERR_RES[1]}"
+    out = {}
+    # name, family, metric, camera, cap (steps; max_iters for rk45), NaN
+    # rays, freeze
+    cases = [
+        (f"rk4 bare {res} (the path's view), cap {KERR_CKPT_CAP}", "rk4",
+         kerr, full, KERR_CKPT_CAP, 0, False),
+        (f"rk4 kerr-newman q 0.6 {SMALL}^2, cap {KERR_CKPT_CAP // 2}",
+         "rk4", kn, small, KERR_CKPT_CAP // 2, 0, False),
+        (f"rk4 bare {SMALL}^2 with {N_POISON} NaN rays, cap "
+         f"{KERR_CKPT_CAP // 2}", "rk4", kerr, small, KERR_CKPT_CAP // 2,
+         N_POISON, False),
+        (f"rk45 bare {res} (the path's view)", "rk45", kerr, full, None, 0,
+         False),
+        (f"rk45 bare {SMALL}^2", "rk45", kerr, small, None, 0, True),
+        (f"rk45 kerr-newman q 0.6 {SMALL}^2", "rk45", kn, small, None, 0,
+         False),
+        (f"rk45 bare {SMALL}^2, max_iters {KERR_ADJ_ITERS}", "rk45", kerr,
+         small, KERR_ADJ_ITERS, 0, True),
+        (f"rk45 bare {SMALL}^2 with {N_POISON} NaN rays", "rk45", kerr,
+         small, None, N_POISON, False),
+    ]
+    for k, (label, family, metric, cam, cap, n_nan, freeze) in enumerate(
+            cases):
+        x0, p0, _ = rk._spawn_kerr_rays(metric, cam)
+        ins = [t.contiguous() for t in (x0[:, 1], x0[:, 2], x0[:, 3],
+                                        p0[:, 1], p0[:, 2], -p0[:, 0],
+                                        p0[:, 3])]
+        ins[0], bad = poison_rays(ins[0], n_nan)
+        if family == "rk4":
+            scal = kc.kerr_scalars(metric, KERR_DT, R, axis_u0=0.01,
+                                   far_r0=8.0)
+            fwd = kc.launch((False,) * 5, scal, *ins, max_steps=cap)
+        else:
+            scal = k45.kerr_rk45_scalars(metric, KERR_DT, R, rtol=KERR_RTOL,
+                                         atol=KERR_RTOL * 1e-3, dt_min=1e-5,
+                                         dt_max=R / 8.0)
+            mi = 2 * KERR_STEPS if cap is None else cap
+            fwd = k45.launch((False,) * 5, scal, *ins, max_steps=KERR_STEPS,
+                             max_iters=mi)
+        nums = kerr_family_vs_plain(label, family, scal, ins, fwd,
+                                    seed=230 + k, freeze=freeze)
+        if family == "rk45" and cap is not None:
+            at = (fwd[-1] == cap).double().mean().item()
+            print(f"[23]   {at:.4f} of rays ran to max_iters = {cap}")
+            require(at > 0.5, f"{label}: only {at} at max_iters")
+        if family == "rk4":
+            capped = (fwd[5] == 0).double().mean().item()
+            print(f"[23]   {capped:.4f} of rays stopped at the cap of {cap}")
+        if n_nan:
+            lam_bad = nums["lam"][:, bad]
+            print(f"[23]   NaN rays: signs {nums['sign'][bad].tolist()}, "
+                  f"max |lam| {float(lam_bad.abs().max()):.1e}")
+            require(bool((nums["sign"][bad] == 3).all())
+                    and bool((lam_bad == 0).all()),
+                    f"{label}: NaN rays not frozen with zero lam")
+        out.setdefault(family, nums)
+    print(f"[23] {time.perf_counter() - t_start:.1f} s")
+    return out["rk4"], out["rk45"]
+
+
+def kerr_grad_by_hand(family, metric_fn, cam, bg, target, cap, pullback):
+    """d loss / d(M, a) of a Kerr render at ``cam`` (loss = mean((image -
+    target)^2), the RK4 march capped at ``cap`` steps or DP5(4) at
+    KERR_RTOL) with the march's pullback called by hand: the forward
+    kernel, the shading's cotangents by autograd, ``pullback`` (the kernel
+    pair or the plain pair) for the march, the spawn by autograd."""
+    import torch
+    from curvis_tpu_torch.ops import kerr_cuda as kc
+    from curvis_tpu_torch.ops import kerr_rk45_cuda as k45
+    from curvis_tpu_torch.render import kerr as rk
+    m = torch.tensor(1.0, device=DEVICE, requires_grad=True)
+    a = torch.tensor(KERR_A, device=DEVICE, requires_grad=True)
+    metric = metric_fn(m, a)
+    x0, p0, _ = rk._spawn_kerr_rays(metric, cam)
+    ins = [t.detach().contiguous() for t in (x0[:, 1], x0[:, 2], x0[:, 3],
+                                             p0[:, 1], p0[:, 2], -p0[:, 0],
+                                             p0[:, 3])]
+    R = 2.0 * float(cam.position[1])
+    if family == "rk4":
+        scal = kc.kerr_scalars(metric, KERR_DT, R, axis_u0=0.01, far_r0=8.0)
+        out = kc.launch((False,) * 5, scal, *ins, max_steps=cap)
+        counts = out[6]
+    else:
+        scal = k45.kerr_rk45_scalars(metric, KERR_DT, R, rtol=KERR_RTOL,
+                                     atol=KERR_RTOL * 1e-3, dt_min=1e-5,
+                                     dt_max=R / 8.0)
+        out = k45.launch((False,) * 5, scal, *ins, max_steps=KERR_STEPS,
+                         max_iters=2 * KERR_STEPS)
+        counts = out[-1]
+    sign = out[5]
+    E, L = ins[5], ins[6]
+    z = torch.zeros_like(E)
+    xs = torch.stack([z, out[0], out[1], out[2]], -1).requires_grad_()
+    ps = torch.stack([-E, out[3], out[4], L], -1).requires_grad_()
+    colors = rk._kerr_shade(metric, x0, p0, bg, xs, ps, sign, None,
+                            "bilinear", None, None, None, None)
+    loss = torch.mean((colors - target) ** 2)
+    g_m, g_a, gx, gp = torch.autograd.grad(loss, [m, a, xs, ps],
+                                           retain_graph=True)
+    smooth = (sign == 0) | (sign == 1)
+    rows = [gx[:, 1], gx[:, 2], gx[:, 3], gp[:, 1], gp[:, 2]]
+    if family == "rk45":
+        rows.append(z)
+    cot = torch.stack([torch.where(smooth, c, z) for c in rows]).contiguous()
+    cnt = torch.where(smooth, counts, torch.zeros_like(counts))
+    g, lam = pullback(family, scal, ins[:5], E, L, cnt, cot)
+    g_x0 = torch.stack([z, lam[0], lam[1], lam[2]], -1)
+    g_p0 = torch.stack([gp[:, 0] - g[3], lam[3], lam[4], gp[:, 3] + g[4]],
+                       -1)
+    outs = [(t, c) for t, c in ((x0, g_x0), (p0, g_p0)) if t.requires_grad]
+    s_m, s_a = torch.autograd.grad([t for t, _ in outs], [m, a],
+                                   grad_outputs=[c for _, c in outs],
+                                   allow_unused=True)
+    s_m = 0.0 if s_m is None else s_m
+    s_a = 0.0 if s_a is None else s_a
+    return ((g_m + s_m).double().item() + g[0].double().sum().item(),
+            (g_a + s_a).double().item() + g[1].double().sum().item())
+
+
+def spin_camera(res, side=1.3):
+    """The spin-recovery camera of examples/inverse_problem.py:116-121."""
+    from curvis_tpu_torch.camera.camera import make_camera
+    f = [-math.sin(SPIN_TH), side, -math.cos(SPIN_TH)]
+    norm = math.sqrt(sum(v * v for v in f))
+    return make_camera([0.0, SPIN_L, SPIN_TH, 0.0], [v / norm for v in f],
+                       [0.0, 0.0, 1.0], 35.0, 43.0, res[0], res[1],
+                       device=DEVICE)
+
+
+def phase24_kerr_paths(bright):
+    """The Kerr gradients at full width: one render_kerr(backend='adjoint')
+    loss-and-gradient step on phase 14's a = 0.9 view (RK4) and on phase
+    16's (rk45), each image equal to the non-differentiable render, its
+    launches and time split; d / d(M, a) of the kernel pair against the
+    plain pair at 128^2; d / da against a central difference on the
+    spin-recovery view, and a few descent steps on a there; backend='scan'
+    against the adjoint there at 128^2, each stepper.  Returns the
+    launches of the Kerr checkpoint kernels."""
+    import torch
+    from curvis_tpu_torch.metrics.kerr import KerrMetric, make_kerr
+    from curvis_tpu_torch.ops import (ckpt_adjoint_cuda, ckpt_rk45_cuda,
+                                      ckpt_surface_cuda, disk_cuda,
+                                      disk_vol_cuda, kerr_cuda,
+                                      kerr_rk45_cuda, march_cuda, rk45_cuda,
+                                      rk45_disk_cuda)
+    from curvis_tpu_torch.ops import ckpt_kerr_cuda as ck
+    from curvis_tpu_torch.render import kerr as rk
+    t_start = time.perf_counter()
+    others = (march_cuda, rk45_cuda, rk45_disk_cuda, disk_cuda,
+              disk_vol_cuda)
+    dicts = (ckpt_adjoint_cuda.launches, ckpt_rk45_cuda.launches,
+             ckpt_surface_cuda.launches)
+
+    def reset():
+        for mod in (*others, kerr_cuda, kerr_rk45_cuda):
+            mod.launches = 0
+        for d in (*dicts, ck.launches):
+            for k_ in d:
+                d[k_] = 0
+
+    def counts():
+        return dict(k7=kerr_cuda.launches, k8=kerr_rk45_cuda.launches,
+                    **ck.launches,
+                    other=sum(mod.launches for mod in others)
+                    + sum(sum(d.values()) for d in dicts))
+
+    total = dict(kerr_gen=0, kerr_bwd=0, kerr_rk45_gen=0, kerr_rk45_bwd=0)
+    cam = kerr_camera(KERR_RES)
+    res = f"{KERR_RES[0]}x{KERR_RES[1]}"
+    views = [("rk4", dict(dt=KERR_DT, max_steps=KERR_STEPS)),
+             ("rk45", dict(dt=KERR_DT, max_steps=KERR_STEPS, stepper="rk45",
+                           rtol=KERR_RTOL))]
+    for family, kw in views:
+        with torch.no_grad():
+            target = rk.render_kerr(make_kerr(1.0, 0.85, device=DEVICE), cam,
+                                    bright, **kw)
+            ref0 = rk.render_kerr(make_kerr(1.0, KERR_A, device=DEVICE),
+                                  cam, bright, **kw)
+
+        def metric_of_leaves():
+            m = torch.tensor(1.0, device=DEVICE, requires_grad=True)
+            a = torch.tensor(KERR_A, device=DEVICE, requires_grad=True)
+            return KerrMetric(m, a, device=DEVICE), (m, a)
+
+        def step():
+            metric, params = metric_of_leaves()
+            img = rk.render_kerr(metric, cam, bright, backend="adjoint", **kw)
+            return img, torch.mean((img - target) ** 2), params
+
+        reset()
+        img, loss, params = step()
+        g_m, g_a = torch.autograd.grad(loss, params)
+        launched = counts()
+        # the non-differentiable render on the same inputs: a metric whose
+        # parameters require grad, so that the spawn records the same graph
+        # (under torch.no_grad() its f32 results can differ by an ulp, and
+        # a knife-edge ray then takes another fate)
+        ref = rk.render_kerr(metric_of_leaves()[0], cam, bright, **kw)
+        diff = float((img.detach() - ref.detach()).abs().max())
+        d0 = (img.detach() - ref0).abs().amax(-1)
+        print(f"[24] {family} adjoint step at {res}: loss "
+              f"{float(loss):.9e}, d loss / d M {float(g_m):.9e}, d loss / "
+              f"d a {float(g_a):.9e}; launches {launched}; image vs the "
+              f"non-differentiable render: max |d| {diff:.3e} (vs that "
+              f"render under torch.no_grad(): {int((d0 > 0).sum())} pixels "
+              f"differ, max |d| {float(d0.max()):.3e})")
+        pair = ("kerr_rk45_gen", "kerr_rk45_bwd") if family == "rk45" else (
+            "kerr_gen", "kerr_bwd")
+        fwd_key = "k8" if family == "rk45" else "k7"
+        require(diff == 0.0, f"{family} adjoint image differs by {diff}")
+        require(launched[fwd_key] == 1 and launched[pair[0]] == 1
+                and launched[pair[1]] == 1 and launched["other"] == 0
+                and launched["k7" if family == "rk45" else "k8"] == 0,
+                f"{family} adjoint launches {launched}")
+        require(all(math.isfinite(float(v)) and float(v) != 0.0
+                    for v in (g_m, g_a)), f"{family} gradient {g_m} {g_a}")
+        for k_ in total:
+            total[k_] += launched.get(k_, 0)
+        # the step's time split (CUDA events, median of 3), and the pair
+        # alone on the step's rays
+        fwd_t, bwd_t = [], []
+        for _ in range(3):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            _, loss, params = step()
+            e[1].record()
+            torch.autograd.grad(loss, params)
+            e[2].record()
+            e[2].synchronize()
+            fwd_t.append(e[0].elapsed_time(e[1]))
+            bwd_t.append(e[1].elapsed_time(e[2]))
+        kerr = make_kerr(1.0, KERR_A, device=DEVICE)
+        x0, p0, _ = rk._spawn_kerr_rays(kerr, cam)
+        ins = [t.contiguous() for t in (x0[:, 1], x0[:, 2], x0[:, 3],
+                                        p0[:, 1], p0[:, 2], -p0[:, 0],
+                                        p0[:, 3])]
+        R = 2.0 * KERR_L
+        if family == "rk4":
+            scal = kerr_cuda.kerr_scalars(kerr, KERR_DT, R, axis_u0=0.01,
+                                          far_r0=8.0)
+            run = lambda: kerr_cuda.launch(                 # noqa: E731
+                (False,) * 5, scal, *ins, max_steps=KERR_STEPS)
+            fwd = run()
+            cnt = torch.where(fwd[5] <= 1, fwd[6], torch.zeros_like(fwd[6]))
+        else:
+            scal = kerr_rk45_cuda.kerr_rk45_scalars(
+                kerr, KERR_DT, R, rtol=KERR_RTOL, atol=KERR_RTOL * 1e-3,
+                dt_min=1e-5, dt_max=R / 8.0)
+            run = lambda: kerr_rk45_cuda.launch(            # noqa: E731
+                (False,) * 5, scal, *ins, max_steps=KERR_STEPS,
+                max_iters=2 * KERR_STEPS)
+            fwd = run()
+            cnt = torch.where(fwd[5] <= 1, fwd[-1],
+                              torch.zeros_like(fwd[-1]))
+        seg = KERR_SEG[family]
+        off, tot = ck.segment_offsets(cnt, seg)
+        ns = ck.N_STATE[family]
+        ckpt, _ = ck.launch_gen(family, scal, ins[:5], ins[5], ins[6], cnt,
+                                seg=seg, offsets=off, total=tot)
+        cot = torch.ones((ns, cnt.numel()), device=DEVICE)
+        fwd_ms = cuda_ms(run, 3)
+        gen_ms = cuda_ms(lambda: ck.launch_gen(
+            family, scal, ins[:5], ins[5], ins[6], cnt, seg=seg, offsets=off,
+            total=tot), 3)
+        bwd_ms = cuda_ms(lambda: ck.launch_bwd(
+            family, scal, ckpt, ins[5], ins[6], cnt, cot, seg=seg,
+            offsets=off), 3)
+        print(f"[24]   step (median of 3, CUDA events): forward "
+              f"{statistics.median(fwd_t):.2f} ms + backward "
+              f"{statistics.median(bwd_t):.2f} ms; "
+              f"{'#8' if family == 'rk45' else '#7'} alone {fwd_ms:.2f} ms, "
+              f"gen {gen_ms:.2f} ms, bwd {bwd_ms:.2f} ms; replayed "
+              f"{'iterations' if family == 'rk45' else 'steps'} mean / max "
+              f"{cnt.double().mean().item():.1f} / {int(cnt.max())}, "
+              f"checkpoint buffer {tot * ns * 4 / 2**20:.1f} MiB")
+        del ckpt
+        # d / d(M, a) of the kernel pair against the plain pair at
+        # GRAD_RES^2 (the RK4 march capped at KERR_CKPT_CAP steps)
+        small = kerr_camera((GRAD_RES, GRAD_RES))
+        with torch.no_grad():
+            tgt = rk.render_kerr(make_kerr(1.0, 0.85, device=DEVICE), small,
+                                 bright, **kw)
+        tgt = tgt.permute(1, 0, 2).reshape(-1, 3)
+
+        def plain(fam, scal_, y0, E, L, cnt_, cot_):
+            sg = KERR_SEG[fam]
+            off_, tot_ = ck.segment_offsets(cnt_, sg)
+            ckp, _ = ck.ckpt_kerr_gen_plain(fam, scal_, y0, E, L, cnt_,
+                                            seg=sg, offsets=off_,
+                                            total=tot_)
+            return ck.ckpt_kerr_bwd_plain(fam, scal_, ckp, E, L, cnt_, cot_,
+                                          seg=sg, offsets=off_)
+
+        def mk(m, a):
+            return KerrMetric(m, a, device=DEVICE)
+
+        g_k = kerr_grad_by_hand(family, mk, small, bright, tgt,
+                                KERR_CKPT_CAP, lambda *a_: ck.
+                                ckpt_kerr_backward_cuda(*a_))
+        g_p = kerr_grad_by_hand(family, mk, small, bright, tgt,
+                                KERR_CKPT_CAP, plain)
+        for name, k_, p_ in (("M", g_k[0], g_p[0]), ("a", g_k[1], g_p[1])):
+            rel = abs(k_ - p_) / abs(p_)
+            print(f"[24]   d loss / d {name} at {GRAD_RES}^2: kernel pair "
+                  f"{k_:.9e}, plain pair {p_:.9e}; rel {rel:.3e} (bound "
+                  f"{GRAD_RTOL})")
+            require(rel <= GRAD_RTOL, f"{family} d/d{name} kernel vs plain: "
+                    f"{k_} vs {p_}")
+    # the spin-recovery view: d mean(image) / da against a central
+    # difference over a smooth sky, the pixel channels in the linear regime
+    sm = smooth_sky()
+    scam = spin_camera(KERR_RES)
+    skw = dict(dt=KERR_DT, max_steps=800, escape_radius=20.0)
+    h = SPIN_FD_H
+    ims = []
+    for s_ in (1.0, -1.0):
+        with torch.no_grad():
+            ims.append(rk.render_kerr(make_kerr(1.0, 0.7 + s_ * h,
+                                                device=DEVICE),
+                                      scam, sm, **skw).double())
+    reset()
+    a = torch.tensor(0.7, device=DEVICE, requires_grad=True)
+    img = rk.render_kerr(KerrMetric(torch.tensor(1.0, device=DEVICE), a,
+                                    device=DEVICE), scam, sm,
+                         backend="adjoint", **skw)
+    curv = (ims[0] - 2.0 * img.detach().double() + ims[1]).abs()
+    linear = (curv <= SURF_FD_LIN * (ims[0] - ims[1]).abs() + 1e-6).double()
+    fd = ((ims[0] - ims[1]) * linear).mean().item() / (2 * h)
+    (g,) = torch.autograd.grad((img.double() * linear).mean(), a)
+    launched = counts()
+    for k_ in total:
+        total[k_] += launched.get(k_, 0)
+    rel = abs(float(g) - fd) / max(abs(fd), 1e-300)
+    kept = linear.mean().item()
+    dark = (img.detach().sum(-1) == 0).double().mean().item()
+    print(f"[24] spin-recovery view {res} (shadow pixels {dark:.4f}): d "
+          f"mean(image) / d a adjoint {float(g):.9e}, central difference "
+          f"(h = {h}) {fd:.9e}, rel {rel:.3e} (bound {SPIN_FD_TOL}); "
+          f"{kept:.6f} of pixel channels in the linear regime (bound >= "
+          f"{SURF_FD_KEEP})")
+    require(rel <= SPIN_FD_TOL, f"spin d/da {float(g)} vs {fd}")
+    require(kept >= SURF_FD_KEEP, f"spin d/da: kept only {kept}")
+    # a few descent steps on a, from a = 0.6 towards 0.85 (the example's
+    # update: a -= clip(gain * g, -cap, cap))
+    D = SPIN_DESCENT
+    with torch.no_grad():
+        target = rk.render_kerr(make_kerr(1.0, D["target"], device=DEVICE),
+                                scam, sm, **skw)
+    a_val, hist = D["start"], []
+    reset()
+    for _ in range(D["steps"] + 1):
+        a = torch.tensor(a_val, device=DEVICE, requires_grad=True)
+        img = rk.render_kerr(KerrMetric(torch.tensor(1.0, device=DEVICE), a,
+                                        device=DEVICE), scam, sm,
+                             backend="adjoint", **skw)
+        loss = torch.mean((img - target) ** 2)
+        (g,) = torch.autograd.grad(loss, a)
+        hist.append((a_val, float(loss)))
+        a_val = a_val - max(-D["cap"], min(D["cap"], D["gain"] * float(g)))
+    launched = counts()
+    for k_ in total:
+        total[k_] += launched.get(k_, 0)
+    print(f"[24]   descent on a (target {D['target']}): "
+          + ", ".join(f"a {a_:.5f} loss {l_:.6e}" for a_, l_ in hist)
+          + f"; launches {launched}")
+    losses = [l_ for _, l_ in hist]
+    require(all(b < a_ for a_, b in zip(losses, losses[1:])),
+            f"spin descent: the loss did not fall every step: {losses}")
+    # backend='scan' on the card, each stepper, against the adjoint on the
+    # spin-recovery view at GRAD_RES^2: the same image and d mean / da, and
+    # no kernel launched by the scan
+    gcam = spin_camera((GRAD_RES, GRAD_RES))
+    for family, kw in (("rk4", {}), ("rk45", dict(stepper="rk45",
+                                                  rtol=KERR_RTOL))):
+        got = {}
+        for be in ("adjoint", "scan"):
+            a = torch.tensor(0.7, device=DEVICE, requires_grad=True)
+            metric = KerrMetric(torch.tensor(1.0, device=DEVICE), a,
+                                device=DEVICE)
+            reset()
+            sync()
+            t0 = time.perf_counter()
+            img = rk.render_kerr(metric, gcam, sm, backend=be, **skw, **kw)
+            (g,) = torch.autograd.grad(img.double().mean(), a)
+            sync()
+            got[be] = (img.detach().double(), float(g), counts(),
+                       time.perf_counter() - t0)
+        (ia, ga, la, ta), (i_s, gs, ls, ts) = got["adjoint"], got["scan"]
+        d = (i_s - ia).abs()
+        frac = (d <= SCAN_IMG_TOL).double().mean().item()
+        rel = abs(gs - ga) / max(abs(ga), 1e-300)
+        print(f"[24] {family} scan vs adjoint, spin view {GRAD_RES}^2: "
+              f"image max |d| {float(d.max()):.3e}, {frac:.6f} of channels "
+              f"within {SCAN_IMG_TOL} (bound >= {SCAN_IMG_FRAC}); d mean / "
+              f"d a scan {gs:.9e}, adjoint {ga:.9e}, rel {rel:.3e} (bound "
+              f"{SCAN_GRAD_RTOL[family]}); scan {ts:.2f} s, adjoint "
+              f"{ta:.2f} s (host clock, step with its first calls); "
+              f"launches scan {ls}, adjoint {la}")
+        require(bool(torch.isfinite(i_s).all()) and math.isfinite(gs)
+                and gs != 0.0, f"{family} scan: image or d/da {gs}")
+        require(frac >= SCAN_IMG_FRAC, f"{family} scan image vs adjoint: "
+                f"{frac} within {SCAN_IMG_TOL}")
+        require(rel <= SCAN_GRAD_RTOL[family], f"{family} scan d/da {gs} "
+                f"vs adjoint {ga}")
+        require(not any(ls.values()), f"{family} scan launched {ls}")
+        for k_ in total:
+            total[k_] += la.get(k_, 0)
+    print(f"[24] launches of the Kerr checkpoint kernels over the paths: "
+          f"{total}; {time.perf_counter() - t_start:.1f} s")
+    return total
+
+
 def main():
     smi = phase0_toolchain()
     import numpy as np
@@ -3940,6 +4553,8 @@ def main():
     surf_launches = phase20_surface_path(disk_sky)
     rk45_ckpt, rk45_surf = phase21_rk45_ckpt(disk_sky)
     rk45_launches = phase22_rk45_paths(bgp, bgn, disk_sky)
+    kerr_ckpt, kerr_rk45_ckpt = phase23_kerr_ckpt()
+    kerr_grad_launches = phase24_kerr_paths(bright)
 
     def entry(name, source, replaces, n_launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -4003,13 +4618,30 @@ def main():
               "curvis_tpu_torch/csrc/ckpt_surface_rk45.cu",
               "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
               rk45_launches["surface_rk45_bwd"], rk45_surf["bwd"]),
+        entry("ckpt_kerr_gen_kernel", "curvis_tpu_torch/csrc/ckpt_kerr.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              kerr_grad_launches["kerr_gen"], kerr_ckpt["gen"]),
+        entry("ckpt_kerr_bwd_kernel", "curvis_tpu_torch/csrc/ckpt_kerr.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              kerr_grad_launches["kerr_bwd"], kerr_ckpt["bwd"]),
+        entry("ckpt_kerr_rk45_gen_kernel",
+              "curvis_tpu_torch/csrc/ckpt_kerr_rk45.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              kerr_grad_launches["kerr_rk45_gen"], kerr_rk45_ckpt["gen"]),
+        entry("ckpt_kerr_rk45_bwd_kernel",
+              "curvis_tpu_torch/csrc/ckpt_kerr_rk45.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              kerr_grad_launches["kerr_rk45_bwd"], kerr_rk45_ckpt["bwd"]),
     ]
-    print(f"[22] done on {smi}; the surface kernels' ms, plain_ms and "
+    print(f"[24] done on {smi}; the surface kernels' ms, plain_ms and "
           f"bound_ms in the kernels line are phase 19's thin 1024^2 case "
           f"with every ray capped at {SURF_CAP} steps (phase 20 prints "
           f"the full counts); the rk45 pair's are phase 21's ellis trainer "
           f"view at {RES}^2 and the rk45 surface pair's its thin {RES}^2 "
-          f"case capped at {RK45_SURF_ITERS} iterations")
+          f"case capped at {RK45_SURF_ITERS} iterations; the Kerr RK4 "
+          f"pair's phase 23's bare {KERR_RES[0]}x{KERR_RES[1]} view capped "
+          f"at {KERR_CKPT_CAP} steps (phase 24 prints the full counts) and "
+          f"the Kerr rk45 pair's its bare view at rtol {KERR_RTOL}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

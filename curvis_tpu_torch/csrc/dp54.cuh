@@ -1,12 +1,16 @@
-// The Dormand-Prince 5(4) tableau as float32, shared by the planar DP5(4)
-// iteration (rk45.cuh: kernels #3 and #4) and the Boyer-Lindquist DP5(4)
-// march (kerr_rk45.cu: kernel #8).
+// The Dormand-Prince 5(4) tableau as float32 and the step controller,
+// shared by the planar DP5(4) iteration (rk45.cuh: kernels #3 and #4) and
+// the Boyer-Lindquist DP5(4) march (kerr_step.cuh: kernel #8), and the
+// controller's VJP, shared by their replays' VJPs (rk45_vjp.cuh,
+// kerr_vjp.cuh).
 //
 // These are the values the TPU kernels multiply by: _DP_A, _DP_B5 and
 // _DP_B4 of curvis_tpu/ops/march_pallas.py, rounded to float32.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "planar.cuh"
 
 namespace curvis {
 
@@ -71,6 +75,40 @@ __host__ __device__ constexpr float dp_b5(int i) {
 __host__ __device__ constexpr float dp_b4(int i) {
   return i == 0 ? kE1 : i == 2 ? kE3 : i == 3 ? kE4 : i == 4 ? kE5
        : i == 5 ? kE6 : i == 6 ? kE7 : 0.0f;
+}
+
+// The controller's factor after a trial of scaled error err: 0.9
+// err^-0.2 via exp / log of max(err, 1e-10), clipped to [0.2, 5]; a NaN
+// err gives a NaN factor, which the guard turns into 0.2.
+__device__ __forceinline__ float dp54_factor(float err) {
+  const float err_s = max_nan(err, 1e-10f);
+  const float factor =
+      clip_nan(0.9f * expf(-0.2f * logf(err_s)), 0.2f, 5.0f);
+  return factor > 0.0f ? factor : 0.2f;
+}
+
+// VJP of the next step clip(dt dp54_factor(err), dt_min, dt_max) of a ray
+// still marching: adds the cotangents of dt and err to *g_dt and *g_err
+// for the cotangent g_next of the next step.  A clip or max at a tie
+// passes half, as jnp.clip and jnp.maximum do.
+__device__ __forceinline__ void dp54_control_vjp(float err, float dt,
+                                                 float dt_min, float dt_max,
+                                                 float g_next, float* g_dt,
+                                                 float* g_err) {
+  const float err_s = max_nan(err, 1e-10f);
+  const float f_raw = 0.9f * expf(-0.2f * logf(err_s));
+  const float f_c = clip_nan(f_raw, 0.2f, 5.0f);
+  const float factor = f_c > 0.0f ? f_c : 0.2f;
+  const float x = dt * factor;
+  const float g_x = g_next * clip_share(x, dt_min, dt_max);
+  *g_dt += g_x * factor;
+  const float g_fc = f_c > 0.0f ? g_x * dt : 0.0f;
+  const float g_fraw = g_fc * clip_share(f_raw, 0.2f, 5.0f);
+  // f_raw = 0.9 exp(-0.2 log err_s): d f_raw / d err_s = -0.2 f_raw / err_s
+  // (added only where it is not zero: a NaN err, of a non-finite trial,
+  // has the constant factor 0.2)
+  if (g_fraw != 0.0f)
+    *g_err += g_fraw * (-0.2f) * f_raw / err_s * max_share(err, 1e-10f);
 }
 
 }  // namespace curvis

@@ -16,7 +16,11 @@
 // (L - a E sin^2)^2 / sin^2 - ((r^2 + a^2) E - a L)^2 / Delta written out
 // by hand, with the off-shell W d(1/2 Sigma) term; Kerr-Newman enters only
 // through Delta (the q^2 slot).  It and the emission live in
-// kerr_common.cuh, shared with the DP5(4) march kerr_rk45.cu (#8).  The
+// kerr_common.cuh, shared with the DP5(4) march kerr_rk45.cu (#8); the RK4
+// step is kerr_step.cuh:kerr_rk4_step, which the checkpoint kernels of the
+// Kerr RK4 family (ckpt_kerr.cu) replay.  Both files are built without FMA
+// contraction (ops/_build.py:SOURCE_FLAGS), so the replay marches this
+// kernel's trajectory bit for bit.  The
 // flags of the TPU kernel are template parameters: TRACK_DISK, VOL and,
 // for VOL, BLACKBODY, BEAMING (the circular-orbit g of the frame-dragged
 // gas) and SCATTER (the lensed-sky source of vol_common.cuh): 1 bare + 1
@@ -42,38 +46,11 @@
 // each) and ~40 more; the volumetric emission adds ~60-110.  A ray moves
 // 28 bytes in and 48 to 68 out, so memory is far from the bound.  As the
 // other march kernels, a thread leaves its loop when its ray ends.
-#include <cstring>
-
-#include "kerr_common.cuh"
+#include "kerr_step.cuh"
 
 namespace curvis {
 
 constexpr int kKerrThreads = 128;
-
-// Host row, the Kerr rows of curvis_tpu/ops/march_pallas.py: 10 floats
-// (bare, disk), 20 with the emission slots at VOL_BLOCK_KERR = 10 and two
-// spares (VOL), 47 with the scatter block at KERR_SCATTER_OFF = 20.
-struct KerrScalars {
-  float dt;
-  float R;       // escape radius
-  float M;
-  float a;
-  float q2;      // Kerr-Newman charge^2 (0 for Kerr)
-  float r_cap;   // capture radius
-  float r_in;
-  float r_out;
-  float ax_u0;   // polar-axis band, sin^2 theta
-  float far_r0;  // far-field radius (1e30 = off)
-  VolSlots v;
-  float spare[2];
-  float scatter[kScatterBlock];
-};
-
-constexpr int kKerrBaseFloats = 10;
-constexpr int kKerrVolFloats = 20;
-static_assert(sizeof(KerrScalars) ==
-                  (kKerrVolFloats + kScatterBlock) * sizeof(float),
-              "KerrScalars is a packed row of floats");
 
 template <bool TRACK_DISK, bool VOL, bool BLACKBODY, bool BEAMING,
           bool SCATTER>
@@ -101,27 +78,9 @@ __global__ void __launch_bounds__(kKerrThreads)
   int sign = 0;
   int n_steps = 0;
   while (n_steps < max_steps && sign == 0) {
-    const float s_ax = sinf(th);
-    const float scale = clip_nan(
-        (s_ax * s_ax + 1e-12f) / max_nan(s.ax_u0, 1e-12f), 1.0f / 16.0f,
-        1.0f);
-    const float fscale = clip_nan(r / max_nan(s.far_r0, 1e-12f), 1.0f, 8.0f);
-    const float dte = s.dt * scale * fscale;
-    const float hd = 0.5f * dte;
-    float k1[5], k2[5], k3[5], k4[5];
-    kerr_rhs(s.M, s.a, s.q2, E, L, r, th, p_r, p_th, k1);
-    kerr_rhs(s.M, s.a, s.q2, E, L, r + hd * k1[0], th + hd * k1[1],
-             p_r + hd * k1[3], p_th + hd * k1[4], k2);
-    kerr_rhs(s.M, s.a, s.q2, E, L, r + hd * k2[0], th + hd * k2[1],
-             p_r + hd * k2[3], p_th + hd * k2[4], k3);
-    kerr_rhs(s.M, s.a, s.q2, E, L, r + dte * k3[0], th + dte * k3[1],
-             p_r + dte * k3[3], p_th + dte * k3[4], k4);
-    const float w = dte * (1.0f / 6.0f);
-    float y1[5];
     const float y0[5] = {r, th, ph, p_r, p_th};
-#pragma unroll
-    for (int c = 0; c < 5; ++c)
-      y1[c] = y0[c] + w * (k1[c] + 2.0f * (k2[c] + k3[c]) + k4[c]);
+    float y1[5];
+    const float dte = kerr_rk4_step(s, E, L, y0, y1);
     if constexpr (TRACK_DISK) {
       const float ct = cosf(y1[1]);
       if (ct_prev * ct < 0.0f) {
@@ -146,9 +105,7 @@ __global__ void __launch_bounds__(kKerrThreads)
     ph = y1[2];
     p_r = y1[3];
     p_th = y1[4];
-    const float m_chk =
-        fabsf(r) + fabsf(th) + fabsf(ph) + fabsf(p_r) + fabsf(p_th);
-    const bool ok = m_chk <= 1e8f;
+    const bool ok = kerr_finite(y1);
     if constexpr (VOL) {
       float dtau, dem[3];
       kerr_vol_emission<BLACKBODY, BEAMING, SCATTER>(

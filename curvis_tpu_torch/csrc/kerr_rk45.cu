@@ -13,7 +13,11 @@
 // plain PyTorch version of this arithmetic is march_kerr_rk45_plain there.
 //
 // The RHS and the emission are kerr_common.cuh's, shared with the RK4
-// kernel kerr.cu (#7); the tableau is dp54.cuh's.  The flags are template
+// kernel kerr.cu (#7); the tableau is dp54.cuh's.  The trial, the fate of
+// an accepted step and the controller are kerr_step.cuh's (kerr_rk45_trial,
+// kerr_rk45_fate, kerr_rk45_next_dt), whose bare iteration kerr_rk45_iter
+// the checkpoint kernels of the Kerr DP5(4) family (ckpt_kerr_rk45.cu)
+// replay.  The flags are template
 // parameters: TRACK_DISK, VOL and, for VOL, BLACKBODY, BEAMING and
 // SCATTER: 1 bare + 1 disk + 8 volumetric instances.
 //
@@ -59,52 +63,12 @@
 // memory is far from the bound.  A thread leaves its loop when its ray
 // ends; neighbouring rays near the photon ring differ ~2x in iterations,
 // which the warp pays for.
-#include <cstring>
-
-#include "dp54.cuh"
-#include "kerr_common.cuh"
+#include "kerr_step.cuh"
 
 namespace curvis {
 
 constexpr int kKerrRk45Threads = 128;
 constexpr int kKerrRk45Capped = -128;   // sign of a ray stopped at max_steps
-
-// Kernel row.  The host rows are those of curvis_tpu/ops/march_pallas.py:
-// bare and disk [dt0, R, M, a, q2, r_cap, r_in, r_out, rtol, atol, dt_max,
-// dt_min] (12 floats, the bounds at KERR_RK45_BOUNDS[False] = 10); VOL puts
-// the eight emission slots at VOL_BLOCK_KERR = 10 and the bounds at 18 (20
-// floats); SCATTER adds the 27-float block at KERR_SCATTER_OFF = 20 (47).
-// The host entry moves a 12-float row's bounds to dt_max / dt_min.
-struct KerrRk45Scalars {
-  float dt0;     // initial step, and the step bound near the disk
-  float R;       // escape radius
-  float M;
-  float a;
-  float q2;      // Kerr-Newman charge^2 (0 for Kerr)
-  float r_cap;   // capture radius
-  float r_in;
-  float r_out;
-  float rtol;
-  float atol;
-  VolSlots v;
-  float dt_max;
-  float dt_min;
-  float scatter[kScatterBlock];
-};
-
-constexpr int kKerrRk45HeadFloats = 10;   // up to rtol, atol
-constexpr int kKerrRk45BareFloats = 12;
-constexpr int kKerrRk45VolFloats = 20;
-static_assert(sizeof(KerrRk45Scalars) ==
-                  (kKerrRk45VolFloats + kScatterBlock) * sizeof(float),
-              "KerrRk45Scalars is a packed row of floats");
-
-// Scaled error of one component: |dt e| / (atol + rtol max(|y0|, |y1|)).
-__device__ __forceinline__ float kerr_rk45_err(const KerrRk45Scalars& s,
-                                               float dt, float e, float y0,
-                                               float y1) {
-  return fabsf(dt * e) / (s.atol + s.rtol * max_nan(fabsf(y0), fabsf(y1)));
-}
 
 template <bool TRACK_DISK, bool VOL, bool BLACKBODY, bool BEAMING,
           bool SCATTER>
@@ -122,21 +86,11 @@ __global__ void __launch_bounds__(kKerrRk45Threads)
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  // the tableau rows of the seven stages (the last is the 5th-order
-  // weights with its zero a72, multiplied in)
-  const float A[7][6] = {{0.0f},
-                         {kA21},
-                         {kA31, kA32},
-                         {kA41, kA42, kA43},
-                         {kA51, kA52, kA53, kA54},
-                         {kA61, kA62, kA63, kA64, kA65},
-                         {kB1, kA72, kB3, kB4, kB5, kB6}};
   float r = rad_in[i], th = th_in[i], ph = ph_in[i];
   float p_r = pr_in[i], p_th = pth_in[i];
   const float E = E_in[i], L = L_in[i];
   const float M = s.M, a = s.a, q2 = s.q2;
   const float stall_dt = s.dt_min * 1.01f;
-  const float r_over = s.R * static_cast<float>(1.0 + 1e-3);
   const float r_near = s.r_out + 2.0f * M;
   float dt = s.dt0;
   float ct_prev = cosf(th);
@@ -147,58 +101,19 @@ __global__ void __launch_bounds__(kKerrRk45Threads)
   int sign = 0, n_steps = 0, iters = 0;
   while (sign == 0 && iters < max_iters) {
     ++iters;
-    float k[7][5];
-#pragma unroll
-    for (int st = 0; st < 7; ++st) {
-      float ri = r, ti = th, pri = p_r, pti = p_th;
-#pragma unroll
-      for (int j = 0; j < st; ++j) {
-        const float c = dt * A[st][j];
-        ri = ri + c * k[j][0];
-        ti = ti + c * k[j][1];
-        pri = pri + c * k[j][3];
-        pti = pti + c * k[j][4];
-      }
-      kerr_rhs(M, a, q2, E, L, ri, ti, pri, pti, k[st]);
-    }
-    // 5th- and 4th-order combinations, each summed from 0 in stage order
-    float d5[5], e[5];
-#pragma unroll
-    for (int c = 0; c < 5; ++c) {
-      d5[c] = 0.0f + kB1 * k[0][c] + kB3 * k[2][c] + kB4 * k[3][c] +
-              kB5 * k[4][c] + kB6 * k[5][c];
-      e[c] = d5[c] - (0.0f + kE1 * k[0][c] + kE3 * k[2][c] + kE4 * k[3][c] +
-                      kE5 * k[4][c] + kE6 * k[5][c] + kE7 * k[6][c]);
-    }
-    const float r1 = r + dt * d5[0];
-    const float th1 = th + dt * d5[1];
-    const float ph1 = ph + dt * d5[2];
-    const float pr1 = p_r + dt * d5[3];
-    const float pth1 = p_th + dt * d5[4];
-    const float err =
-        max_nan(max_nan(kerr_rk45_err(s, dt, e[0], r, r1),
-                        kerr_rk45_err(s, dt, e[1], th, th1)),
-                max_nan(kerr_rk45_err(s, dt, e[3], p_r, pr1),
-                        kerr_rk45_err(s, dt, e[4], p_th, pth1)));
-    bool accept = err <= 1.0f;   // false for NaN
-
-    // boundary stepping at escape
-    bool esc = accept && r1 > s.R;
-    float den = r1 - r;
-    if (fabsf(den) < 1e-30f) den = 1.0f;
-    const float frac = (s.R - r) / den;
-    const bool over = esc && frac < 0.9f && r1 > r_over;
-    accept = accept && !over;
-    esc = esc && !over;
+    const float y[5] = {r, th, ph, p_r, p_th};
+    KerrRk45Rec t;
+    kerr_rk45_trial(s, E, L, y, dt, &t);
+    const bool accept = t.accept;
 
     if constexpr (TRACK_DISK) {
       if (accept) {
-        const float ct = cosf(th1);
+        const float ct = cosf(t.y1[1]);
         if (ct_prev * ct < 0.0f) {
           const float cden = fabsf(ct_prev) + fabsf(ct);
           const float cfrac = fabsf(ct_prev) / max_nan(cden, 1e-30f);
-          const float r_hit = r + cfrac * (r1 - r);
-          const float ph_hit = ph + cfrac * (ph1 - ph);
+          const float r_hit = r + cfrac * (t.y1[0] - r);
+          const float ph_hit = ph + cfrac * (t.y1[2] - ph);
           const float side = ct_prev > 0.0f ? 1.0f : -1.0f;
           if (r_hit >= s.r_in && r_hit <= s.r_out) {
             const int h = hit[0] == 0.0f ? 0 : (hit[3] == 0.0f ? 3 : -1);
@@ -214,14 +129,12 @@ __global__ void __launch_bounds__(kKerrRk45Threads)
     }
 
     if (accept) {
-      r = r1;
-      th = th1;
-      ph = ph1;
-      p_r = pr1;
-      p_th = pth1;
-      const float m_chk =
-          fabsf(r) + fabsf(th) + fabsf(ph) + fabsf(p_r) + fabsf(p_th);
-      const bool ok = m_chk <= 1e8f;
+      r = t.y1[0];
+      th = t.y1[1];
+      ph = t.y1[2];
+      p_r = t.y1[3];
+      p_th = t.y1[4];
+      const bool ok = kerr_finite(t.y1);
       if constexpr (VOL) {
         if (ok) {
           float dtau, dem[3];
@@ -233,8 +146,7 @@ __global__ void __launch_bounds__(kKerrRk45Threads)
           tau = tau + dt * dtau;
         }
       }
-      sign = ok ? static_cast<int>(esc) + 2 * static_cast<int>(r < s.r_cap)
-                : 3;
+      sign = kerr_rk45_fate(s, t, t.y1, ok);
       ++n_steps;
     }
     // the tau_max freeze (OPAQUE_SIGN == CAPTURED == 2)
@@ -245,12 +157,8 @@ __global__ void __launch_bounds__(kKerrRk45Threads)
     if (!accept && dt <= stall_dt) sign = 3;
 
     // controller, from the trial's dt
-    const float err_s = max_nan(err, 1e-10f);
-    float factor = clip_nan(0.9f * expf(-0.2f * logf(err_s)), 0.2f, 5.0f);
-    if (!(factor > 0.0f)) factor = 0.2f;
     if (sign == 0) {
-      dt = over ? clip_nan(dt * frac * 1.05f, s.dt_min, s.dt_max)
-                : clip_nan(dt * factor, s.dt_min, s.dt_max);
+      dt = kerr_rk45_next_dt(s, t);
       if constexpr (VOL) {
         // the anticipatory clamp on the distance to the gas slab: the
         // radial gap to the r_out + 2M cylinder and the vertical gap to
@@ -345,15 +253,7 @@ extern "C" int curvis_march_kerr_rk45(
                         : kKerrRk45VolFloats + (scatter ? kScatterBlock : 0);
   if (n_scalars != want || (track_disk && vol) || (scatter && !vol))
     return static_cast<int>(cudaErrorInvalidValue);
-  KerrRk45Scalars s;
-  std::memset(&s, 0, sizeof(s));
-  if (vol) {
-    std::memcpy(&s, scalars, sizeof(float) * n_scalars);
-  } else {
-    std::memcpy(&s, scalars, sizeof(float) * kKerrRk45HeadFloats);
-    s.dt_max = scalars[kKerrRk45HeadFloats];
-    s.dt_min = scalars[kKerrRk45HeadFloats + 1];
-  }
+  const KerrRk45Scalars s = kerr_rk45_row(scalars, n_scalars, vol != 0);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;

@@ -79,6 +79,11 @@ __device__ __forceinline__ float clip_share(float x, float lo, float hi) {
   return max_share(x, lo) * max_share(hi, x);
 }
 
+// sign(x) / max(|x|, eps): 1 / x off the guard, bounded on it
+__device__ __forceinline__ float guarded_inv(float x, float eps) {
+  return sgn(x) / fmaxf(fabsf(x), eps);
+}
+
 // DNEG: r(l) and r'(l) with x = 2(|l| - a) / (pi m); r = rho, r' = 0 inside
 // the throat |l| <= a.
 __device__ __forceinline__ void dneg_shape(float m, float a, float rho,

@@ -177,14 +177,10 @@ __device__ __forceinline__ Rk45Trial rk45_trial(const MarchScalars& s,
 }
 
 // The controller's next step after a trial of step dt and error err:
-// clip(dt 0.9 err^-0.2) via exp / log, the factor clipped to [0.2, 5]; a
-// NaN err gives a NaN factor, which the guard turns into 0.2.
+// clip(dt dp54_factor(err)) within [1e-6, dt_max].
 __device__ __forceinline__ float rk45_next_dt(const Rk45Control& c,
                                               float err, float dt) {
-  const float err_s = max_nan(err, 1e-10f);
-  float factor = clip_nan(0.9f * expf(-0.2f * logf(err_s)), 0.2f, 5.0f);
-  if (!(factor > 0.0f)) factor = 0.2f;
-  return clip_nan(dt * factor, kRk45DtFloor, c.dt_max);
+  return clip_nan(dt * dp54_factor(err), kRk45DtFloor, c.dt_max);
 }
 
 // The second half: adds the accepted step to *steps, sets *sign (+1 / -1

@@ -28,11 +28,6 @@
 
 namespace curvis {
 
-// sign(x) / max(|x|, eps): 1 / x off the guard, bounded on it
-__device__ __forceinline__ float guarded_inv(float x, float eps) {
-  return sgn(x) / fmaxf(fabsf(x), eps);
-}
-
 // Cotangents of (l, p_l) and theta (g[0..2] the metric slots, g[3] b) of
 // one RHS evaluation (dl, dpsi, dp_l) at (l, p_l) for the cotangents
 // (u, v, w) of its outputs, added to *g_l, *g_pl and g: the derivatives of
@@ -138,21 +133,11 @@ __device__ __forceinline__ void rk45_control_vjp(const Rk45Control& c,
                                                  const Rk45Rec& r,
                                                  bool terminal, float g_next,
                                                  float* g_dt, float* g_err) {
-  if (terminal) {
+  if (terminal)
     *g_dt += g_next;
-    return;
-  }
-  const float err_s = max_nan(r.err, 1e-10f);
-  const float f_raw = 0.9f * expf(-0.2f * logf(err_s));
-  const float f_c = clip_nan(f_raw, 0.2f, 5.0f);
-  const float factor = f_c > 0.0f ? f_c : 0.2f;
-  const float x = r.dt * factor;
-  const float g_x = g_next * clip_share(x, kRk45DtFloor, c.dt_max);
-  *g_dt += g_x * factor;
-  const float g_fc = f_c > 0.0f ? g_x * r.dt : 0.0f;
-  const float g_fraw = g_fc * clip_share(f_raw, 0.2f, 5.0f);
-  // f_raw = 0.9 exp(-0.2 log err_s): d f_raw / d err_s = -0.2 f_raw / err_s
-  *g_err += g_fraw * (-0.2f) * f_raw / err_s * max_share(r.err, 1e-10f);
+  else
+    dp54_control_vjp(r.err, r.dt, kRk45DtFloor, c.dt_max, g_next, g_dt,
+                     g_err);
 }
 
 // VJP of rk45_trial at the start state of r, for the cotangents g_out of

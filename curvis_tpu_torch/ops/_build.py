@@ -7,8 +7,9 @@ compiled by its own ``nvcc`` process, all started together,
          -Xcompiler -fPIC -Xptxas -v [SOURCE_FLAGS] -c -o <object> \\
          csrc/<source>.cu
 
-(``SOURCE_FLAGS`` adds flags for one source: the DP5(4) marches and the
-checkpoint kernels that replay them are built without FMA contraction),
+(``SOURCE_FLAGS`` adds flags for one source: the DP5(4) marches, the Kerr
+RK4 march and the checkpoint kernels that replay them are built without
+FMA contraction),
 and the objects are linked into one shared library with a plain C
 interface,
 ``build/curvis_tpu_torch/libcurvis_kernels.so``, which is loaded with
@@ -35,17 +36,26 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v"]    # register / spill report in build.log
 LINK_FLAGS = [*ARCH, "-shared"]
-# The DP5(4) marches (kernels #4 and #8) and the checkpoint kernels that
-# replay #4 round every operation as their plain PyTorch versions do: an
-# adaptive march's accept / reject decisions at err ~ 1 flip on the last
-# bit (with contracted FMAs the Kerr kernel took other step sequences than
-# its plain version on 1-2.5 % of rays, measured on the H100), and a
-# replay that accepts where the forward rejected marches another
-# trajectory.  One source per iteration (csrc/rk45.cuh, rk45_surface.cuh)
-# and one set of flags make #4 and its replay take the same decisions.
+# The DP5(4) marches (kernels #4 and #8), the Kerr RK4 march (#7) and the
+# checkpoint kernels that replay them round every operation as their plain
+# PyTorch versions do: an adaptive march's accept / reject decisions at
+# err ~ 1 flip on the last bit (with contracted FMAs the Kerr kernel took
+# other step sequences than its plain version on 1-2.5 % of rays, measured
+# on the H100), a replay that accepts where the forward rejected marches
+# another trajectory, and one step source inlined into two kernels can
+# contract differently in each.  One source per step (csrc/rk45.cuh,
+# rk45_surface.cuh, kerr_step.cuh) and one set of flags make each march
+# and its replay take the same steps.  The RK4 march #7 takes no such
+# decision; it and its replay are built so for the check against their
+# plain versions: contracted, the replay still equalled #7 bit for bit,
+# but the plain pair, rounding apart, went non-finite on the path's view
+# (rays near the pole by the horizon amplify a last-bit difference beyond
+# float32's range within one segment), so ray sums could not be compared
+# (measured on the H100, PERF.md).
 _NO_FMA = ["--fmad=false"]
 SOURCE_FLAGS = {src: _NO_FMA for src in (
-    "kerr_rk45.cu", "planar_rk45.cu", "planar_rk45_disk.cu", "ckpt_rk45.cu",
+    "kerr.cu", "kerr_rk45.cu", "planar_rk45.cu", "planar_rk45_disk.cu",
+    "ckpt_kerr.cu", "ckpt_kerr_rk45.cu", "ckpt_rk45.cu",
     "ckpt_surface_rk45.cu", "ckpt_surface_rk45_schwarzschild.cu",
     "ckpt_surface_rk45_rn.cu")}
 
@@ -131,6 +141,20 @@ _PROTOTYPES = {
     "curvis_march_kerr_rk45": [_I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
                                _I, _P],
+    # scalars, n_scalars, r, theta, phi, p_r, p_theta, E, L, steps (iters),
+    # offsets, ckpt, final, n, seg, device, stream
+    "curvis_ckpt_kerr_gen": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, ctypes.c_longlong, _I, _I, _P],
+    "curvis_ckpt_kerr_rk45_gen": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, ctypes.c_longlong, _I, _I, _P],
+    # scalars, n_scalars, ckpt, E, L, steps, offsets, cot, lam, g_theta, n,
+    # seg, device, stream
+    "curvis_ckpt_kerr_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             ctypes.c_longlong, _I, _I, _P],
+    # scalars, n_scalars, freeze, ckpt, E, L, iters, offsets, cot, lam,
+    # g_theta, n, seg, device, stream
+    "curvis_ckpt_kerr_rk45_bwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, ctypes.c_longlong, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -199,8 +199,10 @@ def control_vjp_plain(row, r, terminal, g_next):
     g_x = g_next * _clip_share(x, DT_FLOOR, row[8])
     g_fc = torch.where(pos, g_x * dt, torch.zeros_like(g_x))
     g_fraw = g_fc * _clip_share(f_raw, 0.2, 5.0)
-    g_err = g_fraw * (-0.2) * f_raw / err_s * _max_share(err, 1e-10)
     zero = torch.zeros_like(g_next)
+    # added only where it is not zero (csrc/dp54.cuh:dp54_control_vjp)
+    g_err = torch.where(g_fraw != 0.0, g_fraw * (-0.2) * f_raw / err_s
+                        * _max_share(err, 1e-10), zero)
     return (torch.where(terminal, g_next, g_x * factor),
             torch.where(terminal, zero, g_err))
 

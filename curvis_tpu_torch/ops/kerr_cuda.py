@@ -62,7 +62,8 @@ def kerr_scalars(metric, dt, escape_radius, capture_radius=None, *,
         r_in, r_out = disk if disk is not None else (0.0, 0.0)
     row = [dt, escape_radius, metric.m, metric.a, metric.q2, capture_radius,
            r_in, r_out, axis_u0, 1e30 if far_r0 is None else far_r0]
-    row = [float(v) for v in row]
+    row = [float(v.detach()) if torch.is_tensor(v) else float(v)
+           for v in row]
     assert len(row) == VOL_BLOCK_KERR
     if vol_disk is not None:
         row += vol_param_slots(vol_disk) + [0.0, 0.0]
@@ -78,7 +79,13 @@ def kerr_scalars(metric, dt, escape_radius, capture_radius=None, *,
 
 def kerr_rhs_plain(row, E, L, r, th, p_r, p_th):
     """d(r, theta, phi, p_r, p_theta) of the kernel's kerr_rhs."""
-    M, a, q2 = row[2], row[3], row[4]
+    return kerr_rhs_theta(row[2], row[3], row[4], E, L, r, th, p_r, p_th)
+
+
+def kerr_rhs_theta(M, a, q2, E, L, r, th, p_r, p_th):
+    """The kernel's kerr_rhs with the metric slots as arguments: the JAX
+    package's ``_kerr_rhs`` form for form, which the Kerr adjoints
+    (``integrate/kerr_adjoint.py``) differentiate."""
     s = torch.sin(th)
     c = torch.cos(th)
     u = torch.clamp(s * s, min=1e-12)

@@ -14,10 +14,17 @@ outer ``torch.no_grad()`` too, where ``torch.autograd.grad`` would fail.
 
 This is the march of the Kerr render routes on CPU tensors (the JAX
 package's XLA route); on a GPU they run the hand-inlined RHS of kernel #7
-(``ops/kerr_cuda.py``).
+(``ops/kerr_cuda.py``).  ``march_hamiltonian_scan`` is the differentiable
+march of ``render_kerr(backend='scan')`` on any device: plain PyTorch, as
+the JAX package's scan is plain XLA.  It checkpoints each segment by hand
+(an autograd Function that recomputes the segment in its backward), since
+``torch.func.grad`` does not run under the saved-tensor hooks of
+``torch.utils.checkpoint``; a ``torch.func.grad`` inside a recompute under
+``torch.enable_grad()`` carries the graph to the outer backward.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -172,3 +179,78 @@ def update_sign(sign, active, x, p, escape_radius, capture_radius):
     if capture_radius is not None:
         sign = torch.where(active & ok & (r < capture_radius), 2, sign)
     return torch.where(active & bad, 3, sign).to(torch.int32)
+
+
+def _scan_segment(metric, x, p, sign, steps, cfg, far_r0):
+    """``segment`` masked steps of the scan (march_hamiltonian's step,
+    masked on steps < max_steps as well as on the sign)."""
+    dt, segment, max_steps, escape_radius, capture_radius, axis_u0 = cfg
+    for _ in range(segment):
+        active = (sign == 0) & (steps < max_steps)
+        dte = dt * axis_dt_scale(x[..., 2], axis_u0) \
+            * far_dt_scale(x[..., 1], far_r0)
+        x1, p1 = rk4_step_batched(metric, x, p, dte[..., None])
+        am = active[..., None]
+        x = torch.where(am, x1, x)
+        p = torch.where(am, p1, p)
+        sign = update_sign(sign, active, x, p, escape_radius, capture_radius)
+        steps = steps + active.to(torch.int32)
+    return x, p, sign, steps
+
+
+class _ScanSegment(torch.autograd.Function):
+    """One checkpointed segment: (x, p, sign, steps, far_r0, *metric
+    fields) -> (x, p, sign, steps); the forward keeps only its inputs, the
+    backward recomputes it under autograd."""
+
+    @staticmethod
+    def forward(ctx, metric, cfg, x, p, sign, steps, far_r0, *fields):
+        with torch.no_grad():
+            out = _scan_segment(metric, x, p, sign, steps, cfg, far_r0)
+        ctx.metric, ctx.cfg = metric, cfg
+        ctx.save_for_backward(x, p, sign, steps, far_r0, *fields)
+        ctx.mark_non_differentiable(out[2], out[3])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_x, g_p, _g_sign, _g_steps):
+        x, p, sign, steps, far_r0, *fields = ctx.saved_tensors
+        ins = [t.detach().requires_grad_() for t in (x, p, far_r0, *fields)]
+        metric = type(ctx.metric)(*ins[3:], device=x.device, dtype=x.dtype)
+        with torch.enable_grad():
+            x1, p1, _, _ = _scan_segment(metric, ins[0], ins[1], sign, steps,
+                                         ctx.cfg, ins[2])
+            grads = torch.autograd.grad((x1, p1), ins, (g_x, g_p),
+                                        allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, ins)]
+        return (None, None, grads[0], grads[1], None, None, *grads[2:])
+
+
+def march_hamiltonian_scan(metric, x0, p0, *, dt, max_steps, escape_radius,
+                           capture_radius=None, axis_u0=0.01, segment=None,
+                           far_r0=None) -> HamiltonianResult:
+    """Differentiable general-metric march: the per-step semantics of
+    :func:`march_hamiltonian`, masking on ``steps < max_steps`` as well as
+    on the sign, in segments of ``segment`` (~sqrt(max_steps)) steps, each
+    recomputed in the backward (O(sqrt(steps)) memory).  Gradients reach
+    the metric's parameters, ``x0``, ``p0`` and a tensor ``far_r0``.  The
+    JAX package's scan always runs every segment; once every ray has ended
+    the rest are identity maps, so this one stops there."""
+    if segment is None:
+        segment = max(1, int(math.sqrt(max_steps)))
+    n_seg = -(-max_steps // segment)
+    dt = torch.as_tensor(dt, dtype=x0.dtype, device=x0.device)
+    far_r0 = torch.as_tensor(1e30 if far_r0 is None else far_r0,
+                             dtype=x0.dtype, device=x0.device)
+    cfg = (dt, segment, max_steps, escape_radius, capture_radius, axis_u0)
+    fields = tuple(getattr(metric, k) for k in metric.fields)
+    x, p = x0, p0
+    sign = torch.zeros(x0.shape[:-1], dtype=torch.int32, device=x0.device)
+    steps = torch.zeros_like(sign)
+    for _ in range(n_seg):
+        if not bool(((sign == 0) & (steps < max_steps)).any()):
+            break
+        x, p, sign, steps = _ScanSegment.apply(metric, cfg, x, p, sign,
+                                               steps, far_r0, *fields)
+    return HamiltonianResult(x, p, sign, steps)

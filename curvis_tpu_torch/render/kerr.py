@@ -30,8 +30,25 @@ Routes, by the stepper and the device of the inputs:
   runs the Pallas kernel in interpret mode there; it has no twin for
   them).
 
-The differentiable backends ``'scan'`` / ``'adjoint'`` and ``disk_theta=``
-raise NotImplementedError naming their ROADMAP item, with either stepper.
+The differentiable backends run the bare march (no disk), with either
+stepper, and give exact discrete gradients with respect to the metric's
+parameters (m, a, q), the camera pose and so ``x0`` and ``p0``:
+
+- ``backend='adjoint'``: RK4 through ``integrate/kerr_adjoint.py:
+  march_kerr_adjoint`` (kernel #7 forward and the checkpoint kernels #9 /
+  #10's Kerr RK4 family backward on CUDA tensors, the twin pair on CPU
+  tensors), DP5(4) through ``integrate/rk45_adjoint.py:
+  march_kerr_rk45_adjoint`` (kernel #8 forward and the Kerr DP5(4) family
+  backward on CUDA tensors, the twin pair on CPU tensors);
+- ``backend='scan'``: RK4 through ``physics/hamiltonian.py:
+  march_hamiltonian_scan`` (the autodiff RHS under a checkpointed scan),
+  DP5(4) through ``march_kerr_rk45_adjoint(backend='twin')``, plain
+  PyTorch on any device, as the JAX package's scans are plain XLA.
+
+Captured and blown-up rays keep the spawn-state substitution of
+``_kerr_shade``.  With a disk, and with ``disk_theta=``, the
+differentiable routes are the Kerr surface adjoints and raise
+NotImplementedError naming ROADMAP Queue 1 item 3.
 """
 from __future__ import annotations
 
@@ -42,7 +59,9 @@ import torch
 from curvis_tpu_torch.camera.camera import Camera, aberrate_directions
 from curvis_tpu_torch.env.spherical_image import SphericalImage, filter_lookup
 from curvis_tpu_torch.geometry.rotations import frame_matrix
+from curvis_tpu_torch.integrate.kerr_adjoint import march_kerr_adjoint
 from curvis_tpu_torch.integrate.rk45 import march_kerr_rk45
+from curvis_tpu_torch.integrate.rk45_adjoint import march_kerr_rk45_adjoint
 from curvis_tpu_torch.ops.disk_vol_cuda import scatter_source_plain
 from curvis_tpu_torch.ops.kerr_cuda import march_kerr_cuda
 from curvis_tpu_torch.ops.kerr_rk45_cuda import march_kerr_rk45_cuda
@@ -59,19 +78,23 @@ from curvis_tpu_torch.render.starlight import (starlight_lookup,
 from curvis_tpu_torch.utils.device import common_device
 
 
-def check_kerr_route(stepper="rk4", backend="auto", disk_theta=None):
+def check_kerr_route(stepper="rk4", backend="auto", disk_theta=None,
+                     disk=None):
     """Raise for the options of the Kerr routes the port does not run yet
-    (NotImplementedError naming the ROADMAP item) or does not know."""
+    (NotImplementedError naming the ROADMAP item) or does not know.  The
+    differentiable backends run the bare march; with a disk, and with
+    ``disk_theta``, they are the Kerr surface adjoints."""
     if stepper not in ("rk4", "rk45"):
         raise ValueError(f"the Kerr routes march with stepper='rk4' or "
                          f"'rk45', got {stepper!r}")
-    if backend in ("scan", "adjoint"):
+    if backend not in ("auto", "scan", "adjoint"):
+        raise ValueError(f"unknown backend {backend!r}: 'auto' (the march "
+                         "by the device of the inputs), 'scan' or "
+                         "'adjoint'")
+    if backend != "auto" and disk is not None:
         raise NotImplementedError(
-            f"backend={backend!r}: Kerr gradients (integrate/kerr_adjoint.py"
-            ", kerr_surface_adjoint.py) are ROADMAP Queue 1 item 3")
-    if backend != "auto":
-        raise ValueError(f"unknown backend {backend!r}: the port picks the "
-                         "march by the device of the inputs ('auto')")
+            f"backend={backend!r} with a disk: the Kerr surface adjoints "
+            "(integrate/kerr_surface_adjoint.py) are ROADMAP Queue 1 item 3")
     if disk_theta:
         raise NotImplementedError(
             "disk_theta (traced disk parameters) comes with the Kerr surface "
@@ -285,14 +308,34 @@ def _asymptotic_dirs(metric, x, p):
 
 
 def _march(metric, x0, p0, *, disk, scatter_block, stepper, rtol, dt,
-           max_steps, escape_radius, far_r0):
+           max_steps, escape_radius, far_r0, backend="auto"):
     """The march of a render route -> (x, p, sign, tau, em, h1, h2), unused
     parts None.  RK4: kernel #7 on a GPU, the autodiff twins on the CPU.
     rk45: kernel #8 on a GPU; on the CPU the autodiff twin for the bare
-    march and kernel #8's plain version for the disk and volumetric ones."""
+    march and kernel #8's plain version for the disk and volumetric ones.
+    The differentiable bare marches: ``'scan'`` the checkpointed autodiff
+    RK4 scan or the DP5(4) twin pair on any device, ``'adjoint'`` kernels
+    #7 / #8 forward and the checkpoint kernels backward on a GPU, the twin
+    pairs on the CPU."""
     vol = disk is not None and disk.volumetric
     gpu = x0.device.type != "cpu"
     tau = em = h1 = h2 = None
+    if backend != "auto":
+        if stepper == "rk45":
+            x, p, sign, _ = march_kerr_rk45_adjoint(
+                metric, x0, p0, dt0=dt, max_steps=max_steps,
+                escape_radius=escape_radius, rtol=rtol, atol=rtol * 1e-3,
+                backend="twin" if backend == "scan" else "auto")
+        elif backend == "scan":
+            x, p, sign, _ = ham.march_hamiltonian_scan(
+                metric, x0, p0, dt=dt, max_steps=max_steps,
+                escape_radius=escape_radius,
+                capture_radius=metric.capture_radius, far_r0=far_r0)
+        else:
+            x, p, sign, _ = march_kerr_adjoint(
+                metric, x0, p0, dt=dt, max_steps=max_steps,
+                escape_radius=escape_radius, far_r0=far_r0)
+        return x, p, sign, tau, em, h1, h2
     if stepper == "rk45":
         kw = dict(dt0=dt, max_steps=max_steps, escape_radius=escape_radius,
                   rtol=rtol, atol=rtol * 1e-3)
@@ -338,7 +381,8 @@ def _march(metric, x0, p0, *, disk, scatter_block, stepper, rtol, dt,
 
 def _kerr_march_and_shade(metric, x0, p0, bg, dt, *, max_steps,
                           escape_radius, disk, filtering, far_accel=True,
-                          stepper="rk4", rtol=1e-4, starlight_map=None):
+                          stepper="rk4", rtol=1e-4, starlight_map=None,
+                          backend="auto"):
     """March an (N,)-ray BL bundle and shade it -> (N, 3) colours; shared by
     the single-frame, frames-batched and adaptive renderers."""
     scatter_block = None
@@ -352,7 +396,8 @@ def _kerr_march_and_shade(metric, x0, p0, bg, dt, *, max_steps,
     x, p, sign, tau, em, h1, h2 = _march(
         metric, x0, p0, disk=disk, scatter_block=scatter_block,
         stepper=stepper, rtol=rtol, dt=dt, max_steps=max_steps,
-        escape_radius=escape_radius, far_r0=_far_r0(metric, disk, far_accel))
+        escape_radius=escape_radius, far_r0=_far_r0(metric, disk, far_accel),
+        backend=backend)
     return _kerr_shade(metric, x0, p0, bg, x, p, sign, disk, filtering, tau,
                        em, h1, h2, starlight_map,
                        scatter=scatter_block is not None)
@@ -430,7 +475,7 @@ def render_kerr(metric, camera: Camera, bg: SphericalImage, *, dt=0.1,
     ``stepper='rk45'`` marches with error control ``rtol`` (``dt`` the
     initial step, ``max_steps`` accepted steps) through kernel #8 (module
     docstring)."""
-    check_kerr_route(stepper, backend, disk_theta)
+    check_kerr_route(stepper, backend, disk_theta, disk)
     common_device(metric, camera, bg)
     return _render_kerr_impl(metric, camera, bg, dt, max_steps=max_steps,
                              escape_radius=escape_radius, disk=disk,
@@ -438,12 +483,13 @@ def render_kerr(metric, camera: Camera, bg: SphericalImage, *, dt=0.1,
                              camera_velocity=_velocity(camera_velocity,
                                                        camera),
                              far_accel=far_accel, stepper=stepper, rtol=rtol,
-                             starlight_map=starlight_map)
+                             starlight_map=starlight_map, backend=backend)
 
 
 def _render_kerr_impl(metric, camera, bg, dt, *, max_steps, escape_radius,
                       disk, filtering, camera_velocity=None, far_accel=True,
-                      stepper="rk4", rtol=1e-4, starlight_map=None):
+                      stepper="rk4", rtol=1e-4, starlight_map=None,
+                      backend="auto"):
     if escape_radius is None:
         escape_radius = 2.0 * camera.position[1]
     x0, p0, delta = _spawn_kerr_rays(metric, camera, camera_velocity)
@@ -452,7 +498,8 @@ def _render_kerr_impl(metric, camera, bg, dt, *, max_steps, escape_radius,
                                    escape_radius=escape_radius, disk=disk,
                                    filtering=filtering, far_accel=far_accel,
                                    stepper=stepper, rtol=rtol,
-                                   starlight_map=starlight_map)
+                                   starlight_map=starlight_map,
+                                   backend=backend)
     colors = _doppler_boost(colors, delta)
     W, H = camera.resolution_x, camera.resolution_y
     return colors.reshape(W, H, 3).permute(1, 0, 2)
@@ -469,7 +516,7 @@ def render_kerr_frames_batched(metric, cameras, bg: SphericalImage, *,
     stage is per ray, so the frames' bundles concatenate (the cameras must
     share a resolution).  ``escape_radius=None`` is twice the largest
     camera radius; ``camera_velocities``: (F, 3) or None."""
-    check_kerr_route(stepper, backend, disk_theta)
+    check_kerr_route(stepper, backend, disk_theta, disk)
     cams = list(cameras)
     W, H = cams[0].resolution_x, cams[0].resolution_y
     if any((c.resolution_x, c.resolution_y) != (W, H) for c in cams):
@@ -493,7 +540,8 @@ def render_kerr_frames_batched(metric, cameras, bg: SphericalImage, *,
                                    escape_radius=escape_radius, disk=disk,
                                    filtering=filtering, far_accel=far_accel,
                                    stepper=stepper, rtol=rtol,
-                                   starlight_map=starlight_map)
+                                   starlight_map=starlight_map,
+                                   backend=backend)
     if camera_velocities is not None:
         colors = _doppler_boost(colors, torch.cat([b[2] for b in bundles]))
     return colors.reshape(F, W, H, 3).permute(0, 2, 1, 3)
@@ -511,14 +559,14 @@ def render_kerr_adaptive(metric, camera: Camera, bg: SphericalImage, *,
     sub-rays (k = ``supersample``) for the ``refine_frac`` highest-contrast
     pixels only, marched as one second bundle; each refined pixel becomes
     the mean of its sub-rays."""
-    check_kerr_route(stepper, backend, disk_theta)
+    check_kerr_route(stepper, backend, disk_theta, disk)
     common_device(metric, camera, bg)
     W, H = camera.resolution_x, camera.resolution_y
     n_refine = max(1, int(refine_frac * W * H))
     velocity = _velocity(camera_velocity, camera)
     kw = dict(max_steps=max_steps, disk=disk, filtering=filtering,
               far_accel=far_accel, stepper=stepper, rtol=rtol,
-              starlight_map=starlight_map)
+              starlight_map=starlight_map, backend=backend)
     base = _render_kerr_impl(metric, camera, bg, dt,
                              escape_radius=escape_radius,
                              camera_velocity=velocity, **kw)

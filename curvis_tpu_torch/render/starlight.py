@@ -242,8 +242,10 @@ def compute_kerr_starlight_map(
     march_kerr_disk`` on the CPU; ``stepper='rk45'`` (error control
     ``rtol``, ``dt`` the initial step) is kernel #8 with its disk tracker,
     or its plain version on the CPU (the JAX package runs that kernel in
-    interpret mode off the TPU).  Camera-independent: compute once per
-    (metric, sky, disk) and pass to every frame."""
+    interpret mode off the TPU).  ``backend='scan'`` or ``'adjoint'``
+    marches the same way, without gradients through the march, as the JAX
+    package's map does.  Camera-independent: compute once per (metric,
+    sky, disk) and pass to every frame."""
     from curvis_tpu_torch.render import kerr as rk
     rk.check_kerr_route(stepper, backend)
     tex = bg.texture

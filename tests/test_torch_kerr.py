@@ -539,6 +539,12 @@ def test_cli_kerr_image_matches_jax_cli(kerr_scene):
 
 
 def test_unported_kerr_options_raise():
+    """The differentiable backends run the bare march with either stepper
+    (their gradients: tests/test_torch_kerr_adjoint.py,
+    test_torch_kerr_rk45_adjoint.py); with a disk, a volumetric disk or
+    disk_theta they are the Kerr surface adjoints and raise naming ROADMAP
+    Queue 1 item 3; the starlight map marches without gradients under
+    either backend."""
     _, tm = _metric_pair("kerr")
     _, tb = _sky()
     _, tc = _camera_pair(res=(4, 2))
@@ -546,20 +552,27 @@ def test_unported_kerr_options_raise():
     calls = (lambda **k: trk.render_kerr(tm, tc, tb, **k),
              lambda **k: trk.render_kerr_frames_batched(tm, [tc], tb, **k),
              lambda **k: trk.render_kerr_adaptive(tm, tc, tb, **k))
+    thin, gas = DiskParams(**_THIN), DiskParams(**_GAS)
     for call in calls:
         for stepper in ("rk4", "rk45"):
             for backend in ("scan", "adjoint"):
-                with pytest.raises(NotImplementedError,
-                                   match="Queue 1 item 3"):
-                    call(stepper=stepper, backend=backend, **kw)
+                img = call(stepper=stepper, backend=backend, **kw)
+                assert bool(torch.isfinite(img).all())
+                for disk in (thin, gas):
+                    with pytest.raises(NotImplementedError,
+                                       match="Queue 1 item 3"):
+                        call(stepper=stepper, backend=backend, disk=disk,
+                             **kw)
             with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
                 call(stepper=stepper, disk_theta={"kappa": torch.tensor(2.0)},
                      **kw)
         with pytest.raises(ValueError, match="backend"):
             call(backend="pallas", **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ts.compute_kerr_starlight_map(tm, tb, r_inner=3.0, r_outer=9.0,
-                                      stepper="rk45", backend="adjoint", **kw)
+    for backend in ("scan", "adjoint"):
+        smap = ts.compute_kerr_starlight_map(
+            tm, tb, r_inner=3.0, r_outer=9.0, stepper="rk45",
+            backend=backend, n_r=4, n_phi=8, n_samples=8, **kw)
+        assert bool(torch.isfinite(smap.values).all())
     with pytest.raises(ValueError, match="OR vol_disk"):
         kerr_cuda.kerr_scalars(tm, 0.1, 30.0, disk=(3.0, 9.0),
                                vol_disk=DiskParams(volumetric=True))
