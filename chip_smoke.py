@@ -149,11 +149,12 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      the kernels;
  23. the Kerr RK4 and DP5(4) families of the checkpoint kernels #9 / #10
      (csrc/ckpt_kerr.cu, csrc/ckpt_kerr_rk45.cu) against their plain
-     versions: RK4 on the bare 960 x 540 view of phase 13 capped at 640
+     versions: RK4 on the bare 960 x 540 view of phase 13 capped at 320
      steps, Kerr-Newman (q 0.6) at 256^2 and 16 NaN rays (sign 3, zero
-     lam) capped at 320; DP5(4) at rtol 1e-4 on the bare view, frozen at
-     256^2, Kerr-Newman at 256^2, a max_iters of 16 most rays reach, 16
-     NaN rays; gen's final state bit for bit against #7 / #8 on every ray
+     lam) capped at 160; DP5(4) at rtol 1e-4 on the bare view, frozen at
+     256^2, Kerr-Newman at 256^2 and 16 NaN rays capped at 48 iterations,
+     a max_iters of 16 most rays reach; gen's final state bit for bit
+     against #7 / #8 on every ray
      (one step source, one set of flags), checkpoints equal, lam and
      g_theta within rtol 1e-3, the ray-summed metric slots;
  24. the Kerr gradients at full width: one render_kerr(backend='adjoint')
@@ -168,7 +169,28 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      falling every step; render_kerr(backend='scan') on that view at
      128^2 for each stepper (the plain-PyTorch routes: RK4 through
      march_hamiltonian_scan, DP5(4) through the twin pair), its image and
-     d / da against the adjoint's, and no kernel launched.
+     d / da against the adjoint's, and no kernel launched;
+ 25. the Kerr surface families of the checkpoint kernels #9 / #10
+     (csrc/ckpt_kerr_surface.cu, csrc/ckpt_kerr_surface_rk45.cu) against
+     their plain versions: RK4 on the thin disk of the 960 x 540 view
+     capped at 400 steps, the gas tint, blackbody + beaming and blackbody +
+     beaming + a seeded scatter block at 128^2 capped at 150, 16 NaN rays
+     in the thin disk (sign 3, zero lam and g_theta); DP5(4) at rtol 1e-4
+     on the same families (the thin disk at 480 x 270 capped at 96
+     iterations, the gas at 40; frozen twice); gen's final state (hits,
+     tau, emission) bit for bit
+     against #7 / #8 on every ray, checkpoints equal, lam and g_theta within
+     rtol 1e-3, the ray-summed theta rows;
+ 26. the Kerr surface gradients at full width: one render_kerr(disk=...,
+     backend='adjoint', disk_theta=...) loss-and-gradient step at 960 x 540
+     on the thin disk and the gas, RK4 and rk45, each image equal to the
+     backend='auto' render, #7 or #8 and the surface pair launched once,
+     the time split and the checkpoint buffer; d / da, d / dr_in and d /
+     dkappa against central differences over the pixel channels in the
+     linear regime; two descent steps on examples/disk_image_recovery.py's
+     view with the loss falling; backend='scan' against the adjoint at
+     48^2 on the gas, each stepper (black sky, outside the grown shadow;
+     rk45's float32 d/da printed, not gated), with no kernel launched.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -360,7 +382,8 @@ SURF_FD_LIN = 0.1          # a pixel channel whose second difference at
                            # the CD step exceeds this share of its first
                            # is not in the linear regime there
 SURF_FD_KEEP = 0.9         # least share of pixel channels in that regime
-SURF_FD_TOL = dict(brightness=0.01, kappa=0.05, m=0.05)
+SURF_FD_TOL = dict(brightness=0.01, kappa=0.05, m=0.05, a=0.05,
+                   r_inner=0.05)
 SURF_TRAIN = dict(iters=5, lr=0.15, start=1.3)   # kappa from 30 % off
 # The planar rk45 gradients (the rk45 checkpoint kernels, csrc/ckpt_rk45.cu
 # and csrc/ckpt_surface_rk45.cu): segments of 16 iterations (the JAX
@@ -402,9 +425,12 @@ FLOP_RK45_SURF_VJP = dict(track=40, vol=150)
 # steps, DP5(4) in segments of 16 iterations (the JAX package's
 # _PALLAS_SEG of each).
 KERR_SEG = {"rk4": 32, "rk45": 16}
-KERR_CKPT_CAP = 640        # step cap of the RK4 kernel-vs-plain checks: the
-                           # plain pair takes ~12 ms a step at 960 x 540
-                           # (the view's rays take ~320 on average)
+KERR_CKPT_CAP = 320        # step cap of the RK4 kernel-vs-plain checks: the
+                           # plain pair takes ~30 ms a step at 960 x 540
+                           # (the view's rays take ~310 on average; 640
+                           # until the Kerr surface phases needed the time)
+KERR_CKPT_ITERS = 48       # and the iteration cap of the 256^2 DP5(4) ones
+                           # (their longest rays took ~100 iterations)
 KERR_ADJ_ITERS = 16        # a max_iters most rays of the 256^2 rk45 view
                            # reach (~25 iterations on average)
 # The VJPs' reverse work (csrc/kerr_vjp.cuh; an FMA counts as two, a
@@ -436,6 +462,49 @@ SPIN_DESCENT = dict(steps=4, start=0.6, target=0.85, gain=2e2, cap=0.08)
 SCAN_IMG_TOL = 1e-3
 SCAN_IMG_FRAC = 0.999
 SCAN_GRAD_RTOL = dict(rk4=1e-3, rk45=1e-2)
+# The Kerr surface gradients (the checkpoint kernels' Kerr surface families,
+# csrc/ckpt_kerr_surface.cu and csrc/ckpt_kerr_surface_rk45.cu) on the thin
+# disk KERR_BAND and the gas KERR_VOL of phases 13-16.  Their plain pairs
+# take ~50 ms a step or iteration at any ray count up to the path's
+# 518 400 (launch bound), so the kernel-vs-plain cases run on the path's
+# 960 x 540 views capped in steps or iterations, not in rays: the thin
+# view at KERR_SURF_CAP (a fifth of its rays cross the band by then; ~500
+# RK4 steps to escape; the clamps near the disk hold dt0, so DP5(4) takes
+# ~140-190 iterations), the gas view at KERR_SURF_GAS (the gas lit on
+# ~45-75 % of its rays), the NaN rays at KERR_SURF_NAN (they end in the
+# first steps).
+KERR_SURF_CAP = dict(rk4=400, rk45=96)
+KERR_SURF_GAS = dict(rk4=150, rk45=40)
+KERR_SURF_NAN = dict(rk4=64, rk45=24)
+KERR_SURF_BLOCK = 0.3      # scale of the seeded scatter block of phase 25
+# The surfaces' reverse work (csrc/kerr_surface_vjp.cuh; an FMA counts as
+# two, a division, sin, cos, exp, log or sqrt as one), beside the RHS and
+# stage VJPs of FLOP_KERR_VJP / FLOP_KERR_RK45_VJP: the hit's (the crossing
+# fraction, the two mixes, cos theta's chain) 30, counted on every step;
+# the emission's geometry head, transmittance, edges and density 150, its
+# beaming g 80, the colour tails as the planar FLOP_SURF_VOL_VJP (tint 20,
+# blackbody 90, scatter 100), and DP5(4)'s gas-slab clamp 30.
+FLOP_KERR_SURF_VJP = dict(hit=30, vol=150, beaming=80, tint=20,
+                          blackbody=90, scatter=100, clamp=30)
+KERR_SURF_FD = dict(a=1e-3, kappa=0.05, r_inner=0.02)   # relative CD steps
+KERR_FD_RING = 0.02        # the shadow grown by this share of the image
+                           # width: rays that skim the photon sphere move
+                           # their hits and gas paths exponentially in a,
+                           # so the central difference of a 2 % step in a
+                           # missed d/da by 40 % at 960 x 540 (and, float64
+                           # on the CPU, 25 % at 192 x 108 even at 0.1 %,
+                           # 0.1 % with the grown shadow left out)
+KERR_SCAN_RES = 48         # side of the backend='scan' checks on the card,
+KERR_SCAN_STEPS = dict(rk4=160, rk45=60)   # and their step caps: the scan
+                           # is launch-bound (~0.13 s an RK4 step: 114 s for
+                           # the thin view's full 1 821), and capped rays
+                           # compare as well as escaped ones (sign 0 is a
+                           # smooth fate); the gas is lit by then
+# examples/disk_image_recovery.py's view (96 x 54, r = 18, theta = pi/2 -
+# 0.4, its gas disk and knobs): two descent steps on (a, r_in, r_out) from
+# its init towards its truth, each knob moved by this share of its value
+# against its gradient's sign
+KERR_DESCENT = dict(steps=2, rel=0.02)
 
 
 def require(ok, what):
@@ -4081,8 +4150,9 @@ def phase23_kerr_ckpt():
     csrc/ckpt_kerr_rk45.cu) against their plain versions: RK4 on the bare
     960 x 540 view capped at KERR_CKPT_CAP steps, Kerr-Newman (q 0.6) and
     16 NaN rays at 256^2 capped at half that; DP5(4) at rtol 1e-4 on the
-    bare view, frozen at 256^2, Kerr-Newman at 256^2, a max_iters most
-    rays reach, 16 NaN rays."""
+    bare view, frozen at 256^2, Kerr-Newman at 256^2 and 16 NaN rays (these
+    three capped at KERR_CKPT_ITERS iterations), a max_iters most rays
+    reach."""
     import torch
     from curvis_tpu_torch.metrics.kerr import make_kerr, make_kerr_newman
     from curvis_tpu_torch.ops import kerr_cuda as kc
@@ -4108,13 +4178,15 @@ def phase23_kerr_ckpt():
          N_POISON, False),
         (f"rk45 bare {res} (the path's view)", "rk45", kerr, full, None, 0,
          False),
-        (f"rk45 bare {SMALL}^2", "rk45", kerr, small, None, 0, True),
-        (f"rk45 kerr-newman q 0.6 {SMALL}^2", "rk45", kn, small, None, 0,
-         False),
+        (f"rk45 bare {SMALL}^2, max_iters {KERR_CKPT_ITERS}", "rk45", kerr,
+         small, KERR_CKPT_ITERS, 0, True),
+        (f"rk45 kerr-newman q 0.6 {SMALL}^2, max_iters {KERR_CKPT_ITERS}",
+         "rk45", kn, small, KERR_CKPT_ITERS, 0, False),
         (f"rk45 bare {SMALL}^2, max_iters {KERR_ADJ_ITERS}", "rk45", kerr,
          small, KERR_ADJ_ITERS, 0, True),
-        (f"rk45 bare {SMALL}^2 with {N_POISON} NaN rays", "rk45", kerr,
-         small, None, N_POISON, False),
+        (f"rk45 bare {SMALL}^2 with {N_POISON} NaN rays, max_iters "
+         f"{KERR_CKPT_ITERS}", "rk45", kerr, small, KERR_CKPT_ITERS,
+         N_POISON, False),
     ]
     for k, (label, family, metric, cam, cap, n_nan, freeze) in enumerate(
             cases):
@@ -4136,7 +4208,7 @@ def phase23_kerr_ckpt():
                              max_iters=mi)
         nums = kerr_family_vs_plain(label, family, scal, ins, fwd,
                                     seed=230 + k, freeze=freeze)
-        if family == "rk45" and cap is not None:
+        if family == "rk45" and cap == KERR_ADJ_ITERS:
             at = (fwd[-1] == cap).double().mean().item()
             print(f"[23]   {at:.4f} of rays ran to max_iters = {cap}")
             require(at > 0.5, f"{label}: only {at} at max_iters")
@@ -4507,6 +4579,610 @@ def phase24_kerr_paths(bright):
     return total
 
 
+def kerr_surf_flops(family, flags, counts, accepted=None):
+    """FP32 operations of gen (one march) and bwd (its re-march once and the
+    VJP) of a Kerr surface family over ``counts`` steps (RK4) or
+    iterations (DP5(4), of which ``accepted`` were accepted)."""
+    mflags = (flags is None, flags is not None) + (flags or (False,) * 3)
+    F = FLOP_KERR_SURF_VJP
+    vjp = F["hit"] if flags is None else (
+        F["vol"] + (F["beaming"] if flags[1] else 0)
+        + F["blackbody" if flags[0] else "tint"]
+        + (F["scatter"] if flags[2] else 0))
+    if family == "rk4":
+        gen = kerr_flops(mflags) * counts
+        return gen, gen + (FLOP_KERR_VJP + vjp) * counts
+    gen = kerr_rk45_flops(mflags, counts, accepted)
+    clamp = F["clamp"] if flags is not None else 0
+    return gen, gen + (FLOP_KERR_RK45_VJP + clamp) * counts + vjp * accepted
+
+
+def kerr_surface_vs_plain(label, family, flags, scal, ins, fwd, seed,
+                          freeze=False):
+    """Kernels #9 / #10's Kerr surface family (``family`` 'rk4' or 'rk45',
+    ``flags`` None for the thin disk, else the gas's (blackbody, beaming,
+    scatter)) against their plain versions on the forward kernel's outputs
+    ``fwd`` (#7's or #8's surface variant) for the rays ``ins`` (r, theta,
+    phi, p_r, p_theta, E, L): gen's final state (the five, then the hits or
+    tau and emission) bit for bit against the forward kernel on every ray,
+    then the checkpoints, lam and g_theta with the Function's fate policy
+    (state cotangents for signs 0 and 1, the surface's for every sign but
+    3)."""
+    import numpy as np
+    import torch
+    from curvis_tpu_torch.ops import ckpt_kerr_surface_cuda as cks
+    seg = cks.SEG[family]
+    y0, E, L = ins[:5], ins[5], ins[6]
+    sign = fwd[5]
+    full = fwd[-1] if family == "rk45" else fwd[6]
+    n = E.numel()
+    ns, nt = cks.n_state(family, flags), cks.n_theta(flags)
+    lead = 5 + (family == "rk45") + (flags is None)   # the surface's rows
+    n_ex = ns - lead
+
+    def gen(cnt, off, tot):
+        return cks.launch_gen(family, flags, scal, y0, E, L, cnt, seg=seg,
+                              offsets=off, total=tot)
+
+    def bwd(ckpt, cnt, cot, off):
+        return cks.launch_bwd(family, flags, scal, ckpt, E, L, cnt, cot,
+                              seg=seg, offsets=off, freeze=freeze)
+
+    # gen replays every ray's steps: its final state is the forward's
+    off_all, tot_all = cks.segment_offsets(full, seg)
+    _, fin = gen(full, off_all, tot_all)
+    ne = torch.zeros(n, dtype=torch.bool, device=E.device)
+    for c in range(5):
+        ne |= bits_differ(fin[c], fwd[c])
+    for k in range(n_ex):
+        ne |= bits_differ(fin[lead + k], fwd[7 + k])
+    fin_ne = int(ne.sum())
+    # the Function's fate policy
+    smooth = (sign == 0) | (sign == 1)
+    replay = sign != 3
+    counts = torch.where(replay, full, torch.zeros_like(full))
+    cot = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (ns, n)).astype(np.float32)).to(DEVICE)
+    cot[:5] = torch.where(smooth, cot[:5], torch.zeros_like(cot[:5]))
+    cot[5:lead] = 0.0                       # dt and ct_prev: no cotangent
+    cot[lead:] = torch.where(replay, cot[lead:], torch.zeros_like(cot[lead:]))
+    cot = cot.contiguous()
+    off, total = cks.segment_offsets(counts, seg)
+    ck_k, _ = gen(counts, off, total)
+    g_k, lam_k = bwd(ck_k, counts, cot, off)
+    sync()
+    t0 = time.perf_counter()
+    ck_p, _ = cks.ckpt_kerr_surface_gen_plain(family, flags, scal, y0, E, L,
+                                              counts, seg=seg, offsets=off,
+                                              total=total)
+    sync()
+    t1 = time.perf_counter()
+    g_p, lam_p = cks.ckpt_kerr_surface_bwd_plain(
+        family, flags, scal, ck_p, E, L, counts, cot, seg=seg, offsets=off,
+        freeze=freeze)
+    sync()
+    gen_plain_ms = 1e3 * (t1 - t0)
+    bwd_plain_ms = 1e3 * (time.perf_counter() - t1)
+    gen_ms = cuda_ms(lambda: gen(counts, off, total), 3)
+    bwd_ms = cuda_ms(lambda: bwd(ck_k, counts, cot, off), 3)
+    ck_ne = int((ck_k[:total] != ck_p).any(dim=1).sum()) if total else 0
+    ck_err = float((ck_k[:total] - ck_p).abs().max()) if total else 0.0
+    lam_frac, lam_err = entry_fraction(lam_k, lam_p)
+    g_rows = [r for r in range(nt) if bool((g_p[r] != 0).any())]
+    g_frac, g_err = entry_fraction(g_k[g_rows], g_p[g_rows])
+    sums = []
+    for r in [0, 1, 2] + list(range(5, nt)):
+        sk, sp = g_k[r].double().sum().item(), g_p[r].double().sum().item()
+        if sp != 0.0 or sk != 0.0:
+            sums.append((r, sk, sp, abs(sk - sp) / max(abs(sp), 1e-300)))
+    tot_steps = counts.double().sum().item()
+    accepted = torch.where(replay, fwd[6], torch.zeros_like(fwd[6]))
+    acc_steps = accepted.double().sum().item()
+    segs = (-(-counts.long() // seg)).double().sum().item()
+    signs = {s_: int((sign == s_).sum()) for s_ in range(4)}
+    what = "iterations" if family == "rk45" else "steps"
+    print(f"[25] {label}{' (freeze)' if freeze else ''}: {n} rays, signs "
+          f"{signs}, replayed {what} mean / max {tot_steps / n:.1f} / "
+          f"{int(counts.max())}, {total} checkpoint rows "
+          f"({total * ns * 4 / 2**20:.1f} MiB)")
+    print(f"[25]   gen's final state (every ray, its full {what}) == the "
+          f"forward kernel's: {fin_ne} of {n} rays differ in a bit (bound "
+          f"0); checkpoints == plain gen's on {total - ck_ne} of {total} "
+          f"rows, max |d| {ck_err:.3e}")
+    print(f"[25]   within rtol {GRAD_RTOL}: lam {lam_frac:.6f}, g_theta "
+          f"{g_frac:.6f} of entries (bound >= {RK45_GRAD_FRAC_MIN}); max "
+          f"|d| lam {lam_err:.3e}, g {g_err:.3e}")
+    worst = max(sums, key=lambda t: t[3]) if sums else None
+    if worst is not None:
+        print(f"[25]   ray sums of {len(sums)} g_theta rows: worst row "
+              f"{worst[0]}: kernel {worst[1]:.9e}, plain {worst[2]:.9e}, "
+              f"rel {worst[3]:.3e} (bound {GRAD_RTOL})")
+    print(f"[25]   gen {gen_ms:.3f} ms (plain {gen_plain_ms:.1f} ms), bwd "
+          f"{bwd_ms:.3f} ms (plain {bwd_plain_ms:.1f} ms)")
+    require(fin_ne == 0, f"kerr surface ckpt {label}: gen's final state "
+            f"differs from the forward kernel on {fin_ne} rays")
+    require(ck_ne == 0, f"kerr surface ckpt {label}: {ck_ne} checkpoint "
+            f"rows differ from the plain gen's")
+    require(lam_frac >= RK45_GRAD_FRAC_MIN,
+            f"kerr surface ckpt {label}: lam {lam_frac}")
+    require(g_frac >= RK45_GRAD_FRAC_MIN,
+            f"kerr surface ckpt {label}: g {g_frac}")
+    for r, sk, sp, rel in sums:
+        require(rel <= GRAD_RTOL, f"kerr surface ckpt {label}: sum "
+                f"g_theta[{r}] {sk} vs {sp}")
+    require(all(bool(torch.isfinite(t).all()) for t in (lam_k, g_k)),
+            f"kerr surface ckpt {label}: non-finite output")
+    gen_f, bwd_f = kerr_surf_flops(family, flags, tot_steps, acc_steps)
+    # gen reads 7 floats, the count and the offset a ray and writes ns
+    # floats a segment and the final state; bwd reads the segments, E, L,
+    # the count, the offset and the cotangent, and writes lam and g
+    gen_b = bound(40 * n + 4 * ns * (segs + n), gen_f)
+    bwd_b = bound(4 * ns * segs + 20 * n + 4 * (2 * ns + nt) * n, bwd_f)
+    print(f"[25]   bound gen {gen_b[0]:.3f} ms ({gen_b[1]}), bwd "
+          f"{bwd_b[0]:.3f} ms ({bwd_b[1]})")
+    return dict(gen=dict(max_abs_err=ck_err, ms=gen_ms,
+                         plain_ms=gen_plain_ms, bound_ms=gen_b[0],
+                         bound_by=gen_b[1]),
+                bwd=dict(max_abs_err=max(lam_err, g_err), ms=bwd_ms,
+                         plain_ms=bwd_plain_ms, bound_ms=bwd_b[0],
+                         bound_by=bwd_b[1]),
+                lam=lam_k, g=g_k, sign=sign)
+
+
+def kerr_surface_disks():
+    """The thin disk and the gas of the Kerr path (phase 14), and the gas
+    with a tint and no beaming."""
+    import dataclasses
+    from curvis_tpu_torch.render.disk import DiskParams
+    band = dict(r_inner=KERR_BAND[0], r_outer=KERR_BAND[1])
+    thin = DiskParams(**band, doppler=True, color_mode="blackbody",
+                      t_peak=7000.0, brightness=14.0)
+    gas = DiskParams(**band, volumetric=True, h_rel=0.07, kappa=3.0,
+                     doppler=True, color_mode="blackbody", t_peak=6500.0,
+                     brightness=14.0)
+    tint = dataclasses.replace(gas, color_mode="tint", redshift=False,
+                               doppler=False, brightness=3.0)
+    return thin, gas, tint
+
+
+def phase25_kerr_surface_ckpt():
+    """Kernels #9 / #10's Kerr surface families (csrc/ckpt_kerr_surface.cu,
+    csrc/ckpt_kerr_surface_rk45.cu) against their plain versions on the
+    inputs of phase 26's paths: the thin disk on the path's 960 x 540 view
+    (RK4, and DP5(4) at rtol 1e-4) capped at KERR_SURF_CAP; the gas on its
+    960 x 540 view (tint, blackbody + beaming, and blackbody + beaming + a
+    seeded scatter block; DP5(4) frozen once) capped at KERR_SURF_GAS; and
+    16 NaN rays (sign 3, zero lam and g_theta) in the thin disk at
+    GRAD_RES^2.  The kernels line takes each family's thin case."""
+    import numpy as np
+    import torch
+    from curvis_tpu_torch.metrics.kerr import make_kerr
+    from curvis_tpu_torch.ops import kerr_cuda as kc
+    from curvis_tpu_torch.ops import kerr_rk45_cuda as k45
+    from curvis_tpu_torch.render import kerr as rk
+    t_start = time.perf_counter()
+    kerr = make_kerr(1.0, KERR_A, device=DEVICE)
+    thin, gas, tint = kerr_surface_disks()
+    V = KERR_VOL
+    block = torch.from_numpy(KERR_SURF_BLOCK * np.random.default_rng(
+        25).random(27).astype(np.float32))
+    far = KERR_BAND[1] + 2.0
+    res = f"{KERR_RES[0]}x{KERR_RES[1]}"
+    G = GRAD_RES
+    cam = kerr_camera(KERR_RES)
+    vcam = kerr_camera(KERR_RES, V["l"], V["focal"])
+    tsmall = kerr_camera((G, G))
+    thin_kw = (KERR_DT, 2.0 * KERR_L)
+    gas_kw = (V["dt"], V["R"])
+    # name, family, disk, scatter, camera, dt, R, cap, NaN rays, freeze
+    C, S, N = KERR_SURF_CAP, KERR_SURF_GAS, KERR_SURF_NAN
+    cases = [
+        (f"rk4 thin {res}", "rk4", thin, False, cam, *thin_kw, C["rk4"], 0,
+         False),
+        (f"rk4 gas tint {res}", "rk4", tint, False, vcam, *gas_kw,
+         S["rk4"], 0, False),
+        (f"rk4 gas blackbody + beaming {res}", "rk4", gas, False, vcam,
+         *gas_kw, S["rk4"], 0, False),
+        (f"rk4 gas blackbody + beaming + scatter {res}", "rk4", gas, True,
+         vcam, *gas_kw, S["rk4"], 0, False),
+        (f"rk4 thin {G}^2 with {N_POISON} NaN rays", "rk4", thin, False,
+         tsmall, *thin_kw, N["rk4"], N_POISON, False),
+        (f"rk45 thin {res}", "rk45", thin, False, cam, *thin_kw, C["rk45"],
+         0, False),
+        (f"rk45 gas tint {res}", "rk45", tint, False, vcam, *gas_kw,
+         S["rk45"], 0, False),
+        (f"rk45 gas blackbody + beaming {res}", "rk45", gas, False, vcam,
+         *gas_kw, S["rk45"], 0, True),
+        (f"rk45 gas blackbody + beaming + scatter {res}", "rk45", gas, True,
+         vcam, *gas_kw, S["rk45"], 0, False),
+        (f"rk45 thin {G}^2 with {N_POISON} NaN rays", "rk45", thin, False,
+         tsmall, *thin_kw, N["rk45"], N_POISON, True),
+    ]
+    out = {}
+    for k, (label, family, disk, sc, cam, dt, R, cap, n_nan,
+            freeze) in enumerate(cases):
+        x0, p0, _ = rk._spawn_kerr_rays(kerr, cam)
+        ins = [t.contiguous() for t in (x0[:, 1], x0[:, 2], x0[:, 3],
+                                        p0[:, 1], p0[:, 2], -p0[:, 0],
+                                        p0[:, 3])]
+        ins[0], bad = poison_rays(ins[0], n_nan)
+        vol = disk.volumetric
+        flags = ((disk.color_mode == "blackbody",
+                  bool(disk.redshift or disk.doppler), sc) if vol else None)
+        mflags = (not vol, vol) + (flags or (False,) * 3)
+        surf = (dict(vol_disk=disk, scatter_block=block if sc else None)
+                if vol else dict(disk=KERR_BAND))
+        if family == "rk4":
+            scal = kc.kerr_scalars(kerr, dt, R, axis_u0=0.01, far_r0=far,
+                                   **surf)
+            fwd = kc.launch(mflags, scal, *ins, max_steps=cap)
+        else:
+            scal = k45.kerr_rk45_scalars(kerr, dt, R, rtol=KERR_RTOL,
+                                         atol=KERR_RTOL * 1e-3, dt_min=1e-5,
+                                         dt_max=R / 8.0, **surf)
+            fwd = k45.launch(mflags, scal, *ins, max_steps=KERR_STEPS,
+                             max_iters=cap)
+        if vol:
+            lit = float((fwd[8] > 0).double().mean())
+            print(f"[25] {label}: emission on {lit:.4f} of rays")
+            require(lit > 0.05, f"{label}: no gas on the view")
+        elif not n_nan:
+            hits = int((fwd[7] != 0).sum())
+            print(f"[25] {label}: {hits} rays hit the band")
+            require(hits > 0, f"{label}: no hit")
+        nums = kerr_surface_vs_plain(label, family, flags, scal, ins, fwd,
+                                     seed=250 + k, freeze=freeze)
+        if n_nan:
+            lam_bad, g_bad = nums["lam"][:, bad], nums["g"][:, bad]
+            print(f"[25]   NaN rays: signs {nums['sign'][bad].tolist()}, "
+                  f"max |lam| {float(lam_bad.abs().max()):.1e}, max |g| "
+                  f"{float(g_bad.abs().max()):.1e}")
+            require(bool((nums["sign"][bad] == 3).all())
+                    and bool((lam_bad == 0).all())
+                    and bool((g_bad == 0).all()),
+                    f"{label}: NaN rays not frozen with zero lam and g")
+        out.setdefault(family, nums)
+    print(f"[25] {time.perf_counter() - t_start:.1f} s")
+    return out["rk4"], out["rk45"]
+
+
+def kerr_surface_render(disk, cam, bg, a, theta, kw, backend="adjoint"):
+    """render_kerr on a metric with leaf tensors (m = 1, a) and disk_theta
+    leaves ``theta`` (floats) -> (image, [m, a, *theta leaves])."""
+    import torch
+    from curvis_tpu_torch.metrics.kerr import KerrMetric
+    from curvis_tpu_torch.render import kerr as rk
+    m_ = torch.tensor(1.0, device=DEVICE, requires_grad=True)
+    a_ = torch.tensor(a, device=DEVICE, requires_grad=True)
+    params = {k: torch.tensor(v, device=DEVICE, requires_grad=True)
+              for k, v in theta.items()}
+    img = rk.render_kerr(KerrMetric(m_, a_, device=DEVICE), cam, bg,
+                         disk=disk, backend=backend, disk_theta=params, **kw)
+    return img, [m_, a_, *params.values()]
+
+
+def phase26_kerr_surface_paths(sky):
+    """The Kerr surface gradients at full width: one render_kerr(disk=...,
+    backend='adjoint', disk_theta=...) loss-and-gradient step at 960 x 540
+    on the path's thin disk and gas views, RK4 and rk45, each image equal
+    to the backend='auto' render, #7 or #8 and the family's pair launched
+    once (no other kernel), the time split and the checkpoint buffer; d /
+    da on each of the four views, d / dr_in (thin) and d / dkappa (gas)
+    against central differences over the pixel channels in the linear
+    regime; two descent steps on the
+    view of examples/disk_image_recovery.py with the loss falling; and
+    backend='scan' against 'adjoint' at KERR_SCAN_RES^2 on the gas, each
+    stepper (no kernel launched by the scan).  Returns the launches of the
+    Kerr surface checkpoint kernels."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from curvis_tpu_torch.env.spherical_image import make_spherical_image
+    from curvis_tpu_torch.metrics.kerr import make_kerr
+    from curvis_tpu_torch.ops import (ckpt_adjoint_cuda, ckpt_kerr_cuda,
+                                      ckpt_rk45_cuda, ckpt_surface_cuda,
+                                      disk_cuda, disk_vol_cuda, kerr_cuda,
+                                      kerr_rk45_cuda, march_cuda, rk45_cuda,
+                                      rk45_disk_cuda)
+    from curvis_tpu_torch.ops import ckpt_kerr_surface_cuda as cks
+    from curvis_tpu_torch.render import kerr as rk
+    from curvis_tpu_torch.render.disk import DiskParams
+    t_start = time.perf_counter()
+    others = (march_cuda, rk45_cuda, rk45_disk_cuda, disk_cuda,
+              disk_vol_cuda)
+    dicts = (ckpt_adjoint_cuda.launches, ckpt_rk45_cuda.launches,
+             ckpt_surface_cuda.launches, ckpt_kerr_cuda.launches)
+
+    def reset():
+        for mod in (*others, kerr_cuda, kerr_rk45_cuda):
+            mod.launches = 0
+        for d in (*dicts, cks.launches):
+            for k_ in d:
+                d[k_] = 0
+
+    def counts():
+        return dict(k7=kerr_cuda.launches, k8=kerr_rk45_cuda.launches,
+                    **cks.launches,
+                    other=sum(mod.launches for mod in others)
+                    + sum(sum(d.values()) for d in dicts))
+
+    total = {k_: 0 for k_ in cks.launches}
+    black = make_spherical_image(np.zeros(SKY, np.float32), device=DEVICE)
+    white = make_spherical_image(np.ones(SKY, np.float32), device=DEVICE)
+    thin, gas, _ = kerr_surface_disks()
+    V = KERR_VOL
+    cam = kerr_camera(KERR_RES)
+    vcam = kerr_camera(KERR_RES, V["l"], V["focal"])
+    res = f"{KERR_RES[0]}x{KERR_RES[1]}"
+    kw = dict(dt=KERR_DT, max_steps=KERR_STEPS)
+    vkw = dict(dt=V["dt"], max_steps=V["steps"], escape_radius=V["R"])
+    r45 = dict(stepper="rk45", rtol=KERR_RTOL)
+    # name, disk, camera, keywords, the disk_theta knobs (with their
+    # values), the knobs held against central differences
+    views = [
+        ("rk4 thin", thin, cam, kw, dict(brightness=14.0, r_inner=2.6),
+         ("a", "r_inner")),
+        ("rk4 gas", gas, vcam, vkw, dict(kappa=3.0), ("a", "kappa")),
+        ("rk45 thin", thin, cam, dict(kw, **r45),
+         dict(brightness=14.0, r_inner=2.6), ("a", "r_inner")),
+        ("rk45 gas", gas, vcam, dict(vkw, **r45), dict(kappa=3.0),
+         ("a", "kappa")),
+    ]
+    for name, disk, cm, k_w, theta, fd_keys in views:
+        family = "rk45" if "rk45" in name else "rk4"
+        fwd_key = "k8" if family == "rk45" else "k7"
+        pair = (("kerr_surface_rk45_gen", "kerr_surface_rk45_bwd")
+                if family == "rk45" else ("kerr_surface_gen",
+                                          "kerr_surface_bwd"))
+        with torch.no_grad():
+            target = rk.render_kerr(make_kerr(1.0, 0.85, device=DEVICE), cm,
+                                    sky, disk=disk, **k_w)
+
+        def step():
+            img, leaves = kerr_surface_render(disk, cm, sky, KERR_A, theta,
+                                              k_w)
+            return img, torch.mean((img - target) ** 2), leaves
+
+        reset()
+        img, loss, leaves = step()
+        grads = torch.autograd.grad(loss, leaves)
+        launched = counts()
+        ref, _ = kerr_surface_render(disk, cm, sky, KERR_A, theta, k_w,
+                                     backend="auto")
+        diff = float((img.detach() - ref.detach()).abs().max())
+        lit = float((img.detach().sum(-1) > 0).double().mean())
+        print(f"[26] {name} adjoint step at {res}: loss {loss.item():.9e}, "
+              + ", ".join(f"d/d{k_} {float(g):.6e}" for k_, g in zip(
+                  ["m", "a", *theta], grads))
+              + f"; launches {launched}; image vs the backend='auto' "
+              f"render: max |d| {diff:.3e}; lit pixels {lit:.4f}")
+        require(diff == 0.0, f"{name} adjoint image differs by {diff}")
+        require(launched[fwd_key] == 1 and launched[pair[0]] == 1
+                and launched[pair[1]] == 1 and launched["other"] == 0
+                and launched["k7" if family == "rk45" else "k8"] == 0
+                and sum(launched[k_] for k_ in cks.launches) == 2,
+                f"{name} adjoint launches {launched}")
+        require(all(math.isfinite(float(g)) for g in grads)
+                and float(grads[1]) != 0.0, f"{name} gradient {grads}")
+        for k_ in total:
+            total[k_] += launched.get(k_, 0)
+        # the step's time split (CUDA events, median of 3)
+        fwd_t, bwd_t = [], []
+        for _ in range(3):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            _, loss, leaves = step()
+            e[1].record()
+            torch.autograd.grad(loss, leaves)
+            e[2].record()
+            e[2].synchronize()
+            fwd_t.append(e[0].elapsed_time(e[1]))
+            bwd_t.append(e[1].elapsed_time(e[2]))
+        # the pair alone on the step's rays: gen and bwd by the launches'
+        # own timing, the checkpoint buffer from the replay counts
+        stats = {}
+        real_gen, real_bwd = cks.launch_gen, cks.launch_bwd
+
+        def timed_gen(*a, **k):
+            out = real_gen(*a, **k)
+            stats["gen"] = (a, k)
+            stats["rows"] = k["total"]
+            return out
+
+        def timed_bwd(*a, **k):
+            out = real_bwd(*a, **k)
+            stats["bwd"] = (a, k)
+            return out
+
+        cks.launch_gen, cks.launch_bwd = timed_gen, timed_bwd
+        try:
+            _, loss, leaves = step()
+            torch.autograd.grad(loss, leaves)
+        finally:
+            cks.launch_gen, cks.launch_bwd = real_gen, real_bwd
+        ga, gk = stats["gen"]
+        ba, bk = stats["bwd"]
+        gen_ms = cuda_ms(lambda: real_gen(*ga, **gk), 3)
+        bwd_ms = cuda_ms(lambda: real_bwd(*ba, **bk), 3)
+        ns = cks.n_state(family, None if not disk.volumetric else (0, 0, 0))
+        cnt = ga[6]
+        print(f"[26]   step (median of 3, CUDA events): forward "
+              f"{statistics.median(fwd_t):.2f} ms + backward "
+              f"{statistics.median(bwd_t):.2f} ms; gen {gen_ms:.2f} ms, bwd "
+              f"{bwd_ms:.2f} ms; replayed "
+              f"{'iterations' if family == 'rk45' else 'steps'} mean / max "
+              f"{cnt.double().mean().item():.1f} / {int(cnt.max())}, "
+              f"checkpoint buffer {stats['rows'] * ns * 4 / 2**20:.1f} MiB")
+        # central differences over a black sky (the disk's light alone),
+        # over the pixel channels in the linear regime outside the shadow
+        # grown by KERR_FD_RING (a captured ray's last step, across the
+        # horizon, is wild, and a hit recorded on it moves by orders of
+        # magnitude more than the central difference resolves; so do the
+        # hits of rays that skim the photon sphere)
+        with torch.no_grad():
+            shadow = rk.render_kerr(make_kerr(1.0, KERR_A, device=DEVICE),
+                                    cm, white, **k_w).sum(-1) == 0
+            D = max(1, round(KERR_FD_RING * shadow.shape[1]))
+            shadow = torch.nn.functional.max_pool2d(
+                shadow.double()[None, None], 2 * D + 1, stride=1,
+                padding=D)[0, 0] > 0
+        outside = (~shadow).double()[..., None]
+        for key in fd_keys:
+            v0 = KERR_A if key == "a" else theta[key]
+            h = KERR_SURF_FD[key] * v0
+            ims = []
+            for s_ in (1.0, -1.0):
+                th_, d_, a_ = dict(theta), disk, KERR_A
+                if key == "a":
+                    a_ = KERR_A + s_ * h
+                elif family == "rk45" and disk.volumetric:
+                    # this route marches the static disk (module docstring
+                    # of render/kerr.py): move the knob there
+                    d_ = dataclasses.replace(disk, **{key: v0 + s_ * h})
+                else:
+                    th_[key] = v0 + s_ * h
+                with torch.no_grad():
+                    im, _ = kerr_surface_render(d_, cm, black, a_, th_, k_w,
+                                                backend="auto")
+                ims.append(im.double())
+            reset()
+            img, leaves = kerr_surface_render(disk, cm, black, KERR_A, theta,
+                                              k_w)
+            curv = (ims[0] - 2.0 * img.detach().double() + ims[1]).abs()
+            linear = (curv <= SURF_FD_LIN * (ims[0] - ims[1]).abs()
+                      + 1e-6).double() * outside
+            fd = ((ims[0] - ims[1]) * linear).mean().item() / (2 * h)
+            idx = 1 if key == "a" else 2 + list(theta).index(key)
+            g = torch.autograd.grad((img.double() * linear).mean(),
+                                    leaves[idx])[0]
+            for k_, v in counts().items():
+                if k_ in total:
+                    total[k_] += v
+            rel = abs(float(g) - fd) / max(abs(fd), 1e-300)
+            kept = linear.sum().item() / (3.0 * outside.sum().item())
+            print(f"[26]   d mean(image) / d {key} (black sky, "
+                  f"{float(shadow.double().mean()):.4f} of pixels in the "
+                  f"grown shadow left out): adjoint {float(g):.9e},"
+                  f" central difference (h = {h:.4g}) {fd:.9e}, rel "
+                  f"{rel:.3e} (bound {SURF_FD_TOL[key]}); {kept:.6f} of "
+                  f"pixel channels in the linear regime (bound >= "
+                  f"{SURF_FD_KEEP})")
+            require(rel <= SURF_FD_TOL[key], f"{name} d/d{key} {float(g)} vs "
+                    f"{fd}")
+            require(kept >= SURF_FD_KEEP, f"{name} d/d{key}: kept {kept}")
+    # two descent steps on examples/disk_image_recovery.py's view
+    from curvis_tpu_torch.camera.camera import make_camera
+    yy, xx = np.mgrid[0:64, 0:128]
+    ex_sky = make_spherical_image(np.clip(np.stack(
+        [0.1 + 0.1 * np.sin(6 * np.pi * xx / 128), 0.1 + yy / 320,
+         0.2 + 0.1 * np.cos(4 * np.pi * yy / 64)], -1), 0, 1).astype(
+             np.float32), device=DEVICE)
+    th0 = math.pi / 2 - 0.4
+    ex_cam = make_camera([0.0, 18.0, th0, 0.0],
+                         [-math.sin(th0), 0.0, -math.cos(th0)],
+                         [0.0, 0.0, 1.0], 30.0, 43.0, 96, 54, device=DEVICE)
+    vdisk = DiskParams(r_inner=3.0, r_outer=12.0, volumetric=True, h_rel=0.1,
+                       kappa=2.0, tau_max=8.0)
+    ex_kw = dict(dt=0.25, max_steps=1200, escape_radius=25.0)
+    with torch.no_grad():
+        target, _ = kerr_surface_render(vdisk, ex_cam, ex_sky, 0.7,
+                                        dict(r_inner=3.5, r_outer=11.0),
+                                        ex_kw, backend="auto")
+        noise = 0.01 * np.random.default_rng(0).standard_normal(
+            tuple(target.shape))
+        noise = torch.from_numpy(noise.astype(np.float32)).to(DEVICE)
+        target = torch.clamp(target + noise, 0.0, 1.0)
+    p = dict(a=0.4, r_inner=4.5, r_outer=10.0)
+    hist = []
+    reset()
+    for _ in range(KERR_DESCENT["steps"] + 1):
+        img, leaves = kerr_surface_render(
+            vdisk, ex_cam, ex_sky, p["a"],
+            dict(r_inner=p["r_inner"], r_outer=p["r_outer"]), ex_kw)
+        loss = torch.mean((img - target) ** 2)
+        g = torch.autograd.grad(loss, leaves[1:])
+        hist.append((dict(p), loss.item()))
+        for k_, gv in zip(("a", "r_inner", "r_outer"), g):
+            p[k_] = p[k_] - KERR_DESCENT["rel"] * abs(p[k_]) * math.copysign(
+                1.0, float(gv))
+    launched = counts()
+    for k_ in total:
+        total[k_] += launched.get(k_, 0)
+    print(f"[26] descent on examples/disk_image_recovery.py's view (96 x 54):"
+          + ", ".join(f" (a {h_['a']:.4f}, r_in {h_['r_inner']:.4f}, r_out "
+                      f"{h_['r_outer']:.4f}) loss {l_:.6e}" for h_, l_ in hist)
+          + f"; launches {launched}")
+    losses = [l_ for _, l_ in hist]
+    require(all(b < a_ for a_, b in zip(losses, losses[1:])),
+            f"disk descent: the loss did not fall every step: {losses}")
+    # backend='scan' on the card against the adjoint at KERR_SCAN_RES^2 on
+    # the gas, each stepper, over a black sky and outside the grown shadow
+    # (the rays that skim the photon sphere part between the two routes'
+    # roundings).  rk45's d/da is printed, not gated: with the controller
+    # on, the error norm's cotangent cancels 4-6 digits through e = d5 -
+    # d4, so a float32 d/da of an rk45 march is noise-limited (on this
+    # view the CPU float64 twin gives +2.4e-3, its float32 -2.6e-3); the
+    # full-width rk45 views above hold d/da against central differences
+    n_ = KERR_SCAN_RES
+    for name, disk, cm, k_w, theta, _ in (views[1], views[3]):
+        family = "rk45" if "rk45" in name else "rk4"
+        cm = kerr_camera((n_, n_), V["l"], V["focal"]) if disk.volumetric \
+            else kerr_camera((n_, n_))
+        knob = "kappa" if disk.volumetric else "brightness"
+        with torch.no_grad():
+            shadow = rk.render_kerr(make_kerr(1.0, KERR_A, device=DEVICE),
+                                    cm, white, **k_w).sum(-1) == 0
+            D = max(1, round(KERR_FD_RING * n_))
+            shadow = torch.nn.functional.max_pool2d(
+                shadow.double()[None, None], 2 * D + 1, stride=1,
+                padding=D)[0, 0] > 0
+        outside = (~shadow).double()[..., None]
+        k_w = dict(k_w, max_steps=KERR_SCAN_STEPS[family])
+        got = {}
+        for be in ("adjoint", "scan"):
+            reset()
+            sync()
+            t0 = time.perf_counter()
+            img, leaves = kerr_surface_render(disk, cm, black, KERR_A,
+                                              {knob: theta[knob]}, k_w, be)
+            g = torch.autograd.grad((img.double() * outside).mean(),
+                                    leaves[1:])
+            sync()
+            got[be] = (img.detach().double(), [float(v) for v in g],
+                       counts(), time.perf_counter() - t0)
+        (ia, ga, la, ta), (i_s, gs, ls, ts) = got["adjoint"], got["scan"]
+        d = (i_s - ia).abs() * outside
+        frac = (d <= SCAN_IMG_TOL).double().mean().item()
+        rels = [abs(x - y) / max(abs(y), 1e-300) for x, y in zip(gs, ga)]
+        print(f"[26] {name} scan vs adjoint {n_}^2, {KERR_SCAN_STEPS[family]}"
+              f" steps, black sky outside the grown shadow: image max |d| "
+              f"{float(d.max()):.3e}, {frac:.6f} of channels within "
+              f"{SCAN_IMG_TOL} (bound >= {SCAN_IMG_FRAC}); d mean / d(a, "
+              f"{knob}) scan {gs[0]:.6e}, {gs[1]:.6e}, adjoint {ga[0]:.6e}, "
+              f"{ga[1]:.6e}, rel {rels[0]:.3e}, {rels[1]:.3e} (bound "
+              f"{SCAN_GRAD_RTOL[family]}"
+              + (", d/da not gated" if family == "rk45" else "")
+              + f"); scan {ts:.2f} s, adjoint {ta:.2f} s (host clock); "
+              f"launches scan {ls}, adjoint {la}")
+        require(bool(torch.isfinite(i_s).all()) and all(
+            math.isfinite(v) for v in gs), f"{name} scan: non-finite")
+        require(frac >= SCAN_IMG_FRAC, f"{name} scan image vs adjoint: "
+                f"{frac} within {SCAN_IMG_TOL}")
+        require(float((ia * outside).sum()) > 0.0, f"{name} scan: a dark "
+                f"view")
+        gated = rels if family == "rk4" else rels[1:]
+        require(max(gated) <= SCAN_GRAD_RTOL[family], f"{name} scan grads "
+                f"{gs} vs adjoint {ga}")
+        require(not any(ls.values()), f"{name} scan launched {ls}")
+        for k_ in total:
+            total[k_] += la.get(k_, 0)
+    print(f"[26] launches of the Kerr surface checkpoint kernels over the "
+          f"paths: {total}; {time.perf_counter() - t_start:.1f} s")
+    require(all(v > 0 for v in total.values()),
+            f"a Kerr surface kernel was not launched: {total}")
+    return total
+
+
 def main():
     smi = phase0_toolchain()
     import numpy as np
@@ -4555,6 +5231,8 @@ def main():
     rk45_launches = phase22_rk45_paths(bgp, bgn, disk_sky)
     kerr_ckpt, kerr_rk45_ckpt = phase23_kerr_ckpt()
     kerr_grad_launches = phase24_kerr_paths(bright)
+    surf_k, surf_k45 = phase25_kerr_surface_ckpt()
+    surf_k_launches = phase26_kerr_surface_paths(disk_sky)
 
     def entry(name, source, replaces, n_launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -4632,8 +5310,24 @@ def main():
               "curvis_tpu_torch/csrc/ckpt_kerr_rk45.cu",
               "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
               kerr_grad_launches["kerr_rk45_bwd"], kerr_rk45_ckpt["bwd"]),
+        entry("ckpt_kerr_surface_gen_kernel",
+              "curvis_tpu_torch/csrc/ckpt_kerr_surface.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              surf_k_launches["kerr_surface_gen"], surf_k["gen"]),
+        entry("ckpt_kerr_surface_bwd_kernel",
+              "curvis_tpu_torch/csrc/ckpt_kerr_surface.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              surf_k_launches["kerr_surface_bwd"], surf_k["bwd"]),
+        entry("ckpt_kerr_surface_rk45_gen_kernel",
+              "curvis_tpu_torch/csrc/ckpt_kerr_surface_rk45.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              surf_k_launches["kerr_surface_rk45_gen"], surf_k45["gen"]),
+        entry("ckpt_kerr_surface_rk45_bwd_kernel",
+              "curvis_tpu_torch/csrc/ckpt_kerr_surface_rk45.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              surf_k_launches["kerr_surface_rk45_bwd"], surf_k45["bwd"]),
     ]
-    print(f"[24] done on {smi}; the surface kernels' ms, plain_ms and "
+    print(f"[26] done on {smi}; the surface kernels' ms, plain_ms and "
           f"bound_ms in the kernels line are phase 19's thin 1024^2 case "
           f"with every ray capped at {SURF_CAP} steps (phase 20 prints "
           f"the full counts); the rk45 pair's are phase 21's ellis trainer "
@@ -4641,7 +5335,11 @@ def main():
           f"case capped at {RK45_SURF_ITERS} iterations; the Kerr RK4 "
           f"pair's phase 23's bare {KERR_RES[0]}x{KERR_RES[1]} view capped "
           f"at {KERR_CKPT_CAP} steps (phase 24 prints the full counts) and "
-          f"the Kerr rk45 pair's its bare view at rtol {KERR_RTOL}")
+          f"the Kerr rk45 pair's its bare view at rtol {KERR_RTOL}; the "
+          f"Kerr surface pairs' phase 25's thin {KERR_RES[0]}x"
+          f"{KERR_RES[1]} view capped at {KERR_SURF_CAP['rk4']} steps (RK4)"
+          f" or {KERR_SURF_CAP['rk45']} iterations (DP5(4)); phase 26 "
+          f"prints the full counts")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

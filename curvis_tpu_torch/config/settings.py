@@ -2,15 +2,13 @@
 
 The same categories (image / video / camera / simulation / metric), knob
 names, defaults and validation as ``curvis_tpu/config/settings.py``; only
-``MetricSettings.make`` differs: it builds the port's metrics.  The packaged
-default TOMLs are read from ``curvis_tpu/config/defaults/`` by file path,
-located with ``importlib.util.find_spec``, which does not run (or import
-JAX through) the ``curvis_tpu`` package ``__init__``.
+``MetricSettings.make`` differs: it builds the port's metrics.  The default
+TOMLs are the port's own copies, packaged beside this module in
+``defaults/`` (byte for byte those of ``curvis_tpu/config/defaults/``).
 """
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import tomllib
 from pathlib import Path
 
@@ -30,12 +28,8 @@ def _load_toml(path) -> dict:
 
 
 def defaults_dir() -> Path:
-    spec = importlib.util.find_spec("curvis_tpu")
-    if spec is None or not spec.submodule_search_locations:
-        raise SettingsError("the curvis_tpu package (which holds the default "
-                            "settings TOMLs) was not found")
-    return Path(list(spec.submodule_search_locations)[0]) / "config" / \
-        "defaults"
+    """The directory of the default settings TOMLs."""
+    return Path(__file__).resolve().parent / "defaults"
 
 
 def _default_toml(name: str) -> dict:

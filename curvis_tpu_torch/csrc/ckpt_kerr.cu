@@ -119,7 +119,7 @@ __global__ void __launch_bounds__(kCkptKerrThreads)
       float yk[kKerrState];
 #pragma unroll
       for (int c = 0; c < kKerrState; ++c) yk[c] = ys[c][k];
-      kerr_rk4_vjp(s, E, L, yk, lam, g);
+      kerr_rk4_vjp<false>(s, E, L, yk, lam, g);
     }
   }
 #pragma unroll

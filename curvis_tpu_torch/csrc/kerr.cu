@@ -17,10 +17,11 @@
 // by hand, with the off-shell W d(1/2 Sigma) term; Kerr-Newman enters only
 // through Delta (the q^2 slot).  It and the emission live in
 // kerr_common.cuh, shared with the DP5(4) march kerr_rk45.cu (#8); the RK4
-// step is kerr_step.cuh:kerr_rk4_step, which the checkpoint kernels of the
-// Kerr RK4 family (ckpt_kerr.cu) replay.  Both files are built without FMA
-// contraction (ops/_build.py:SOURCE_FLAGS), so the replay marches this
-// kernel's trajectory bit for bit.  The
+// step with its crossing tracker and quadrature is kerr_step.cuh:
+// kerr_rk4_surface_step, which the checkpoint kernels of the Kerr RK4
+// families (ckpt_kerr.cu, ckpt_kerr_surface.cu) replay.  These files are
+// built without FMA contraction (ops/_build.py:SOURCE_FLAGS), so the
+// replays march this kernel's trajectory bit for bit.  The
 // flags of the TPU kernel are template parameters: TRACK_DISK, VOL and,
 // for VOL, BLACKBODY, BEAMING (the circular-orbit g of the frame-dragged
 // gas) and SCATTER (the lensed-sky source of vol_common.cuh): 1 bare + 1
@@ -67,10 +68,9 @@ __global__ void __launch_bounds__(kKerrThreads)
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float r = rad_in[i], th = th_in[i], ph = ph_in[i];
-  float p_r = pr_in[i], p_th = pth_in[i];
+  float y[5] = {rad_in[i], th_in[i], ph_in[i], pr_in[i], pth_in[i]};
   const float E = E_in[i], L = L_in[i];
-  float ct_prev = cosf(th);
+  float ct_prev = cosf(y[1]);
   float hit[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // (r, phi, side) x 2
   float tau = 0.0f;
   float em[3] = {0.0f, 0.0f, 0.0f};
@@ -78,46 +78,12 @@ __global__ void __launch_bounds__(kKerrThreads)
   int sign = 0;
   int n_steps = 0;
   while (n_steps < max_steps && sign == 0) {
-    const float y0[5] = {r, th, ph, p_r, p_th};
-    float y1[5];
-    const float dte = kerr_rk4_step(s, E, L, y0, y1);
-    if constexpr (TRACK_DISK) {
-      const float ct = cosf(y1[1]);
-      if (ct_prev * ct < 0.0f) {
-        const float den = fabsf(ct_prev) + fabsf(ct);
-        const float frac = fabsf(ct_prev) / max_nan(den, 1e-30f);
-        const float r_hit = r + frac * (y1[0] - r);
-        const float ph_hit = ph + frac * (y1[2] - ph);
-        const float side = ct_prev > 0.0f ? 1.0f : -1.0f;
-        if (r_hit >= s.r_in && r_hit <= s.r_out) {
-          const int k = hit[0] == 0.0f ? 0 : (hit[3] == 0.0f ? 3 : -1);
-          if (k >= 0) {
-            hit[k] = r_hit;
-            hit[k + 1] = ph_hit;
-            hit[k + 2] = side;
-          }
-        }
-      }
-      ct_prev = ct;
-    }
-    r = y1[0];
-    th = y1[1];
-    ph = y1[2];
-    p_r = y1[3];
-    p_th = y1[4];
-    const bool ok = kerr_finite(y1);
-    if constexpr (VOL) {
-      float dtau, dem[3];
-      kerr_vol_emission<BLACKBODY, BEAMING, SCATTER>(
-          s.M, s.a, s.q2, s.r_in, s.r_out, s.v, s.scatter, r, th, b_ph, tau,
-          &dtau, dem);
-      if (ok) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) em[c] = em[c] + dte * dem[c];
-        tau = tau + dte * dtau;
-      }
-    }
-    sign = ok ? static_cast<int>(r > s.R) + 2 * static_cast<int>(r < s.r_cap)
+    int slot;
+    const bool ok =
+        kerr_rk4_surface_step<TRACK_DISK, VOL, BLACKBODY, BEAMING, SCATTER>(
+            s, E, L, b_ph, y, &ct_prev, hit, &tau, em, &slot);
+    sign = ok ? static_cast<int>(y[0] > s.R) +
+                    2 * static_cast<int>(y[0] < s.r_cap)
               : 3;
     // the tau_max freeze (OPAQUE_SIGN == CAPTURED == 2)
     if constexpr (VOL) {
@@ -127,9 +93,8 @@ __global__ void __launch_bounds__(kKerrThreads)
   }
   // fout rows: r, theta, phi, p_r, p_theta, then the six hit rows or
   // (tau, em_r, em_g, em_b); iout: sign, steps
-  const float row[5] = {r, th, ph, p_r, p_th};
 #pragma unroll
-  for (int k = 0; k < 5; ++k) fout[k * n + i] = row[k];
+  for (int k = 0; k < 5; ++k) fout[k * n + i] = y[k];
   if constexpr (TRACK_DISK) {
 #pragma unroll
     for (int k = 0; k < 6; ++k) fout[(5 + k) * n + i] = hit[k];

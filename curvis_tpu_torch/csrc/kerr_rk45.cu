@@ -13,13 +13,13 @@
 // plain PyTorch version of this arithmetic is march_kerr_rk45_plain there.
 //
 // The RHS and the emission are kerr_common.cuh's, shared with the RK4
-// kernel kerr.cu (#7); the tableau is dp54.cuh's.  The trial, the fate of
-// an accepted step and the controller are kerr_step.cuh's (kerr_rk45_trial,
-// kerr_rk45_fate, kerr_rk45_next_dt), whose bare iteration kerr_rk45_iter
-// the checkpoint kernels of the Kerr DP5(4) family (ckpt_kerr_rk45.cu)
-// replay.  The flags are template
-// parameters: TRACK_DISK, VOL and, for VOL, BLACKBODY, BEAMING and
-// SCATTER: 1 bare + 1 disk + 8 volumetric instances.
+// kernel kerr.cu (#7); the tableau is dp54.cuh's.  The iteration with its
+// surface work is kerr_step.cuh:kerr_rk45_surface_iter (the trial, the
+// fate of an accepted step, the controller and the clamps near the disk),
+// which the checkpoint kernels of the Kerr DP5(4) families
+// (ckpt_kerr_rk45.cu, ckpt_kerr_surface_rk45.cu) replay.  The flags are
+// template parameters: TRACK_DISK, VOL and, for VOL, BLACKBODY, BEAMING
+// and SCATTER: 1 bare + 1 disk + 8 volumetric instances.
 //
 // One iteration of a live ray, as in the TPU kernel:
 //   - seven stages advance (r, theta, p_r, p_theta); the error of a
@@ -86,14 +86,10 @@ __global__ void __launch_bounds__(kKerrRk45Threads)
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float r = rad_in[i], th = th_in[i], ph = ph_in[i];
-  float p_r = pr_in[i], p_th = pth_in[i];
+  float y[5] = {rad_in[i], th_in[i], ph_in[i], pr_in[i], pth_in[i]};
   const float E = E_in[i], L = L_in[i];
-  const float M = s.M, a = s.a, q2 = s.q2;
-  const float stall_dt = s.dt_min * 1.01f;
-  const float r_near = s.r_out + 2.0f * M;
   float dt = s.dt0;
-  float ct_prev = cosf(th);
+  float ct_prev = cosf(y[1]);
   float hit[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // (r, phi, side) x 2
   float tau = 0.0f;
   float em[3] = {0.0f, 0.0f, 0.0f};
@@ -101,87 +97,15 @@ __global__ void __launch_bounds__(kKerrRk45Threads)
   int sign = 0, n_steps = 0, iters = 0;
   while (sign == 0 && iters < max_iters) {
     ++iters;
-    const float y[5] = {r, th, ph, p_r, p_th};
-    KerrRk45Rec t;
-    kerr_rk45_trial(s, E, L, y, dt, &t);
-    const bool accept = t.accept;
-
-    if constexpr (TRACK_DISK) {
-      if (accept) {
-        const float ct = cosf(t.y1[1]);
-        if (ct_prev * ct < 0.0f) {
-          const float cden = fabsf(ct_prev) + fabsf(ct);
-          const float cfrac = fabsf(ct_prev) / max_nan(cden, 1e-30f);
-          const float r_hit = r + cfrac * (t.y1[0] - r);
-          const float ph_hit = ph + cfrac * (t.y1[2] - ph);
-          const float side = ct_prev > 0.0f ? 1.0f : -1.0f;
-          if (r_hit >= s.r_in && r_hit <= s.r_out) {
-            const int h = hit[0] == 0.0f ? 0 : (hit[3] == 0.0f ? 3 : -1);
-            if (h >= 0) {
-              hit[h] = r_hit;
-              hit[h + 1] = ph_hit;
-              hit[h + 2] = side;
-            }
-          }
-        }
-        ct_prev = ct;
-      }
-    }
-
-    if (accept) {
-      r = t.y1[0];
-      th = t.y1[1];
-      ph = t.y1[2];
-      p_r = t.y1[3];
-      p_th = t.y1[4];
-      const bool ok = kerr_finite(t.y1);
-      if constexpr (VOL) {
-        if (ok) {
-          float dtau, dem[3];
-          kerr_vol_emission<BLACKBODY, BEAMING, SCATTER>(
-              M, a, q2, s.r_in, s.r_out, s.v, s.scatter, r, th, b_ph, tau,
-              &dtau, dem);
-#pragma unroll
-          for (int c = 0; c < 3; ++c) em[c] = em[c] + dt * dem[c];
-          tau = tau + dt * dtau;
-        }
-      }
-      sign = kerr_rk45_fate(s, t, t.y1, ok);
-      ++n_steps;
-    }
-    // the tau_max freeze (OPAQUE_SIGN == CAPTURED == 2)
-    if constexpr (VOL) {
-      if (sign == 0 && tau > s.v.tau_max) sign = 2;
-    }
-    // a reject at dt_min can never pass (over-rejects included)
-    if (!accept && dt <= stall_dt) sign = 3;
-
-    // controller, from the trial's dt
-    if (sign == 0) {
-      dt = kerr_rk45_next_dt(s, t);
-      if constexpr (VOL) {
-        // the anticipatory clamp on the distance to the gas slab: the
-        // radial gap to the r_out + 2M cylinder and the vertical gap to
-        // the 5-sigma density shell
-        const float s_th = fabsf(sinf(th));
-        const float r_cyl = r * s_th;
-        const float gap_r = r_cyl - r_near;
-        const float h_rel5 = 5.0f * sqrtf(s.v.h2);
-        const float gap_z = r * fabsf(cosf(th)) - h_rel5 * r_cyl;
-        const float dt_gas = max_nan(s.dt0, 0.5f * max_nan(gap_r, gap_z));
-        dt = min_nan(dt, dt_gas);
-      } else if constexpr (TRACK_DISK) {
-        if (r < r_near) dt = min_nan(dt, s.dt0);
-      }
-      if (n_steps >= max_steps) sign = kKerrRk45Capped;
-    }
+    kerr_rk45_surface_iter<TRACK_DISK, VOL, BLACKBODY, BEAMING, SCATTER>(
+        s, E, L, b_ph, y, &dt, &ct_prev, hit, &tau, em, &sign, &n_steps);
+    if (sign == 0 && n_steps >= max_steps) sign = kKerrRk45Capped;
   }
   if (sign == kKerrRk45Capped) sign = 0;
   // fout rows: r, theta, phi, p_r, p_theta, then the six hit rows or
   // (tau, em_r, em_g, em_b); iout: sign, steps, iters
-  const float row[5] = {r, th, ph, p_r, p_th};
 #pragma unroll
-  for (int c = 0; c < 5; ++c) fout[c * n + i] = row[c];
+  for (int c = 0; c < 5; ++c) fout[c * n + i] = y[c];
   if constexpr (TRACK_DISK) {
 #pragma unroll
     for (int c = 0; c < 6; ++c) fout[(5 + c) * n + i] = hit[c];

@@ -1,7 +1,10 @@
 // One step of each Boyer-Lindquist march, shared by the march kernels and
 // the checkpoint kernels that replay them: the fixed-step RK4 step of
-// kerr.cu (#7, replayed by ckpt_kerr.cu) and the bare DP5(4) iteration of
-// kerr_rk45.cu (#8, replayed by ckpt_kerr_rk45.cu).
+// kerr.cu (#7, replayed by ckpt_kerr.cu and ckpt_kerr_surface.cu) and the
+// DP5(4) iteration of kerr_rk45.cu (#8, replayed by ckpt_kerr_rk45.cu and
+// ckpt_kerr_surface_rk45.cu), each with the surface work of the TRACK_DISK
+// and VOL variants: the crossing tracker, the gated volumetric quadrature
+// and #8's two step clamps near the disk.
 //
 // A replay must march the trajectory the forward marched, bit for bit:
 // the checkpoints are its states, and an adaptive replay that accepts
@@ -11,7 +14,7 @@
 // arithmetic is that of the TPU kernels _kerr_kernel and _kerr_rk45_kernel
 // (curvis_tpu/ops/march_pallas.py), which the JAX package's adjoints
 // (curvis_tpu/integrate/kerr_adjoint.py:_step5_theta, rk45_adjoint.py:
-// _rk45_iter) differentiate.
+// _rk45_iter, kerr_surface_adjoint.py) differentiate.
 #pragma once
 
 #include <cstring>
@@ -165,6 +168,87 @@ __device__ __forceinline__ float kerr_rk4_step(const KerrScalars& s,
   return st.dte;
 }
 
+// ------------------------------------------------ the surfaces (#7, #8)
+
+// The crossing tracker of the TRACK_DISK variants: a step from (r, phi) at
+// cos theta = ct_prev to y1 at cos theta = ct crossed the equator where
+// ct_prev ct < 0; the crossing's radius and azimuth are linear in the
+// step's fraction frac = |ct_prev| / max(|ct_prev| + |ct|, 1e-30), its
+// side is sign(ct_prev).  A crossing in [r_in, r_out] fills the first
+// empty slot of hit = (r, phi, side) x 2.  Returns the slot written (0 or
+// 3), or -1.
+__device__ __forceinline__ int kerr_track_hit(float r_in, float r_out,
+                                              float r, float ph,
+                                              const float y1[5],
+                                              float ct_prev, float ct,
+                                              float hit[6]) {
+  if (ct_prev * ct < 0.0f) {
+    const float den = fabsf(ct_prev) + fabsf(ct);
+    const float frac = fabsf(ct_prev) / max_nan(den, 1e-30f);
+    const float r_hit = r + frac * (y1[0] - r);
+    const float ph_hit = ph + frac * (y1[2] - ph);
+    const float side = ct_prev > 0.0f ? 1.0f : -1.0f;
+    if (r_hit >= r_in && r_hit <= r_out) {
+      const int k = hit[0] == 0.0f ? 0 : (hit[3] == 0.0f ? 3 : -1);
+      if (k >= 0) {
+        hit[k] = r_hit;
+        hit[k + 1] = ph_hit;
+        hit[k + 2] = side;
+      }
+      return k;
+    }
+  }
+  return -1;
+}
+
+// The volumetric quadrature of the VOL variants: where `gate` (the state
+// after the step passed the blowup guard; for DP5(4) also accepted), adds
+// w (dtau, dem) of kerr_vol_emission at (r, theta) with the pre-step tau
+// to (tau, em); w is the step's dte (#7) or dt (#8).  S is either
+// kernel's row (both hold M, a, q2, r_in, r_out, v and scatter).
+template <bool BLACKBODY, bool BEAMING, bool SCATTER, class S>
+__device__ __forceinline__ void kerr_vol_quad(const S& s, float r, float th,
+                                              float b_ph, float w, bool gate,
+                                              float* tau, float em[3]) {
+  if (gate) {
+    float dtau, dem[3];
+    kerr_vol_emission<BLACKBODY, BEAMING, SCATTER>(
+        s.M, s.a, s.q2, s.r_in, s.r_out, s.v, s.scatter, r, th, b_ph, *tau,
+        &dtau, dem);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) em[c] = em[c] + w * dem[c];
+    *tau = *tau + w * dtau;
+  }
+}
+
+// One step of kernel #7 with its surface work, from y (written over with
+// the state after it): the RK4 step, then the crossing tracker (its
+// ct_prev becomes cos theta after the step; *slot the hit slot written)
+// or the quadrature weighted by the step's dte.  Returns whether the state
+// after it passed the blowup guard.
+template <bool TRACK_DISK, bool VOL, bool BLACKBODY, bool BEAMING,
+          bool SCATTER>
+__device__ __forceinline__ bool kerr_rk4_surface_step(
+    const KerrScalars& s, float E, float L, float b_ph, float y[5],
+    float* ct_prev, float hit[6], float* tau, float em[3], int* slot) {
+  float y1[5];
+  const float dte = kerr_rk4_step(s, E, L, y, y1);
+  *slot = -1;
+  if constexpr (TRACK_DISK) {
+    const float ct = cosf(y1[1]);
+    *slot = kerr_track_hit(s.r_in, s.r_out, y[0], y[2], y1, *ct_prev, ct,
+                           hit);
+    *ct_prev = ct;
+  }
+#pragma unroll
+  for (int c = 0; c < 5; ++c) y[c] = y1[c];
+  const bool ok = kerr_finite(y);
+  if constexpr (VOL)
+    kerr_vol_quad<BLACKBODY, BEAMING, SCATTER>(s, y[0], y[1], b_ph, dte, ok,
+                                               tau, em);
+  return ok;
+}
+
 // -------------------------------------------------------- DP5(4) (#8)
 
 // One DP5(4) trial from y with step dt, with what the replay's VJP
@@ -261,29 +345,89 @@ __device__ __forceinline__ int kerr_rk45_fate(const KerrRk45Scalars& s,
             : 3;
 }
 
-// One bare DP5(4) iteration of a live ray, as kernel #8 runs it: the trial,
-// the write-back of an accepted step and its fate, a stall (sign 3) for a
-// reject at dt <= dt_min * 1.01, and the controller's next dt for a ray
-// still marching.  Sets *sign to this iteration's fate (0: still
-// marching; a replay runs a ray's iterations again, so no sign may carry
-// over from an iteration it replayed before) and adds the accepted step
-// to *steps.
+// #8's step bound of TRACK_DISK inside the disk region r < r_out + 2M:
+// min(dt, dt0).
+__device__ __forceinline__ float kerr_near_clamp(const KerrRk45Scalars& s,
+                                                 float r, float dt) {
+  return r < s.r_out + 2.0f * s.M ? min_nan(dt, s.dt0) : dt;
+}
+
+// #8's anticipatory step bound of VOL at (r, theta): max(dt0, max(gap_r,
+// gap_z) / 2), gap_r the radial gap to the r_out + 2M cylinder and gap_z
+// the vertical gap to the 5-sigma density shell.
+__device__ __forceinline__ float kerr_gas_dt(const KerrRk45Scalars& s,
+                                             float r, float th) {
+  const float s_th = fabsf(sinf(th));
+  const float r_cyl = r * s_th;
+  const float gap_r = r_cyl - (s.r_out + 2.0f * s.M);
+  const float h_rel5 = 5.0f * sqrtf(s.v.h2);
+  const float gap_z = r * fabsf(cosf(th)) - h_rel5 * r_cyl;
+  return max_nan(s.dt0, 0.5f * max_nan(gap_r, gap_z));
+}
+
+// One DP5(4) iteration of a live ray with the surface work of kernel #8's
+// variants, as #8 runs it: the trial; on accept the crossing tracker (on
+// the trial, ct_prev carried to cos theta of the trial), the write-back,
+// the quadrature weighted by the trial dt where the state passed the
+// guard, and its fate; the tau_max freeze (VOL); a stall (sign 3) for a
+// reject at dt <= dt_min * 1.01; and for a ray still marching the
+// controller's next dt, clamped near the disk.  Sets *sign to this
+// iteration's fate (0: still marching; a replay runs a ray's iterations
+// again, so no sign may carry over from an iteration it replayed before),
+// adds an accepted step to *steps and returns the hit slot written (or
+// -1).
+template <bool TRACK_DISK, bool VOL, bool BLACKBODY, bool BEAMING,
+          bool SCATTER>
+__device__ __forceinline__ int kerr_rk45_surface_iter(
+    const KerrRk45Scalars& s, float E, float L, float b_ph, float y[5],
+    float* dt, float* ct_prev, float hit[6], float* tau, float em[3],
+    int* sign, int* steps) {
+  KerrRk45Rec t;
+  kerr_rk45_trial(s, E, L, y, *dt, &t);
+  int slot = -1;
+  int sg = 0;
+  if (t.accept) {
+    if constexpr (TRACK_DISK) {
+      const float ct = cosf(t.y1[1]);
+      slot = kerr_track_hit(s.r_in, s.r_out, y[0], y[2], t.y1, *ct_prev, ct,
+                            hit);
+      *ct_prev = ct;
+    }
+#pragma unroll
+    for (int c = 0; c < 5; ++c) y[c] = t.y1[c];
+    const bool ok = kerr_finite(y);
+    if constexpr (VOL)
+      kerr_vol_quad<BLACKBODY, BEAMING, SCATTER>(s, y[0], y[1], b_ph, *dt,
+                                                 ok, tau, em);
+    sg = kerr_rk45_fate(s, t, y, ok);
+    ++*steps;
+  }
+  // the tau_max freeze (OPAQUE_SIGN == CAPTURED == 2)
+  if constexpr (VOL) {
+    if (sg == 0 && *tau > s.v.tau_max) sg = 2;
+  }
+  // a reject at dt_min can never pass (over-rejects included)
+  if (!t.accept && *dt <= s.dt_min * 1.01f) sg = 3;
+  *sign = sg;
+  if (sg == 0) {
+    float dn = kerr_rk45_next_dt(s, t);
+    if constexpr (VOL)
+      dn = min_nan(dn, kerr_gas_dt(s, y[0], y[1]));
+    else if constexpr (TRACK_DISK)
+      dn = kerr_near_clamp(s, y[0], dn);
+    *dt = dn;
+  }
+  return slot;
+}
+
+// The bare iteration (no surface): what kernel #8's bare variant runs and
+// the Kerr DP5(4) family's replay (ckpt_kerr_rk45.cu) repeats.
 __device__ __forceinline__ void kerr_rk45_iter(const KerrRk45Scalars& s,
                                                float E, float L, float y[5],
                                                float* dt, int* sign,
                                                int* steps) {
-  KerrRk45Rec t;
-  kerr_rk45_trial(s, E, L, y, *dt, &t);
-  int sg = 0;
-  if (t.accept) {
-#pragma unroll
-    for (int c = 0; c < 5; ++c) y[c] = t.y1[c];
-    sg = kerr_rk45_fate(s, t, y, kerr_finite(y));
-    ++*steps;
-  }
-  if (!t.accept && *dt <= s.dt_min * 1.01f) sg = 3;
-  *sign = sg;
-  if (sg == 0) *dt = kerr_rk45_next_dt(s, t);
+  kerr_rk45_surface_iter<false, false, false, false, false>(
+      s, E, L, 0.0f, y, dt, nullptr, nullptr, nullptr, nullptr, sign, steps);
 }
 
 }  // namespace curvis

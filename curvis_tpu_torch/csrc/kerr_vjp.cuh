@@ -1,7 +1,8 @@
 // The hand-written VJPs of the Boyer-Lindquist steps (kerr_step.cuh), the
 // steps of the checkpoint kernels of the Kerr families: the RK4 step of
 // kernel #7 (ckpt_kerr.cu) and the bare DP5(4) iteration of kernel #8
-// (ckpt_kerr_rk45.cu).
+// (ckpt_kerr_rk45.cu), in parts that the surface families' VJPs
+// (kerr_surface_vjp.cuh) reuse.
 //
 // The maps differentiated are those of the JAX package's adjoints:
 // curvis_tpu/integrate/kerr_adjoint.py:_step5_theta (RK4 on (r, theta,
@@ -10,9 +11,11 @@
 // DP5(4) iteration on (r, theta, phi, p_r, p_theta, dt) with accept,
 // escape, capture, blowup and stall as data), for theta = (M, a, q^2, E,
 // L).
-//   - RK4 takes the partials of the unguarded RHS (_kerr_rhs, with its
-//     sin^2 >= 1e-12 clip): excluded rays replay no step, so no replayed
-//     state is near a horizon.
+//   - The bare RK4 family takes the partials of the unguarded RHS
+//     (_kerr_rhs, with its sin^2 >= 1e-12 clip): excluded rays replay no
+//     step, so no replayed state is near a horizon.  The surface families
+//     replay captured rays too and take the guarded partials (GUARD), as
+//     kerr_surface_adjoint.py:_rk4_state does.
 //   - DP5(4) recomputes the forward with kernel #8's own iteration, so the
 //     VJP sees the decisions that the march took, and guards only the
 //     partials of the RHS, as _kerr_rhs_guarded does: r, p_r and p_theta
@@ -164,10 +167,15 @@ __device__ __forceinline__ void kerr_rhs_vjp(float M, float a, float q2,
 
 // VJP of one RK4 step (kerr_rk4_step) at its start y: lam[5] is the
 // cotangent of the state after it and becomes that before it; gt[5]
-// gathers the cotangents of (M, a, q2, E, L).
+// gathers the cotangents of (M, a, q2, E, L).  GUARD takes the partials of
+// the guarded RHS (the surface families'); DTE_IN adds g_dte_in, a
+// cotangent of the step's dte from elsewhere (the gas quadrature's
+// weight).
+template <bool GUARD, bool DTE_IN = false>
 __device__ __forceinline__ void kerr_rk4_vjp(const KerrScalars& s, float E,
                                              float L, const float y[5],
-                                             float lam[5], float gt[5]) {
+                                             float lam[5], float gt[5],
+                                             float g_dte_in = 0.0f) {
   KerrRk4Stages st;
   kerr_rk4_stages(s, E, L, y, &st);
   const float dte = st.dte, hd = st.hd;
@@ -187,13 +195,14 @@ __device__ __forceinline__ void kerr_rk4_vjp(const KerrScalars& s, float E,
     gk[3][c] = g_sum;
   }
   float g_dte = g_w * (1.0f / 6.0f);
+  if constexpr (DTE_IN) g_dte += g_dte_in;
   float g_hd = 0.0f;
   // the stages in reverse: stage i's input is y + h k_{i-1} (h = hd for
   // stages 1, 2 and dte for stage 3)
 #pragma unroll
   for (int i = 3; i >= 0; --i) {
     float gi[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    kerr_rhs_vjp<false>(s.M, s.a, s.q2, E, L, st.yi[i][0], st.yi[i][1],
+    kerr_rhs_vjp<GUARD>(s.M, s.a, s.q2, E, L, st.yi[i][0], st.yi[i][1],
                         st.yi[i][2], st.yi[i][3], gk[i], &gi[0], &gi[1],
                         &gi[2], &gi[3], gt);
 #pragma unroll
@@ -237,46 +246,44 @@ __device__ __forceinline__ bool kerr_rk45_terminal(const KerrRk45Scalars& s,
   return t.dt <= s.dt_min * 1.01f;
 }
 
-// VJP of one bare DP5(4) iteration (kerr_rk45_iter) at its start (y, dt):
-// lam[6] is the cotangent of (r, theta, phi, p_r, p_theta, dt) after it
-// and becomes that before it; gt[5] gathers the cotangents of (M, a, q2,
-// E, L).  FREEZE drops the cotangent of the next dt.
-template <bool FREEZE>
-__device__ __forceinline__ void kerr_rk45_vjp(const KerrRk45Scalars& s,
-                                              float E, float L,
-                                              const float y[5], float dt,
-                                              float lam[6], float gt[5]) {
-  KerrRk45Rec t;
-  kerr_rk45_trial(s, E, L, y, dt, &t);
-  // the write-back: y1 on accept, y on reject
-  float g_y[5], g_y1[5];
-#pragma unroll
-  for (int c = 0; c < 5; ++c) {
-    g_y1[c] = t.accept ? lam[c] : 0.0f;
-    g_y[c] = t.accept ? 0.0f : lam[c];
-  }
-  float g_dt = 0.0f, g_err = 0.0f;
-  if (!FREEZE) {
-    const float g_next = lam[5];
-    if (kerr_rk45_terminal(s, t)) {
-      g_dt += g_next;
-    } else if (t.over) {
-      // next = clip(dt frac 1.05), frac = (R - r) / den_r, den_r = r1 - r
-      const float x = t.dt * t.frac * 1.05f;
-      const float g_x = g_next * clip_share(x, s.dt_min, s.dt_max);
-      g_dt += g_x * t.frac * 1.05f;
-      const float g_frac = g_x * t.dt * 1.05f;
-      g_y[0] += -g_frac / t.den_r;
-      if (!t.small) {
-        const float g_den = -g_frac * t.frac / t.den_r;
-        g_y1[0] += g_den;
-        g_y[0] -= g_den;
-      }
-    } else {
-      dp54_control_vjp(t.err, t.dt, s.dt_min, s.dt_max, g_next, &g_dt,
-                       &g_err);
+// VJP of the next dt of trial t (kerr_rk45_next_dt, or dt itself where
+// the ray ended: `terminal`) for its cotangent g_next: adds to g_y[0] and
+// g_y1[0] (the escape fraction of an over-reject), *g_dt and *g_err.
+__device__ __forceinline__ void kerr_rk45_next_vjp(const KerrRk45Scalars& s,
+                                                   const KerrRk45Rec& t,
+                                                   bool terminal,
+                                                   float g_next, float g_y[5],
+                                                   float g_y1[5],
+                                                   float* g_dt,
+                                                   float* g_err) {
+  if (terminal) {
+    *g_dt += g_next;
+  } else if (t.over) {
+    // next = clip(dt frac 1.05), frac = (R - r) / den_r, den_r = r1 - r
+    const float x = t.dt * t.frac * 1.05f;
+    const float g_x = g_next * clip_share(x, s.dt_min, s.dt_max);
+    *g_dt += g_x * t.frac * 1.05f;
+    const float g_frac = g_x * t.dt * 1.05f;
+    g_y[0] += -g_frac / t.den_r;
+    if (!t.small) {
+      const float g_den = -g_frac * t.frac / t.den_r;
+      g_y1[0] += g_den;
+      g_y[0] -= g_den;
     }
+  } else {
+    dp54_control_vjp(t.err, t.dt, s.dt_min, s.dt_max, g_next, g_dt, g_err);
   }
+}
+
+// VJP of trial t (kerr_rk45_trial) at its start (y, dt) for the
+// cotangents g_y1[5] of the trial y1 and g_err of its error norm, given
+// the cotangents already gathered for the start (g_y[5], g_dt): lam[6]
+// becomes the cotangent of (y, dt); gt[5] gathers those of (M, a, q2, E,
+// L).
+__device__ __forceinline__ void kerr_rk45_trial_vjp(
+    const KerrRk45Scalars& s, float E, float L, const KerrRk45Rec& t,
+    float g_err, float g_y[5], float g_y1[5], float g_dt, float lam[6],
+    float gt[5]) {
   float g_e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (g_err != 0.0f) {
     // err = max(max(ec0, ec1), max(ec2, ec3)), ec = |dt e| / den,
@@ -343,6 +350,31 @@ __device__ __forceinline__ void kerr_rk45_vjp(const KerrRk45Scalars& s,
 #pragma unroll
   for (int c = 0; c < 5; ++c) lam[c] = g_y[c];
   lam[5] = g_dt;
+}
+
+// VJP of one bare DP5(4) iteration (kerr_rk45_iter) at its start (y, dt):
+// lam[6] is the cotangent of (r, theta, phi, p_r, p_theta, dt) after it
+// and becomes that before it; gt[5] gathers the cotangents of (M, a, q2,
+// E, L).  FREEZE drops the cotangent of the next dt.
+template <bool FREEZE>
+__device__ __forceinline__ void kerr_rk45_vjp(const KerrRk45Scalars& s,
+                                              float E, float L,
+                                              const float y[5], float dt,
+                                              float lam[6], float gt[5]) {
+  KerrRk45Rec t;
+  kerr_rk45_trial(s, E, L, y, dt, &t);
+  // the write-back: y1 on accept, y on reject
+  float g_y[5], g_y1[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+    g_y1[c] = t.accept ? lam[c] : 0.0f;
+    g_y[c] = t.accept ? 0.0f : lam[c];
+  }
+  float g_dt = 0.0f, g_err = 0.0f;
+  if (!FREEZE)
+    kerr_rk45_next_vjp(s, t, kerr_rk45_terminal(s, t), lam[5], g_y, g_y1,
+                       &g_dt, &g_err);
+  kerr_rk45_trial_vjp(s, E, L, t, g_err, g_y, g_y1, g_dt, lam, gt);
 }
 
 }  // namespace curvis

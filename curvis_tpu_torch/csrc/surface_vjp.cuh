@@ -110,90 +110,19 @@ __device__ __forceinline__ void radius_vjp(const MarchScalars& m, float l,
   }
 }
 
-// VJP of vol_emission (planar_vol.cuh) at (l, p_l, b, zq, tau, nz) with
-// the runtime flags, for the cotangents (g_dtau, g_dem[3]) of (dtau, dem):
-// adds to *g_l, *g_pl, *g_zq, *g_tau and to g (the theta layout of the vol
-// family: p0, p1, p2 at 0-2, b at 3, nz at 6, r_in, r_out and the 8 slots
-// at 7-16, the scatter block at 17-43).
-template <int KIND>
-__device__ __forceinline__ void vol_emission_vjp(
-    const VolScalars& s, int flags, float l, float p_l, float b, float zq,
-    float tau, float nz, float g_dtau, const float g_dem[3], float* g_l,
-    float* g_pl, float* g_zq, float* g_tau, float* g) {
-  constexpr bool kLapse = HasCapture<KIND>::value;
-  const bool bb = flags & kFlagBlackbody;
-  const bool rs = kLapse && (flags & kFlagRedshift);
-  const bool dop = kLapse && (flags & kFlagDoppler);
-  const bool sc = flags & kFlagScatter;
-  const MarchScalars& m = s.m;
-  const VolSlots& vs = s.v;
-  const float r_in = s.r_in, r_out = s.r_out;
-  const float* blk = s.scatter;
-  float* g_rin = g + 7;
-  float* g_rout = g + 8;
-  float* gs = g + 9;          // the 8 slots, in VolSlots order
-  float* g_blk = g + 17;
-  // ---- forward, as vol_emission
-  float r;
-  if constexpr (kLapse) {
-    r = l;
-  } else {
-    r = rsqrtf(planar_inv_r2<KIND>(m, l));
-  }
-  const float zq2 = zq * zq;
-  const float s2_raw = 1.0f - zq2;
-  const float s2 = clip_nan(s2_raw, 1e-12f, 1.0f);
-  const float sq_s2 = sqrtf(s2);
-  const float r_cyl = r * sq_s2;
-  const float dn = 2.0f * vs.h2 * s2;
-  const float E = expf(-zq2 / dn);
-  const float P = vs.inv_norm / r_cyl;
-  const float dens = E * P;
-  const float w_edge = r_out - r_in;
-  const float ein_raw = (r_cyl - r_in) / (0.1f * w_edge);
-  const float edge_in = clip_nan(ein_raw, 0.0f, 1.0f);
-  const float eout_raw = (r_out - r_cyl) / (0.3f * w_edge);
-  const float edge_out = clip_nan(eout_raw, 0.0f, 1.0f);
-  const float base = dens * edge_in * edge_out;
-  const float rr = max_nan(r_cyl, r_in);
-  float g_shift = 1.0f;
-  float M = 0.0f, q2 = 0.0f, A_raw = 0.0f, vsq = 0.0f, sqA = 1.0f,
-        g0 = 1.0f, svsq = 0.0f, vr = 0.0f, vel = 0.0f, gamma = 1.0f,
-        u_l = 0.0f, u_psi = 0.0f, inv = 0.0f, upi = 0.0f, cos_xi = 0.0f,
-        D = 1.0f;
-  if (rs || dop) {
-    M = m.p0;
-    if constexpr (KIND == kReissnerNordstrom) {
-      q2 = m.p1;
-      A_raw = 1.0f - (2.0f * M - q2 / rr) / rr;
-      vsq = (M - q2 / rr) / rr;
-    } else {
-      A_raw = 1.0f - 2.0f * M / rr;
-      vsq = M / rr;
-    }
-    const float A = clip_nan(A_raw, 1e-3f, 1.0f);
-    sqA = sqrtf(A);
-    g0 = rs ? sqA : 1.0f;
-    g_shift = g0;
-    if (dop) {
-      svsq = sqrtf(vsq);
-      vr = svsq / sqA;
-      vel = clip_nan(vr, 0.0f, 0.99f);
-      gamma = rsqrtf(1.0f - vel * vel);
-      u_l = p_l * sqA;
-      u_psi = b / rr;
-      inv = rsqrtf(u_l * u_l + u_psi * u_psi + 1e-30f);
-      upi = u_psi * inv;
-      cos_xi = upi * nz * vs.spin_sign;
-      D = gamma * (1.0f - vel * cos_xi);
-      g_shift = g0 / D;
-    }
-  }
-  const float trans = expf(-tau);
-  const float tb = trans * base;
-  // ---- reverse
-  float g_base = vs.kappa * g_dtau;
-  gs[2] += base * g_dtau;                          // kappa
+// VJP of the colour tail vol_color (vol_common.cuh), with the scattering
+// source scatter_source when `sc`, at radius rr = max(r_cyl, r_in) with
+// shift g_shift and tb = e^-tau density, for the cotangents g_dem[3] of
+// dem: sets the cotangents of tb, g_shift, rr and (through the scattering
+// source's radius) r_cyl, and adds to *g_rin, *g_rout, gs (the 8 slots, in
+// VolSlots order) and g_blk (the 27 block scalars).  Shared by the planar
+// (vol_emission_vjp) and the Boyer-Lindquist (kerr_surface_vjp.cuh) gas.
+__device__ __forceinline__ void vol_color_vjp(
+    bool bb, bool sc, const VolSlots& vs, float r_in, float r_out, float rr,
+    float r_cyl, float g_shift, float tb, const float* blk,
+    const float g_dem[3], float* g_tb_out, float* g_g_out, float* g_rr_out,
+    float* g_rcyl_out, float* g_rin, float* g_rout, float* gs,
+    float* g_blk) {
   float g_tb = 0.0f, g_g = 0.0f, g_rr = 0.0f, g_rcyl = 0.0f;
   if (bb) {
     const float sq = sqrtf(r_in / rr);
@@ -311,6 +240,99 @@ __device__ __forceinline__ void vol_emission_vjp(
     *g_rin += -g_a - g_W;
     *g_rout += g_W;
   }
+  *g_tb_out = g_tb;
+  *g_g_out = g_g;
+  *g_rr_out = g_rr;
+  *g_rcyl_out = g_rcyl;
+}
+
+// VJP of vol_emission (planar_vol.cuh) at (l, p_l, b, zq, tau, nz) with
+// the runtime flags, for the cotangents (g_dtau, g_dem[3]) of (dtau, dem):
+// adds to *g_l, *g_pl, *g_zq, *g_tau and to g (the theta layout of the vol
+// family: p0, p1, p2 at 0-2, b at 3, nz at 6, r_in, r_out and the 8 slots
+// at 7-16, the scatter block at 17-43).
+template <int KIND>
+__device__ __forceinline__ void vol_emission_vjp(
+    const VolScalars& s, int flags, float l, float p_l, float b, float zq,
+    float tau, float nz, float g_dtau, const float g_dem[3], float* g_l,
+    float* g_pl, float* g_zq, float* g_tau, float* g) {
+  constexpr bool kLapse = HasCapture<KIND>::value;
+  const bool bb = flags & kFlagBlackbody;
+  const bool rs = kLapse && (flags & kFlagRedshift);
+  const bool dop = kLapse && (flags & kFlagDoppler);
+  const bool sc = flags & kFlagScatter;
+  const MarchScalars& m = s.m;
+  const VolSlots& vs = s.v;
+  const float r_in = s.r_in, r_out = s.r_out;
+  const float* blk = s.scatter;
+  float* g_rin = g + 7;
+  float* g_rout = g + 8;
+  float* gs = g + 9;          // the 8 slots, in VolSlots order
+  float* g_blk = g + 17;
+  // ---- forward, as vol_emission
+  float r;
+  if constexpr (kLapse) {
+    r = l;
+  } else {
+    r = rsqrtf(planar_inv_r2<KIND>(m, l));
+  }
+  const float zq2 = zq * zq;
+  const float s2_raw = 1.0f - zq2;
+  const float s2 = clip_nan(s2_raw, 1e-12f, 1.0f);
+  const float sq_s2 = sqrtf(s2);
+  const float r_cyl = r * sq_s2;
+  const float dn = 2.0f * vs.h2 * s2;
+  const float E = expf(-zq2 / dn);
+  const float P = vs.inv_norm / r_cyl;
+  const float dens = E * P;
+  const float w_edge = r_out - r_in;
+  const float ein_raw = (r_cyl - r_in) / (0.1f * w_edge);
+  const float edge_in = clip_nan(ein_raw, 0.0f, 1.0f);
+  const float eout_raw = (r_out - r_cyl) / (0.3f * w_edge);
+  const float edge_out = clip_nan(eout_raw, 0.0f, 1.0f);
+  const float base = dens * edge_in * edge_out;
+  const float rr = max_nan(r_cyl, r_in);
+  float g_shift = 1.0f;
+  float M = 0.0f, q2 = 0.0f, A_raw = 0.0f, vsq = 0.0f, sqA = 1.0f,
+        g0 = 1.0f, svsq = 0.0f, vr = 0.0f, vel = 0.0f, gamma = 1.0f,
+        u_l = 0.0f, u_psi = 0.0f, inv = 0.0f, upi = 0.0f, cos_xi = 0.0f,
+        D = 1.0f;
+  if (rs || dop) {
+    M = m.p0;
+    if constexpr (KIND == kReissnerNordstrom) {
+      q2 = m.p1;
+      A_raw = 1.0f - (2.0f * M - q2 / rr) / rr;
+      vsq = (M - q2 / rr) / rr;
+    } else {
+      A_raw = 1.0f - 2.0f * M / rr;
+      vsq = M / rr;
+    }
+    const float A = clip_nan(A_raw, 1e-3f, 1.0f);
+    sqA = sqrtf(A);
+    g0 = rs ? sqA : 1.0f;
+    g_shift = g0;
+    if (dop) {
+      svsq = sqrtf(vsq);
+      vr = svsq / sqA;
+      vel = clip_nan(vr, 0.0f, 0.99f);
+      gamma = rsqrtf(1.0f - vel * vel);
+      u_l = p_l * sqA;
+      u_psi = b / rr;
+      inv = rsqrtf(u_l * u_l + u_psi * u_psi + 1e-30f);
+      upi = u_psi * inv;
+      cos_xi = upi * nz * vs.spin_sign;
+      D = gamma * (1.0f - vel * cos_xi);
+      g_shift = g0 / D;
+    }
+  }
+  const float trans = expf(-tau);
+  const float tb = trans * base;
+  // ---- reverse
+  float g_base = vs.kappa * g_dtau;
+  gs[2] += base * g_dtau;                          // kappa
+  float g_tb, g_g, g_rr, g_rcyl;
+  vol_color_vjp(bb, sc, vs, r_in, r_out, rr, r_cyl, g_shift, tb, blk, g_dem,
+                &g_tb, &g_g, &g_rr, &g_rcyl, g_rin, g_rout, gs, g_blk);
   const float g_trans = g_tb * base;
   g_base += g_tb * trans;
   *g_tau += -g_trans * trans;

@@ -66,6 +66,16 @@ def q2_of(metric, like):
     return q * q
 
 
+def step_dte(dt, axis_u0, far_r0, r, th):
+    """The step at (r, theta): dt scaled by the polar-axis factor and the
+    far-field factor (the rule of every Kerr march), with jnp.clip's
+    gradient (a tie passes half the cotangent)."""
+    s = torch.sin(th)
+    return (dt * jclip((s * s + 1e-12) / max(float(axis_u0), 1e-12),
+                       1.0 / 16.0, 1.0)
+            * jclip(r / max(float(far_r0), 1e-12), 1.0, FAR_DT_CAP))
+
+
 def _step5_theta(dt, axis_u0, far_r0, theta, y):
     """One unmasked RK4 step of the 5-state BL system, the dt scaled by the
     polar-axis factor and the far-field factor at the step's start (the
@@ -73,10 +83,7 @@ def _step5_theta(dt, axis_u0, far_r0, theta, y):
     per-ray; the clips are jnp.clip's (a tie passes half the cotangent)."""
     M, a, q2, E, L = theta
     r, th, ph, p_r, p_th = y
-    s = torch.sin(th)
-    dte = (dt * jclip((s * s + 1e-12) / max(float(axis_u0), 1e-12),
-                      1.0 / 16.0, 1.0)
-           * jclip(r / max(float(far_r0), 1e-12), 1.0, FAR_DT_CAP))
+    dte = step_dte(dt, axis_u0, far_r0, r, th)
 
     def rhs(r_, th_, pr_, pth_):
         return kerr_rhs_theta(M, a, q2, E, L, r_, th_, pr_, pth_)

@@ -55,7 +55,8 @@ LINK_FLAGS = [*ARCH, "-shared"]
 _NO_FMA = ["--fmad=false"]
 SOURCE_FLAGS = {src: _NO_FMA for src in (
     "kerr.cu", "kerr_rk45.cu", "planar_rk45.cu", "planar_rk45_disk.cu",
-    "ckpt_kerr.cu", "ckpt_kerr_rk45.cu", "ckpt_rk45.cu",
+    "ckpt_kerr.cu", "ckpt_kerr_rk45.cu", "ckpt_kerr_surface.cu",
+    "ckpt_kerr_surface_rk45.cu", "ckpt_rk45.cu",
     "ckpt_surface_rk45.cu", "ckpt_surface_rk45_schwarzschild.cu",
     "ckpt_surface_rk45_rn.cu")}
 
@@ -155,6 +156,23 @@ _PROTOTYPES = {
     # g_theta, n, seg, device, stream
     "curvis_ckpt_kerr_rk45_bwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                   _P, ctypes.c_longlong, _I, _I, _P],
+    # vol, flags, scalars, n_scalars, r, theta, phi, p_r, p_theta, E, L,
+    # steps (iters), offsets, ckpt, final, n, seg, device, stream
+    "curvis_ckpt_kerr_surface_gen": [_I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _P, ctypes.c_longlong,
+                                     _I, _I, _P],
+    "curvis_ckpt_kerr_surface_rk45_gen": [_I, _I, _P, _I, _P, _P, _P, _P, _P,
+                                          _P, _P, _P, _P, _P, _P,
+                                          ctypes.c_longlong, _I, _I, _P],
+    # vol, flags, scalars, n_scalars, ckpt, E, L, steps, offsets, cot, lam,
+    # g_theta, n, seg, device, stream
+    "curvis_ckpt_kerr_surface_bwd": [_I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, ctypes.c_longlong, _I, _I, _P],
+    # vol, flags, scalars, n_scalars, freeze, ckpt, E, L, iters, offsets,
+    # cot, lam, g_theta, n, seg, device, stream
+    "curvis_ckpt_kerr_surface_rk45_bwd": [_I, _I, _P, _I, _I, _P, _P, _P, _P,
+                                          _P, _P, _P, _P, ctypes.c_longlong,
+                                          _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -231,11 +231,14 @@ def kerr_step5_plain(row, E, L, y):
                  for c in range(5))
 
 
-def kerr_step5_vjp_plain(row, E, L, y, lam, g=None, act=None):
+def kerr_step5_vjp_plain(row, E, L, y, lam, g=None, act=None, *,
+                         guard=False, g_dte_in=None):
     """csrc/kerr_vjp.cuh:kerr_rk4_vjp: ``lam`` (5) is the cotangent of the
     state after the step at ``y`` -> (that of the state before it (5), the
     per-ray sums ``g`` of (g_M, g_a, g_q2, g_E, g_L) with this step's terms
-    added (from zeros when None; ``act`` masks them))."""
+    added (from zeros when None; ``act`` masks them)).  ``guard`` takes the
+    guarded RHS partials; ``g_dte_in`` is a cotangent of the step's dte
+    from elsewhere (the kernels' DTE_IN)."""
     M, a, q2 = row[2], row[3], row[4]
     dte, hd, yi, k = kerr_rk4_stages_plain(row, E, L, y)
     w = dte * (1.0 / 6.0)
@@ -253,9 +256,11 @@ def kerr_step5_vjp_plain(row, E, L, y, lam, g=None, act=None):
         gk[3][c] = g_sum
     lam = list(lam)
     g_dte = g_w * (1.0 / 6.0)
+    if g_dte_in is not None:
+        g_dte = g_dte + g_dte_in
     g_hd = zero
     for i in range(3, -1, -1):
-        *gi, terms = kerr_rhs_vjp_plain(False, M, a, q2, E, L, *yi[i],
+        *gi, terms = kerr_rhs_vjp_plain(guard, M, a, q2, E, L, *yi[i],
                                         gk[i])
         g = _add_theta(g, terms, act)
         for q, c in enumerate(RHS_IN):
@@ -323,17 +328,25 @@ def kerr_rk45_trial_plain(row, E, L, y, dt):
                 over=over, frac=frac, den_r=den_r, small=small)
 
 
+def rk45_bounds(row):
+    """(dt_max, dt_min) of kernel #8's row: at 10 in the bare and disk row
+    (12 floats), at 18 in the volumetric one (20 or 47)."""
+    b = 10 if row.numel() == N_ROW["rk45"] else 18
+    return row[b], row[b + 1]
+
+
 def kerr_rk45_terminal_plain(row, t):
     """csrc/kerr_vjp.cuh:kerr_rk45_terminal: where kernel #8 keeps dt."""
     m_chk = sum(torch.abs(v) for v in t["y1"])
     ok = m_chk <= 1e8
     stop = ~ok | t["esc"] | (t["y1"][0] < row[5])
-    return torch.where(t["accept"], stop, t["dt"] <= row[11] * 1.01)
+    return torch.where(t["accept"], stop,
+                       t["dt"] <= rk45_bounds(row)[1] * 1.01)
 
 
 def kerr_rk45_next_dt_plain(row, t):
     """csrc/kerr_step.cuh:kerr_rk45_next_dt."""
-    dt_max, dt_min = row[10], row[11]
+    dt_max, dt_min = rk45_bounds(row)
     dt, err = t["dt"], t["err"]
     err_s = torch.clamp(err, min=1e-10)
     factor = torch.clamp(0.9 * torch.exp(-0.2 * torch.log(err_s)), 0.2, 5.0)
@@ -354,53 +367,57 @@ def kerr_rk45_iter_plain(row, E, L, y, freeze=False):
     return (*out, dtn.detach() if freeze else dtn)
 
 
-def kerr_rk45_iter_vjp_plain(row, E, L, y, lam, freeze=False, g=None,
-                             act=None):
-    """csrc/kerr_vjp.cuh:kerr_rk45_vjp: ``lam`` (6) is the cotangent of
-    the state after the iteration at ``y`` (6) -> (that of the state before
-    it (6), the per-ray sums ``g`` of (g_M, g_a, g_q2, g_E, g_L) with this
-    iteration's terms added (from zeros when None; ``act`` masks them))."""
+def kerr_rk45_next_vjp_plain(row, t, terminal, g_next, g_y, g_y1):
+    """csrc/kerr_vjp.cuh:kerr_rk45_next_vjp: the cotangent ``g_next`` of
+    trial ``t``'s next dt (dt itself where ``terminal``) -> (g_y, g_y1
+    with the escape fraction's terms added, g_dt, g_err)."""
+    dt_max, dt_min = rk45_bounds(row)
+    dt = t["dt"]
+    zero = torch.zeros_like(dt)
+    g_y, g_y1 = list(g_y), list(g_y1)
+    over = t["over"] & ~terminal
+    ctrl = ~terminal & ~t["over"]
+    # the over-reject: next = clip(dt frac 1.05)
+    x = dt * t["frac"] * 1.05
+    g_x = g_next * _clip_share(x, dt_min, dt_max)
+    g_frac = g_x * dt * 1.05
+    g_y[0] = g_y[0] + torch.where(over, -g_frac / t["den_r"], zero)
+    g_den = torch.where(over & ~t["small"], -g_frac * t["frac"] / t["den_r"],
+                        zero)
+    g_y1[0] = g_y1[0] + g_den
+    g_y[0] = g_y[0] - g_den
+    # the controller: next = clip(dt factor(err))
+    err = t["err"]
+    err_s = torch.clamp(err, min=1e-10)
+    f_raw = 0.9 * torch.exp(-0.2 * torch.log(err_s))
+    f_c = torch.clamp(f_raw, 0.2, 5.0)
+    pos = f_c > 0.0
+    factor = torch.where(pos, f_c, 0.2)
+    xc = dt * factor
+    g_xc = g_next * _clip_share(xc, dt_min, dt_max)
+    g_fc = torch.where(pos, g_xc * dt, zero)
+    g_fraw = g_fc * _clip_share(f_raw, 0.2, 5.0)
+    g_err = torch.where(ctrl & (g_fraw != 0.0), g_fraw * (-0.2)
+                        * f_raw / err_s * _max_share(err, 1e-10), zero)
+    g_dt = torch.where(terminal, g_next,
+                       torch.where(over, g_x * t["frac"] * 1.05,
+                                   torch.where(ctrl, g_xc * factor, zero)))
+    return g_y, g_y1, g_dt, g_err
+
+
+def kerr_rk45_trial_vjp_plain(row, E, L, t, g_err, g_y, g_y1, g_dt, g=None,
+                              act=None):
+    """csrc/kerr_vjp.cuh:kerr_rk45_trial_vjp: the cotangents ``g_y1`` of
+    trial ``t``'s y1 and ``g_err`` of its error norm, with those gathered
+    for its start (``g_y``, ``g_dt``) -> (the cotangent of (y, dt) (6),
+    the per-ray sums ``g`` of (g_M, g_a, g_q2, g_E, g_L) with the trial's
+    terms added (from zeros when None; ``act`` masks them))."""
     M, a, q2 = row[2], row[3], row[4]
-    rtol, dt_max, dt_min = row[8], row[10], row[11]
-    t = kerr_rk45_trial_plain(row, E, L, y[:5], y[5])
+    rtol = row[8]
     dt = t["dt"]
     zero = torch.zeros_like(dt)
     g = [zero] * 5 if g is None else list(g)
-    acc = t["accept"]
-    g_y1 = [torch.where(acc, lam[c], zero) for c in range(5)]
-    g_y = [torch.where(acc, zero, lam[c]) for c in range(5)]
-    g_dt, g_err = zero, zero
-    if not freeze:
-        g_next = lam[5]
-        term = kerr_rk45_terminal_plain(row, t)
-        over = t["over"] & ~term
-        ctrl = ~term & ~t["over"]
-        # the over-reject: next = clip(dt frac 1.05)
-        x = dt * t["frac"] * 1.05
-        g_x = g_next * _clip_share(x, dt_min, dt_max)
-        g_frac = g_x * dt * 1.05
-        g_y[0] = g_y[0] + torch.where(over, -g_frac / t["den_r"], zero)
-        g_den = torch.where(over & ~t["small"],
-                            -g_frac * t["frac"] / t["den_r"], zero)
-        g_y1[0] = g_y1[0] + g_den
-        g_y[0] = g_y[0] - g_den
-        # the controller: next = clip(dt factor(err))
-        err = t["err"]
-        err_s = torch.clamp(err, min=1e-10)
-        f_raw = 0.9 * torch.exp(-0.2 * torch.log(err_s))
-        f_c = torch.clamp(f_raw, 0.2, 5.0)
-        pos = f_c > 0.0
-        factor = torch.where(pos, f_c, 0.2)
-        xc = dt * factor
-        g_xc = g_next * _clip_share(xc, dt_min, dt_max)
-        g_fc = torch.where(pos, g_xc * dt, zero)
-        g_fraw = g_fc * _clip_share(f_raw, 0.2, 5.0)
-        g_err = torch.where(ctrl & (g_fraw != 0.0), g_fraw * (-0.2)
-                            * f_raw / err_s * _max_share(err, 1e-10), zero)
-        g_dt = torch.where(term, g_next,
-                           torch.where(over, g_x * t["frac"] * 1.05,
-                                       torch.where(ctrl, g_xc * factor,
-                                                   zero)))
+    g_y, g_y1 = list(g_y), list(g_y1)
     on = g_err != 0.0
     ec = t["ec"]
     s01 = _max_share(torch.maximum(ec[0], ec[1]), torch.maximum(ec[2], ec[3]))
@@ -423,7 +440,7 @@ def kerr_rk45_iter_vjp_plain(row, E, L, y, lam, freeze=False, g=None,
             on, g_mx * (1.0 - sh) * torch.sign(t["y1"][c]), zero)
     # a rejected trial whose error norm has no cotangent passes none to y1
     # or its stages (kernel: those terms are not formed)
-    reach = acc | t["over"] | on
+    reach = t["accept"] | t["over"] | on
     gk = [[None] * 5 for _ in range(7)]
     for c in range(5):
         ge = zero if c == 2 else g_e[c if c < 2 else c - 1]
@@ -448,6 +465,25 @@ def kerr_rk45_iter_vjp_plain(row, E, L, y, lam, freeze=False, g=None,
                     g_a = g_a + t["k"][j][c] * gi[q]
                 g_dt = g_dt + torch.where(reach, a_ij * g_a, zero)
     return (*g_y, g_dt), tuple(g)
+
+
+def kerr_rk45_iter_vjp_plain(row, E, L, y, lam, freeze=False, g=None,
+                             act=None):
+    """csrc/kerr_vjp.cuh:kerr_rk45_vjp: ``lam`` (6) is the cotangent of
+    the state after the iteration at ``y`` (6) -> (that of the state before
+    it (6), the per-ray sums ``g`` of (g_M, g_a, g_q2, g_E, g_L) with this
+    iteration's terms added (from zeros when None; ``act`` masks them))."""
+    t = kerr_rk45_trial_plain(row, E, L, y[:5], y[5])
+    zero = torch.zeros_like(t["dt"])
+    acc = t["accept"]
+    g_y1 = [torch.where(acc, lam[c], zero) for c in range(5)]
+    g_y = [torch.where(acc, zero, lam[c]) for c in range(5)]
+    g_dt, g_err = zero, zero
+    if not freeze:
+        g_y, g_y1, g_dt, g_err = kerr_rk45_next_vjp_plain(
+            row, t, kerr_rk45_terminal_plain(row, t), lam[5], g_y, g_y1)
+    return kerr_rk45_trial_vjp_plain(row, E, L, t, g_err, g_y, g_y1, g_dt, g,
+                                     act)
 
 
 # ------------------------------------------------------- plain kernel pair

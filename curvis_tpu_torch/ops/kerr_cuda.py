@@ -46,17 +46,29 @@ launches = 0             # kernel launches since the last reset
 
 
 def kerr_scalars(metric, dt, escape_radius, capture_radius=None, *,
-                 disk=None, vol_disk=None, scatter_block=None,
+                 disk=None, vol_disk=None, vol_row=None, scatter_block=None,
                  axis_u0=0.01, far_r0=None):
     """The kernel's scalar row as Python floats (one host read of the
-    metric's parameters, and one of the scatter block)."""
+    metric's parameters, and one of the scatter block).  ``vol_row`` (the
+    traced (10,) row of ``integrate/kerr_surface_adjoint.py:
+    build_vol_row``: r_in, r_out and the 8 emission slots) replaces the
+    values of ``vol_disk``, so that a march and its replay read one row."""
     if disk is not None and vol_disk is not None:
         raise ValueError("pass disk=(r_in, r_out) OR vol_disk, not both")
     if scatter_block is not None and vol_disk is None:
         raise ValueError("scatter_block needs vol_disk")
+    if vol_row is not None and vol_disk is None:
+        raise ValueError("vol_row needs vol_disk")
     if capture_radius is None:
         capture_radius = metric.capture_radius
-    if vol_disk is not None:
+    slots = None
+    if vol_row is not None:
+        vals = [float(v) for v in
+                torch.as_tensor(vol_row).detach().reshape(-1).cpu().tolist()]
+        if len(vals) != 10:
+            raise ValueError(f"vol_row has {len(vals)} values, not 10")
+        r_in, r_out, slots = vals[0], vals[1], vals[2:]
+    elif vol_disk is not None:
         r_in, r_out = vol_disk.r_inner, vol_disk.r_outer
     else:
         r_in, r_out = disk if disk is not None else (0.0, 0.0)
@@ -66,7 +78,8 @@ def kerr_scalars(metric, dt, escape_radius, capture_radius=None, *,
            for v in row]
     assert len(row) == VOL_BLOCK_KERR
     if vol_disk is not None:
-        row += vol_param_slots(vol_disk) + [0.0, 0.0]
+        row += (vol_param_slots(vol_disk) if slots is None else slots) \
+            + [0.0, 0.0]
         if scatter_block is not None:
             assert len(row) == KERR_SCATTER_OFF
             block = torch.as_tensor(scatter_block).detach().reshape(-1)
@@ -236,15 +249,17 @@ def _flat_f32(t):
 
 def march_kerr_cuda(metric, x0, p0, *, dt, max_steps, escape_radius,
                     capture_radius=None, disk=None, vol_disk=None,
-                    scatter_block=None, axis_u0=0.01, far_r0=None):
+                    vol_row=None, scatter_block=None, axis_u0=0.01,
+                    far_r0=None):
     """RK4 march of the BL bundle (x0, p0) with the contract of
     ``march_kerr_pallas``: (x, p, sign, steps), plus ((h1, h1_phi,
     h1_side), (h2, h2_phi, h2_side)) with ``disk`` or (tau, (em_r, em_g,
-    em_b)) with ``vol_disk``.  The CUDA kernel for CUDA tensors (float32),
-    the plain version for CPU tensors."""
+    em_b)) with ``vol_disk`` (its emission row ``vol_row`` when given, see
+    ``kerr_scalars``).  The CUDA kernel for CUDA tensors (float32), the
+    plain version for CPU tensors."""
     dev = common_device(metric, x0, p0)
     scal = kerr_scalars(metric, dt, escape_radius, capture_radius,
-                        disk=disk, vol_disk=vol_disk,
+                        disk=disk, vol_disk=vol_disk, vol_row=vol_row,
                         scatter_block=scatter_block, axis_u0=axis_u0,
                         far_r0=far_r0)
     vol = vol_disk is not None

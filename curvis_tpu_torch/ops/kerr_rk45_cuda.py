@@ -54,13 +54,13 @@ launches = 0             # kernel launches since the last reset
 
 def kerr_rk45_scalars(metric, dt0, escape_radius, *, rtol, atol, dt_min,
                       dt_max, capture_radius=None, disk=None, vol_disk=None,
-                      scatter_block=None):
+                      vol_row=None, scatter_block=None):
     """The kernel's scalar row as Python floats: kernel #7's row
     (``kerr_scalars``) with (rtol, atol) in its (axis_u0, far_r0) slots and
     (dt_max, dt_min) at KERR_RK45_BOUNDS[vol], in place of the volumetric
     row's two spares or appended to the bare row."""
     row = kerr_scalars(metric, dt0, escape_radius, capture_radius,
-                       disk=disk, vol_disk=vol_disk,
+                       disk=disk, vol_disk=vol_disk, vol_row=vol_row,
                        scatter_block=scatter_block, axis_u0=rtol,
                        far_r0=atol)
     b = KERR_RK45_BOUNDS[vol_disk is not None]
@@ -207,21 +207,24 @@ def march_kerr_rk45_cuda(metric, x0, p0, *, dt0=0.1, max_steps=4_000,
                          max_iters=None, escape_radius, rtol=1e-4,
                          atol=1e-7, dt_min=1e-5, dt_max=None,
                          capture_radius=None, disk=None, vol_disk=None,
-                         scatter_block=None, return_iters=False):
+                         vol_row=None, scatter_block=None,
+                         return_iters=False):
     """Adaptive DP5(4) march of the BL bundle (x0, p0) with the contract
     and defaults of ``march_kerr_rk45_pallas``: (x, p, sign, steps), plus
     ((h1, h1_phi, h1_side), (h2, h2_phi, h2_side)) with ``disk`` or (tau,
     (em_r, em_g, em_b)) with ``vol_disk``, plus iters with
-    ``return_iters``.  ``dt_max`` defaults to escape_radius / 8.  The CUDA
-    kernel for CUDA tensors (float32), the plain version for CPU
-    tensors."""
+    ``return_iters``.  ``dt_max`` defaults to escape_radius / 8;
+    ``vol_row`` is the gas's emission row (``ops/kerr_cuda.py:
+    kerr_scalars``).  The CUDA kernel for CUDA tensors (float32), the
+    plain version for CPU tensors."""
     dev = common_device(metric, x0, p0)
     if dt_max is None:
         dt_max = float(escape_radius) / 8.0
     scal = kerr_rk45_scalars(metric, dt0, escape_radius, rtol=rtol,
                              atol=atol, dt_min=dt_min, dt_max=dt_max,
                              capture_radius=capture_radius, disk=disk,
-                             vol_disk=vol_disk, scatter_block=scatter_block)
+                             vol_disk=vol_disk, vol_row=vol_row,
+                             scatter_block=scatter_block)
     mi = default_max_iters(max_steps, max_iters)
     vol = vol_disk is not None
     flags = (disk is not None, vol,

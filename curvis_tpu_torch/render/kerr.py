@@ -30,25 +30,33 @@ Routes, by the stepper and the device of the inputs:
   runs the Pallas kernel in interpret mode there; it has no twin for
   them).
 
-The differentiable backends run the bare march (no disk), with either
-stepper, and give exact discrete gradients with respect to the metric's
-parameters (m, a, q), the camera pose and so ``x0`` and ``p0``:
+The differentiable backends give exact discrete gradients with respect
+to the metric's parameters (m, a, q), the camera pose and so ``x0`` and
+``p0`` and, with a disk, the tensors of ``disk_theta`` (the knobs of
+``render/disk.py:DIFF_DISK_KEYS``), with either stepper:
 
-- ``backend='adjoint'``: RK4 through ``integrate/kerr_adjoint.py:
-  march_kerr_adjoint`` (kernel #7 forward and the checkpoint kernels #9 /
-  #10's Kerr RK4 family backward on CUDA tensors, the twin pair on CPU
-  tensors), DP5(4) through ``integrate/rk45_adjoint.py:
-  march_kerr_rk45_adjoint`` (kernel #8 forward and the Kerr DP5(4) family
-  backward on CUDA tensors, the twin pair on CPU tensors);
-- ``backend='scan'``: RK4 through ``physics/hamiltonian.py:
+- ``backend='adjoint'``: the bare march through ``integrate/
+  kerr_adjoint.py:march_kerr_adjoint`` (RK4) or ``integrate/
+  rk45_adjoint.py:march_kerr_rk45_adjoint`` (DP5(4)), a thin or
+  volumetric disk through ``integrate/kerr_surface_adjoint.py``
+  (``march_kerr_disk_adjoint``, ``march_kerr_vol_adjoint`` and their
+  ``rk45`` twins): kernel #7 or #8 forward and the checkpoint kernels #9 /
+  #10's Kerr families backward on CUDA tensors, the twin pairs on CPU
+  tensors;
+- ``backend='scan'``: RK4 bare through ``physics/hamiltonian.py:
   march_hamiltonian_scan`` (the autodiff RHS under a checkpointed scan),
-  DP5(4) through ``march_kerr_rk45_adjoint(backend='twin')``, plain
-  PyTorch on any device, as the JAX package's scans are plain XLA.
+  everything else through the twin pairs (``backend='twin'`` of the
+  adjoint marches), plain PyTorch on any device, as the JAX package's
+  scans are plain XLA.
 
 Captured and blown-up rays keep the spawn-state substitution of
-``_kerr_shade``.  With a disk, and with ``disk_theta=``, the
-differentiable routes are the Kerr surface adjoints and raise
-NotImplementedError naming ROADMAP Queue 1 item 3.
+``_kerr_shade``.  ``disk_theta`` shades every route through
+``render/disk.py:disk_view`` and builds the in-gas scatter block from it;
+the volumetric RK4 march reads its emission row (``build_vol_row``) on
+the differentiable route, on the CPU and, through ``vol_row=``, on the
+GPU.  As in the JAX package, ``stepper='rk45'`` with ``backend='auto'``
+and a volumetric disk neither marches nor shades with ``disk_theta``
+(only its scatter block sees it).
 """
 from __future__ import annotations
 
@@ -60,6 +68,9 @@ from curvis_tpu_torch.camera.camera import Camera, aberrate_directions
 from curvis_tpu_torch.env.spherical_image import SphericalImage, filter_lookup
 from curvis_tpu_torch.geometry.rotations import frame_matrix
 from curvis_tpu_torch.integrate.kerr_adjoint import march_kerr_adjoint
+from curvis_tpu_torch.integrate.kerr_surface_adjoint import (
+    build_vol_row, march_kerr_disk_adjoint, march_kerr_rk45_disk_adjoint,
+    march_kerr_rk45_vol_adjoint, march_kerr_vol_adjoint)
 from curvis_tpu_torch.integrate.rk45 import march_kerr_rk45
 from curvis_tpu_torch.integrate.rk45_adjoint import march_kerr_rk45_adjoint
 from curvis_tpu_torch.ops.disk_vol_cuda import scatter_source_plain
@@ -68,7 +79,8 @@ from curvis_tpu_torch.ops.kerr_rk45_cuda import march_kerr_rk45_cuda
 from curvis_tpu_torch.physics import hamiltonian as ham
 from curvis_tpu_torch.render.disk import (OPAQUE_SIGN, DiskParams,
                                           _emission_rgb, _volumetric_rgb,
-                                          blackbody_rgb, disk_temperature)
+                                          _rgb, blackbody_rgb,
+                                          disk_temperature, disk_view)
 from curvis_tpu_torch.render.fast import (_contrast_topk,
                                           _dirs_for_pixel_coords,
                                           _pixel_dirs_soa, _subpixel_coords,
@@ -78,12 +90,9 @@ from curvis_tpu_torch.render.starlight import (starlight_lookup,
 from curvis_tpu_torch.utils.device import common_device
 
 
-def check_kerr_route(stepper="rk4", backend="auto", disk_theta=None,
-                     disk=None):
-    """Raise for the options of the Kerr routes the port does not run yet
-    (NotImplementedError naming the ROADMAP item) or does not know.  The
-    differentiable backends run the bare march; with a disk, and with
-    ``disk_theta``, they are the Kerr surface adjoints."""
+def check_kerr_route(stepper="rk4", backend="auto"):
+    """Raise ValueError for the options of the Kerr routes the port does
+    not know."""
     if stepper not in ("rk4", "rk45"):
         raise ValueError(f"the Kerr routes march with stepper='rk4' or "
                          f"'rk45', got {stepper!r}")
@@ -91,14 +100,6 @@ def check_kerr_route(stepper="rk4", backend="auto", disk_theta=None,
         raise ValueError(f"unknown backend {backend!r}: 'auto' (the march "
                          "by the device of the inputs), 'scan' or "
                          "'adjoint'")
-    if backend != "auto" and disk is not None:
-        raise NotImplementedError(
-            f"backend={backend!r} with a disk: the Kerr surface adjoints "
-            "(integrate/kerr_surface_adjoint.py) are ROADMAP Queue 1 item 3")
-    if disk_theta:
-        raise NotImplementedError(
-            "disk_theta (traced disk parameters) comes with the Kerr surface "
-            "adjoints, ROADMAP Queue 1 item 3")
 
 
 def _far_r0(metric, disk, far_accel):
@@ -308,41 +309,40 @@ def _asymptotic_dirs(metric, x, p):
 
 
 def _march(metric, x0, p0, *, disk, scatter_block, stepper, rtol, dt,
-           max_steps, escape_radius, far_r0, backend="auto"):
-    """The march of a render route -> (x, p, sign, tau, em, h1, h2), unused
-    parts None.  RK4: kernel #7 on a GPU, the autodiff twins on the CPU.
-    rk45: kernel #8 on a GPU; on the CPU the autodiff twin for the bare
-    march and kernel #8's plain version for the disk and volumetric ones.
-    The differentiable bare marches: ``'scan'`` the checkpointed autodiff
-    RK4 scan or the DP5(4) twin pair on any device, ``'adjoint'`` kernels
-    #7 / #8 forward and the checkpoint kernels backward on a GPU, the twin
-    pairs on the CPU."""
+           max_steps, escape_radius, far_r0, backend="auto", disk_theta=None):
+    """The march of a render route -> (x, p, sign, tau, em, h1, h2, the
+    disk_theta to shade with), unused parts None.  Routed as the JAX
+    package's ``_kerr_march_and_shade`` (module docstring): RK4 by kernel
+    #7 on a GPU and the autodiff twins on the CPU; rk45 by kernel #8 on a
+    GPU and, on the CPU, the autodiff twin for the bare march and kernel
+    #8's plain version for the disk and volumetric ones; the
+    differentiable backends by the adjoint marches ('adjoint': the
+    kernels on a GPU, the twin pairs on the CPU; 'scan': the twin pairs,
+    the RK4 bare march by the checkpointed autodiff scan)."""
     vol = disk is not None and disk.volumetric
     gpu = x0.device.type != "cpu"
     tau = em = h1 = h2 = None
-    if backend != "auto":
-        if stepper == "rk45":
-            x, p, sign, _ = march_kerr_rk45_adjoint(
-                metric, x0, p0, dt0=dt, max_steps=max_steps,
-                escape_radius=escape_radius, rtol=rtol, atol=rtol * 1e-3,
-                backend="twin" if backend == "scan" else "auto")
-        elif backend == "scan":
-            x, p, sign, _ = ham.march_hamiltonian_scan(
-                metric, x0, p0, dt=dt, max_steps=max_steps,
-                escape_radius=escape_radius,
-                capture_radius=metric.capture_radius, far_r0=far_r0)
-        else:
-            x, p, sign, _ = march_kerr_adjoint(
-                metric, x0, p0, dt=dt, max_steps=max_steps,
-                escape_radius=escape_radius, far_r0=far_r0)
-        return x, p, sign, tau, em, h1, h2
+    diff = backend != "auto"
+    mback = "twin" if backend == "scan" else "auto"
     if stepper == "rk45":
         kw = dict(dt0=dt, max_steps=max_steps, escape_radius=escape_radius,
                   rtol=rtol, atol=rtol * 1e-3)
-        if vol:
+        if diff and vol:
+            x, p, sign, _, tau, em = march_kerr_rk45_vol_adjoint(
+                metric, x0, p0, disk, disk_theta=disk_theta,
+                scatter_block=scatter_block, backend=mback, **kw)
+        elif diff and disk is not None:
+            x, p, sign, _, (h1, h2) = march_kerr_rk45_disk_adjoint(
+                metric, x0, p0, r_inner=disk.r_inner, r_outer=disk.r_outer,
+                backend=mback, **kw)
+        elif diff:
+            x, p, sign, _ = march_kerr_rk45_adjoint(metric, x0, p0,
+                                                    backend=mback, **kw)
+        elif vol:
             x, p, sign, _, (tau, em) = march_kerr_rk45_cuda(
                 metric, x0, p0, vol_disk=disk, scatter_block=scatter_block,
                 **kw)
+            disk_theta = None      # the JAX package's route ignores it
         elif disk is not None:
             x, p, sign, _, (h1, h2) = march_kerr_rk45_cuda(
                 metric, x0, p0, disk=(disk.r_inner, disk.r_outer), **kw)
@@ -351,38 +351,53 @@ def _march(metric, x0, p0, *, disk, scatter_block, stepper, rtol, dt,
         else:
             x, p, sign, _ = march_kerr_rk45(
                 metric, x0, p0, capture_radius=metric.capture_radius, **kw)
-        return x, p, sign, tau, em, h1, h2
+        return x, p, sign, tau, em, h1, h2, disk_theta
     kw = dict(dt=dt, max_steps=max_steps, escape_radius=escape_radius,
               far_r0=far_r0)
     if vol:
-        if gpu:
+        if diff or (disk_theta and not gpu):
+            x, p, sign, _, tau, em = march_kerr_vol_adjoint(
+                metric, x0, p0, disk, disk_theta=disk_theta,
+                scatter_block=scatter_block, backend=mback, **kw)
+        elif gpu:
+            vol_row = (build_vol_row(disk, disk_theta, dtype=x0.dtype,
+                                     device=x0.device) if disk_theta
+                       else None)
             x, p, sign, _, (tau, em) = march_kerr_cuda(
-                metric, x0, p0, vol_disk=disk, scatter_block=scatter_block,
-                **kw)
+                metric, x0, p0, vol_disk=disk, vol_row=vol_row,
+                scatter_block=scatter_block, **kw)
         else:
             x, p, sign, tau, em = march_kerr_volumetric(
                 metric, x0, p0, params=disk, scatter_block=scatter_block,
                 **kw)
     elif disk is not None:
         band = dict(r_inner=disk.r_inner, r_outer=disk.r_outer)
-        if gpu:
+        if diff:
+            x, p, sign, _, (h1, h2) = march_kerr_disk_adjoint(
+                metric, x0, p0, backend=mback, **band, **kw)
+        elif gpu:
             x, p, sign, _, (h1, h2) = march_kerr_cuda(
                 metric, x0, p0, disk=(disk.r_inner, disk.r_outer), **kw)
         else:
             x, p, sign, (h1, h2) = march_kerr_disk(metric, x0, p0, **band,
                                                    **kw)
+    elif backend == "scan":
+        x, p, sign, _ = ham.march_hamiltonian_scan(
+            metric, x0, p0, capture_radius=metric.capture_radius, **kw)
+    elif diff:
+        x, p, sign, _ = march_kerr_adjoint(metric, x0, p0, **kw)
     elif gpu:
         x, p, sign, _ = march_kerr_cuda(metric, x0, p0, **kw)
     else:
         x, p, sign, _ = ham.march_hamiltonian(
             metric, x0, p0, capture_radius=metric.capture_radius, **kw)
-    return x, p, sign, tau, em, h1, h2
+    return x, p, sign, tau, em, h1, h2, disk_theta
 
 
 def _kerr_march_and_shade(metric, x0, p0, bg, dt, *, max_steps,
                           escape_radius, disk, filtering, far_accel=True,
                           stepper="rk4", rtol=1e-4, starlight_map=None,
-                          backend="auto"):
+                          backend="auto", disk_theta=None):
     """March an (N,)-ray BL bundle and shade it -> (N, 3) colours; shared by
     the single-frame, frames-batched and adaptive renderers."""
     scatter_block = None
@@ -391,24 +406,26 @@ def _kerr_march_and_shade(metric, x0, p0, bg, dt, *, max_steps,
             raise ValueError(
                 "disk.starlight=True with volumetric=True for Kerr needs a "
                 "precomputed starlight_map=compute_kerr_starlight_map(...)")
-        scatter_block = starlight_scatter_block(starlight_map, disk,
-                                                x0.dtype)
-    x, p, sign, tau, em, h1, h2 = _march(
+        scatter_block = starlight_scatter_block(
+            starlight_map, disk_view(disk, disk_theta), x0.dtype)
+    x, p, sign, tau, em, h1, h2, shade_theta = _march(
         metric, x0, p0, disk=disk, scatter_block=scatter_block,
         stepper=stepper, rtol=rtol, dt=dt, max_steps=max_steps,
         escape_radius=escape_radius, far_r0=_far_r0(metric, disk, far_accel),
-        backend=backend)
+        backend=backend, disk_theta=disk_theta)
     return _kerr_shade(metric, x0, p0, bg, x, p, sign, disk, filtering, tau,
                        em, h1, h2, starlight_map,
-                       scatter=scatter_block is not None)
+                       scatter=scatter_block is not None,
+                       disk_theta=shade_theta)
 
 
 def _kerr_shade(metric, x0, p0, bg, x, p, sign, disk, filtering, tau, em,
-                h1, h2, starlight_map=None, scatter=False):
+                h1, h2, starlight_map=None, scatter=False, disk_theta=None):
     """The shading of every Kerr march -> (N, 3) colours: the sky along the
     escaped rays' asymptotic directions (others black; their states are
     replaced by the spawn state first, so NaN never reaches the readout),
-    then the volumetric composite or the two thin-disk crossings."""
+    then the volumetric composite or the two thin-disk crossings, with the
+    disk's knobs overridden by ``disk_theta``."""
     esc = (sign == 1)[:, None]
     x = torch.where(esc, x, x0)
     p = torch.where(esc, p, p0)
@@ -421,8 +438,9 @@ def _kerr_shade(metric, x0, p0, bg, x, p, sign, disk, filtering, tau, em,
     dtype = x.dtype
     if disk is None:
         return colors
+    shade = disk_view(disk, disk_theta)
     if disk.volumetric:
-        rgb, trans = _volumetric_rgb(tau, em, disk, dtype, scatter=scatter)
+        rgb, trans = _volumetric_rgb(tau, em, shade, dtype, scatter=scatter)
         return torch.clamp(rgb + trans[:, None] * colors, 0.0, 1.0)
     b_photon = -p0[:, 3] / p0[:, 0]                  # L / E per ray
     star1 = star2 = None
@@ -431,13 +449,12 @@ def _kerr_shade(metric, x0, p0, bg, x, p, sign, disk, filtering, tau, em,
             raise ValueError(
                 "disk.starlight=True for Kerr needs a precomputed map: pass "
                 "starlight_map=compute_kerr_starlight_map(...)")
-        albedo = torch.tensor(disk.albedo, dtype=dtype,
-                              device=x.device)[None, :]
+        albedo = _rgb(shade.albedo, dtype, x.device)[None, :]
         star1 = albedo * starlight_lookup(starlight_map, *h1)
         star2 = albedo * starlight_lookup(starlight_map, *h2)
-    rgb1, a1 = _kerr_disk_rgb(metric, h1[0], b_photon, disk, dtype,
+    rgb1, a1 = _kerr_disk_rgb(metric, h1[0], b_photon, shade, dtype,
                               starlight=star1)
-    rgb2, a2 = _kerr_disk_rgb(metric, h2[0], b_photon, disk, dtype,
+    rgb2, a2 = _kerr_disk_rgb(metric, h2[0], b_photon, shade, dtype,
                               starlight=star2)
     behind = rgb2 * a2[:, None] + colors * (1.0 - a2[:, None])
     return torch.clamp(rgb1 * a1[:, None] + behind * (1.0 - a1[:, None]),
@@ -475,7 +492,7 @@ def render_kerr(metric, camera: Camera, bg: SphericalImage, *, dt=0.1,
     ``stepper='rk45'`` marches with error control ``rtol`` (``dt`` the
     initial step, ``max_steps`` accepted steps) through kernel #8 (module
     docstring)."""
-    check_kerr_route(stepper, backend, disk_theta, disk)
+    check_kerr_route(stepper, backend)
     common_device(metric, camera, bg)
     return _render_kerr_impl(metric, camera, bg, dt, max_steps=max_steps,
                              escape_radius=escape_radius, disk=disk,
@@ -483,13 +500,14 @@ def render_kerr(metric, camera: Camera, bg: SphericalImage, *, dt=0.1,
                              camera_velocity=_velocity(camera_velocity,
                                                        camera),
                              far_accel=far_accel, stepper=stepper, rtol=rtol,
-                             starlight_map=starlight_map, backend=backend)
+                             starlight_map=starlight_map, backend=backend,
+                             disk_theta=disk_theta)
 
 
 def _render_kerr_impl(metric, camera, bg, dt, *, max_steps, escape_radius,
                       disk, filtering, camera_velocity=None, far_accel=True,
                       stepper="rk4", rtol=1e-4, starlight_map=None,
-                      backend="auto"):
+                      backend="auto", disk_theta=None):
     if escape_radius is None:
         escape_radius = 2.0 * camera.position[1]
     x0, p0, delta = _spawn_kerr_rays(metric, camera, camera_velocity)
@@ -499,7 +517,7 @@ def _render_kerr_impl(metric, camera, bg, dt, *, max_steps, escape_radius,
                                    filtering=filtering, far_accel=far_accel,
                                    stepper=stepper, rtol=rtol,
                                    starlight_map=starlight_map,
-                                   backend=backend)
+                                   backend=backend, disk_theta=disk_theta)
     colors = _doppler_boost(colors, delta)
     W, H = camera.resolution_x, camera.resolution_y
     return colors.reshape(W, H, 3).permute(1, 0, 2)
@@ -516,7 +534,7 @@ def render_kerr_frames_batched(metric, cameras, bg: SphericalImage, *,
     stage is per ray, so the frames' bundles concatenate (the cameras must
     share a resolution).  ``escape_radius=None`` is twice the largest
     camera radius; ``camera_velocities``: (F, 3) or None."""
-    check_kerr_route(stepper, backend, disk_theta, disk)
+    check_kerr_route(stepper, backend)
     cams = list(cameras)
     W, H = cams[0].resolution_x, cams[0].resolution_y
     if any((c.resolution_x, c.resolution_y) != (W, H) for c in cams):
@@ -541,7 +559,7 @@ def render_kerr_frames_batched(metric, cameras, bg: SphericalImage, *,
                                    filtering=filtering, far_accel=far_accel,
                                    stepper=stepper, rtol=rtol,
                                    starlight_map=starlight_map,
-                                   backend=backend)
+                                   backend=backend, disk_theta=disk_theta)
     if camera_velocities is not None:
         colors = _doppler_boost(colors, torch.cat([b[2] for b in bundles]))
     return colors.reshape(F, W, H, 3).permute(0, 2, 1, 3)
@@ -559,14 +577,15 @@ def render_kerr_adaptive(metric, camera: Camera, bg: SphericalImage, *,
     sub-rays (k = ``supersample``) for the ``refine_frac`` highest-contrast
     pixels only, marched as one second bundle; each refined pixel becomes
     the mean of its sub-rays."""
-    check_kerr_route(stepper, backend, disk_theta, disk)
+    check_kerr_route(stepper, backend)
     common_device(metric, camera, bg)
     W, H = camera.resolution_x, camera.resolution_y
     n_refine = max(1, int(refine_frac * W * H))
     velocity = _velocity(camera_velocity, camera)
     kw = dict(max_steps=max_steps, disk=disk, filtering=filtering,
               far_accel=far_accel, stepper=stepper, rtol=rtol,
-              starlight_map=starlight_map, backend=backend)
+              starlight_map=starlight_map, backend=backend,
+              disk_theta=disk_theta)
     base = _render_kerr_impl(metric, camera, bg, dt,
                              escape_radius=escape_radius,
                              camera_velocity=velocity, **kw)

@@ -539,12 +539,13 @@ def test_cli_kerr_image_matches_jax_cli(kerr_scene):
 
 
 def test_unported_kerr_options_raise():
-    """The differentiable backends run the bare march with either stepper
+    """Every Kerr route runs: the differentiable backends with either
+    stepper, bare, with a thin or a volumetric disk and with disk_theta
     (their gradients: tests/test_torch_kerr_adjoint.py,
-    test_torch_kerr_rk45_adjoint.py); with a disk, a volumetric disk or
-    disk_theta they are the Kerr surface adjoints and raise naming ROADMAP
-    Queue 1 item 3; the starlight map marches without gradients under
-    either backend."""
+    test_torch_kerr_rk45_adjoint.py, test_torch_kerr_surface_adjoint.py,
+    test_torch_kerr_rk45_surface_adjoint.py), and disk_theta on the
+    non-differentiable routes; unknown options raise ValueError; the
+    starlight map marches without gradients under either backend."""
     _, tm = _metric_pair("kerr")
     _, tb = _sky()
     _, tc = _camera_pair(res=(4, 2))
@@ -553,21 +554,22 @@ def test_unported_kerr_options_raise():
              lambda **k: trk.render_kerr_frames_batched(tm, [tc], tb, **k),
              lambda **k: trk.render_kerr_adaptive(tm, tc, tb, **k))
     thin, gas = DiskParams(**_THIN), DiskParams(**_GAS)
+    theta = {"kappa": torch.tensor(2.0, dtype=torch.float64),
+             "brightness": torch.tensor(0.9, dtype=torch.float64)}
     for call in calls:
         for stepper in ("rk4", "rk45"):
-            for backend in ("scan", "adjoint"):
-                img = call(stepper=stepper, backend=backend, **kw)
-                assert bool(torch.isfinite(img).all())
+            for backend in ("auto", "scan", "adjoint"):
+                if backend != "auto":
+                    img = call(stepper=stepper, backend=backend, **kw)
+                    assert bool(torch.isfinite(img).all())
                 for disk in (thin, gas):
-                    with pytest.raises(NotImplementedError,
-                                       match="Queue 1 item 3"):
-                        call(stepper=stepper, backend=backend, disk=disk,
-                             **kw)
-            with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-                call(stepper=stepper, disk_theta={"kappa": torch.tensor(2.0)},
-                     **kw)
+                    img = call(stepper=stepper, backend=backend, disk=disk,
+                               disk_theta=theta, **kw)
+                    assert bool(torch.isfinite(img).all())
         with pytest.raises(ValueError, match="backend"):
             call(backend="pallas", **kw)
+        with pytest.raises(ValueError, match="stepper"):
+            call(stepper="euler", **kw)
     for backend in ("scan", "adjoint"):
         smap = ts.compute_kerr_starlight_map(
             tm, tb, r_inner=3.0, r_outer=9.0, stepper="rk45",

@@ -294,11 +294,12 @@ def test_build_command_targets_hopper():
     one shared library; the DP5(4) marches (kerr_rk45.cu, planar_rk45.cu,
     planar_rk45_disk.cu), the Kerr RK4 march (kerr.cu) and the checkpoint
     kernels that replay them (ckpt_rk45.cu, ckpt_surface_rk45*.cu,
-    ckpt_kerr.cu, ckpt_kerr_rk45.cu) are built without FMA contraction."""
+    ckpt_kerr*.cu) are built without FMA contraction."""
     compiles, link = _build.nvcc_commands("nvcc", _build.BUILD_DIR /
                                           _build.LIB_NAME)
     cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert cu == ["ckpt_adjoint.cu", "ckpt_kerr.cu", "ckpt_kerr_rk45.cu",
+                  "ckpt_kerr_surface.cu", "ckpt_kerr_surface_rk45.cu",
                   "ckpt_rk45.cu", "ckpt_surface.cu",
                   "ckpt_surface_rk45.cu", "ckpt_surface_rk45_rn.cu",
                   "ckpt_surface_rk45_schwarzschild.cu", "disk.cu",
@@ -311,7 +312,8 @@ def test_build_command_targets_hopper():
         assert not any("fast_math" in a for a in cmd)
     assert [c[-1].rsplit("/", 1)[-1] for c in compiles
             if "--fmad=false" in c] == [
-        "ckpt_kerr.cu", "ckpt_kerr_rk45.cu", "ckpt_rk45.cu",
+        "ckpt_kerr.cu", "ckpt_kerr_rk45.cu", "ckpt_kerr_surface.cu",
+        "ckpt_kerr_surface_rk45.cu", "ckpt_rk45.cu",
         "ckpt_surface_rk45.cu", "ckpt_surface_rk45_rn.cu",
         "ckpt_surface_rk45_schwarzschild.cu", "kerr.cu", "kerr_rk45.cu",
         "planar_rk45.cu", "planar_rk45_disk.cu"]

@@ -254,7 +254,7 @@ def test_cli_kerr_and_video_raise(scene):
 
 
 def test_settings_defaults_match_jax():
-    """The port reads the JAX package's default TOMLs by file path."""
+    """The port's own default TOMLs give the JAX package's defaults."""
     from curvis_tpu.config import settings as jax_settings
     for name in ("CameraSettings", "SimulationSettings", "ImageSettings",
                  "VideoSettings", "MetricSettings"):
@@ -306,6 +306,11 @@ def test_import_loads_no_jax_and_runs_no_nvcc(tmp_path):
         import curvis_tpu_torch.integrate.rk45_adjoint_planar
         import curvis_tpu_torch.integrate.kerr_surface_adjoint
         import curvis_tpu_torch.ops.ckpt_surface_cuda
+        import curvis_tpu_torch.integrate.kerr_adjoint
+        import curvis_tpu_torch.integrate.rk45_adjoint
+        import curvis_tpu_torch.ops.kerr_rk45_cuda
+        import curvis_tpu_torch.ops.ckpt_kerr_cuda
+        import curvis_tpu_torch.ops.ckpt_kerr_surface_cuda
         from curvis_tpu_torch.ops import _build
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "curvis_tpu"))
