@@ -64,9 +64,9 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      dt 0.1, escape radius 56) at 960 x 540, Kerr-Newman at 256^2, the
      disk tracker and the volumetric variants (tint / blackbody, beaming
      on and off, the scatter source of a real Kerr starlight map) at
-     480 x 270, a kappa that freezes rays at tau_max, a step cap of 150
-     that most rays reach, 16 NaN rays (sign 3) and the starlight map's
-     48 x 128 ray bundle;
+     480 x 270 (the volumetric ones capped at 1000 steps), a kappa that
+     freezes rays at tau_max, a step cap of 150 that most rays reach, 16
+     NaN rays (sign 3) and the starlight map's 48 x 128 ray bundle;
  14. the Kerr path end to end at 960 x 540 (examples/render_blackholes.py:
      72-133): the bare shadow, the thin blackbody disk, the volumetric gas
      disk, the Kerr starlight map, the starlit thin disk, the in-gas
@@ -76,7 +76,8 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      asymmetry, and profiles of a thin and a volumetric frame;
  15. the Kerr DP5(4) march kernel (#8) against its plain version at rtol
      1e-4: the bare Kerr view at 960 x 540, Kerr-Newman at 256^2, the
-     disk tracker and the volumetric variants at 480 x 270, a tau_max
+     disk tracker and the volumetric variants at 480 x 270 (the
+     volumetric ones capped at 250 accepted steps), a tau_max
      freeze, a step cap of 8 and a max_iters of 15 (16) that most rays
      reach, 16 NaN rays (sign 3), rays parked on the escape radius (which
      must escape) and the starlight map's 48 x 128 bundle, with a digest
@@ -91,7 +92,8 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      their plain version at rtol 1e-5 on the disk view of phases 10-12:
      the disk tracker at 1024^2, the volumetric variant with every flag
      set (tint / blackbody, redshift and Doppler on and off, the scatter
-     source of a real rk45 starlight map) at 512^2 and 256^2, an Ellis
+     source of a real rk45 starlight map) at 512^2 and 256^2 (capped at
+     300 accepted steps), an Ellis
      wormhole disk with far-sheet hits, a kappa that freezes rays at
      tau_max, a step cap that most rays reach, 16 NaN rays in the tracker
      (sign 3) and in the gas (sign 0 at max_iters, as in the TPU kernel:
@@ -190,7 +192,31 @@ it exits non-zero without them.  Phases, each of which raises on failure:
      linear regime; two descent steps on examples/disk_image_recovery.py's
      view with the loss falling; backend='scan' against the adjoint at
      48^2 on the gas, each stepper (black sky, outside the grown shadow;
-     rk45's float32 d/da printed, not gated), with no kernel launched.
+     rk45's float32 d/da printed, not gated), with no kernel launched;
+ 27. the tabulated user metrics (metrics/table.py; csrc/table.cuh) in
+     kernels #1-#4 and #9 / #10's planar Euler and DP5(4) families against
+     their plain versions: the asymmetric Bell wormhole of
+     benchmarks/parity_gates.py:402-425 as a degree-16 Horner and a
+     degree-24 Clenshaw table; #1 on the headline 4 x 1024^2 bundle (h16)
+     (c24's march is held through the Euler pair's checkpoints), #2 (h16)
+     and #3 (c24, rtol 1e-3) at 1024^2 by
+     phases 2, 3 and 9's gates, #4 bare at 1024^2 (h16) and 256^2 (c24)
+     exactly, with digests; the Euler pair at 256^2 capped at 640 steps
+     (checkpoints against #1's trajectory, the per-ray table cotangents
+     against the plain pair) and the DP5(4) pair at 256^2 capped at 48
+     iterations (exact; c24 frozen); a degree-40 table raises before any
+     launch;
+ 28. the slice's path at full width: the JAX package's cheb headline row
+     (an Ellis degree-12 table, 4 poses x 1024^2, Euler dt 0.05, 40 000
+     steps, R 100, nearest) through render_planar_fused and
+     render_frames_batched, and its quality mode (rk45, rtol 1e-3), each
+     against the analytic Ellis render of the same poses (signs, angle
+     percentiles) with its launch counts; the shape trainer: fit() takes 5
+     Adam steps on the three coefficients of a tabulate_metric_diff shape
+     through render_direct(differentiable='adjoint') at 1024^2, Euler and
+     DP5(4), with the step split into forward, gen and bwd, the
+     checkpoint MiB and the launch counts; d loss / d theta1 against a
+     central difference at 128^2.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -281,6 +307,9 @@ KERR_DT = 0.1
 KERR_STEPS = 32_000
 KERR_BAND = (2.6, 12.0)
 KERR_VOL = dict(l=24.0, focal=28.0, dt=0.08, steps=12_000, R=60.0)
+KERR_VOL_CHECK_CAP = 1000  # step cap of the volumetric #7-vs-plain cases:
+                           # mean ~630 steps, but the plain loop runs to the
+                           # slowest ray's (~2 300), ~30 ms a step
 KERR_CAP = 150             # a step cap below the mean (~320): most rays
                            # reach it
 KERR_ANGLE_P99 = 1e-3      # p99 escape angle, kernel vs plain (rad)
@@ -327,6 +356,8 @@ FLOP_KERR = dict(disk=8, vol=40, beaming=25, tint=10, blackbody=51,
 KERR_RTOL = 1e-4
 KERR_RK45_CAP = 8          # below the mean accepted steps (~20 bare): most
                            # rays stop at it
+KERR_RK45_VOL_CHECK_CAP = 250   # accepted-step cap of the volumetric
+                           # #8-vs-plain cases: mean ~193, slowest ~490
 KERR_RK45_ITERS = 15       # a small odd max_iters (rounded up to 16) that
                            # many rays reach (~25 iterations on average)
 RK45_DIFF = 0.1            # a pixel differs from the RK4 render by more,
@@ -348,6 +379,8 @@ FLOP_KERR_RK45 = dict(disk=8, vol_clamp=15, vol_sum=8)
 RK45_DISK_RTOL = 1e-5
 RK45_DISK_CAP = 40         # below the mean accepted steps of the path's
                            # thin view (~69): most rays stop at it
+RK45_DISK_VOL_CHECK_CAP = 300   # accepted-step cap of the volumetric
+                           # #4-vs-plain cases: mean ~237, slowest ~860
 RK45_DISK_NAN_CAP = 100    # the vol NaN case's cap: NaN rays run to
                            # max_iters = 4 x this (module docstring)
 RK45_DISK_DIFF_MAX = 0.03  # rk45 vs Euler frames over a smooth sky: share
@@ -366,12 +399,13 @@ FLOP_RK45_ITER_LAPSE = 350
 FLOP_RK45_DISK = dict(track=15, vol_clamp=22, emission=48)
 # The surface checkpoint kernels (csrc/ckpt_surface.cu; an FMA counts as
 # two, a division, exp, log or sqrt as one): gen takes the forward step
-# (FLOP_DISK_STEP, or kernel #6's FLOP_VOL); bwd re-takes it and adds its
-# VJP: thin 150 (the step recomputed 34, the crossing's and rotation's
-# reverse 68, a Schwarzschild RHS VJP 48); volumetric the step and the
-# RHS VJP 90, the emission's reverse by part as FLOP_SURF_VOL_VJP.
-FLOP_SURF_THIN_VJP = 150
-FLOP_SURF_VOL_VJP = dict(base=90, emission=70, shift=50, tint=20,
+# (FLOP_DISK_STEP, or kernel #6's FLOP_VOL); bwd re-takes it (the re-march,
+# counted once, as for every other family) and adds its VJP's reverse
+# work: thin 116 (the crossing's and rotation's reverse 68, a Schwarzschild
+# RHS VJP 48); volumetric the RHS VJP 48, the emission's reverse by part as
+# FLOP_SURF_VOL_VJP.  The kernels recompute the step inside the VJP on top.
+FLOP_SURF_THIN_VJP = 116
+FLOP_SURF_VOL_VJP = dict(base=48, emission=70, shift=50, tint=20,
                          blackbody=90, scatter=100)
 SURF_CAP = 640             # step cap of the surface kernel-vs-plain checks:
                            # rays reach the disk (~280-560 steps from r = 28)
@@ -506,6 +540,52 @@ KERR_SCAN_STEPS = dict(rk4=160, rk45=60)   # and their step caps: the scan
 # against its gradient's sign
 KERR_DESCENT = dict(steps=2, rel=0.02)
 
+# The tabulated user metrics (metrics/table.py, csrc/table.cuh): the
+# asymmetric Bell wormhole of benchmarks/parity_gates.py:402-425, rho(l) =
+# 1 + 0.35 tanh(l / 1.4), as a degree-16 Horner table and a degree-24
+# Clenshaw one (the basis tabulate_metric measures for it), and the JAX
+# package's cheb headline row (benchmarks/run_benchmarks.py:102-126): an
+# Ellis wormhole as a degree-12 table.
+TABLE_BELL = dict(h16=dict(degree=16, basis="horner", tol=5e-4),
+                  c24=dict(degree=24, basis="clenshaw", tol=1e-4))
+TABLE_CKPT_CAP = 640       # step cap of the Euler table pair checks: the
+                           # plain pair evaluates the series op by op
+TABLE_RK45_ITERS = 48      # iteration cap of the DP5(4) table pair checks
+TABLE_SIGN_MIN = 0.97      # table vs analytic Ellis render: signs equal
+TABLE_ANGLE = 1e-3         # an escape direction differs beyond this angle
+TABLE_MISS_MAX = 0.05      # on at most this share of the rays (gate_table)
+TABLE_SUM_TOL = 1e-6       # a ray-summed table cotangent that cancels:
+                           # |kernel - plain| within this share of the sum
+                           # of its terms' magnitudes
+TABLE_SHAPE = dict(rho0=0.1, rho1=0.2, rho2=-0.1)   # the trainer's target
+TABLE_FD_H = 0.05          # central-difference step in the trainer's theta1
+TABLE_FD_TOL = 0.05
+TABLE_TRAIN_LR = 0.01      # the shape trainer's Adam rate: the loss sees
+                           # mostly theta0 + theta1 + theta2, which is 0.2
+                           # from its target
+TABLE_KERNELS = ("march_planar_kernel", "render_fused_kernel",
+                 "render_fused_rk45_kernel", "march_planar_rk45_kernel",
+                 "ckpt_gen_kernel", "ckpt_bwd_kernel", "ckpt_rk45_gen_kernel",
+                 "ckpt_rk45_bwd_kernel")
+
+
+def table_flops(degree, basis):
+    """FP32 operations (an FMA counts as two) of a table metric: one shape
+    evaluation (csrc/table.cuh:table_shape: w, t and the scalings 8, then
+    two series of ~2 (Horner) or ~3 (Clenshaw) operations a degree), its
+    reverse work (the series' reverse sweeps, 4 or 6 operations a
+    coefficient, the shape's chain 20 and the RHS's 12), an Euler step
+    (shape + 8), a DP5(4) iteration (FLOP_RK45_ITER with seven table RHS
+    in place of Ellis's 8) and its VJP (seven table RHS VJPs in place of
+    Ellis's 25)."""
+    horner = basis == "horner"
+    shape = 8 + (2 if horner else 3) * 2 * degree
+    vjp = 32 + (4 if horner else 6) * 2 * (degree + 1)
+    rhs = shape + 2
+    return dict(shape=shape, step=shape + 8, vjp=vjp,
+                rk45_iter=FLOP_RK45_ITER - 7 * 8 + 7 * rhs,
+                rk45_vjp=FLOP_RK45_VJP - 7 * 25 + 7 * vjp)
+
 
 def require(ok, what):
     if not ok:
@@ -555,6 +635,10 @@ def phase1_build():
         entry = re.search(r"entry function '_ZN6curvis(\d+)(\w+)", line)
         if entry:
             name = entry.group(2)[:int(entry.group(1))]
+            # the table instances (kind kTable = 5) of the planar kernels
+            if entry.group(2)[int(entry.group(1)):].startswith("ILi5E") \
+                    and name in TABLE_KERNELS:
+                name += " [table]"
             stats.setdefault(name, {"n": 0, "regs": [], "stack": [],
                                     "spill": []})["n"] += 1
         elif name is not None:
@@ -637,12 +721,56 @@ def compare(sign_k, sign_p, w_k, w_p):
     return sign_eq, p99, max_abs, float(esc.double().mean())
 
 
-def phase2_march():
+def march_vs_plain(tag, name, metric, cams, cap, step_flops):
+    """Kernel #1 against march_planar_while on the rays of ``cams``: signs,
+    steps and escape directions (the contracted kernel's gates), the step
+    cap, the timings and the bound (``step_flops`` a step)."""
     import torch
-    from curvis_tpu_torch.metrics.base import make_metric
     from curvis_tpu_torch.ops import march_cuda
     from curvis_tpu_torch.physics.planar import PlanarRays, march_planar_while
     from curvis_tpu_torch.render.fast import _readout, _spawn_frames
+    kw = dict(dt=DT, max_steps=cap, escape_radius=R_ESC)
+    state, r_hat, e2 = _spawn_frames(metric, cams)
+    unused = torch.zeros((1, 3), device=DEVICE)
+    rays = PlanarRays(*state, r_hat=unused, e2=unused)
+    res_k = march_cuda.march_planar_cuda(metric, rays, **kw)
+    sync()
+    t0 = time.perf_counter()
+    res_p = march_planar_while(metric, rays, **kw)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    w_k = _readout(metric, res_k, state[3], r_hat, e2)
+    w_p = _readout(metric, res_p, state[3], r_hat, e2)
+    sign_eq, p99, max_abs, esc = compare(res_k.sign, res_p.sign, w_k, w_p)
+    steps_eq = (res_k.steps == res_p.steps).double().mean().item()
+    kind, scal = march_cuda.march_scalars(metric, DT, R_ESC)
+    flat = [t.reshape(-1).contiguous() for t in state]
+    kernel_ms = cuda_ms(lambda: march_cuda.launch(
+        kind, scal, *flat, max_steps=cap), 3)
+    n = rays.l.numel()
+    counts = {s: int((res_k.sign == s).sum()) for s in (-1, 0, 1, 2)}
+    print(f"{tag} march {name}: {n} rays, signs {counts}, sign equal "
+          f"{sign_eq:.6f}, steps equal {steps_eq:.6f}, angle p99 {p99:.3e} "
+          f"rad over {esc:.4f} of rays, max |dw| {max_abs:.3e}, mean steps "
+          f"{res_k.steps.double().mean().item():.1f}, max steps "
+          f"{int(res_k.steps.max())}; kernel {kernel_ms:.2f} ms "
+          f"({n / kernel_ms / 1e3:.1f} Mrays/s), plain {plain_ms:.1f} ms")
+    require(sign_eq >= SIGN_EQ_MIN, f"march {name}: sign equal {sign_eq}")
+    require(steps_eq >= STEPS_EQ_MIN, f"march {name}: steps equal {steps_eq}")
+    require(p99 < ANGLE_P99_MAX, f"march {name}: angle p99 {p99}")
+    for who, res in (("kernel", res_k), ("plain", res_p)):
+        require(int(res.steps.max()) <= cap
+                and bool((res.steps[res.sign == 0] == cap).all()),
+                f"march {name}: {who} overshot or undershot the cap")
+    # 16 bytes read and 20 written per ray; step_flops a step
+    total = res_k.steps.double().sum().item()
+    b_ms, b_by = bound(36 * n, step_flops * total)
+    return dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase2_march():
+    from curvis_tpu_torch.metrics.base import make_metric
     schwarzschild = make_metric("schwarzschild", m=1.0, device=DEVICE)
     configs = [
         (f"ellis {FRAMES}x{RES}^2", make_metric("ellis", rho=1.0, device=DEVICE),
@@ -655,47 +783,8 @@ def phase2_march():
         (f"schwarzschild {SMALL}^2 cap {CAP}", schwarzschild,
          [camera(15.0, 0.0, SMALL)], CAP),
     ]
-    out = {}
-    for name, metric, cams, cap in configs:
-        kw = dict(dt=DT, max_steps=cap, escape_radius=R_ESC)
-        state, r_hat, e2 = _spawn_frames(metric, cams)
-        unused = torch.zeros((1, 3), device=DEVICE)
-        rays = PlanarRays(*state, r_hat=unused, e2=unused)
-        res_k = march_cuda.march_planar_cuda(metric, rays, **kw)
-        sync()
-        t0 = time.perf_counter()
-        res_p = march_planar_while(metric, rays, **kw)
-        sync()
-        plain_ms = 1e3 * (time.perf_counter() - t0)
-        w_k = _readout(metric, res_k, state[3], r_hat, e2)
-        w_p = _readout(metric, res_p, state[3], r_hat, e2)
-        sign_eq, p99, max_abs, esc = compare(res_k.sign, res_p.sign, w_k, w_p)
-        steps_eq = (res_k.steps == res_p.steps).double().mean().item()
-        kind, scal = march_cuda.march_scalars(metric, DT, R_ESC)
-        flat = [t.reshape(-1).contiguous() for t in state]
-        kernel_ms = cuda_ms(lambda: march_cuda.launch(
-            kind, scal, *flat, max_steps=cap), 3)
-        n = rays.l.numel()
-        counts = {s: int((res_k.sign == s).sum()) for s in (-1, 0, 1, 2)}
-        print(f"[2] march {name}: {n} rays, signs {counts}, sign equal "
-              f"{sign_eq:.6f}, steps equal {steps_eq:.6f}, angle p99 "
-              f"{p99:.3e} rad over {esc:.4f} of rays, max |dw| {max_abs:.3e}, "
-              f"mean steps {res_k.steps.double().mean().item():.1f}, "
-              f"max steps {int(res_k.steps.max())}; kernel {kernel_ms:.2f} ms "
-              f"({n / kernel_ms / 1e3:.1f} Mrays/s), plain {plain_ms:.1f} ms")
-        require(sign_eq >= SIGN_EQ_MIN, f"march {name}: sign equal {sign_eq}")
-        require(steps_eq >= STEPS_EQ_MIN,
-                f"march {name}: steps equal {steps_eq}")
-        require(p99 < ANGLE_P99_MAX, f"march {name}: angle p99 {p99}")
-        for who, res in (("kernel", res_k), ("plain", res_p)):
-            require(int(res.steps.max()) <= cap
-                    and bool((res.steps[res.sign == 0] == cap).all()),
-                    f"march {name}: {who} overshot or undershot the cap")
-        # 16 bytes read and 20 written per ray; FLOP_STEP per Ellis step
-        total = res_k.steps.double().sum().item()
-        b_ms, b_by = bound(36 * n, FLOP_STEP * total)
-        out[name] = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+    out = {name: march_vs_plain("[2]", name, metric, cams, cap, FLOP_STEP)
+           for name, metric, cams, cap in configs}
     return out[f"ellis {FRAMES}x{RES}^2"]
 
 
@@ -823,9 +912,11 @@ def ckpt_inputs(metric, cam, cap, seed):
     return kind, scal, tuple(state[:3]), state[3], steps, cot
 
 
-def kernel_vs_plain(kind, scal, y0, b, steps, cot, label):
+def kernel_vs_plain(kind, scal, y0, b, steps, cot, label, tag="[6]",
+                    flops=(FLOP_STEP, FLOP_VJP)):
     """Both checkpoint kernels against their plain versions on the same
-    inputs, the checkpoints against the march kernel, and the timings."""
+    inputs, the checkpoints against the march kernel, and the timings;
+    ``flops`` = (a step's, its VJP's) FP32 operations for the bound."""
     import torch
     from curvis_tpu_torch.ops import ckpt_adjoint_cuda as ca
     from curvis_tpu_torch.ops import march_cuda
@@ -861,40 +952,69 @@ def kernel_vs_plain(kind, scal, y0, b, steps, cot, label):
     seg_idx = torch.arange(n_seg, device=steps.device)[:, None]
     valid = (seg_idx * SEG < steps[None, :])[:, None, :].expand_as(ckpt)
     gen_err = float((ckpt - ck_p).abs()[valid].max()) if n_seg else 0.0
-    frac, bwd_err = close_fraction((*lam_k, *g_k), (*lam_p, *g_p))
+    table = kind == "table"
+    if table:
+        # a table's 2 (K + 1) coefficient cotangents a ray sum terms that
+        # cancel through the series' reverse sweeps, where the contracted
+        # kernel and the plain pair round apart (without contraction the
+        # two are equal, bit for bit, on a CPU build of the kernel): the
+        # rays' state and b cotangents keep the per-ray gate, the
+        # coefficients are held entry by entry (entry_fraction)
+        frac, bwd_err = close_fraction((*lam_k, g_k[-1]), (*lam_p, g_p[-1]))
+        coef_frac, coef_err = entry_fraction(torch.stack(g_k[:-1]),
+                                             torch.stack(g_p[:-1]))
+        bwd_err = max(bwd_err, coef_err)
+    else:
+        frac, bwd_err = close_fraction((*lam_k, *g_k), (*lam_p, *g_p))
     sums = []
-    for i in range(3):
+    for i in range(len(g_k) - 1):      # the metric slots; the last is b
         sk, sp = g_k[i].double().sum().item(), g_p[i].double().sum().item()
+        mag = g_p[i].double().abs().sum().item()
         if sp != 0.0 or sk != 0.0:
-            sums.append((i, sk, sp, abs(sk - sp) / max(abs(sp), 1e-300)))
+            sums.append((i, sk, sp, abs(sk - sp) / max(abs(sp), 1e-300),
+                         mag))
     total = steps.double().sum().item()
     n = steps.numel()
     segs = (-(-steps.long() // SEG)).double().sum().item()
-    print(f"[6] ckpt {label}: {n} rays, {int((steps > 0).sum())} marched, "
+    print(f"{tag} ckpt {label}: {n} rays, {int((steps > 0).sum())} marched, "
           f"mean / max steps {total / n:.1f} / {int(steps.max())}, "
           f"{n_seg} segments ({n_seg * 3 * n * 4 / 2**20:.1f} MiB buffer)")
-    print(f"[6]   checkpoints == march kernel at s*{SEG} steps: "
+    print(f"{tag}   checkpoints == march kernel at s*{SEG} steps: "
           + ", ".join(f"s={a}: {f:.6f} of {c}" for a, f, c in eq)
           + f" (bound >= {CKPT_EQ_MIN})")
-    print(f"[6]   lam and g_theta within rtol {GRAD_RTOL}: {frac:.6f} of "
+    print(f"{tag}   lam and g_theta within rtol {GRAD_RTOL}: {frac:.6f} of "
           f"rays (bound >= {GRAD_FRAC_MIN}); max |d| gen {gen_err:.3e}, "
           f"bwd {bwd_err:.3e}")
-    for i, sk, sp, rel in sums:
-        print(f"[6]   sum g_p{i}: kernel {sk:.9e}, plain {sp:.9e}, rel "
+    if table:
+        print(f"{tag}   (the rays' lam and g_b;) the table's coefficient "
+              f"cotangents within rtol {GRAD_RTOL}: {coef_frac:.6f} of "
+              f"entries (bound >= {GRAD_FRAC_MIN})")
+    for i, sk, sp, rel, _ in sums[:3]:
+        print(f"{tag}   sum g_p{i}: kernel {sk:.9e}, plain {sp:.9e}, rel "
               f"{rel:.3e} (bound {GRAD_RTOL})")
-    print(f"[6]   gen {gen_ms:.3f} ms (plain {gen_plain_ms:.1f} ms), bwd "
+    if len(sums) > 3:
+        print(f"{tag}   ... and {len(sums) - 3} more slot sums, worst rel "
+              f"{max(r[3] for r in sums[3:]):.3e}")
+    print(f"{tag}   gen {gen_ms:.3f} ms (plain {gen_plain_ms:.1f} ms), bwd "
           f"{bwd_ms:.3f} ms (plain {bwd_plain_ms:.1f} ms)")
     require(eq_min >= CKPT_EQ_MIN, f"ckpt {label}: checkpoints {eq}")
     require(frac >= GRAD_FRAC_MIN, f"ckpt {label}: close fraction {frac}")
-    for i, sk, sp, rel in sums:
-        require(rel <= GRAD_RTOL, f"ckpt {label}: sum g_p{i} {sk} vs {sp}")
+    require(not table or coef_frac >= GRAD_FRAC_MIN,
+            f"ckpt {label}: coefficient entries {table and coef_frac}")
+    for i, sk, sp, rel, mag in sums:
+        # a table's coefficient sum that cancels to far below its terms'
+        # size is held against that size (TABLE_SUM_TOL) instead
+        require(rel <= GRAD_RTOL or (table and abs(sk - sp)
+                                     <= TABLE_SUM_TOL * mag),
+                f"ckpt {label}: sum g_p{i} {sk} vs {sp}")
     require(all(bool(torch.isfinite(t).all()) for t in (*lam_k, *g_k)),
             f"ckpt {label}: non-finite gradient")
     # gen reads 20 bytes a ray and writes 12 per segment; bwd reads those
-    # segments and 20 bytes, writes 28; FLOP_STEP a step, + FLOP_VJP in bwd
-    gen_b = bound(20 * n + 12 * segs, FLOP_STEP * total)
-    bwd_b = bound(12 * segs + 20 * n + 28 * n,
-                  (FLOP_STEP + FLOP_VJP) * total)
+    # segments and 20 bytes, writes 12 + 4 per theta entry; flops[0] a
+    # step, + flops[1] in bwd
+    gen_b = bound(20 * n + 12 * segs, flops[0] * total)
+    bwd_b = bound(12 * segs + 20 * n + 4 * (3 + len(g_k)) * n,
+                  (flops[0] + flops[1]) * total)
     return dict(gen=dict(max_abs_err=gen_err, ms=gen_ms,
                          plain_ms=gen_plain_ms, bound_ms=gen_b[0],
                          bound_by=gen_b[1]),
@@ -1121,14 +1241,82 @@ def poison_rays(l, n_nan):
     return torch.where(bad, torch.full_like(l, math.nan), l), bad
 
 
-def phase8_rk45_march():
-    """Kernel #4 against march_planar_rk45_plain, at #4's default
-    tolerances (rtol 1e-5, atol 1e-7)."""
-    import torch
-    from curvis_tpu_torch.metrics.base import make_metric
+def rk45_vs_plain(tag, name, metric, cams, cap, n_nan, iter_flops):
+    """Kernel #4 bare against march_planar_rk45_plain on the rays of
+    ``cams``, ``n_nan`` of them poisoned to NaN, at #4's default
+    tolerances: every output equal (both round every operation), with
+    digests, the step cap, the timings and the bound (``iter_flops`` an
+    iteration)."""
     from curvis_tpu_torch.ops import rk45_cuda
     from curvis_tpu_torch.physics.planar import PlanarResult
     from curvis_tpu_torch.render.fast import _readout, _spawn_frames
+    state, r_hat, e2 = _spawn_frames(metric, cams)
+    l, bad = poison_rays(state[0].reshape(-1).contiguous(), n_nan)
+    flat = [l] + [t.reshape(-1).contiguous() for t in state[1:]]
+    kind, scal = rk45_cuda.rk45_scalars(metric, DT, R_ESC, rtol=1e-5,
+                                        atol=1e-7, dt_max=10.0)
+    mi = rk45_cuda.default_max_iters(cap, None)
+    out_k = rk45_cuda.launch(kind, scal, *flat, max_steps=cap, max_iters=mi)
+    sync()
+    t0 = time.perf_counter()
+    out_p = rk45_cuda.march_planar_rk45_plain(kind, scal, *flat,
+                                              max_steps=cap, max_iters=mi)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    res_k, res_p = PlanarResult(*out_k[:5]), PlanarResult(*out_p[:5])
+    w_k = _readout(metric, res_k, flat[3], r_hat, e2)
+    w_p = _readout(metric, res_p, flat[3], r_hat, e2)
+    sign_eq, p99, max_abs, esc = compare(res_k.sign, res_p.sign, w_k, w_p)
+    near = ((res_k.steps - res_p.steps).abs() <= STEPS_NEAR)
+    steps_near = near.double().mean().item()
+    iters_eq = (out_k[5] == out_p[5]).double().mean().item()
+    kernel_ms = cuda_ms(lambda: rk45_cuda.launch(
+        kind, scal, *flat, max_steps=cap, max_iters=mi), 3)
+    n = l.numel()
+    steps, iters = res_k.steps.double(), out_k[5].double()
+    counts = {s: int((res_k.sign == s).sum()) for s in (-1, 0, 1, 2, 3)}
+    print(f"{tag} rk45 march {name}: {n} rays, signs {counts}, sign equal "
+          f"{sign_eq:.6f}, steps within {STEPS_NEAR} {steps_near:.6f}, iters "
+          f"equal {iters_eq:.6f}, angle p99 {p99:.3e} rad over {esc:.4f} of "
+          f"rays, max |dw| {max_abs:.3e}")
+    print(f"{tag}   steps mean / max {steps.mean().item():.2f} / "
+          f"{int(steps.max())}, iters mean / max {iters.mean().item():.2f} / "
+          f"{int(iters.max())}; kernel {kernel_ms:.3f} ms "
+          f"({n / kernel_ms / 1e3:.1f} Mrays/s), plain {plain_ms:.1f} ms")
+    # built without FMA contraction, as its plain version rounds: every
+    # output equal
+    n_diff, worst = outputs_differ(out_k, out_p)
+    print(f"{tag}   {n_diff} output entries differ from the plain version's "
+          f"(bound 0), max finite |d| {worst:.3e}; digest of the kernel's "
+          f"outputs {digest(out_k)}, of the plain version's "
+          f"{digest(out_p)}")
+    require(n_diff == 0, f"rk45 {name}: {n_diff} output entries differ")
+    require(sign_eq >= SIGN_EQ_MIN, f"rk45 {name}: sign equal {sign_eq}")
+    require(steps_near >= STEPS_EQ_MIN,
+            f"rk45 {name}: steps within {STEPS_NEAR} {steps_near}")
+    require(p99 < ANGLE_P99_MAX, f"rk45 {name}: angle p99 {p99}")
+    for who, res in (("kernel", res_k), ("plain", res_p)):
+        require(int(res.steps.max()) <= cap
+                and bool((res.steps[res.sign == 0] == cap).all()),
+                f"rk45 {name}: {who} overshot or undershot the cap")
+        if n_nan:
+            require(bool((res.sign[bad] == 3).all()),
+                    f"rk45 {name}: {who} left a NaN ray unfrozen: "
+                    f"{res.sign[bad].tolist()}")
+    if cap == RK45_CAP:
+        capped = (res_k.sign == 0).double().mean().item()
+        print(f"{tag}   {capped:.4f} of rays stopped at the cap of {cap}")
+        require(capped > 0.5, f"rk45 {name}: only {capped} capped")
+    # 16 bytes read and 24 written per ray; iter_flops an iteration
+    b_ms, b_by = bound(40 * n, iter_flops * iters.sum().item())
+    return dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase8_rk45_march():
+    """Kernel #4 against march_planar_rk45_plain, at #4's default
+    tolerances (rtol 1e-5, atol 1e-7)."""
+    from curvis_tpu_torch.metrics.base import make_metric
     ellis = make_metric("ellis", rho=1.0, device=DEVICE)
     schwarzschild = make_metric("schwarzschild", m=1.0, device=DEVICE)
     configs = [
@@ -1145,71 +1333,9 @@ def phase8_rk45_march():
         (f"ellis {SMALL}^2 with {N_POISON} NaN rays", ellis,
          [camera(5.0, 0.0, SMALL)], RK45_MAX_STEPS, N_POISON),
     ]
-    out = {}
-    for name, metric, cams, cap, n_nan in configs:
-        state, r_hat, e2 = _spawn_frames(metric, cams)
-        l, bad = poison_rays(state[0].reshape(-1).contiguous(), n_nan)
-        flat = [l] + [t.reshape(-1).contiguous() for t in state[1:]]
-        kind, scal = rk45_cuda.rk45_scalars(metric, DT, R_ESC, rtol=1e-5,
-                                            atol=1e-7, dt_max=10.0)
-        mi = rk45_cuda.default_max_iters(cap, None)
-        out_k = rk45_cuda.launch(kind, scal, *flat, max_steps=cap,
-                                 max_iters=mi)
-        sync()
-        t0 = time.perf_counter()
-        out_p = rk45_cuda.march_planar_rk45_plain(kind, scal, *flat,
-                                                  max_steps=cap, max_iters=mi)
-        sync()
-        plain_ms = 1e3 * (time.perf_counter() - t0)
-        res_k, res_p = PlanarResult(*out_k[:5]), PlanarResult(*out_p[:5])
-        w_k = _readout(metric, res_k, flat[3], r_hat, e2)
-        w_p = _readout(metric, res_p, flat[3], r_hat, e2)
-        sign_eq, p99, max_abs, esc = compare(res_k.sign, res_p.sign, w_k, w_p)
-        near = ((res_k.steps - res_p.steps).abs() <= STEPS_NEAR)
-        steps_near = near.double().mean().item()
-        iters_eq = (out_k[5] == out_p[5]).double().mean().item()
-        kernel_ms = cuda_ms(lambda: rk45_cuda.launch(
-            kind, scal, *flat, max_steps=cap, max_iters=mi), 3)
-        n = l.numel()
-        steps, iters = res_k.steps.double(), out_k[5].double()
-        counts = {s: int((res_k.sign == s).sum()) for s in (-1, 0, 1, 2, 3)}
-        print(f"[8] rk45 march {name}: {n} rays, signs {counts}, sign equal "
-              f"{sign_eq:.6f}, steps within {STEPS_NEAR} {steps_near:.6f}, "
-              f"iters equal {iters_eq:.6f}, angle p99 {p99:.3e} rad over "
-              f"{esc:.4f} of rays, max |dw| {max_abs:.3e}")
-        print(f"[8]   steps mean / max {steps.mean().item():.2f} / "
-              f"{int(steps.max())}, iters mean / max "
-              f"{iters.mean().item():.2f} / {int(iters.max())}; kernel "
-              f"{kernel_ms:.3f} ms ({n / kernel_ms / 1e3:.1f} Mrays/s), plain "
-              f"{plain_ms:.1f} ms")
-        # built without FMA contraction, as its plain version rounds:
-        # every output equal
-        n_diff, worst = outputs_differ(out_k, out_p)
-        print(f"[8]   {n_diff} output entries differ from the plain "
-              f"version's (bound 0), max finite |d| {worst:.3e}; digest of "
-              f"the kernel's outputs {digest(out_k)}, of the plain "
-              f"version's {digest(out_p)}")
-        require(n_diff == 0, f"rk45 {name}: {n_diff} output entries differ")
-        require(sign_eq >= SIGN_EQ_MIN, f"rk45 {name}: sign equal {sign_eq}")
-        require(steps_near >= STEPS_EQ_MIN,
-                f"rk45 {name}: steps within {STEPS_NEAR} {steps_near}")
-        require(p99 < ANGLE_P99_MAX, f"rk45 {name}: angle p99 {p99}")
-        for who, res in (("kernel", res_k), ("plain", res_p)):
-            require(int(res.steps.max()) <= cap
-                    and bool((res.steps[res.sign == 0] == cap).all()),
-                    f"rk45 {name}: {who} overshot or undershot the cap")
-            if n_nan:
-                require(bool((res.sign[bad] == 3).all()),
-                        f"rk45 {name}: {who} left a NaN ray unfrozen: "
-                        f"{res.sign[bad].tolist()}")
-        if cap == RK45_CAP:
-            capped = (res_k.sign == 0).double().mean().item()
-            print(f"[8]   {capped:.4f} of rays stopped at the cap of {cap}")
-            require(capped > 0.5, f"rk45 {name}: only {capped} capped")
-        # 16 bytes read and 24 written per ray; FLOP_RK45_ITER an iteration
-        b_ms, b_by = bound(40 * n, FLOP_RK45_ITER * iters.sum().item())
-        out[name] = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+    out = {name: rk45_vs_plain("[8]", name, metric, cams, cap, n_nan,
+                               FLOP_RK45_ITER)
+           for name, metric, cams, cap, n_nan in configs}
     return out[f"ellis {FRAMES}x{RES}^2"]
 
 
@@ -1947,7 +2073,7 @@ def phase13_kerr_march(sky):
     cam_bare = (kerr_camera(KERR_RES),)
     small = (kerr_camera(KERR_SMALL),)
     vol_cam = (kerr_camera(KERR_SMALL, V["l"], V["focal"]),)
-    vkw = (V["dt"], V["steps"], V["R"], far_disk)
+    vkw = (V["dt"], KERR_VOL_CHECK_CAP, V["R"], far_disk)
     configs = [
         (f"bare {KERR_RES[0]}x{KERR_RES[1]} (the path's view)", kerr,
          cam_bare, {}, KERR_DT, KERR_STEPS, R, far_bare, 0),
@@ -2339,7 +2465,7 @@ def phase15_kerr_rk45_march(sky):
 
     small = (SMALL, SMALL)
     vol_view = view(KERR_SMALL, V["l"], V["focal"])
-    vkw = (V["dt"], V["steps"], None, V["R"])
+    vkw = (V["dt"], KERR_RK45_VOL_CHECK_CAP, None, V["R"])
     # name, metric, rays, row keywords, dt0, cap, max_iters, escape radius,
     # NaN rays
     configs = [
@@ -2566,35 +2692,32 @@ def phase17_rk45_disk_march(sky):
         dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R, stepper="rk45",
         rtol=RK45_DISK_RTOL)
     block = starlight_scatter_block(smap, bb)
-    V, S = DISK_VOL_RES, SMALL
+    V, S, VC = DISK_VOL_RES, SMALL, RK45_DISK_VOL_CHECK_CAP
     # name, metric, side (None: the map bundle), row keywords, cap, NaN rays;
     # the wormhole's camera at l = 10, close enough that rays through the
     # throat cross the disk on the far sheet
     configs = [
         (f"disk tracker {RES}^2 (the path's view)", bh, RES,
          dict(disk=band), MAX_STEPS, 0),
-        (f"vol tint {V}^2", bh, V, dict(vol_disk=tint), MAX_STEPS, 0),
-        (f"vol blackbody {V}^2", bh, V, dict(vol_disk=bb), MAX_STEPS, 0),
+        (f"vol tint {V}^2", bh, V, dict(vol_disk=tint), VC, 0),
+        (f"vol blackbody {V}^2", bh, V, dict(vol_disk=bb), VC, 0),
         (f"vol tint, redshift only {S}^2", bh, S,
-         dict(vol_disk=dataclasses.replace(tint, doppler=False)), MAX_STEPS,
-         0),
+         dict(vol_disk=dataclasses.replace(tint, doppler=False)), VC, 0),
         (f"vol tint, Doppler only {S}^2", bh, S,
-         dict(vol_disk=dataclasses.replace(tint, redshift=False)), MAX_STEPS,
-         0),
+         dict(vol_disk=dataclasses.replace(tint, redshift=False)), VC, 0),
         (f"vol blackbody, no shift {S}^2", bh, S,
          dict(vol_disk=dataclasses.replace(bb, redshift=False,
-                                           doppler=False)), MAX_STEPS, 0),
+                                           doppler=False)), VC, 0),
         (f"vol tint + scatter {S}^2", bh, S,
-         dict(vol_disk=tint, scatter_block=block), MAX_STEPS, 0),
+         dict(vol_disk=tint, scatter_block=block), VC, 0),
         (f"vol blackbody + scatter {V}^2", bh, V,
-         dict(vol_disk=bb, scatter_block=block), MAX_STEPS, 0),
+         dict(vol_disk=bb, scatter_block=block), VC, 0),
         (f"vol tint kappa 40 (tau_max freeze) {S}^2", bh, S,
-         dict(vol_disk=dataclasses.replace(tint, kappa=40.0)), MAX_STEPS,
-         0),
+         dict(vol_disk=dataclasses.replace(tint, kappa=40.0)), VC, 0),
         (f"ellis disk tracker {S}^2 (wormhole disk)", ellis, S,
          dict(disk=(1.5, 14.0)), MAX_STEPS, 0),
         (f"ellis vol blackbody {S}^2", ellis, S,
-         dict(vol_disk=dataclasses.replace(bb, r_inner=1.5)), MAX_STEPS, 0),
+         dict(vol_disk=dataclasses.replace(bb, r_inner=1.5)), VC, 0),
         (f"disk tracker {S}^2 cap {RK45_DISK_CAP}", bh, S, dict(disk=band),
          RK45_DISK_CAP, 0),
         (f"disk tracker {S}^2 with {N_POISON} NaN rays", bh, S,
@@ -3398,15 +3521,18 @@ def digest(tensors):
 
 
 def rk45_family_vs_plain(label, kind, flags, scal, state, planes, fwd, seed,
-                         freeze=False):
+                         freeze=False, tag="[21]", flops=None):
     """Kernels #9 / #10's rk45 variant of one family (``flags`` 'bare',
     None for the thin disk, else the vol flags) against their plain
     versions on the forward kernel's outputs ``fwd`` (#4 bare or surface):
     gen's final state bit for bit against #4 on every ray, then the
     checkpoints, lam and g_theta with the Function's fate policy (state
-    cotangents for signs 0, +-1; the replay for every sign but 3)."""
+    cotangents for signs 0, +-1; the replay for every sign but 3).
+    ``flops`` = (an iteration's, its VJP's) FP32 operations for the bound,
+    if not the analytic kinds' FLOP_RK45_*."""
     import numpy as np
     import torch
+    from curvis_tpu_torch.ops import ckpt_adjoint_cuda as ca
     from curvis_tpu_torch.ops import ckpt_rk45_cuda as cr
     from curvis_tpu_torch.ops import ckpt_surface_cuda as cs
     bare = flags == "bare"
@@ -3415,7 +3541,7 @@ def rk45_family_vs_plain(label, kind, flags, scal, state, planes, fwd, seed,
     sign, iters = fwd[-3], fwd[-1]
     n = l.numel()
     if bare:
-        ns, nt, n_out = cr.N_STATE, 4, 3
+        ns, nt, n_out = cr.N_STATE, ca.n_theta(kind), 3
         gen = lambda cnt, off, tot: cr.launch_gen(          # noqa: E731
             kind, scal, l, psi, p_l, b, cnt, seg=RK45_SEG, offsets=off,
             total=tot)
@@ -3482,8 +3608,8 @@ def rk45_family_vs_plain(label, kind, flags, scal, state, planes, fwd, seed,
     g_rows = [r for r in range(nt) if bool((g_p[r] != 0).any())]
     g_frac, g_err = entry_fraction(g_k[g_rows], g_p[g_rows])
     sums = []
-    shared = (0, 1, 2) if bare else [r for r in g_rows
-                                     if r not in (3, 4, 5, 6)]
+    shared = range(nt - 1) if bare else [r for r in g_rows
+                                         if r not in (3, 4, 5, 6)]
     for r in shared:
         sk, sp = g_k[r].double().sum().item(), g_p[r].double().sum().item()
         if sp != 0.0 or sk != 0.0:
@@ -3493,21 +3619,24 @@ def rk45_family_vs_plain(label, kind, flags, scal, state, planes, fwd, seed,
     tot_it = counts.double().sum().item()
     segs = (-(-counts.long() // RK45_SEG)).double().sum().item()
     signs = {s_: int((sign == s_).sum()) for s_ in (-1, 0, 1, 2, 3)}
-    print(f"[21] {label}{' (freeze)' if freeze else ''}: {n} rays, signs "
+    print(f"{tag} {label}{' (freeze)' if freeze else ''}: {n} rays, signs "
           f"{signs}, replayed iterations mean / max {tot_it / n:.1f} / "
           f"{int(counts.max())}, {total} checkpoint rows "
           f"({total * ns * 4 / 2**20:.1f} MiB)")
-    print(f"[21]   gen's final state (every ray, its full iters) == #4's "
+    print(f"{tag}   gen's final state (every ray, its full iters) == #4's "
           f"outputs: {fin_ne} of {n} rays differ in a bit (bound 0); "
           f"checkpoints == plain gen's on {total - ck_ne} of {total} rows, "
           f"max |d| {ck_err:.3e}")
-    print(f"[21]   within rtol {GRAD_RTOL}: lam {lam_frac:.6f}, g_theta "
+    print(f"{tag}   within rtol {GRAD_RTOL}: lam {lam_frac:.6f}, g_theta "
           f"{g_frac:.6f} of entries (bound >= {RK45_GRAD_FRAC_MIN}); max "
           f"|d| lam {lam_err:.3e}, g {g_err:.3e}")
-    for r, sk, sp, rel, mag in sums:
-        print(f"[21]   sum g_theta[{r}]: kernel {sk:.9e}, plain {sp:.9e}, "
+    for r, sk, sp, rel, mag in sums[:3]:
+        print(f"{tag}   sum g_theta[{r}]: kernel {sk:.9e}, plain {sp:.9e}, "
               f"rel {rel:.3e} (bound {GRAD_RTOL})")
-    print(f"[21]   gen {gen_ms:.3f} ms (plain {gen_plain_ms:.1f} ms), bwd "
+    if len(sums) > 3:
+        print(f"{tag}   ... and {len(sums) - 3} more theta sums, worst rel "
+              f"{max(r_[3] for r_ in sums[3:]):.3e}")
+    print(f"{tag}   gen {gen_ms:.3f} ms (plain {gen_plain_ms:.1f} ms), bwd "
           f"{bwd_ms:.3f} ms (plain {bwd_plain_ms:.1f} ms)")
     require(fin_ne == 0, f"rk45 ckpt {label}: gen's final state differs "
             f"from #4 on {fin_ne} rays")
@@ -3516,14 +3645,18 @@ def rk45_family_vs_plain(label, kind, flags, scal, state, planes, fwd, seed,
     require(lam_frac >= RK45_GRAD_FRAC_MIN,
             f"rk45 ckpt {label}: lam {lam_frac}")
     require(g_frac >= RK45_GRAD_FRAC_MIN, f"rk45 ckpt {label}: g {g_frac}")
+    table = kind == "table"
     for r, sk, sp, rel, mag in sums:
-        require(rel <= GRAD_RTOL, f"rk45 ckpt {label}: sum g_theta[{r}] "
-                f"{sk} vs {sp}")
+        require(rel <= GRAD_RTOL or (table and abs(sk - sp)
+                                     <= TABLE_SUM_TOL * mag),
+                f"rk45 ckpt {label}: sum g_theta[{r}] {sk} vs {sp}")
     require(all(bool(torch.isfinite(t).all()) for t in (lam_k, g_k)),
             f"rk45 ckpt {label}: non-finite output")
     lapse = kind in ("schwarzschild", "rn")
     it_f = FLOP_RK45_ITER_LAPSE if lapse else FLOP_RK45_ITER
     vjp_f = FLOP_RK45_VJP_LAPSE if lapse else FLOP_RK45_VJP
+    if flops is not None:
+        it_f, vjp_f = flops
     if not bare:
         extra = (FLOP_RK45_DISK["track"] if flags is None
                  else FLOP_RK45_DISK["vol_clamp"] + FLOP_RK45_DISK["emission"])
@@ -3537,7 +3670,7 @@ def rk45_family_vs_plain(label, kind, flags, scal, state, planes, fwd, seed,
     gen_b = bound((4 * n_in + 12) * n + 4 * ns * (segs + n), it_f * tot_it)
     bwd_b = bound(4 * ns * segs + (4 * (n_in - 3) + 12) * n
                   + 4 * (2 * ns + nt) * n, (it_f + vjp_f) * tot_it)
-    print(f"[21]   bound gen {gen_b[0]:.3f} ms ({gen_b[1]}), bwd "
+    print(f"{tag}   bound gen {gen_b[0]:.3f} ms ({gen_b[1]}), bwd "
           f"{bwd_b[0]:.3f} ms ({bwd_b[1]})")
     return dict(gen=dict(max_abs_err=ck_err, ms=gen_ms,
                          plain_ms=gen_plain_ms, bound_ms=gen_b[0],
@@ -5183,6 +5316,405 @@ def phase26_kerr_surface_paths(sky):
     return total
 
 
+def bell_tables():
+    """The Bell wormhole's tables of TABLE_BELL, float32 on the card."""
+    import torch
+    from curvis_tpu_torch.metrics.table import tabulate_metric
+
+    def r_fn(l):
+        rho = 1.0 + 0.35 * torch.tanh(l / 1.4)
+        return torch.sqrt(rho * rho + l * l)
+
+    tabs = {}
+    for name, kw in TABLE_BELL.items():
+        tab, rep = tabulate_metric(r_fn, device=DEVICE, **kw)
+        print(f"[27] bell table {name}: basis {rep['basis']}, fit errors "
+              f"{rep['err_inv_rel']:.3e} (1/r^2), {rep['err_dr3_rel']:.3e} "
+              f"(r'/r^3)")
+        tabs[name] = tab
+    return tabs
+
+
+def phase27_table_kernels():
+    """The table kind of kernels #1-#4 and #9 / #10's planar Euler and
+    DP5(4) families against their plain versions on the card."""
+    import torch
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.metrics.table import tabulate_metric
+    from curvis_tpu_torch.ops import march_cuda, render_fused, rk45_cuda
+    from curvis_tpu_torch.physics.planar import PlanarRays
+    from curvis_tpu_torch.render.fast import _spawn_frames
+    t_start = time.perf_counter()
+    tabs = bell_tables()
+    fl = {k: table_flops(v["degree"], v["basis"])
+          for k, v in TABLE_BELL.items()}
+    for k, f in fl.items():
+        print(f"[27] {k}: FP32 operations a shape {f['shape']}, an Euler "
+              f"step {f['step']}, its VJP {f['vjp']}, a DP5(4) iteration "
+              f"{f['rk45_iter']}, its VJP {f['rk45_vjp']}")
+    out = {}
+    headline = [camera(5.0, 0.001 * k, RES) for k in range(FRAMES)]
+    out["march"] = march_vs_plain("[27]", f"table h16 {FRAMES}x{RES}^2",
+                                  tabs["h16"], headline, MAX_STEPS,
+                                  fl["h16"]["step"])
+
+    # #2 and #3: the fused kernels at 1024^2 (phases 3 and 9's gates)
+    cam = camera(5.0, 0.0, RES)
+    n = RES * RES
+    for key, name, tab, q in (
+            ("fused", "euler h16", tabs["h16"],
+             dict(dt=DT, max_steps=MAX_STEPS, escape_radius=R_ESC)),
+            ("fused_rk45", f"rk45 c24 rtol {RK45_RTOL}", tabs["c24"],
+             dict(dt=DT, max_steps=RK45_MAX_STEPS, escape_radius=R_ESC,
+                  stepper="rk45", rtol=RK45_RTOL))):
+        *w_k, sign_k = render_fused.fused_directions(tab, cam, **q)
+        sync()
+        t0 = time.perf_counter()
+        *w_p, sign_p = render_fused.render_planar_fused_plain(tab, cam, **q)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        sign_eq, p99, max_abs, esc = compare(sign_k, sign_p, w_k, w_p)
+        kind, row = render_fused._fused_row(tab, cam, DT, R_ESC)
+        state, _, _ = _spawn_frames(tab, [cam])
+        f = fl[name.split()[1]]
+        if key == "fused":
+            kernel_ms = cuda_ms(lambda: render_fused.launch(
+                kind, row, RES, RES, MAX_STEPS, cam.device), 3)
+            work = march_cuda.launch(kind, row[:6], *state,
+                                     max_steps=MAX_STEPS)[4]
+            ops = f["step"] * work.double().sum().item()
+        else:
+            tail, mi = render_fused._rk45_tail(RK45_RTOL, None, 10.0,
+                                               RK45_MAX_STEPS, None)
+            kernel_ms = cuda_ms(lambda: render_fused.launch_rk45(
+                kind, row + tail, RES, RES, RK45_MAX_STEPS, mi, cam.device),
+                3)
+            work = rk45_cuda.launch(kind, row[:6] + tail, *state,
+                                    max_steps=RK45_MAX_STEPS,
+                                    max_iters=mi)[5]
+            ops = f["rk45_iter"] * work.double().sum().item()
+        b_ms, b_by = bound(16 * n, (FLOP_FUSED_PIXEL + f["shape"]) * n + ops)
+        print(f"[27] #{2 if key == 'fused' else 3} fused {name} {RES}^2: "
+              f"sign equal {sign_eq:.6f}, angle p99 {p99:.3e} rad over "
+              f"{esc:.4f} of rays, max |dw| {max_abs:.3e}; kernel "
+              f"{kernel_ms:.3f} ms ({n / kernel_ms / 1e3:.1f} Mrays/s), "
+              f"plain {plain_ms:.1f} ms")
+        require(sign_eq >= SIGN_EQ_MIN, f"table {key}: sign equal {sign_eq}")
+        require(p99 < ANGLE_P99_MAX, f"table {key}: angle p99 {p99}")
+        out[key] = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+
+    # #4 bare: exact
+    out["rk45"] = rk45_vs_plain("[27]", f"table h16 {RES}^2", tabs["h16"],
+                                [cam], RK45_MAX_STEPS, 0,
+                                fl["h16"]["rk45_iter"])
+    rk45_vs_plain("[27]", f"table c24 {SMALL}^2", tabs["c24"],
+                  [camera(5.0, 0.0, SMALL)], RK45_MAX_STEPS, 0,
+                  fl["c24"]["rk45_iter"])
+
+    # #9 / #10: the Euler family (checkpoints against #1's trajectory) and
+    # the DP5(4) family (gen's final state against #4's, bit for bit)
+    for k, name in enumerate(("h16", "c24")):
+        f = fl[name]
+        nums = kernel_vs_plain(
+            *ckpt_inputs(tabs[name], camera(5.0, 0.0, SMALL),
+                         TABLE_CKPT_CAP, seed=270 + k),
+            f"table {name} {SMALL}^2, cap {TABLE_CKPT_CAP}", tag="[27]",
+            flops=(f["step"], f["vjp"]))
+        out.setdefault("ckpt", nums)
+        state, _, _ = _spawn_frames(tabs[name], [camera(5.0, 0.0, SMALL)])
+        flat = [t.reshape(-1).contiguous() for t in state]
+        kind, scal = rk45_cuda.rk45_scalars(tabs[name], DT, R_ESC, rtol=1e-5,
+                                            atol=1e-7, dt_max=10.0)
+        fwd = rk45_cuda.launch(kind, scal, *flat, max_steps=RK45_TRAIN_STEPS,
+                               max_iters=TABLE_RK45_ITERS)
+        nums = rk45_family_vs_plain(
+            f"table {name} {SMALL}^2, max_iters {TABLE_RK45_ITERS}", kind,
+            "bare", scal, flat, None, fwd, seed=275 + k, freeze=k == 1,
+            tag="[27]", flops=(f["rk45_iter"], f["rk45_vjp"]))
+        out.setdefault("rk45_ckpt", nums)
+
+    # a degree above the kernels' capacity raises before any launch
+    big, _ = tabulate_metric(make_metric("ellis", rho=1.0, device="cpu"),
+                             degree=40, device=DEVICE)
+    state, _, _ = _spawn_frames(big, [camera(5.0, 0.0, 16)])
+    unused = torch.zeros((1, 3), device=DEVICE)
+    before = march_cuda.launches
+    try:
+        march_cuda.march_planar_cuda(big, PlanarRays(*state, r_hat=unused,
+                                                     e2=unused),
+                                     dt=DT, max_steps=10, escape_radius=R_ESC)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    print(f"[27] a degree-40 table on the card: {raised!r}")
+    require("degree 32" in raised and march_cuda.launches == before,
+            "a table above the kernels' capacity did not raise before launch")
+    print(f"[27] {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def table_agreement(tag, name, w_t, sign_t, w_a, sign_a):
+    """The table render's escape directions against the analytic ones
+    (benchmarks/parity_gates.py:gate_table): the share of equal signs and
+    of escaped rays whose directions differ beyond TABLE_ANGLE."""
+    import numpy as np
+    sign_eq = (sign_t == sign_a).double().mean().item()
+    both = (sign_t.abs() == 1) & (sign_a.abs() == 1)
+    ang, _, _ = angles(w_t, w_a, both)
+    p50, p99 = np.percentile(ang, [50, 99]) if ang.size else (0.0, 0.0)
+    miss = float((ang > TABLE_ANGLE).mean()) if ang.size else 0.0
+    print(f"{tag} {name} vs the analytic Ellis render: sign equal "
+          f"{sign_eq:.6f} (bound >= {TABLE_SIGN_MIN}), angle p50 {p50:.3e}, "
+          f"p99 {p99:.3e} rad, {miss:.6f} of escaped rays beyond "
+          f"{TABLE_ANGLE} rad (bound <= {TABLE_MISS_MAX})")
+    require(sign_eq >= TABLE_SIGN_MIN, f"{name}: sign equal {sign_eq}")
+    require(miss <= TABLE_MISS_MAX, f"{name}: {miss} of rays beyond "
+            f"{TABLE_ANGLE} rad")
+
+
+def shape_fn(theta):
+    """The trainer's shape: r(l) = sqrt(rho^2 + l^2), rho = exp(theta0 +
+    theta1 u + theta2 u^2), u = tanh(l / 1.5) (examples/shape_recovery.py's
+    family, three coefficients)."""
+    import torch
+
+    def r_fn(l):
+        u = torch.tanh(l / 1.5)
+        rho = torch.exp(theta[0] + theta[1] * u + theta[2] * u * u)
+        return torch.sqrt(rho * rho + l * l)
+    return r_fn
+
+
+def phase28_table_paths(bgp, bgn):
+    """The slice's path at full width: the cheb headline row (Euler and the
+    quality mode) and the shape trainer; returns the launch counts."""
+    import torch
+    from curvis_tpu_torch.fit import fit
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.metrics.table import (tabulate_metric,
+                                                tabulate_metric_diff)
+    from curvis_tpu_torch.ops import ckpt_adjoint_cuda as ca
+    from curvis_tpu_torch.ops import ckpt_rk45_cuda as cr
+    from curvis_tpu_torch.ops import march_cuda, render_fused, rk45_cuda
+    from curvis_tpu_torch.render.direct import render_direct
+    from curvis_tpu_torch.render.fast import render_frames_batched
+    t_start = time.perf_counter()
+    ellis = make_metric("ellis", rho=1.0, device=DEVICE)
+    tab, rep = tabulate_metric(ellis, degree=12, tol=1e-3, device=DEVICE)
+    print(f"[28] ellis degree-12 table: basis {rep['basis']}, fit errors "
+          f"{rep['err_inv_rel']:.3e} / {rep['err_dr3_rel']:.3e}")
+    cams = [camera(5.0, 0.001 * k, RES) for k in range(FRAMES)]
+    rays = FRAMES * RES * RES
+    launches = {}
+    for mode, kw, rtol in (
+            ("euler", dict(dt=DT, max_steps=MAX_STEPS, escape_radius=R_ESC,
+                           filtering="nearest"), None),
+            ("rk45", dict(dt=DT, max_steps=RK45_MAX_STEPS,
+                          escape_radius=R_ESC, filtering="nearest",
+                          stepper="rk45"), RK45_RTOL)):
+        fkw = dict(rtol=rtol) if rtol else {}
+
+        def fused():
+            return [render_fused.render_planar_fused(tab, c, bgp, bgn, **kw,
+                                                     **fkw) for c in cams]
+
+        def batched():
+            return render_frames_batched(tab, cams, bgp, bgn, **kw)
+
+        march_cuda.launches = 0
+        rk45_cuda.launches = 0
+        render_fused.launches.update(euler=0, rk45=0)
+        imgs_f = torch.stack(fused())                  # warm-up
+        ms_f = cuda_ms(fused, REPS)
+        imgs_b = batched()                             # warm-up
+        ms_b = cuda_ms(batched, REPS)
+        launches[mode] = {"march": march_cuda.launches,
+                          "rk45": rk45_cuda.launches,
+                          **{f"fused_{k}": v
+                             for k, v in render_fused.launches.items()}}
+        label = "Euler" if mode == "euler" else f"rk45 rtol {rtol} (fused)"
+        for name, imgs, ms in ((f"render_planar_fused {label}", imgs_f,
+                                ms_f),
+                               (f"render_frames_batched {mode}", imgs_b,
+                                ms_b)):
+            require(tuple(imgs.shape) == (FRAMES, RES, RES, 3),
+                    f"{name}: shape {tuple(imgs.shape)}")
+            require(bool(torch.isfinite(imgs).all()), f"{name}: non-finite")
+            lit = [(im.sum(-1) > 0).double().mean().item() for im in imgs]
+            print(f"[28] table {name}: {FRAMES} x {RES}^2 in {ms:.2f} ms "
+                  f"(median of {REPS}) = {rays / ms / 1e3:.1f} Mrays/s; lit "
+                  f"fraction {min(lit):.6f}..{max(lit):.6f}")
+            require(min(lit) > LIT_MIN, f"{name}: lit fraction {min(lit)}")
+        print(f"[28] launch counters over the table {mode} headline: "
+              f"{launches[mode]}")
+        key = "march" if mode == "euler" else "rk45"
+        fkey = "fused_euler" if mode == "euler" else "fused_rk45"
+        require(launches[mode][key] > 0 and launches[mode][fkey] > 0,
+                f"a kernel of the table {mode} path was not launched: "
+                f"{launches[mode]}")
+        # the directions against the analytic Ellis render of each pose
+        q = {k: v for k, v in kw.items() if k != "filtering"}
+        ws_t, ss_t, ws_a, ss_a = [], [], [], []
+        for c in cams:
+            *w, s_ = render_fused.fused_directions(tab, c, **q, **fkw)
+            ws_t.append(w)
+            ss_t.append(s_)
+            *w, s_ = render_fused.fused_directions(ellis, c, **q, **fkw)
+            ws_a.append(w)
+            ss_a.append(s_)
+        table_agreement("[28]", f"table {mode} headline", [
+            torch.cat([w[i] for w in ws_t]) for i in range(3)],
+            torch.cat(ss_t), [torch.cat([w[i] for w in ws_a])
+                              for i in range(3)], torch.cat(ss_a))
+
+    # the trainer: fit the shape's coefficients through the adjoint
+    theta_true = torch.tensor([TABLE_SHAPE[k] for k in ("rho0", "rho1",
+                                                        "rho2")],
+                              device=DEVICE)
+
+    # the Chebyshev basis: a monomial (Horner) table's coefficients depend
+    # on theta through Jacobian entries of up to ~8 of either sign
+    # (Chebyshev: <= 0.42) that cancel against the far rays' nearly equal
+    # powers of t -> 1; with it the float32 adjoint and the float32
+    # central difference of the check below parted by 7 % at 128^2, with
+    # the Chebyshev table by 0.7 % (H100, PERF.md)
+    def table_of(theta):
+        return tabulate_metric_diff(shape_fn(theta), degree=12, s=1.0,
+                                    basis="clenshaw", device=DEVICE)
+
+    for stepper, steps in (("euler", MAX_STEPS), ("rk45", RK45_TRAIN_STEPS)):
+        cam = trainer_camera(RES)
+        kw = dict(dt=DT, max_steps=steps, escape_radius=R_ESC,
+                  filtering="bilinear", differentiable="adjoint",
+                  stepper=stepper)
+        with torch.no_grad():
+            target = render_direct(table_of(theta_true), cam, bgp, bgn, **kw)
+
+        def loss(p):
+            img = render_direct(table_of(p["theta"]), cam, bgp, bgn, **kw)
+            return torch.mean((img - target) ** 2)
+
+        theta = torch.zeros(3, device=DEVICE, requires_grad=True)
+        fwd, bwd = [], []
+        for _ in range(3):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            v = loss({"theta": theta})
+            e[1].record()
+            (g,) = torch.autograd.grad(v, theta)
+            e[2].record()
+            e[2].synchronize()
+            fwd.append(e[0].elapsed_time(e[1]))
+            bwd.append(e[1].elapsed_time(e[2]))
+        print(f"[28] {stepper} trainer {RES}^2: d loss / d theta at 0 = "
+              f"{[f'{x:.6e}' for x in g.tolist()]} (loss {v.item():.6e})")
+        require(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+                f"table {stepper} trainer gradient {g.tolist()}")
+        # the backward kernels alone, at the trainer's shapes
+        tab0 = table_of(torch.zeros(3, device=DEVICE))
+        if stepper == "euler":
+            kind, scal, y0, b, cnt, cot = ckpt_inputs(tab0, cam, steps,
+                                                      seed=280)
+            n_seg = ca.n_segments(cnt, SEG)
+            ck = ca.launch_gen(kind, scal, *y0, b, cnt, seg=SEG, n_seg=n_seg)
+            gen_ms = cuda_ms(lambda: ca.launch_gen(
+                kind, scal, *y0, b, cnt, seg=SEG, n_seg=n_seg), 3)
+            bwd_ms = cuda_ms(lambda: ca.launch_bwd(
+                kind, scal, ck, b, cnt, cot, seg=SEG), 3)
+            mib = n_seg * 3 * cnt.numel() * 4 / 2**20
+        else:
+            from curvis_tpu_torch.render.fast import _spawn_frames
+            state, _, _ = _spawn_frames(tab0, [cam])
+            flat = [t.reshape(-1).contiguous() for t in state]
+            kind, scal = rk45_cuda.rk45_scalars(tab0, DT, R_ESC, 1e-5, 1e-7,
+                                                10.0)
+            fwd_k = rk45_cuda.launch(kind, scal, *flat, max_steps=steps,
+                                     max_iters=4 * steps)
+            cnt = torch.where(fwd_k[3].abs() <= 1, fwd_k[5],
+                              torch.zeros_like(fwd_k[5]))
+            off, total = ca.segment_offsets(cnt, RK45_SEG)
+            cot = torch.zeros((4, cnt.numel()), device=DEVICE)
+            cot[0] = 1.0
+            ck, _ = cr.launch_gen(kind, scal, *flat, cnt, seg=RK45_SEG,
+                                  offsets=off, total=total)
+            gen_ms = cuda_ms(lambda: cr.launch_gen(
+                kind, scal, *flat, cnt, seg=RK45_SEG, offsets=off,
+                total=total), 3)
+            bwd_ms = cuda_ms(lambda: cr.launch_bwd(
+                kind, scal, False, ck, flat[3], cnt, cot, seg=RK45_SEG,
+                offsets=off), 3)
+            mib = total * cr.N_STATE * 4 / 2**20
+        print(f"[28] {stepper} trainer step (median of 3, CUDA events): "
+              f"forward {statistics.median(fwd):.2f} ms + backward "
+              f"{statistics.median(bwd):.2f} ms, of which gen {gen_ms:.2f} "
+              f"ms and bwd {bwd_ms:.2f} ms; checkpoint buffer {mib:.1f} MiB")
+        # warm-up, then the fit with the launch counters reset
+        fit(loss, {"theta": torch.zeros(3, device=DEVICE)}, iters=1,
+            lr=TABLE_TRAIN_LR)
+        march_cuda.launches = 0
+        rk45_cuda.launches = 0
+        ca.launches.update(ckpt_gen=0, ckpt_bwd=0)
+        cr.launches.update(rk45_gen=0, rk45_bwd=0)
+        sync()
+        t0 = time.perf_counter()
+        res = fit(loss, {"theta": torch.zeros(3, device=DEVICE)},
+                  iters=TRAIN_ITERS, lr=TABLE_TRAIN_LR)
+        sync()
+        fit_s = time.perf_counter() - t0
+        key = f"train_{stepper}"
+        launches[key] = ({"march": march_cuda.launches, **ca.launches}
+                         if stepper == "euler" else
+                         {"rk45": rk45_cuda.launches, **cr.launches})
+        hist = res.history
+        print(f"[28] {stepper} fit: {TRAIN_ITERS} Adam steps (lr "
+              f"{TABLE_TRAIN_LR}) "
+              f"in {fit_s:.2f} s, theta 0 -> "
+              f"{[f'{x:.5f}' for x in res.params['theta'].tolist()]} (target "
+              f"{theta_true.tolist()}); history "
+              f"{', '.join(f'{h:.6e}' for h in hist)}; launches "
+              f"{launches[key]}")
+        require(all(math.isfinite(h) for h in hist), f"history {hist}")
+        require(hist[-1] < hist[0], f"table {stepper} fit: loss did not "
+                f"drop: {hist}")
+        require(all(v_ > 0 for v_ in launches[key].values()),
+                f"a kernel of the table {stepper} trainer was not launched: "
+                f"{launches[key]}")
+
+    # one coefficient's gradient against a central difference (Euler),
+    # over a smooth sky (over the random one the loss wiggles at the texel
+    # scale) and a view whose rays pass the throat at b >= ~1.6, where the
+    # image depends on the shape ~40 times more than on the trainer's view
+    # (there a float32 difference of losses is rounding noise at 10-20 %)
+    from curvis_tpu_torch.camera.camera import make_camera
+    cam = make_camera([0.0, 5.0, math.pi / 2, 0.0], [-0.3, 1.0, 0.2],
+                      [0.0, 0.0, 1.0], 15.0, 43.0, GRAD_RES, GRAD_RES,
+                      device=DEVICE)
+    kw = dict(dt=DT, max_steps=MAX_STEPS, escape_radius=R_ESC,
+              filtering="bilinear", differentiable="adjoint")
+    sky = smooth_sky()
+    with torch.no_grad():
+        target = render_direct(table_of(theta_true), cam, sky, sky, **kw)
+
+    def loss_s(theta):
+        img = render_direct(table_of(theta), cam, sky, sky, **kw)
+        return torch.mean((img - target) ** 2)
+
+    theta = torch.zeros(3, device=DEVICE, requires_grad=True)
+    (g,) = torch.autograd.grad(loss_s(theta), theta)
+    step = torch.tensor([0.0, TABLE_FD_H, 0.0], device=DEVICE)
+    cd = ((loss_s(theta + step) - loss_s(theta - step)) /
+          (2 * TABLE_FD_H)).item()
+    rel = abs(g[1].item() - cd) / abs(cd)
+    print(f"[28] d loss / d theta1 at {GRAD_RES}^2: adjoint "
+          f"{g[1].item():.6e}, central difference (h {TABLE_FD_H}) "
+          f"{cd:.6e}, rel {rel:.3e} (bound {TABLE_FD_TOL})")
+    require(rel <= TABLE_FD_TOL, f"table gradient vs central difference: "
+            f"{g[1].item()} vs {cd}")
+    print(f"[28] {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 def main():
     smi = phase0_toolchain()
     import numpy as np
@@ -5233,6 +5765,8 @@ def main():
     kerr_grad_launches = phase24_kerr_paths(bright)
     surf_k, surf_k45 = phase25_kerr_surface_ckpt()
     surf_k_launches = phase26_kerr_surface_paths(disk_sky)
+    table = phase27_table_kernels()
+    table_launches = phase28_table_paths(bgp, bgn)
 
     def entry(name, source, replaces, n_launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -5326,7 +5860,47 @@ def main():
               "curvis_tpu_torch/csrc/ckpt_kerr_surface_rk45.cu",
               "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
               surf_k_launches["kerr_surface_rk45_bwd"], surf_k45["bwd"]),
+        entry("march_planar_kernel (table)",
+              "curvis_tpu_torch/csrc/planar_march.cu",
+              "curvis_tpu/ops/march_pallas.py:303",
+              table_launches["euler"]["march"], table["march"]),
+        entry("render_fused_kernel (table)",
+              "curvis_tpu_torch/csrc/render_fused.cu",
+              "curvis_tpu/ops/render_fused.py:150",
+              table_launches["euler"]["fused_euler"], table["fused"]),
+        entry("render_fused_rk45_kernel (table)",
+              "curvis_tpu_torch/csrc/render_fused.cu",
+              "curvis_tpu/ops/render_fused.py:209",
+              table_launches["rk45"]["fused_rk45"], table["fused_rk45"]),
+        entry("march_planar_rk45_kernel (table)",
+              "curvis_tpu_torch/csrc/planar_rk45.cu",
+              "curvis_tpu/ops/march_pallas.py:498",
+              table_launches["rk45"]["rk45"], table["rk45"]),
+        entry("ckpt_gen_kernel (table)", "curvis_tpu_torch/csrc/ckpt_adjoint.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              table_launches["train_euler"]["ckpt_gen"],
+              table["ckpt"]["gen"]),
+        entry("ckpt_bwd_kernel (table)", "curvis_tpu_torch/csrc/ckpt_adjoint.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              table_launches["train_euler"]["ckpt_bwd"],
+              table["ckpt"]["bwd"]),
+        entry("ckpt_rk45_gen_kernel (table)",
+              "curvis_tpu_torch/csrc/ckpt_rk45.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              table_launches["train_rk45"]["rk45_gen"],
+              table["rk45_ckpt"]["gen"]),
+        entry("ckpt_rk45_bwd_kernel (table)",
+              "curvis_tpu_torch/csrc/ckpt_rk45.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              table_launches["train_rk45"]["rk45_bwd"],
+              table["rk45_ckpt"]["bwd"]),
     ]
+    print(f"[28] the table kernels' ms, plain_ms and bound_ms in the "
+          f"kernels line are phase 27's: #1 on the Bell h16 table's "
+          f"{FRAMES} x {RES}^2 bundle, #2 h16 and #3 c24 at {RES}^2, #4 h16 "
+          f"at {RES}^2, the Euler pair h16 at {SMALL}^2 capped at "
+          f"{TABLE_CKPT_CAP} steps, the DP5(4) pair h16 at {SMALL}^2 capped "
+          f"at {TABLE_RK45_ITERS} iterations; launches are phase 28's")
     print(f"[26] done on {smi}; the surface kernels' ms, plain_ms and "
           f"bound_ms in the kernels line are phase 19's thin 1024^2 case "
           f"with every ray capped at {SURF_CAP} steps (phase 20 prints "

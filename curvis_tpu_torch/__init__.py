@@ -20,7 +20,10 @@ the Kerr / Kerr-Newman path
 (``render_kerr``, ``render_kerr_frames_batched``, ``render_kerr_adaptive``,
 ``compute_kerr_starlight_map``) with its Boyer-Lindquist RK4 march
 (``ops/kerr_cuda.py``) and DP5(4) march (``ops/kerr_rk45_cuda.py``,
-``stepper='rk45'``).  Tensors on a GPU run the kernels;
+``stepper='rk45'``); and user-defined spacetimes tabulated as
+coefficient series (``TabulatedMetric``, ``tabulate_metric``,
+``metrics/table.py:tabulate_metric_diff``) on the wormhole routes without
+a disk.  Tensors on a GPU run the kernels;
 tensors on the CPU run their plain PyTorch versions.  Factories build on
 the current CUDA device unless given ``device='cpu'``.  The package imports
 neither JAX nor ``curvis_tpu``.
@@ -35,6 +38,7 @@ from curvis_tpu_torch.metrics.base import (
     SchwarzschildMetric,
     make_metric,
 )
+from curvis_tpu_torch.metrics.table import TabulatedMetric, tabulate_metric
 from curvis_tpu_torch.camera.camera import Camera, make_camera
 from curvis_tpu_torch.env.spherical_image import (
     SphericalImage,
@@ -79,6 +83,7 @@ __all__ = [
     "ReissnerNordstromMetric",
     "SchwarzschildMetric",
     "SphericalImage",
+    "TabulatedMetric",
     "compute_kerr_starlight_map",
     "compute_starlight_map",
     "fit",
@@ -106,4 +111,5 @@ __all__ = [
     "render_planar_fast",
     "render_planar_fused",
     "save_image",
+    "tabulate_metric",
 ]

@@ -20,6 +20,7 @@ from curvis_tpu_torch.metrics.base import (EllisMetric, FlatSphericalMetric,
                                            ReissnerNordstromMetric,
                                            SchwarzschildMetric)
 from curvis_tpu_torch.metrics.kerr import KerrMetric, KerrNewmanMetric
+from curvis_tpu_torch.metrics.table import TabulatedMetric
 from curvis_tpu_torch.utils.device import resolve_device
 
 _METRICS = {
@@ -55,6 +56,16 @@ def metric_from_arrays(kind: str, *, device=None, dtype=torch.float32,
         return cls()
     device = resolve_device(device)
     return cls(*(_t(params[k], device, dtype) for k in names), device=device)
+
+
+def table_from_arrays(c1, c2, s, basis, *, device=None,
+                      dtype=torch.float32) -> TabulatedMetric:
+    """A port TabulatedMetric from the arrays of a JAX one, e.g.
+    ``table_from_arrays(np.asarray(t.c1), np.asarray(t.c2),
+    np.asarray(t.s), t.basis)``."""
+    device = resolve_device(device)
+    return TabulatedMetric(_t(c1, device, dtype), _t(c2, device, dtype),
+                           _t(s, device, dtype), basis, device=device)
 
 
 def camera_from_arrays(position, forward, up, focal_length, sensor_diagonal,

@@ -4,7 +4,8 @@
 //
 // Replaces the TPU kernels curvis_tpu/ops/ckpt_adjoint_pallas.py:
 // _ckpt_gen_kernel (#9) and _ckpt_bwd_kernel (#10), for the planar Euler
-// step family (Ellis, DNEG, flat, Schwarzschild, Reissner-Nordstrom).  The
+// step family (Ellis, DNEG, flat, Schwarzschild, Reissner-Nordstrom and the
+// tabulated metrics).  The
 // Python wrapper is curvis_tpu_torch/ops/ckpt_adjoint_cuda.py, which also
 // holds the plain PyTorch versions of both kernels.
 //
@@ -24,7 +25,9 @@
 //        every step in a per-thread array (psi does not enter the RHS), then
 //        pull lam back through the steps in reverse with euler_step_vjp,
 //        summing the cotangents of the metric slots (p0, p1, p2) and of b
-//        per ray.  The caller sums the slots over rays.
+//        per ray.  The caller sums the slots over rays.  For a table the
+//        slots are s^2 and b, and each ray's cotangents of the 2 (K + 1)
+//        coefficients go to a (2 (K + 1), n) buffer of their own.
 //
 // What bounds it on the H100: FP32 issue and warp divergence, like the march
 // kernel.  Gen does one march; bwd re-marches it and adds the VJP (~3x a
@@ -32,11 +35,11 @@
 // checkpoint buffer once out and once in (3 floats per ray per segment), a
 // few percent of the time at seg = 32; the per-step start states live in
 // per-thread local memory (2 x seg floats), which ptxas reports as stack.
-// The design does nothing about divergence yet (no ray sorting): this is
-// the correct, simple form.
+// A table's VJP keeps its 2 (K + 1) coefficient sums and the recurrences'
+// sequences in per-thread local memory too (table.cuh).  The design does
+// nothing about divergence yet (no ray sorting): this is the correct,
+// simple form.
 #include <cstring>
-#include <type_traits>
-
 #include "planar.cuh"
 
 namespace curvis {
@@ -46,7 +49,8 @@ constexpr int kMaxSeg = 64;   // longest segment the backward can hold
 
 template <int KIND>
 __global__ void __launch_bounds__(kCkptThreads)
-    ckpt_gen_kernel(MarchScalars s, const float* __restrict__ l_in,
+    ckpt_gen_kernel(const __grid_constant__ ScalarsOf<KIND> s,
+                    const float* __restrict__ l_in,
                     const float* __restrict__ psi_in,
                     const float* __restrict__ pl_in,
                     const float* __restrict__ b_in,
@@ -71,7 +75,8 @@ __global__ void __launch_bounds__(kCkptThreads)
 
 template <int KIND>
 __global__ void __launch_bounds__(kCkptThreads)
-    ckpt_bwd_kernel(MarchScalars s, const float* __restrict__ ckpt,
+    ckpt_bwd_kernel(const __grid_constant__ ScalarsOf<KIND> s,
+                    const float* __restrict__ ckpt,
                     const float* __restrict__ b_in,
                     const int* __restrict__ steps_in,
                     const float* __restrict__ cot_l,
@@ -82,7 +87,7 @@ __global__ void __launch_bounds__(kCkptThreads)
                     float* __restrict__ lam_pl_out,
                     float* __restrict__ g0_out, float* __restrict__ g1_out,
                     float* __restrict__ g2_out, float* __restrict__ gb_out,
-                    long long n, int seg) {
+                    float* __restrict__ gc_out, long long n, int seg) {
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -90,7 +95,8 @@ __global__ void __launch_bounds__(kCkptThreads)
   const int steps = steps_in[i];
   float lam_l = cot_l[i], lam_pl = cot_pl[i];
   const float lam_psi = cot_psi[i];
-  float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float g[kThetaSlots<KIND>];
+  for (int j = 0; j < kThetaSlots<KIND>; ++j) g[j] = 0.0f;
   float ys_l[kMaxSeg], ys_pl[kMaxSeg];
   const int n_seg = (steps + seg - 1) / seg;
   for (int sg = n_seg - 1; sg >= 0; --sg) {
@@ -113,32 +119,21 @@ __global__ void __launch_bounds__(kCkptThreads)
   g1_out[i] = g[1];
   g2_out[i] = g[2];
   gb_out[i] = g[3];
-}
-
-// Calls f(std::integral_constant<int, KIND>) for a runtime metric kind;
-// false for an unknown kind.
-template <typename F>
-bool with_kind(int kind, F&& f) {
-  switch (kind) {
-    case kEllis: f(std::integral_constant<int, kEllis>{}); return true;
-    case kInterstellar:
-      f(std::integral_constant<int, kInterstellar>{});
-      return true;
-    case kFlat: f(std::integral_constant<int, kFlat>{}); return true;
-    case kSchwarzschild:
-      f(std::integral_constant<int, kSchwarzschild>{});
-      return true;
-    case kReissnerNordstrom:
-      f(std::integral_constant<int, kReissnerNordstrom>{});
-      return true;
-    default: return false;
+  if constexpr (KIND == kTable) {
+    const int nc = s.tab.n;
+    for (int k = 0; k < nc; ++k) {
+      gc_out[k * n + i] = g[4 + k];
+      gc_out[(nc + k) * n + i] = g[4 + kChebCap + k];
+    }
   }
 }
 
 // Checks shared by both host entries; fills the scalars and the grid size.
-int ckpt_setup(const float* scalars, int n_scalars, long long n, int seg,
-               int device, MarchScalars* s, unsigned* blocks) {
-  if (n_scalars != static_cast<int>(sizeof(MarchScalars) / sizeof(float)))
+int ckpt_setup(int kind, const float* scalars, int n_scalars,
+               const ChebTable* tab, long long n, int seg, int device,
+               MarchScalars* s, unsigned* blocks) {
+  if (n_scalars != static_cast<int>(sizeof(MarchScalars) / sizeof(float)) ||
+      !table_ok(kind, tab))
     return static_cast<int>(cudaErrorInvalidValue);
   if (seg < 1 || seg > kMaxSeg) return static_cast<int>(cudaErrorInvalidValue);
   std::memcpy(s, scalars, sizeof(*s));
@@ -153,47 +148,59 @@ int ckpt_setup(const float* scalars, int n_scalars, long long n, int seg,
 }  // namespace curvis
 
 // Host entries.  `scalars` is a host array in the layout of
-// curvis::MarchScalars (only dt and the metric slots are read).  `ckpt` is
-// a (n_seg, 3, n) float32 buffer with n_seg >= ceil(max_i steps[i] / seg).
+// curvis::MarchScalars (only dt and the metric slots are read) and `table`
+// the host ChebTable of a kTable launch (ignored otherwise).  `ckpt` is a
+// (n_seg, 3, n) float32 buffer with n_seg >= ceil(max_i steps[i] / seg);
+// `gc` a (2 table->n, n) float32 buffer for a kTable bwd (else unused).
 // Each launches on `stream` without synchronising and returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int curvis_ckpt_gen(int kind, const float* scalars, int n_scalars,
-                               const float* l, const float* psi,
+                               const void* table, const float* l,
+                               const float* psi,
                                const float* p_l, const float* b,
                                const int* steps, float* ckpt, long long n,
                                int seg, int device, void* stream) {
   using namespace curvis;
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
   MarchScalars s;
   unsigned g = 0;
-  const int err = ckpt_setup(scalars, n_scalars, n, seg, device, &s, &g);
+  const int err =
+      ckpt_setup(kind, scalars, n_scalars, tab, n, seg, device, &s, &g);
   if (err != 0 || n <= 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool known = with_kind(kind, [&](auto k) {
-    ckpt_gen_kernel<decltype(k)::value><<<g, kCkptThreads, 0, st>>>(
-        s, l, psi, p_l, b, steps, ckpt, n, seg);
+  const bool known = with_planar_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    ckpt_gen_kernel<K><<<g, kCkptThreads, 0, st>>>(
+        scalars_of<K>(s, tab), l, psi, p_l, b, steps, ckpt, n, seg);
   });
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int curvis_ckpt_bwd(int kind, const float* scalars, int n_scalars,
-                               const float* ckpt, const float* b,
+                               const void* table, const float* ckpt,
+                               const float* b,
                                const int* steps, const float* cot_l,
                                const float* cot_psi, const float* cot_pl,
                                float* lam_l, float* lam_psi, float* lam_pl,
                                float* g0, float* g1, float* g2, float* gb,
-                               long long n, int seg, int device,
+                               float* gc, long long n, int seg, int device,
                                void* stream) {
   using namespace curvis;
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
   MarchScalars s;
   unsigned g = 0;
-  const int err = ckpt_setup(scalars, n_scalars, n, seg, device, &s, &g);
+  const int err =
+      ckpt_setup(kind, scalars, n_scalars, tab, n, seg, device, &s, &g);
   if (err != 0 || n <= 0) return err;
+  if (kind == kTable && gc == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool known = with_kind(kind, [&](auto k) {
-    ckpt_bwd_kernel<decltype(k)::value><<<g, kCkptThreads, 0, st>>>(
-        s, ckpt, b, steps, cot_l, cot_psi, cot_pl, lam_l, lam_psi, lam_pl,
-        g0, g1, g2, gb, n, seg);
+  const bool known = with_planar_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    ckpt_bwd_kernel<K><<<g, kCkptThreads, 0, st>>>(
+        scalars_of<K>(s, tab), ckpt, b, steps, cot_l, cot_psi, cot_pl,
+        lam_l, lam_psi, lam_pl, g0, g1, g2, gb, gc, n, seg);
   });
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

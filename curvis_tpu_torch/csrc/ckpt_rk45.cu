@@ -10,9 +10,11 @@
 //
 // The family: state y = (l, psi, p_l, dt) per ray, theta = (p0, p1, p2, b)
 // (the metric slots of the scalar row and the per-ray b; bwd returns each
-// ray's cotangents, the caller sums the slots).  Ray i takes iters[i]
-// iterations from y0 = (l, psi, p_l, dt0): the iterations it was live for
-// in the forward march (kernel #4, planar_rk45.cu), accepted and rejected.
+// ray's cotangents, the caller sums the slots); for a tabulated metric
+// theta = (s^2, c1[0..K], c2[0..K], b), the JAX package's order.  Ray i
+// takes iters[i] iterations from y0 = (l, psi, p_l, dt0): the iterations it
+// was live for in the forward march (kernel #4, planar_rk45.cu), accepted
+// and rejected.
 // The iteration is rk45.cuh's rk45_iter, the one #4 runs, and both files
 // are built without FMA contraction (ops/_build.py), so the replay takes
 // every controller decision that the forward took, bit for bit.
@@ -33,11 +35,10 @@
 // reverses the seven stages (~3x an iteration), so the pair costs ~5
 // marches.  Device memory moves the checkpoint buffer once out and once in
 // (16 bytes per ray per segment); the per-iteration start states live in
-// per-thread local memory (4 x seg floats).  The design does nothing about
-// divergence (no ray sorting): this is the correct, simple form.
+// per-thread local memory (4 x seg floats), and so do a table's 2 (K + 1)
+// coefficient sums and its recurrences' sequences.  The design does nothing
+// about divergence (no ray sorting): this is the correct, simple form.
 #include <cstring>
-#include <type_traits>
-
 #include "rk45_vjp.cuh"
 
 namespace curvis {
@@ -48,7 +49,8 @@ constexpr int kRk45State = 4;
 
 template <int KIND>
 __global__ void __launch_bounds__(kCkptRk45Threads)
-    ckpt_rk45_gen_kernel(Rk45Scalars s, const float* __restrict__ l_in,
+    ckpt_rk45_gen_kernel(const __grid_constant__ Rk45ScalarsOf<KIND> s,
+                         const float* __restrict__ l_in,
                          const float* __restrict__ psi_in,
                          const float* __restrict__ pl_in,
                          const float* __restrict__ b_in,
@@ -83,7 +85,8 @@ __global__ void __launch_bounds__(kCkptRk45Threads)
 
 template <int KIND>
 __global__ void __launch_bounds__(kCkptRk45Threads)
-    ckpt_rk45_bwd_kernel(Rk45Scalars s, int freeze,
+    ckpt_rk45_bwd_kernel(const __grid_constant__ Rk45ScalarsOf<KIND> s,
+                         int freeze,
                          const float* __restrict__ ckpt,
                          const float* __restrict__ b_in,
                          const int* __restrict__ iters_in,
@@ -99,7 +102,8 @@ __global__ void __launch_bounds__(kCkptRk45Threads)
   float lam[kRk45State];
 #pragma unroll
   for (int c = 0; c < kRk45State; ++c) lam[c] = cot[c * n + i];
-  float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float g[kThetaSlots<KIND>];
+  for (int j = 0; j < kThetaSlots<KIND>; ++j) g[j] = 0.0f;
   float ys[kRk45State][kCkptRk45MaxSeg];
   const float* rows = ckpt + off_in[i] * kRk45State;
   const int n_seg = (iters + seg - 1) / seg;
@@ -121,34 +125,27 @@ __global__ void __launch_bounds__(kCkptRk45Threads)
   }
 #pragma unroll
   for (int c = 0; c < kRk45State; ++c) lam_out[c * n + i] = lam[c];
+  if constexpr (KIND == kTable) {
+    // theta order: s^2, c1[0..K], c2[0..K], b
+    const int nc = s.m.tab.n;
+    g_out[i] = g[0];
+    for (int k = 0; k < nc; ++k) {
+      g_out[(1 + k) * n + i] = g[4 + k];
+      g_out[(1 + nc + k) * n + i] = g[4 + kChebCap + k];
+    }
+    g_out[(1 + 2 * nc) * n + i] = g[3];
+  } else {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) g_out[c * n + i] = g[c];
-}
-
-// Calls f(std::integral_constant<int, KIND>) for a runtime metric kind;
-// false for an unknown kind.
-template <typename F>
-bool with_rk45_kind(int kind, F&& f) {
-  switch (kind) {
-    case kEllis: f(std::integral_constant<int, kEllis>{}); return true;
-    case kInterstellar:
-      f(std::integral_constant<int, kInterstellar>{});
-      return true;
-    case kFlat: f(std::integral_constant<int, kFlat>{}); return true;
-    case kSchwarzschild:
-      f(std::integral_constant<int, kSchwarzschild>{});
-      return true;
-    case kReissnerNordstrom:
-      f(std::integral_constant<int, kReissnerNordstrom>{});
-      return true;
-    default: return false;
+    for (int c = 0; c < 4; ++c) g_out[c * n + i] = g[c];
   }
 }
 
 // Checks shared by both host entries; fills the scalars and the grid size.
-int ckpt_rk45_setup(const float* scalars, int n_scalars, long long n,
-                    int seg, int device, Rk45Scalars* s, unsigned* blocks) {
-  if (n_scalars != static_cast<int>(sizeof(Rk45Scalars) / sizeof(float)))
+int ckpt_rk45_setup(int kind, const float* scalars, int n_scalars,
+                    const ChebTable* tab, long long n, int seg, int device,
+                    Rk45Scalars* s, unsigned* blocks) {
+  if (n_scalars != static_cast<int>(sizeof(Rk45Scalars) / sizeof(float)) ||
+      !table_ok(kind, tab))
     return static_cast<int>(cudaErrorInvalidValue);
   if (seg < 1 || seg > kCkptRk45MaxSeg)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -165,34 +162,42 @@ int ckpt_rk45_setup(const float* scalars, int n_scalars, long long n,
 
 // Host entries.  `scalars` is a host array in the layout of
 // curvis::Rk45Scalars (kernel #4's row: dt0, R, p0, p1, p2, r_cap, rtol,
-// atol, dt_max).  `offsets` (int64) are each ray's first checkpoint row;
+// atol, dt_max), and `table` the host ChebTable of a kTable launch (ignored
+// otherwise).  `offsets` (int64) are each ray's first checkpoint row;
 // `ckpt` holds sum_i ceil(iters[i] / seg) rows of 4 floats; `final_state`,
-// `cot` and `lam` are (4, n) float buffers and `g_theta` (4, n).  Each
+// `cot` and `lam` are (4, n) float buffers and `g_theta` (4, n), or
+// (2 table->n + 2, n) for a table.  Each
 // launches on `stream` without synchronising and returns the cudaError_t
 // of the launch (0 on success).
 extern "C" int curvis_ckpt_rk45_gen(int kind, const float* scalars,
-                                    int n_scalars, const float* l,
+                                    int n_scalars, const void* table,
+                                    const float* l,
                                     const float* psi, const float* p_l,
                                     const float* b, const int* iters,
                                     const long long* offsets, float* ckpt,
                                     float* final_state, long long n, int seg,
                                     int device, void* stream) {
   using namespace curvis;
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
   Rk45Scalars s;
   unsigned g = 0;
-  const int err = ckpt_rk45_setup(scalars, n_scalars, n, seg, device, &s, &g);
+  const int err = ckpt_rk45_setup(kind, scalars, n_scalars, tab, n, seg,
+                                  device, &s, &g);
   if (err != 0 || n <= 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool known = with_rk45_kind(kind, [&](auto k) {
-    ckpt_rk45_gen_kernel<decltype(k)::value><<<g, kCkptRk45Threads, 0, st>>>(
-        s, l, psi, p_l, b, iters, offsets, ckpt, final_state, n, seg);
+  const bool known = with_planar_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    ckpt_rk45_gen_kernel<K><<<g, kCkptRk45Threads, 0, st>>>(
+        rk45_scalars_of<K>(s, tab), l, psi, p_l, b, iters, offsets, ckpt,
+        final_state, n, seg);
   });
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int curvis_ckpt_rk45_bwd(int kind, const float* scalars,
-                                    int n_scalars, int freeze,
+                                    int n_scalars, const void* table,
+                                    int freeze,
                                     const float* ckpt, const float* b,
                                     const int* iters,
                                     const long long* offsets,
@@ -200,14 +205,18 @@ extern "C" int curvis_ckpt_rk45_bwd(int kind, const float* scalars,
                                     float* g_theta, long long n, int seg,
                                     int device, void* stream) {
   using namespace curvis;
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
   Rk45Scalars s;
   unsigned g = 0;
-  const int err = ckpt_rk45_setup(scalars, n_scalars, n, seg, device, &s, &g);
+  const int err = ckpt_rk45_setup(kind, scalars, n_scalars, tab, n, seg,
+                                  device, &s, &g);
   if (err != 0 || n <= 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool known = with_rk45_kind(kind, [&](auto k) {
-    ckpt_rk45_bwd_kernel<decltype(k)::value><<<g, kCkptRk45Threads, 0, st>>>(
-        s, freeze, ckpt, b, iters, offsets, cot, lam, g_theta, n, seg);
+  const bool known = with_planar_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    ckpt_rk45_bwd_kernel<K><<<g, kCkptRk45Threads, 0, st>>>(
+        rk45_scalars_of<K>(s, tab), freeze, ckpt, b, iters, offsets, cot,
+        lam, g_theta, n, seg);
   });
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -5,13 +5,19 @@
 //
 // State per ray: (l, psi, p_l) with conserved angular momentum b.  The
 // metric kind is a template parameter, so each kernel instance carries only
-// its own RHS.  The forms follow curvis_tpu/ops/march_pallas.py
-// (_shape_fns / _deriv_fns); the DNEG shape uses atanf / log1pf as in
-// curvis_tpu/metrics/base.py.
+// its own RHS.  The scalars type S is one too: MarchScalars for the analytic
+// kinds, TableScalars (the same fields, then the coefficient table of
+// table.cuh) for kTable, the tabulated user metrics.  The forms follow
+// curvis_tpu/ops/march_pallas.py (_shape_fns / _deriv_fns); the DNEG shape
+// uses atanf / log1pf as in curvis_tpu/metrics/base.py.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
+
+#include "table.cuh"
 
 namespace curvis {
 
@@ -21,6 +27,7 @@ enum MetricKind : int {
   kFlat = 2,
   kSchwarzschild = 3,
   kReissnerNordstrom = 4,
+  kTable = 5,   // metrics/table.py: inv, dr3 from the ChebTable
 };
 
 // Metrics with a lapse (A != 1) capture photons below r_cap; the others
@@ -40,6 +47,31 @@ struct MarchScalars {
   float p2;
   float r_cap;   // capture radius (metrics with a lapse)
 };
+
+// The scalars of a kTable kernel: the march scalars (p0 holds s^2, as in
+// the JAX package's row) and the table.
+struct TableScalars : MarchScalars {
+  ChebTable tab;
+};
+
+template <int KIND>
+using ScalarsOf =
+    std::conditional_t<KIND == kTable, TableScalars, MarchScalars>;
+
+// Per-ray parameter cotangents a VJP gathers: (p0, p1, p2, b), and for a
+// table s^2 at 0, b at 3 and the two coefficient series from 4.
+template <int KIND>
+constexpr int kThetaSlots = KIND == kTable ? 4 + 2 * kChebCap : 4;
+
+// The scalars of kind KIND from the host's march scalars and, for kTable,
+// its table.
+template <int KIND>
+ScalarsOf<KIND> scalars_of(const MarchScalars& m, const ChebTable* tab) {
+  if constexpr (KIND == kTable)
+    return TableScalars{m, *tab};
+  else
+    return m;
+}
 
 constexpr float kPi = 3.14159265358979323846f;
 
@@ -101,8 +133,8 @@ __device__ __forceinline__ void dneg_shape(float m, float a, float rho,
 }
 
 // (dl, dpsi, dp_l) for one ray.  b2 = b * b.
-template <int KIND>
-__device__ __forceinline__ void planar_deriv(const MarchScalars& s, float l,
+template <int KIND, class S>
+__device__ __forceinline__ void planar_deriv(const S& s, float l,
                                              float p_l, float b, float b2,
                                              float* dl, float* dpsi,
                                              float* dpl) {
@@ -135,6 +167,12 @@ __device__ __forceinline__ void planar_deriv(const MarchScalars& s, float l,
     *dl = A * p_l;
     *dpsi = b * invl2;
     *dpl = (-M * invl2) * (invA * invA + p_l * p_l) + b2 * invl2 * invl;
+  } else if constexpr (KIND == kTable) {
+    float inv, dr3;
+    table_shape(s.tab, l, &inv, &dr3);
+    *dl = p_l;
+    *dpsi = b * inv;
+    *dpl = b2 * dr3;
   } else {  // kReissnerNordstrom: A = 1 - 2M/l + Q^2/l^2
     const float M = s.p0, q2 = s.p1;
     const float invl = 1.0f / l;
@@ -151,10 +189,14 @@ __device__ __forceinline__ void planar_deriv(const MarchScalars& s, float l,
 // 1 / r(l)^2 of the unit-lapse kinds, in the form planar_deriv computes
 // it (curvis_tpu/ops/march_pallas.py:_shape_fns); the lapse kinds have
 // r = l and never call it.
-template <int KIND>
-__device__ __forceinline__ float planar_inv_r2(const MarchScalars& s,
-                                               float l) {
+template <int KIND, class S>
+__device__ __forceinline__ float planar_inv_r2(const S& s, float l) {
   if constexpr (KIND == kEllis) return 1.0f / (s.p0 * s.p0 + l * l);
+  if constexpr (KIND == kTable) {
+    float inv, dr3;
+    table_shape(s.tab, l, &inv, &dr3);
+    return inv;
+  }
   if constexpr (KIND == kInterstellar) {
     float r, dr;
     dneg_shape(s.p0, s.p1, s.p2, l, &r, &dr);
@@ -164,10 +206,13 @@ __device__ __forceinline__ float planar_inv_r2(const MarchScalars& s,
   return 1.0f / (l * l);
 }
 
-// Areal radius r(l), for the readout.
-template <int KIND>
-__device__ __forceinline__ float planar_r(const MarchScalars& s, float l) {
+// Areal radius r(l), for the readout (a table: 1 / sqrt(inv) with inv
+// floored at 1e-30, curvis_tpu/ops/render_fused.py:_r_of_l).
+template <int KIND, class S>
+__device__ __forceinline__ float planar_r(const S& s, float l) {
   if constexpr (KIND == kEllis) return sqrtf(s.p0 * s.p0 + l * l);
+  if constexpr (KIND == kTable)
+    return 1.0f / sqrtf(max_nan(planar_inv_r2<KIND>(s, l), 1e-30f));
   if constexpr (KIND == kInterstellar) {
     float r, dr;
     dneg_shape(s.p0, s.p1, s.p2, l, &r, &dr);
@@ -178,8 +223,8 @@ __device__ __forceinline__ float planar_r(const MarchScalars& s, float l) {
 
 // Local radial direction component u_l = p_l sqrt(A), with A clamped at
 // 1e-6 (curvis_tpu/ops/render_fused.py:_readout_u_l).
-template <int KIND>
-__device__ __forceinline__ float readout_u_l(const MarchScalars& s, float l,
+template <int KIND, class S>
+__device__ __forceinline__ float readout_u_l(const S& s, float l,
                                              float p_l) {
   if constexpr (KIND == kSchwarzschild)
     return p_l * sqrtf(fmaxf(1.0f - 2.0f * s.p0 / l, 1e-6f));
@@ -193,8 +238,8 @@ __device__ __forceinline__ float readout_u_l(const MarchScalars& s, float l,
 // One forward-Euler step y <- y + dt f(y), y = (l, psi, p_l): the step of
 // march_ray, which the checkpoint kernels re-run, so the recomputed map is
 // the marched map bit for bit.
-template <int KIND>
-__device__ __forceinline__ void euler_step(const MarchScalars& s, float b,
+template <int KIND, class S>
+__device__ __forceinline__ void euler_step(const S& s, float b,
                                            float b2, float* l, float* psi,
                                            float* p_l) {
   float dl, dpsi, dpl;
@@ -241,10 +286,12 @@ __device__ __forceinline__ void lapse_rhs_vjp(float M, float q2, float l,
 // VJP of one Euler step at (l, p_l) (psi does not enter the RHS):
 // lam = (lam_l, lam_psi, lam_pl) is the cotangent of the step's output and
 // becomes that of its input; g[0..2] gather the cotangents of the metric
-// slots p0, p1, p2 and g[3] that of b.  The derivatives are those of the
-// forms in planar_deriv, written out in reverse mode.
-template <int KIND>
-__device__ __forceinline__ void euler_step_vjp(const MarchScalars& s,
+// slots p0, p1, p2 and g[3] that of b; a kTable kernel's g has
+// kThetaSlots<kTable> entries: g[0] s^2, g[3] b, then the coefficient
+// sums, c1's at g + 4 and c2's at g + 4 + kChebCap.  The derivatives are
+// those of the forms in planar_deriv, written out in reverse mode.
+template <int KIND, class S>
+__device__ __forceinline__ void euler_step_vjp(const S& s,
                                                float l, float p_l, float b,
                                                float b2, float* lam_l,
                                                float lam_psi, float* lam_pl,
@@ -300,6 +347,13 @@ __device__ __forceinline__ void euler_step_vjp(const MarchScalars& s,
     }
     g_pl += u;
     g[3] += v * inv + w * 2.0f * b * dr * inv * ir;
+  } else if constexpr (KIND == kTable) {
+    // dpsi = b inv; dpl = b2 dr3; (inv, dr3) from the table
+    float inv, dr3;
+    table_shape_vjp<false>(s.tab, l, v * b, w * b2, &inv, &dr3, &g_l, &g[0],
+                           g + 4, g + 4 + kChebCap);
+    g_pl += u;
+    g[3] += v * inv + w * 2.0f * b * dr3;
   } else if constexpr (KIND == kSchwarzschild) {
     float unused = 0.0f;
     lapse_rhs_vjp(s.p0, 0.0f, l, p_l, b, b2, u, v, w, &g_l, &g_pl, &g[3],
@@ -321,8 +375,8 @@ __device__ __forceinline__ void euler_step_vjp(const MarchScalars& s,
 // lh = l + frac (l1 - l) inside [r_in, r_out] fills the first empty slot
 // with (lh, p_l, psi) interpolated at frac = |zq| / (|zq| + |zq1|).
 // *new1 / *new2 say which slot this step filled.
-template <int KIND>
-__device__ __forceinline__ void disk_step(const MarchScalars& s, float r_in,
+template <int KIND, class S>
+__device__ __forceinline__ void disk_step(const S& s, float r_in,
                                           float r_out, float b, float b2,
                                           float c1, float c2, float* l,
                                           float* psi, float* p_l, float* u,
@@ -363,12 +417,41 @@ __device__ __forceinline__ void disk_step(const MarchScalars& s, float r_in,
   *zq = zq1;
 }
 
+// Calls f(std::integral_constant<int, KIND>{}) for a runtime metric kind of
+// the planar families that take tables (the five analytic kinds and
+// kTable); false for another kind.
+template <typename F>
+bool with_planar_kind(int kind, F&& f) {
+  switch (kind) {
+    case kEllis: f(std::integral_constant<int, kEllis>{}); return true;
+    case kInterstellar:
+      f(std::integral_constant<int, kInterstellar>{});
+      return true;
+    case kFlat: f(std::integral_constant<int, kFlat>{}); return true;
+    case kSchwarzschild:
+      f(std::integral_constant<int, kSchwarzschild>{});
+      return true;
+    case kReissnerNordstrom:
+      f(std::integral_constant<int, kReissnerNordstrom>{});
+      return true;
+    case kTable: f(std::integral_constant<int, kTable>{}); return true;
+    default: return false;
+  }
+}
+
+// A launch of kind `kind` has what it needs: a kTable launch a table of
+// 1 .. kChebCap coefficients per series.
+inline bool table_ok(int kind, const ChebTable* tab) {
+  return kind != kTable ||
+         (tab != nullptr && tab->n >= 1 && tab->n <= kChebCap);
+}
+
 // Euler march of one ray until it escapes (sign +1 / -1), is captured
 // (sign 2) or has taken max_steps steps (sign 0).  The escape test follows
 // each step, strict on both sides.  Returns the sign; *steps gets the
 // number of steps taken.
-template <int KIND>
-__device__ __forceinline__ int march_ray(const MarchScalars& s, float* l_io,
+template <int KIND, class S>
+__device__ __forceinline__ int march_ray(const S& s, float* l_io,
                                          float* psi_io, float* pl_io, float b,
                                          int max_steps, int* steps) {
   float l = *l_io, psi = *psi_io, p_l = *pl_io;

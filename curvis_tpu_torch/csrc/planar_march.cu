@@ -15,6 +15,10 @@
 // this is the correct, simple form (no ray sorting, no work redistribution,
 // no fast-math division).
 //
+// A tabulated metric (kTable) evaluates its two coefficient series every
+// step (table.cuh): ~8 + 2 x 2K FP32 operations for a Horner table of
+// degree K, ~8 + 3 x 2K for a Clenshaw one, on top of the ~15 of the step.
+//
 // The per-ray loop stops exactly at max_steps, so no unroll divisor is
 // needed for an exact step cap, and there is no maskless "sprint" phase: a
 // thread whose ray has ended simply leaves the loop.
@@ -28,7 +32,8 @@ constexpr int kMarchThreads = 128;
 
 template <int KIND>
 __global__ void __launch_bounds__(kMarchThreads)
-    march_planar_kernel(MarchScalars s, const float* __restrict__ l_in,
+    march_planar_kernel(const __grid_constant__ ScalarsOf<KIND> s,
+                        const float* __restrict__ l_in,
                         const float* __restrict__ psi_in,
                         const float* __restrict__ pl_in,
                         const float* __restrict__ b_in,
@@ -52,16 +57,6 @@ __global__ void __launch_bounds__(kMarchThreads)
   steps_out[i] = steps;
 }
 
-template <int KIND>
-void launch_march(unsigned blocks, cudaStream_t stream, const MarchScalars& s,
-                  const float* l, const float* psi, const float* p_l,
-                  const float* b, float* l_out, float* psi_out, float* pl_out,
-                  int* sign_out, int* steps_out, long long n, int max_steps) {
-  march_planar_kernel<KIND><<<blocks, kMarchThreads, 0, stream>>>(
-      s, l, psi, p_l, b, l_out, psi_out, pl_out, sign_out, steps_out, n,
-      max_steps);
-}
-
 }  // namespace curvis
 
 // Name of a cudaError_t returned by the host entries below.
@@ -71,17 +66,22 @@ extern "C" const char* curvis_error_string(int err) {
 
 // Host entry.  `scalars` is a host array of n_scalars floats in the layout
 // of curvis::MarchScalars; it is copied into the kernel's by-value argument,
-// so no device copy is made.  Launches on `stream` without synchronising and
-// returns the cudaError_t of the launch (0 on success).
+// so no device copy is made.  `table` is the host ChebTable of a kTable
+// launch (ignored otherwise), copied into the argument after the scalars.
+// Launches on `stream` without synchronising and returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int curvis_march_planar(int kind, const float* scalars,
-                                   int n_scalars, const float* l,
-                                   const float* psi, const float* p_l,
-                                   const float* b, float* l_out,
+                                   int n_scalars, const void* table,
+                                   const float* l, const float* psi,
+                                   const float* p_l, const float* b,
+                                   float* l_out,
                                    float* psi_out, float* pl_out,
                                    int* sign_out, int* steps_out, long long n,
                                    int max_steps, int device, void* stream) {
   using namespace curvis;
-  if (n_scalars != static_cast<int>(sizeof(MarchScalars) / sizeof(float)))
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
+  if (n_scalars != static_cast<int>(sizeof(MarchScalars) / sizeof(float)) ||
+      !table_ok(kind, tab))
     return static_cast<int>(cudaErrorInvalidValue);
   MarchScalars s;
   std::memcpy(&s, scalars, sizeof(s));
@@ -92,30 +92,12 @@ extern "C" int curvis_march_planar(int kind, const float* scalars,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned g = static_cast<unsigned>(blocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case kEllis:
-      launch_march<kEllis>(g, st, s, l, psi, p_l, b, l_out, psi_out, pl_out,
-                           sign_out, steps_out, n, max_steps);
-      break;
-    case kInterstellar:
-      launch_march<kInterstellar>(g, st, s, l, psi, p_l, b, l_out, psi_out,
-                                  pl_out, sign_out, steps_out, n, max_steps);
-      break;
-    case kFlat:
-      launch_march<kFlat>(g, st, s, l, psi, p_l, b, l_out, psi_out, pl_out,
-                          sign_out, steps_out, n, max_steps);
-      break;
-    case kSchwarzschild:
-      launch_march<kSchwarzschild>(g, st, s, l, psi, p_l, b, l_out, psi_out,
-                                   pl_out, sign_out, steps_out, n, max_steps);
-      break;
-    case kReissnerNordstrom:
-      launch_march<kReissnerNordstrom>(g, st, s, l, psi, p_l, b, l_out,
-                                       psi_out, pl_out, sign_out, steps_out,
-                                       n, max_steps);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool known = with_planar_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    march_planar_kernel<K><<<g, kMarchThreads, 0, st>>>(
+        scalars_of<K>(s, tab), l, psi, p_l, b, l_out, psi_out, pl_out,
+        sign_out, steps_out, n, max_steps);
+  });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

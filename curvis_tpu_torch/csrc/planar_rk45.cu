@@ -14,7 +14,9 @@
 // reads 16 bytes and writes 24, then runs its iterations: seven RHS
 // evaluations, the stage sums, the 5th- and 4th-order combinations, the
 // error norm and the controller (~280 FP32 operations for Ellis, with
-// seven IEEE divisions, one expf and one logf).  Per-ray dt and rejects
+// seven IEEE divisions, one expf and one logf; a table metric's two series
+// add ~2 x 2K (Horner) or ~3 x 2K (Clenshaw) operations to each of the
+// seven RHS evaluations, csrc/table.cuh).  Per-ray dt and rejects
 // make a warp's lanes need different iteration counts, and a warp runs
 // until its slowest lane has finished.  The design does nothing about
 // either yet: this is the correct, simple form (one loop per thread, no
@@ -29,7 +31,8 @@ constexpr int kRk45Threads = 128;
 
 template <int KIND>
 __global__ void __launch_bounds__(kRk45Threads)
-    march_planar_rk45_kernel(Rk45Scalars s, const float* __restrict__ l_in,
+    march_planar_rk45_kernel(const __grid_constant__ Rk45ScalarsOf<KIND> s,
+                             const float* __restrict__ l_in,
                              const float* __restrict__ psi_in,
                              const float* __restrict__ pl_in,
                              const float* __restrict__ b_in,
@@ -56,31 +59,24 @@ __global__ void __launch_bounds__(kRk45Threads)
   iters_out[i] = iters;
 }
 
-template <int KIND>
-void launch_rk45(unsigned blocks, cudaStream_t stream, const Rk45Scalars& s,
-                 const float* l, const float* psi, const float* p_l,
-                 const float* b, float* l_out, float* psi_out, float* pl_out,
-                 int* sign_out, int* steps_out, int* iters_out, long long n,
-                 int max_steps, int max_iters) {
-  march_planar_rk45_kernel<KIND><<<blocks, kRk45Threads, 0, stream>>>(
-      s, l, psi, p_l, b, l_out, psi_out, pl_out, sign_out, steps_out,
-      iters_out, n, max_steps, max_iters);
-}
-
 }  // namespace curvis
 
 // Host entry.  `scalars` is a host array of n_scalars floats in the layout
-// of curvis::Rk45Scalars, copied into the kernel's by-value argument.
+// of curvis::Rk45Scalars, copied into the kernel's by-value argument, and
+// `table` the host ChebTable of a kTable launch (ignored otherwise).
 // Launches on `stream` without synchronising and returns the cudaError_t
 // of the launch (0 on success).
 extern "C" int curvis_march_planar_rk45(
-    int kind, const float* scalars, int n_scalars, const float* l,
-    const float* psi, const float* p_l, const float* b, float* l_out,
+    int kind, const float* scalars, int n_scalars, const void* table,
+    const float* l, const float* psi, const float* p_l, const float* b,
+    float* l_out,
     float* psi_out, float* pl_out, int* sign_out, int* steps_out,
     int* iters_out, long long n, int max_steps, int max_iters, int device,
     void* stream) {
   using namespace curvis;
-  if (n_scalars != static_cast<int>(sizeof(Rk45Scalars) / sizeof(float)))
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
+  if (n_scalars != static_cast<int>(sizeof(Rk45Scalars) / sizeof(float)) ||
+      !table_ok(kind, tab))
     return static_cast<int>(cudaErrorInvalidValue);
   Rk45Scalars s;
   std::memcpy(&s, scalars, sizeof(s));
@@ -91,34 +87,12 @@ extern "C" int curvis_march_planar_rk45(
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned g = static_cast<unsigned>(blocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case kEllis:
-      launch_rk45<kEllis>(g, st, s, l, psi, p_l, b, l_out, psi_out, pl_out,
-                          sign_out, steps_out, iters_out, n, max_steps,
-                          max_iters);
-      break;
-    case kInterstellar:
-      launch_rk45<kInterstellar>(g, st, s, l, psi, p_l, b, l_out, psi_out,
-                                 pl_out, sign_out, steps_out, iters_out, n,
-                                 max_steps, max_iters);
-      break;
-    case kFlat:
-      launch_rk45<kFlat>(g, st, s, l, psi, p_l, b, l_out, psi_out, pl_out,
-                         sign_out, steps_out, iters_out, n, max_steps,
-                         max_iters);
-      break;
-    case kSchwarzschild:
-      launch_rk45<kSchwarzschild>(g, st, s, l, psi, p_l, b, l_out, psi_out,
-                                  pl_out, sign_out, steps_out, iters_out, n,
-                                  max_steps, max_iters);
-      break;
-    case kReissnerNordstrom:
-      launch_rk45<kReissnerNordstrom>(g, st, s, l, psi, p_l, b, l_out,
-                                      psi_out, pl_out, sign_out, steps_out,
-                                      iters_out, n, max_steps, max_iters);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool known = with_planar_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    march_planar_rk45_kernel<K><<<g, kRk45Threads, 0, st>>>(
+        rk45_scalars_of<K>(s, tab), l, psi, p_l, b, l_out, psi_out, pl_out,
+        sign_out, steps_out, iters_out, n, max_steps, max_iters);
+  });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

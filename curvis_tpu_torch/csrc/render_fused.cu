@@ -19,6 +19,10 @@
 // csrc/rk45.cuh, and a warp runs until its slowest ray has finished.  The
 // design does nothing about that yet: this is the correct, simple form.
 //
+// A tabulated metric (kTable) marches on its two coefficient series
+// (csrc/table.cuh) and reads r out as 1 / sqrt(inv), as the TPU kernel
+// does.
+//
 // The readout keeps the reference's clamps (lapse at 1e-6, |u|^2 at 1e-30)
 // and builds cos(beta), sin(beta) from sincosf(psi) and the normalised
 // local direction, which equals beta = psi + atan2(u_psi, u_l) wherever
@@ -31,10 +35,9 @@ namespace curvis {
 
 constexpr int kFusedThreads = 128;
 
-// Scalars of one camera, in the order of the host row
-// (ops/render_fused.py:_fused_row).
-struct FusedScalars {
-  MarchScalars m;             // dt, R, metric params, capture radius
+// Scalars of one camera after the march scalars, in the order of the host
+// row (ops/render_fused.py:_fused_row).
+struct FusedCamera {
   float focal, sw, sh;        // focal length, sensor width / height
   float inv_w, inv_h;         // 1 / resolution
   float rot[9];               // camera->world rotation, row-major
@@ -44,16 +47,28 @@ struct FusedScalars {
   float s_pl, s_b;            // spawn scalings of p_l and b
 };
 
+// The host row: march scalars (dt, R, metric params, capture radius), then
+// the camera; a kTable kernel's march scalars carry the table
+// (M = TableScalars).
+template <class M>
+struct FusedScalarsT {
+  M m;
+  FusedCamera cam;
+};
+using FusedScalars = FusedScalarsT<MarchScalars>;
+
 // Scalars of one camera for the rk45 march: the Euler row, then the
 // controller ([29] = rtol, [30] = atol, [31] = dt_max).
-struct FusedRk45Scalars {
-  FusedScalars f;   // f.m.dt is the initial step dt0
+template <class M>
+struct FusedRk45ScalarsT {
+  FusedScalarsT<M> f;   // f.m.dt is the initial step dt0
   Rk45Control c;
 };
+using FusedRk45Scalars = FusedRk45ScalarsT<MarchScalars>;
 
 // Camera ray + planar spawn of pixel idx: the march state (l, psi, p_l), b
 // and the in-plane basis vector e2.
-__device__ __forceinline__ void fused_spawn(const FusedScalars& s,
+__device__ __forceinline__ void fused_spawn(const FusedCamera& s,
                                             long long idx, int H, float* l,
                                             float* psi, float* p_l, float* b,
                                             float e2[3]) {
@@ -101,9 +116,9 @@ __device__ __forceinline__ void fused_spawn(const FusedScalars& s,
 }
 
 // World-direction readout of pixel idx: w = cos(beta) r_hat + sin(beta) e2.
-template <int KIND>
+template <int KIND, class M>
 __device__ __forceinline__ void fused_readout(
-    const FusedScalars& s, float l, float psi, float p_l, float b,
+    const FusedScalarsT<M>& s, float l, float psi, float p_l, float b,
     const float e2[3], int sign, long long idx, float* __restrict__ wx_out,
     float* __restrict__ wy_out, float* __restrict__ wz_out,
     int* __restrict__ sign_out) {
@@ -116,24 +131,24 @@ __device__ __forceinline__ void fused_readout(
   sincosf(psi, &sp, &cp);
   const float cb = cp * cg - sp * sg;
   const float sb = sp * cg + cp * sg;
-  wx_out[idx] = cb * s.rx + sb * e2[0];
-  wy_out[idx] = cb * s.ry + sb * e2[1];
-  wz_out[idx] = cb * s.rz + sb * e2[2];
+  wx_out[idx] = cb * s.cam.rx + sb * e2[0];
+  wy_out[idx] = cb * s.cam.ry + sb * e2[1];
+  wz_out[idx] = cb * s.cam.rz + sb * e2[2];
   sign_out[idx] = sign;
 }
 
 template <int KIND>
 __global__ void __launch_bounds__(kFusedThreads)
-    render_fused_kernel(FusedScalars s, float* __restrict__ wx_out,
-                        float* __restrict__ wy_out,
-                        float* __restrict__ wz_out,
-                        int* __restrict__ sign_out, int H, long long n,
-                        int max_steps) {
+    render_fused_kernel(
+        const __grid_constant__ FusedScalarsT<ScalarsOf<KIND>> s,
+        float* __restrict__ wx_out, float* __restrict__ wy_out,
+        float* __restrict__ wz_out, int* __restrict__ sign_out, int H,
+        long long n, int max_steps) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   float l, psi, p_l, b, e2[3];
-  fused_spawn(s, idx, H, &l, &psi, &p_l, &b, e2);
+  fused_spawn(s.cam, idx, H, &l, &psi, &p_l, &b, e2);
   int steps;
   const int sign = march_ray<KIND>(s.m, &l, &psi, &p_l, b, max_steps, &steps);
   fused_readout<KIND>(s, l, psi, p_l, b, e2, sign, idx, wx_out, wy_out,
@@ -142,16 +157,16 @@ __global__ void __launch_bounds__(kFusedThreads)
 
 template <int KIND>
 __global__ void __launch_bounds__(kFusedThreads)
-    render_fused_rk45_kernel(FusedRk45Scalars s, float* __restrict__ wx_out,
-                             float* __restrict__ wy_out,
-                             float* __restrict__ wz_out,
-                             int* __restrict__ sign_out, int H, long long n,
-                             int max_steps, int max_iters) {
+    render_fused_rk45_kernel(
+        const __grid_constant__ FusedRk45ScalarsT<ScalarsOf<KIND>> s,
+        float* __restrict__ wx_out, float* __restrict__ wy_out,
+        float* __restrict__ wz_out, int* __restrict__ sign_out, int H,
+        long long n, int max_steps, int max_iters) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   float l, psi, p_l, b, e2[3];
-  fused_spawn(s.f, idx, H, &l, &psi, &p_l, &b, e2);
+  fused_spawn(s.f.cam, idx, H, &l, &psi, &p_l, &b, e2);
   int steps, iters;
   const int sign = march_ray_rk45<KIND>(s.f.m, s.c, &l, &psi, &p_l, b,
                                         max_steps, max_iters, &steps,
@@ -160,36 +175,22 @@ __global__ void __launch_bounds__(kFusedThreads)
                       wz_out, sign_out);
 }
 
-template <int KIND>
-void launch_fused(unsigned blocks, cudaStream_t stream, const FusedScalars& s,
-                  float* wx, float* wy, float* wz, int* sign, int H,
-                  long long n, int max_steps) {
-  render_fused_kernel<KIND><<<blocks, kFusedThreads, 0, stream>>>(
-      s, wx, wy, wz, sign, H, n, max_steps);
-}
-
-template <int KIND>
-void launch_fused_rk45(unsigned blocks, cudaStream_t stream,
-                       const FusedRk45Scalars& s, float* wx, float* wy,
-                       float* wz, int* sign, int H, long long n,
-                       int max_steps, int max_iters) {
-  render_fused_rk45_kernel<KIND><<<blocks, kFusedThreads, 0, stream>>>(
-      s, wx, wy, wz, sign, H, n, max_steps, max_iters);
-}
-
 }  // namespace curvis
 
 // Host entry.  `scalars` is a host array of n_scalars floats in the layout
-// of curvis::FusedScalars, copied into the kernel's by-value argument.  n is
+// of curvis::FusedScalars, copied into the kernel's by-value argument, and
+// `table` the host ChebTable of a kTable launch (ignored otherwise).  n is
 // the pixel count W * H.  Launches on `stream` without synchronising and
 // returns the cudaError_t of the launch (0 on success).
 extern "C" int curvis_render_fused(int kind, const float* scalars,
-                                   int n_scalars, float* wx, float* wy,
-                                   float* wz, int* sign, int H, long long n,
+                                   int n_scalars, const void* table,
+                                   float* wx, float* wy, float* wz,
+                                   int* sign, int H, long long n,
                                    int max_steps, int device, void* stream) {
   using namespace curvis;
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
   if (n_scalars != static_cast<int>(sizeof(FusedScalars) / sizeof(float)) ||
-      H <= 0)
+      H <= 0 || !table_ok(kind, tab))
     return static_cast<int>(cudaErrorInvalidValue);
   FusedScalars s;
   std::memcpy(&s, scalars, sizeof(s));
@@ -200,28 +201,13 @@ extern "C" int curvis_render_fused(int kind, const float* scalars,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned g = static_cast<unsigned>(blocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case kEllis:
-      launch_fused<kEllis>(g, st, s, wx, wy, wz, sign, H, n, max_steps);
-      break;
-    case kInterstellar:
-      launch_fused<kInterstellar>(g, st, s, wx, wy, wz, sign, H, n,
-                                  max_steps);
-      break;
-    case kFlat:
-      launch_fused<kFlat>(g, st, s, wx, wy, wz, sign, H, n, max_steps);
-      break;
-    case kSchwarzschild:
-      launch_fused<kSchwarzschild>(g, st, s, wx, wy, wz, sign, H, n,
-                                   max_steps);
-      break;
-    case kReissnerNordstrom:
-      launch_fused<kReissnerNordstrom>(g, st, s, wx, wy, wz, sign, H, n,
-                                       max_steps);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool known = with_planar_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    const FusedScalarsT<ScalarsOf<K>> sk{scalars_of<K>(s.m, tab), s.cam};
+    render_fused_kernel<K><<<g, kFusedThreads, 0, st>>>(
+        sk, wx, wy, wz, sign, H, n, max_steps);
+  });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -230,15 +216,17 @@ extern "C" int curvis_render_fused(int kind, const float* scalars,
 // atol, dt_max); max_iters caps each ray's iterations, accepted and
 // rejected.  Otherwise as curvis_render_fused.
 extern "C" int curvis_render_fused_rk45(int kind, const float* scalars,
-                                        int n_scalars, float* wx, float* wy,
-                                        float* wz, int* sign, int H,
+                                        int n_scalars, const void* table,
+                                        float* wx, float* wy, float* wz,
+                                        int* sign, int H,
                                         long long n, int max_steps,
                                         int max_iters, int device,
                                         void* stream) {
   using namespace curvis;
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
   if (n_scalars !=
           static_cast<int>(sizeof(FusedRk45Scalars) / sizeof(float)) ||
-      H <= 0)
+      H <= 0 || !table_ok(kind, tab))
     return static_cast<int>(cudaErrorInvalidValue);
   FusedRk45Scalars s;
   std::memcpy(&s, scalars, sizeof(s));
@@ -249,29 +237,13 @@ extern "C" int curvis_render_fused_rk45(int kind, const float* scalars,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned g = static_cast<unsigned>(blocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case kEllis:
-      launch_fused_rk45<kEllis>(g, st, s, wx, wy, wz, sign, H, n, max_steps,
-                                max_iters);
-      break;
-    case kInterstellar:
-      launch_fused_rk45<kInterstellar>(g, st, s, wx, wy, wz, sign, H, n,
-                                       max_steps, max_iters);
-      break;
-    case kFlat:
-      launch_fused_rk45<kFlat>(g, st, s, wx, wy, wz, sign, H, n, max_steps,
-                               max_iters);
-      break;
-    case kSchwarzschild:
-      launch_fused_rk45<kSchwarzschild>(g, st, s, wx, wy, wz, sign, H, n,
-                                        max_steps, max_iters);
-      break;
-    case kReissnerNordstrom:
-      launch_fused_rk45<kReissnerNordstrom>(g, st, s, wx, wy, wz, sign, H,
-                                            n, max_steps, max_iters);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool known = with_planar_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    const FusedRk45ScalarsT<ScalarsOf<K>> sk{
+        {scalars_of<K>(s.f.m, tab), s.f.cam}, s.c};
+    render_fused_rk45_kernel<K><<<g, kFusedThreads, 0, st>>>(
+        sk, wx, wy, wz, sign, H, n, max_steps, max_iters);
+  });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,11 +34,23 @@ struct Rk45Control {
 };
 
 // Host row of kernel #4: [dt0, R, p0, p1, p2, r_cap, rtol, atol, dt_max]
-// (the compact rk45 row of curvis_tpu/ops/march_pallas.py).
-struct Rk45Scalars {
-  MarchScalars m;   // m.dt is the initial step dt0
+// (the compact rk45 row of curvis_tpu/ops/march_pallas.py); a kTable
+// kernel's march scalars carry the table (M = TableScalars).
+template <class M>
+struct Rk45ScalarsT {
+  M m;   // m.dt is the initial step dt0
   Rk45Control c;
 };
+using Rk45Scalars = Rk45ScalarsT<MarchScalars>;
+
+template <int KIND>
+using Rk45ScalarsOf = Rk45ScalarsT<ScalarsOf<KIND>>;
+
+template <int KIND>
+Rk45ScalarsOf<KIND> rk45_scalars_of(const Rk45Scalars& s,
+                                    const ChebTable* tab) {
+  return Rk45ScalarsOf<KIND>{scalars_of<KIND>(s.m, tab), s.c};
+}
 
 constexpr int kRk45Capped = -128;   // sign of a ray stopped at max_steps
 constexpr float kRk45DtFloor = 1e-6f;
@@ -58,8 +70,8 @@ struct Rk45Stages {
   float k[7][3];
 };
 
-template <int KIND>
-__device__ __forceinline__ void rk45_stages(const MarchScalars& s, float b,
+template <int KIND, class S>
+__device__ __forceinline__ void rk45_stages(const S& s, float b,
                                             float b2, float l, float p_l,
                                             float dt, Rk45Stages* st) {
 #pragma unroll
@@ -109,8 +121,8 @@ struct Rk45Rec {
   bool accept, esc_pos, esc_neg, small;
 };
 
-template <int KIND>
-__device__ __forceinline__ void rk45_trial_rec(const MarchScalars& s,
+template <int KIND, class S>
+__device__ __forceinline__ void rk45_trial_rec(const S& s,
                                                const Rk45Control& c,
                                                float b, float b2, float l,
                                                float psi, float p_l, float dt,
@@ -162,8 +174,8 @@ struct Rk45Trial {
 // back (l, psi, p_l).  A surface march (rk45_surface.cuh) does its
 // crossing or emission work on the written-back state between this and
 // rk45_control, as the TPU kernel does.
-template <int KIND>
-__device__ __forceinline__ Rk45Trial rk45_trial(const MarchScalars& s,
+template <int KIND, class S>
+__device__ __forceinline__ Rk45Trial rk45_trial(const S& s,
                                                 const Rk45Control& c,
                                                 float b, float b2,
                                                 float* l_io, float* psi_io,
@@ -208,8 +220,8 @@ __device__ __forceinline__ void rk45_control(const MarchScalars& s,
 // One DP5(4) iteration of a live ray: rk45_trial, then rk45_control.
 // Updates (l, psi, p_l) and dt, adds the accepted step to *steps and sets
 // *sign as rk45_control does (never opaque).
-template <int KIND>
-__device__ __forceinline__ void rk45_iter(const MarchScalars& s,
+template <int KIND, class S>
+__device__ __forceinline__ void rk45_iter(const S& s,
                                           const Rk45Control& c, float b,
                                           float b2, float* l_io,
                                           float* psi_io, float* pl_io,
@@ -228,8 +240,8 @@ __device__ __forceinline__ void rk45_iter(const MarchScalars& s,
 // lock-step loop seen from one lane, which stops where the lane freezes
 // (the tile keeps adding 0 (y5 - y) to a frozen lane: the same state
 // unless that lane's trial is non-finite).
-template <int KIND>
-__device__ __forceinline__ int march_ray_rk45(const MarchScalars& s,
+template <int KIND, class S>
+__device__ __forceinline__ int march_ray_rk45(const S& s,
                                               const Rk45Control& c,
                                               float* l, float* psi,
                                               float* p_l, float b,

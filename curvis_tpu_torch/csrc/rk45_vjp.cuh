@@ -28,14 +28,15 @@
 
 namespace curvis {
 
-// Cotangents of (l, p_l) and theta (g[0..2] the metric slots, g[3] b) of
-// one RHS evaluation (dl, dpsi, dp_l) at (l, p_l) for the cotangents
+// Cotangents of (l, p_l) and theta (g[0..2] the metric slots, g[3] b; a
+// table's coefficients after them, as euler_step_vjp's) of one RHS
+// evaluation (dl, dpsi, dp_l) at (l, p_l) for the cotangents
 // (u, v, w) of its outputs, added to *g_l, *g_pl and g: the derivatives of
 // the guarded forms of curvis_tpu_torch/integrate/rk45_adjoint_planar.py:
 // _guarded_deriv_fns, except DNEG, whose shape is the kernel's dneg_shape
 // (log1pf, atanf) with only 1 / r guarded.
-template <int KIND>
-__device__ __forceinline__ void planar_deriv_vjp(const MarchScalars& s,
+template <int KIND, class S>
+__device__ __forceinline__ void planar_deriv_vjp(const S& s,
                                                  float l, float p_l, float b,
                                                  float b2, float u, float v,
                                                  float w, float* g_l,
@@ -86,6 +87,15 @@ __device__ __forceinline__ void planar_deriv_vjp(const MarchScalars& s,
     }
     *g_pl += u;
     g[3] += v * inv + w * 2.0f * b * dr * inv * ir;
+  } else if constexpr (KIND == kTable) {
+    // dpsi = b inv, dpl = b2 dr3 of the guarded table form: l clipped,
+    // l^2 + s^2 floored at 1e-12
+    float inv, dr3, g_lc = 0.0f;
+    table_shape_vjp<true>(s.tab, lc, v * b, w * b2, &inv, &dr3, &g_lc,
+                          &g[0], g + 4, g + 4 + kChebCap);
+    *g_l += g_lc * sl;
+    *g_pl += u;
+    g[3] += v * inv + w * 2.0f * b * dr3;
   } else {
     // the lapse kinds (Schwarzschild: q2 = 0):
     //   A = 1 - (2M - q2/l)/l,  C = -(M - q2/l)/l^2,
@@ -143,8 +153,8 @@ __device__ __forceinline__ void rk45_control_vjp(const Rk45Control& c,
 // VJP of rk45_trial at the start state of r, for the cotangents g_out of
 // the written-back (l, psi, p_l) and g_err of the error norm: adds to
 // g_y[3] (l, psi, p_l), *g_dt and g[4] (p0, p1, p2, b).
-template <int KIND>
-__device__ __forceinline__ void rk45_trial_vjp(const MarchScalars& s,
+template <int KIND, class S>
+__device__ __forceinline__ void rk45_trial_vjp(const S& s,
                                                const Rk45Control& c,
                                                float b, float b2,
                                                const Rk45Rec& r,
@@ -224,8 +234,8 @@ __device__ __forceinline__ void rk45_trial_vjp(const MarchScalars& s,
 // lam[4] is the cotangent of (l, psi, p_l, dt) after it and becomes that
 // before it; g[4] gathers the cotangents of p0, p1, p2 and b.  `freeze`
 // drops the cotangent of the next dt.
-template <int KIND>
-__device__ __forceinline__ void rk45_iter_vjp(const MarchScalars& s,
+template <int KIND, class S>
+__device__ __forceinline__ void rk45_iter_vjp(const S& s,
                                               const Rk45Control& c,
                                               bool freeze, float l,
                                               float psi, float p_l, float dt,

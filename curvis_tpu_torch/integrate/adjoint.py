@@ -24,7 +24,9 @@ Function), the spawn state (l, psi, p_l) -- hence the camera position --
 and ``b``.  The CUDA kernels see the metric through the slots of the march
 scalar row; ``_planar_metric_grads`` maps slot cotangents back onto the
 metric's fields, with the chain rule g_q = 2 q g_{q^2} for
-Reissner-Nordstrom, whose slot p1 holds q^2.
+Reissner-Nordstrom, whose slot p1 holds q^2, and for a tabulated metric
+(slots s^2, c1..., c2...) g_s = 2 s g_{s^2}, as the JAX package's
+``_table_metric_grads``.
 """
 from __future__ import annotations
 
@@ -35,17 +37,24 @@ import torch
 from curvis_tpu_torch.integrate.ckpt import ckpt_adjoint_backward
 from curvis_tpu_torch.metrics.base import (InterstellarMetric, Metric,
                                            ReissnerNordstromMetric)
+from curvis_tpu_torch.metrics.table import TabulatedMetric
 from curvis_tpu_torch.ops import ckpt_adjoint_cuda
 from curvis_tpu_torch.ops.march_cuda import march_planar_cuda, march_scalars
 from curvis_tpu_torch.physics.planar import (CAPTURED, PlanarRays,
                                              PlanarResult, planar_euler_step)
 
 
-def _planar_metric_grads(metric: Metric, g012):
+def _planar_metric_grads(metric: Metric, g_slots):
     """Slot cotangents (p0, p1, p2), summed over rays -> the cotangents of
     ``metric.fields``: Ellis rho <- p0; DNEG (m, a, rho) <- (p0, p1, p2);
-    Schwarzschild m <- p0; RN m <- p0 and q <- 2 q p1 (p1 = q^2)."""
-    g0, g1, g2 = g012
+    Schwarzschild m <- p0; RN m <- p0 and q <- 2 q p1 (p1 = q^2); a table's
+    (s^2, c1..., c2...) -> (c1, c2, s) with s <- 2 s s^2."""
+    if isinstance(metric, TabulatedMetric):
+        n = metric.c1.shape[0]
+        return (torch.stack(list(g_slots[1:1 + n])),
+                torch.stack(list(g_slots[1 + n:1 + 2 * n])),
+                2.0 * metric.s.detach() * g_slots[0])
+    g0, g1, g2 = g_slots
     if isinstance(metric, InterstellarMetric):
         return (g0, g1, g2)
     if isinstance(metric, ReissnerNordstromMetric):
@@ -57,8 +66,10 @@ def _rebuilt(metric: Metric, fields):
     """A metric of ``metric``'s type on the tensors ``fields``."""
     if not fields:
         return type(metric)()
+    extra = ({"basis": metric.basis} if isinstance(metric, TabulatedMetric)
+             else {})
     return type(metric)(*fields, device=fields[0].device,
-                        dtype=fields[0].dtype)
+                        dtype=fields[0].dtype, **extra)
 
 
 class _PlanarAdjoint(torch.autograd.Function):
@@ -93,8 +104,8 @@ class _PlanarAdjoint(torch.autograd.Function):
                 kind, scal, tuple(flat[:3]), flat[3], flat[4],
                 tuple(flat[5:]))
             g_fields = _planar_metric_grads(
-                metric, tuple(torch.sum(gi) for gi in g[:3]))
-            g_b = g[3].reshape(b.shape)
+                metric, tuple(torch.sum(gi) for gi in g[:-1]))
+            g_b = g[-1].reshape(b.shape)
             lam = tuple(a.reshape(l.shape) for a in lam)
         elif l.device.type == "cpu":
             def step_fn(theta, y):

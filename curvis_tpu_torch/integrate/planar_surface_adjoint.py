@@ -70,7 +70,8 @@ from curvis_tpu_torch.ops import ckpt_surface_cuda as cs
 from curvis_tpu_torch.ops import disk_cuda, disk_vol_cuda, rk45_disk_cuda
 from curvis_tpu_torch.ops.disk_cuda import LAPSE_KINDS
 from curvis_tpu_torch.ops.disk_vol_cuda import inv_r2_plain, vol_row_of
-from curvis_tpu_torch.ops.march_cuda import _NO_CAPTURE, march_scalars
+from curvis_tpu_torch.ops.march_cuda import (_NO_CAPTURE, march_scalars,
+                                             refuse_table)
 from curvis_tpu_torch.ops.rk45_cuda import jclip, rk45_scalars
 from curvis_tpu_torch.physics import planar as pl
 
@@ -440,6 +441,7 @@ def _common(metric, state, b, c1, c2, nz, surf, flags, *, stepper, dt,
         pl.check_stepper(stepper)
     if backend not in ("auto", "twin"):
         raise ValueError(f"backend must be 'auto' or 'twin', got {backend!r}")
+    refuse_table(metric, "differentiable disk march")
     l, psi, p_l = state
     rk = None
     if stepper == "rk45":

@@ -56,7 +56,10 @@ about 1e-6 absolute in (2 / pi) atan.  The CUDA route replays with the
 kernel's own RHS, unguarded, so that it takes #4's decisions, and guards
 only the partials of its VJP (``csrc/rk45_vjp.cuh``).
 
-Tabulated (``cheb{K}``) metrics raise: ROADMAP Queue 1 item 4.
+A tabulated metric (``metrics/table.py``) keeps the JAX closure's guarded
+table form (l clipped, l^2 + s^2 floored at 1e-12); its theta is (s^2,
+c1..., c2..., b), the JAX package's order, and its kernels' series are
+``csrc/table.cuh``'s.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ from curvis_tpu_torch.integrate.adjoint import _planar_metric_grads
 from curvis_tpu_torch.integrate.ckpt import ckpt_adjoint_backward
 from curvis_tpu_torch.integrate.rk45 import CAPPED, DP_A, DP_B4, DP_B5, _comb
 from curvis_tpu_torch.metrics.base import Metric
+from curvis_tpu_torch.metrics.table import TabulatedMetric, poly_eval
 from curvis_tpu_torch.ops import ckpt_rk45_cuda
 from curvis_tpu_torch.ops.march_cuda import (_NO_CAPTURE,
                                              metric_kind_and_params)
@@ -84,10 +88,9 @@ def _guarded_inv(x, eps):
 
 def _guarded_deriv_fns(kind):
     """``fns(p, l, p_l, b, b2) -> (dl, dpsi, dpl)`` with the metric slots
-    ``p = (p0, p1, p2)`` of ``ops/march_cuda.py:metric_kind_and_params``:
-    finite outputs and finite partials for any finite state (module
-    docstring).  ``cheb{K}`` kinds raise: tabulated metrics are ROADMAP
-    Queue 1 item 4."""
+    ``p = (p0, p1, p2)`` of ``ops/march_cuda.py:metric_kind_and_params``
+    (a table's (s^2, c1..., c2...)): finite outputs and finite partials for
+    any finite state (module docstring)."""
     if kind == "schwarzschild":
         def fns(p, l, p_l, b, b2):
             M = p[0]
@@ -147,10 +150,17 @@ def _guarded_deriv_fns(kind):
             inv = ir * ir
             return p_l, b * inv, b2 * (dr * inv * ir)
         return fns
-    if kind.startswith("cheb"):
-        raise NotImplementedError(
-            f"metric kind {kind!r}: tabulated (cheb{{K}}) metrics are "
-            "ROADMAP Queue 1 item 4")
+    if kind == "table":
+        def fns(p, l, p_l, b, b2):
+            n = (len(p) - 1) // 2
+            l = torch.clamp(l, -1e4, 1e4)
+            w = 1.0 / torch.sqrt(torch.clamp(l * l + p[0], min=1e-12))
+            t = l * w
+            w2 = w * w
+            inv = w2 * poly_eval(p[1:1 + n], t, kind.basis)
+            dr_r3 = w2 * w * poly_eval(p[1 + n:], t, kind.basis)
+            return p_l, b * inv, b2 * dr_r3
+        return fns
     raise NotImplementedError(
         f"planar guarded RHS: unsupported metric kind {kind!r}")
 
@@ -161,8 +171,11 @@ def _guarded_deriv_fns(kind):
 
 def metric_slots(metric: Metric, like):
     """(kind, (p0, p1, p2)) of the metric as 0-d tensors in its graph, the
-    unused slots zeros like ``like``."""
+    unused slots zeros like ``like``; a table's (s^2, c1..., c2...)."""
     kind, params = metric_kind_and_params(metric)
+    if isinstance(metric, TabulatedMetric):
+        return kind, (params[0].reshape(()), *metric.c1.unbind(),
+                      *metric.c2.unbind())
     zero = torch.zeros((), dtype=like.dtype, device=like.device)
     return kind, tuple([t.reshape(()) for t in params]
                        + [zero] * (3 - len(params)))
@@ -235,13 +248,14 @@ def _planar_rk45_iter(kind, consts, theta, y, freeze=False):
     dt) -> (y1, (accept, esc_pos, esc_neg, cap_i, stall_i)): the JAX
     package's map, form for form.  ``consts`` = (rtol, atol, dt_min,
     dt_max, R, r_cap) as 0-d tensors of the state's dtype; theta = (p0, p1,
-    p2, b).  ``freeze`` detaches the controller chain (err -> factor -> dt)
-    and keeps the escape interpolation."""
+    p2, b), or a table's (s^2, c1..., c2..., b).  ``freeze`` detaches the
+    controller chain (err -> factor -> dt) and keeps the escape
+    interpolation."""
     sg = (lambda x: x.detach()) if freeze else (lambda x: x)
     dt_min, r_cap = consts[2], consts[5]
     dt = y[3]
     (ln, psin, pln), err, accept, esc_pos, esc_neg = _rk45_trial(
-        kind, consts, theta[:3], theta[3], y, sg)
+        kind, consts, theta[:-1], theta[-1], y, sg)
     cap_i = accept & (ln < r_cap)
     stall_i = ~accept & (dt <= dt_min * 1.01)
     dtn = _rk45_next(consts, err, dt, esc_pos | esc_neg | cap_i | stall_i)
@@ -346,8 +360,8 @@ class _Rk45Adjoint(torch.autograd.Function):
                 counts.reshape(-1).contiguous(),
                 torch.stack([c.reshape(-1) for c in cot]).contiguous(),
                 seg=segment or ckpt_rk45_cuda.SEG)
-            g_p = tuple(torch.sum(g[i]) for i in range(3))
-            g_b = g[3].reshape(l0.shape)
+            g_p = tuple(torch.sum(gi) for gi in g[:-1])
+            g_b = g[-1].reshape(l0.shape)
             lam = tuple(a.reshape(l0.shape) for a in lam)
         else:
             kind, p = metric_slots(metric, l0)
@@ -359,7 +373,7 @@ class _Rk45Adjoint(torch.autograd.Function):
             d_theta, lam = ckpt_adjoint_backward(
                 step, (*p, b), y0, counts, cot, max_steps=max_iters,
                 segment=segment or max(1, int(math.sqrt(max_iters))))
-            g_p, g_b = d_theta[:3], d_theta[3]
+            g_p, g_b = d_theta[:-1], d_theta[-1]
         g_fields = _planar_metric_grads(metric, g_p)
         g_fields = tuple(g.to(f.dtype) for g, f in zip(g_fields, fields))
         # lam[3], the dt0 cotangent, is dropped: dt0 is a solver knob

@@ -63,37 +63,39 @@ SOURCE_FLAGS = {src: _NO_FMA for src in (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PROTOTYPES = {
-    # kind, scalars, n_scalars, l, psi, p_l, b, l_out, psi_out, pl_out,
-    # sign_out, steps_out, n, max_steps, device, stream
+    # kind, scalars, n_scalars, table, l, psi, p_l, b, l_out, psi_out,
+    # pl_out, sign_out, steps_out, n, max_steps, device, stream
     "curvis_march_planar": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, ctypes.c_longlong, _I, _I, _P],
+    # kind, scalars, n_scalars, table, wx, wy, wz, sign, H, n, max_steps,
+    # device, stream
+    "curvis_render_fused": [_I, _P, _I, _P, _P, _P, _P, _P, _I,
                             ctypes.c_longlong, _I, _I, _P],
-    # kind, scalars, n_scalars, wx, wy, wz, sign, H, n, max_steps, device,
-    # stream
-    "curvis_render_fused": [_I, _P, _I, _P, _P, _P, _P, _I,
-                            ctypes.c_longlong, _I, _I, _P],
-    # kind, scalars, n_scalars, l, psi, p_l, b, l_out, psi_out, pl_out,
-    # sign_out, steps_out, iters_out, n, max_steps, max_iters, device,
-    # stream
+    # kind, scalars, n_scalars, table, l, psi, p_l, b, l_out, psi_out,
+    # pl_out, sign_out, steps_out, iters_out, n, max_steps, max_iters,
+    # device, stream
     "curvis_march_planar_rk45": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+                                 _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
+                                 _P],
     # kind, vol, blackbody, redshift, doppler, scatter, scalars, n_scalars,
     # l, psi, p_l, b, c1, c2, nz, fout (9 | 7 x n), iout (3 x n), n,
     # max_steps, max_iters, device, stream
     "curvis_march_planar_rk45_disk": [_I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
                                       _P, _P, _P, _P, _P, _P, _P,
                                       ctypes.c_longlong, _I, _I, _I, _P],
-    # kind, scalars, n_scalars, wx, wy, wz, sign, H, n, max_steps,
+    # kind, scalars, n_scalars, table, wx, wy, wz, sign, H, n, max_steps,
     # max_iters, device, stream
-    "curvis_render_fused_rk45": [_I, _P, _I, _P, _P, _P, _P, _I,
+    "curvis_render_fused_rk45": [_I, _P, _I, _P, _P, _P, _P, _P, _I,
                                  ctypes.c_longlong, _I, _I, _I, _P],
-    # kind, scalars, n_scalars, l, psi, p_l, b, steps, ckpt, n, seg, device,
-    # stream
-    "curvis_ckpt_gen": [_I, _P, _I, _P, _P, _P, _P, _P, _P,
+    # kind, scalars, n_scalars, table, l, psi, p_l, b, steps, ckpt, n, seg,
+    # device, stream
+    "curvis_ckpt_gen": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                         ctypes.c_longlong, _I, _I, _P],
-    # kind, scalars, n_scalars, ckpt, b, steps, cot_l, cot_psi, cot_pl,
-    # lam_l, lam_psi, lam_pl, g0, g1, g2, gb, n, seg, device, stream
+    # kind, scalars, n_scalars, table, ckpt, b, steps, cot_l, cot_psi,
+    # cot_pl, lam_l, lam_psi, lam_pl, g0, g1, g2, gb, gc, n, seg, device,
+    # stream
     "curvis_ckpt_bwd": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+                        _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
     # kind, vol, flags, scalars, n_scalars, l, psi, p_l, b, c1, c2, nz,
     # steps, offsets, ckpt, final, n, seg, device, stream
     "curvis_ckpt_surface_gen": [_I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
@@ -104,13 +106,13 @@ _PROTOTYPES = {
     "curvis_ckpt_surface_bwd": [_I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
                                 _P],
-    # kind, scalars, n_scalars, l, psi, p_l, b, iters, offsets, ckpt, final,
-    # n, seg, device, stream
-    "curvis_ckpt_rk45_gen": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+    # kind, scalars, n_scalars, table, l, psi, p_l, b, iters, offsets, ckpt,
+    # final, n, seg, device, stream
+    "curvis_ckpt_rk45_gen": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              ctypes.c_longlong, _I, _I, _P],
-    # kind, scalars, n_scalars, freeze, ckpt, b, iters, offsets, cot, lam,
-    # g_theta, n, seg, device, stream
-    "curvis_ckpt_rk45_bwd": [_I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+    # kind, scalars, n_scalars, table, freeze, ckpt, b, iters, offsets, cot,
+    # lam, g_theta, n, seg, device, stream
+    "curvis_ckpt_rk45_bwd": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                              ctypes.c_longlong, _I, _I, _P],
     # kind, vol, flags, scalars, n_scalars, l, psi, p_l, b, c1, c2, nz,
     # iters, offsets, ckpt, final, n, seg, device, stream
@@ -280,6 +282,12 @@ def check(lib, err: int, what: str):
     if err != 0:
         msg = lib.curvis_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def table_ptr(tab):
+    """The address of a ``ChebTable`` argument (kept alive by the caller
+    across the launch), or None (a null pointer) for an analytic kind."""
+    return None if tab is None else ctypes.addressof(tab)
 
 
 def host_floats(values):

@@ -2,7 +2,10 @@
 wrapper of the CUDA kernels ``csrc/ckpt_adjoint.cu``, which replace
 ``curvis_tpu/ops/ckpt_adjoint_pallas.py``'s ``_ckpt_gen_kernel`` (#9) and
 ``_ckpt_bwd_kernel`` (#10) for the planar Euler step family, and their
-plain PyTorch versions.
+plain PyTorch versions.  A tabulated metric's kind (``ops/table_cuda.py``)
+gives per-ray cotangents of (s^2, c1..., c2..., b) in place of (p0, p1,
+p2, b); its VJP runs the series' recurrences in reverse
+(``csrc/table.cuh:table_shape_vjp``, transcribed in ``ops/table_cuda.py``).
 
 ``ckpt_adjoint_backward_cuda`` pulls a cotangent of the march's output
 state back to its spawn state and parameters: the kernel pair for CUDA
@@ -32,6 +35,9 @@ import torch
 
 from curvis_tpu_torch.ops import _build
 from curvis_tpu_torch.ops.march_cuda import KINDS
+from curvis_tpu_torch.ops.table_cuda import (TableKind, kernel_table,
+                                             slot_params, table_shape,
+                                             table_shape_vjp)
 
 SEG = 32                 # default segment: 32 Euler steps per recompute
 MAX_SEG = 64             # longest segment the backward kernel can hold
@@ -41,12 +47,18 @@ launches = {"ckpt_gen": 0, "ckpt_bwd": 0}   # kernel launches since a reset
 
 # ------------------------------------------------- plain versions (PyTorch)
 
-def _slots(scal, like):
-    """(dt, (p0, p1, p2)) of a march scalar row [dt, R, p0, p1, p2, r_cap]
-    as 0-d tensors of ``like``'s dtype and device."""
-    t = torch.tensor([scal[0], *scal[2:5]], dtype=like.dtype,
-                     device=like.device)
-    return t[0], (t[1], t[2], t[3])
+def _slots(kind, scal, like):
+    """(dt, p) of a march scalar row [dt, R, p0, p1, p2, r_cap] as 0-d
+    tensors of ``like``'s dtype and device: p = (p0, p1, p2), or a table's
+    (s^2, c1..., c2...)."""
+    row = torch.tensor(scal, dtype=like.dtype, device=like.device)
+    return row[0], slot_params(kind, row)
+
+
+def n_theta(kind):
+    """Entries of a ray's parameter cotangent: (p0, p1, p2, b), or a
+    table's (s^2, c1..., c2..., b)."""
+    return 2 * kind.n + 2 if isinstance(kind, TableKind) else 4
 
 
 def _dneg_shape(m, a, rho, l):
@@ -64,8 +76,11 @@ def _dneg_shape(m, a, rho, l):
 
 def planar_deriv(kind, p, l, p_l, b):
     """(dl, dpsi, dpl) in the forms of csrc/planar.cuh:planar_deriv."""
-    p0, p1, p2 = p
     b2 = b * b
+    if kind == "table":
+        inv, dr3 = table_shape(kind, p, l)
+        return p_l, b * inv, b2 * dr3
+    p0, p1, p2 = p
     if kind == "ellis":
         inv = 1.0 / (p0 * p0 + l * l)
         return p_l, b * inv, b2 * (l * inv * inv)
@@ -127,11 +142,16 @@ def _lapse_rhs_vjp(M, q2, l, p_l, b, u, v, w):
 def euler_step_vjp(kind, dt, p, l, p_l, b, lam):
     """VJP of one Euler step at (l, p_l), as csrc/planar.cuh:
     euler_step_vjp: ``lam`` = (lam_l, lam_psi, lam_pl), the cotangent of
-    the step's output -> (that of its input, (g_p0, g_p1, g_p2, g_b))."""
-    p0, p1, p2 = p
+    the step's output -> (that of its input, (g_p0, g_p1, g_p2, g_b)), a
+    table's parameter cotangents (g_s2, g_c1..., g_c2..., g_b)."""
     lam_l, lam_psi, lam_pl = lam
     u, v, w = dt * lam_l, dt * lam_psi, dt * lam_pl
     b2 = b * b
+    if kind == "table":
+        inv, dr3, g_l, g_s2, gc = table_shape_vjp(kind, p, l, v * b, w * b2)
+        gb = v * inv + w * 2.0 * b * dr3
+        return (lam_l + g_l, lam_psi, lam_pl + u), (g_s2, *gc, gb)
+    p0, p1, p2 = p
     zero = torch.zeros_like(l)
     g0 = g1 = g2 = zero
     if kind == "ellis":
@@ -207,7 +227,7 @@ def ckpt_gen_plain(kind, scal, y0, b, steps, *, seg, n_seg):
     state at the start of each segment -> (n_seg, 3, n).  A ray past its
     own count stays frozen, so its later segments hold its final state
     (the kernel leaves them unwritten)."""
-    dt, p = _slots(scal, y0[0])
+    dt, p = _slots(kind, scal, y0[0])
     y = tuple(y0)
     out = torch.empty((n_seg, 3, y[0].numel()), dtype=y[0].dtype,
                       device=y[0].device)
@@ -224,11 +244,12 @@ def ckpt_gen_plain(kind, scal, y0, b, steps, *, seg, n_seg):
 def ckpt_bwd_plain(kind, scal, ckpt, b, steps, cot, *, seg):
     """Plain version of kernel #10: re-march each segment from its
     checkpoint, last to first, and pull ``cot`` back through its steps with
-    ``euler_step_vjp`` -> (per-ray (g_p0, g_p1, g_p2, g_b), (lam_l, lam_psi,
-    lam_pl)).  A step at or past a ray's count is the identity."""
-    dt, p = _slots(scal, ckpt)
+    ``euler_step_vjp`` -> (per-ray (g_p0, g_p1, g_p2, g_b) or a table's
+    (g_s2, g_c1..., g_c2..., g_b), (lam_l, lam_psi, lam_pl)).  A step at or
+    past a ray's count is the identity."""
+    dt, p = _slots(kind, scal, ckpt)
     lam = tuple(cot)
-    g = tuple(torch.zeros_like(lam[0]) for _ in range(4))
+    g = tuple(torch.zeros_like(lam[0]) for _ in range(n_theta(kind)))
     for s in range(ckpt.shape[0] - 1, -1, -1):
         y = (ckpt[s, 0], ckpt[s, 1], ckpt[s, 2])
         starts = []
@@ -265,10 +286,12 @@ def launch_gen(kind, scal, l, psi, p_l, b, steps, *, seg, n_seg):
     n = l.numel()
     dev = l.device
     ckpt = torch.empty((n_seg, 3, n), dtype=torch.float32, device=dev)
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.curvis_ckpt_gen(KINDS[kind], row, len(scal), l.data_ptr(),
+    err = lib.curvis_ckpt_gen(KINDS[kind], row, len(scal),
+                              _build.table_ptr(tab), l.data_ptr(),
                               psi.data_ptr(), p_l.data_ptr(), b.data_ptr(),
                               steps.data_ptr(), ckpt.data_ptr(), n, seg,
                               dev.index, stream)
@@ -279,7 +302,8 @@ def launch_gen(kind, scal, l, psi, p_l, b, steps, *, seg, n_seg):
 
 def launch_bwd(kind, scal, ckpt, b, steps, cot, *, seg):
     """Kernel #10 on the checkpoint buffer of ``launch_gen`` ->
-    (per-ray (g_p0, g_p1, g_p2, g_b), (lam_l, lam_psi, lam_pl))."""
+    (per-ray (g_p0, g_p1, g_p2, g_b) or a table's (g_s2, g_c1..., g_c2...,
+    g_b), (lam_l, lam_psi, lam_pl))."""
     _check_rays(steps, b, *cot)
     n = b.numel()
     dev = b.device
@@ -288,17 +312,25 @@ def launch_bwd(kind, scal, ckpt, b, steps, cot, *, seg):
         raise ValueError(f"bad checkpoint buffer {tuple(ckpt.shape)}")
     outs = [torch.empty(n, dtype=torch.float32, device=dev)
             for _ in range(7)]
+    tab = kernel_table(kind, scal)
+    gc = (torch.empty((2 * kind.n, n), dtype=torch.float32, device=dev)
+          if tab is not None else None)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.curvis_ckpt_bwd(KINDS[kind], row, len(scal), ckpt.data_ptr(),
+    err = lib.curvis_ckpt_bwd(KINDS[kind], row, len(scal),
+                              _build.table_ptr(tab), ckpt.data_ptr(),
                               b.data_ptr(), steps.data_ptr(),
                               *(c.data_ptr() for c in cot),
-                              *(o.data_ptr() for o in outs), n, seg,
+                              *(o.data_ptr() for o in outs),
+                              None if gc is None else gc.data_ptr(), n, seg,
                               dev.index, stream)
     _build.check(lib, err, "ckpt_bwd_kernel")
     launches["ckpt_bwd"] += 1
-    return tuple(outs[3:]), tuple(outs[:3])
+    g = tuple(outs[3:])
+    if gc is not None:      # (g_s2, g_c1..., g_c2..., g_b)
+        g = (g[0], *gc.unbind(), g[3])
+    return g, tuple(outs[:3])
 
 
 def ckpt_adjoint_backward_cuda(kind, scal, y0, b, steps, cot, *, seg=SEG):
@@ -307,15 +339,15 @@ def ckpt_adjoint_backward_cuda(kind, scal, y0, b, steps, cot, *, seg=SEG):
     ``b``) for the output cotangent ``cot`` -> ``(d_theta, d_y0)``:
     ``d_theta`` = per-ray (g_p0, g_p1, g_p2, g_b) for the metric slots of
     the scalar row ``scal`` (``ops/march_cuda.py:march_scalars``) and b,
-    which the caller sums; ``d_y0`` = (lam_l, lam_psi, lam_pl).  This is
-    the order of the JAX package's XLA twin (its Pallas front door returns
-    the transpose).  CUDA tensors run kernels #9/#10, CPU tensors their
+    or a table's (g_s2, g_c1..., g_c2..., g_b), which the caller sums;
+    ``d_y0`` = (lam_l, lam_psi, lam_pl).  This is the order of the JAX
+    package's XLA twin (its Pallas front door returns the transpose).  CUDA tensors run kernels #9/#10, CPU tensors their
     plain versions.  No ray or no step returns d_y0 = cot, d_theta = 0."""
     if not 1 <= seg <= MAX_SEG:
         raise ValueError(f"segment {seg} outside [1, {MAX_SEG}]")
     n_seg = n_segments(steps, seg)
     if n_seg == 0:
-        return (tuple(torch.zeros_like(b) for _ in range(4)),
+        return (tuple(torch.zeros_like(b) for _ in range(n_theta(kind))),
                 tuple(c.clone() for c in cot))
     dev = b.device
     if dev.type == "cpu":

@@ -8,7 +8,8 @@ rk45_iter``), the map of ``curvis_tpu/integrate/rk45_adjoint_planar.py:
 _planar_rk45_iter``: state y = (l, psi, p_l, dt), parameters theta = (p0,
 p1, p2, b), the metric slots of kernel #4's scalar row
 (``ops/rk45_cuda.py:rk45_scalars``: dt0, R, p0, p1, p2, r_cap, rtol, atol,
-dt_max) and the per-ray b.  Ray i takes ``iters[i]`` iterations from
+dt_max) and the per-ray b; for a tabulated metric theta = (s^2, c1...,
+c2..., b).  Ray i takes ``iters[i]`` iterations from
 y0 = (l, psi, p_l, dt0), the iterations it was live for in the forward
 march, accepted and rejected, and is frozen after.  ``freeze`` drops the
 cotangent of each iteration's next dt (the JAX package's
@@ -43,8 +44,11 @@ import torch
 
 from curvis_tpu_torch.integrate.rk45 import DP_A, DP_B4, DP_B5
 from curvis_tpu_torch.ops import _build
-from curvis_tpu_torch.ops.ckpt_adjoint_cuda import _dneg_shape, segment_offsets
+from curvis_tpu_torch.ops.ckpt_adjoint_cuda import (_dneg_shape, n_theta,
+                                                    segment_offsets)
 from curvis_tpu_torch.ops.march_cuda import KINDS
+from curvis_tpu_torch.ops.table_cuda import (kernel_table, slot_params,
+                                             table_shape_vjp)
 from curvis_tpu_torch.ops.rk45_cuda import (DT_FLOOR, rk45_control_plain,
                                             rk45_trial_plain,
                                             trial_rec_plain)
@@ -70,9 +74,10 @@ def _all(like):
 
 def rk45_iter_plain(kind, row, theta, y, freeze=False):
     """One iteration of kernel #4 on every ray: ``row`` the scalar row
-    tensor, theta = (p0, p1, p2, b), y = (l, psi, p_l, dt) -> the state
-    after it.  ``freeze`` detaches the next dt."""
-    p, b = theta[:3], theta[3]
+    tensor, theta = (p0, p1, p2, b) (a table's (s^2, c1..., c2..., b)),
+    y = (l, psi, p_l, dt) -> the state after it.  ``freeze`` detaches the
+    next dt."""
+    p, b = theta[:-1], theta[-1]
     l, psi, p_l, dt = y
     alive = _all(l)
     l, psi, p_l, *trial = rk45_trial_plain(kind, p, row[1], row[6], row[7],
@@ -102,14 +107,20 @@ def _ginv(x, eps):
 
 def planar_deriv_vjp_plain(kind, p, l, p_l, b, u, v, w):
     """csrc/rk45_vjp.cuh:planar_deriv_vjp: cotangents of (l, p_l) and
-    (p0, p1, p2, b) of one RHS evaluation at (l, p_l) for the cotangents
-    (u, v, w) of (dl, dpsi, dpl), from the guarded forms."""
-    p0, p1, p2 = p
+    (p0, p1, p2, b) (a table's (s^2, c1..., c2..., b)) of one RHS
+    evaluation at (l, p_l) for the cotangents (u, v, w) of (dl, dpsi, dpl),
+    from the guarded forms."""
     b2 = b * b
     zero = torch.zeros_like(l)
-    g0 = g1 = g2 = zero
     sl = _clip_share(l, -1e4, 1e4)
     lc = torch.clamp(l, -1e4, 1e4)
+    if kind == "table":
+        inv, dr3, g_lc, g_s2, gc = table_shape_vjp(kind, p, lc, v * b,
+                                                   w * b2, guard=True)
+        gb = v * inv + w * 2.0 * b * dr3
+        return (zero + g_lc) * sl, u, (g_s2, *gc, gb)
+    p0, p1, p2 = p
+    g0 = g1 = g2 = zero
     if kind == "ellis":
         r2 = p0 * p0 + lc * lc
         inv = 1.0 / torch.clamp(r2, min=1e-12)
@@ -218,9 +229,9 @@ def trial_vjp_plain(kind, row, p, b, r, g_out, g_err, g_y, g_dt, g,
     """csrc/rk45_vjp.cuh:rk45_trial_vjp: adds the cotangents of the start
     (l, psi, p_l), dt and theta for those of the written-back state
     ``g_out`` and of the error norm ``g_err`` -> (g_y, g_dt, g).  ``g``
-    (p0, p1, p2, b, ...) are the running per-ray sums, to which each
-    stage adds its terms as the kernel does (in its order, so that the
-    sums round alike; ``act`` masks the terms)."""
+    (p0, p1, p2, b, ...; a table's s^2, c1..., c2..., b) are the running
+    per-ray sums, to which each stage adds its terms as the kernel does (in
+    its order, so that the sums round alike; ``act`` masks the terms)."""
     dt, a = r["dt"], r["a"]
     rtol = row[6]
     zero = torch.zeros_like(dt)
@@ -264,7 +275,7 @@ def trial_vjp_plain(kind, row, p, b, r, g_out, g_err, g_y, g_dt, g,
     for i in range(6, -1, -1):
         g_li, g_pli, gi = planar_deriv_vjp_plain(
             kind, p, r["li"][i], r["pli"][i], b, *gk[i])
-        g[:4] = [ga + masked(act, gb) for ga, gb in zip(g, gi)]
+        g[:len(gi)] = [ga + masked(act, gb) for ga, gb in zip(g, gi)]
         g_y[0] = g_y[0] + g_li
         g_y[2] = g_y[2] + g_pli
         for j, a_ij in enumerate(DP_A[i]):
@@ -284,7 +295,7 @@ def rk45_iter_vjp_plain(kind, row, start, b, lam, freeze=False, g=None,
     state after the iteration -> (that of the state before it (4), the
     per-ray sums ``g`` of (g_p0, g_p1, g_p2, g_b) with this iteration's
     terms added (from zeros when None; ``act`` masks them))."""
-    p = (row[2], row[3], row[4])
+    p = slot_params(kind, row)
     r = trial_rec_plain(kind, p, row[1], row[6], row[7], *start[:3], b,
                         start[3])
     zero = torch.zeros_like(start[0])
@@ -294,7 +305,8 @@ def rk45_iter_vjp_plain(kind, row, start, b, lam, freeze=False, g=None,
                                         lam[3])
     g_y, g_dt, g = trial_vjp_plain(kind, row, p, b, r, lam[:3], g_err,
                                    (zero, zero, zero), g_dt,
-                                   [zero] * 4 if g is None else g, act)
+                                   [zero] * n_theta(kind) if g is None
+                                   else g, act)
     return (*g_y, g_dt), tuple(g)
 
 
@@ -307,7 +319,7 @@ def ckpt_rk45_gen_plain(kind, scal, l, psi, p_l, b, iters, *, seg, offsets,
     segment starts into the compacted (total, 4) buffer -> (ckpt, final
     state (4, n))."""
     row = scalar_row(scal, l)
-    theta = (row[2], row[3], row[4], b)
+    theta = (*slot_params(kind, row), b)
     y = (l, psi, p_l, torch.ones_like(l) * row[0])
     ckpt = torch.zeros((total, N_STATE), dtype=l.dtype, device=l.device)
     n_seg = -(-int(iters.max()) // seg) if iters.numel() else 0
@@ -326,12 +338,12 @@ def ckpt_rk45_bwd_plain(kind, scal, freeze, ckpt, b, iters, cot, *, seg,
     """Plain version of kernel #10's planar rk45 variant: each segment,
     last to first, re-marched from its checkpoint and pulled back through
     its iterations with ``rk45_iter_vjp_plain`` -> (per-ray theta
-    cotangents (4, n), lam (4, n)).  An iteration at or past a ray's count
-    is the identity."""
+    cotangents (4, n) or a table's (2 K + 4, n), lam (4, n)).  An
+    iteration at or past a ray's count is the identity."""
     row = scalar_row(scal, b)
-    theta = (row[2], row[3], row[4], b)
+    theta = (*slot_params(kind, row), b)
     lam = tuple(cot)
-    g = [torch.zeros_like(b) for _ in range(4)]
+    g = [torch.zeros_like(b) for _ in range(n_theta(kind))]
     n_seg = -(-int(iters.max()) // seg) if iters.numel() else 0
     for s in range(n_seg - 1, -1, -1):
         has = s * seg < iters
@@ -373,11 +385,13 @@ def launch_gen(kind, scal, l, psi, p_l, b, iters, *, seg, offsets, total):
     ckpt = torch.empty((max(total, 1), N_STATE), dtype=torch.float32,
                        device=dev)
     final = torch.empty((N_STATE, n), dtype=torch.float32, device=dev)
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_ckpt_rk45_gen(
-        KINDS[kind], row, len(scal), l.data_ptr(), psi.data_ptr(),
+        KINDS[kind], row, len(scal), _build.table_ptr(tab), l.data_ptr(),
+        psi.data_ptr(),
         p_l.data_ptr(), b.data_ptr(), iters.data_ptr(), offsets.data_ptr(),
         ckpt.data_ptr(), final.data_ptr(), n, seg, dev.index, stream)
     _build.check(lib, err, "ckpt_rk45_gen_kernel")
@@ -387,8 +401,8 @@ def launch_gen(kind, scal, l, psi, p_l, b, iters, *, seg, offsets, total):
 
 def launch_bwd(kind, scal, freeze, ckpt, b, iters, cot, *, seg, offsets):
     """Kernel #10's planar rk45 variant on the buffer of ``launch_gen`` and
-    the (4, n) cotangent ``cot`` -> (per-ray theta cotangents (4, n), lam
-    (4, n))."""
+    the (4, n) cotangent ``cot`` -> (per-ray theta cotangents (4, n), or a
+    table's (2 K + 4, n), lam (4, n))."""
     n = b.numel()
     _check_f32(n, b)
     dev = b.device
@@ -399,12 +413,14 @@ def launch_bwd(kind, scal, freeze, ckpt, b, iters, cot, *, seg, offsets):
             or not ckpt.is_contiguous():
         raise ValueError(f"bad checkpoint buffer {tuple(ckpt.shape)}")
     lam = torch.empty((N_STATE, n), dtype=torch.float32, device=dev)
-    g = torch.empty((4, n), dtype=torch.float32, device=dev)
+    g = torch.empty((n_theta(kind), n), dtype=torch.float32, device=dev)
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_ckpt_rk45_bwd(
-        KINDS[kind], row, len(scal), int(bool(freeze)), ckpt.data_ptr(),
+        KINDS[kind], row, len(scal), _build.table_ptr(tab),
+        int(bool(freeze)), ckpt.data_ptr(),
         b.data_ptr(), iters.data_ptr(), offsets.data_ptr(), cot.data_ptr(),
         lam.data_ptr(), g.data_ptr(), n, seg, dev.index, stream)
     _build.check(lib, err, "ckpt_rk45_bwd_kernel")
@@ -417,9 +433,9 @@ def ckpt_rk45_backward_cuda(kind, scal, freeze, y0, b, iters, cot, *,
     """Exact pullback of the masked DP5(4) march of ``kind`` with kernel
     #4's scalar row ``scal``: ray i takes ``iters[i]`` iterations from
     (y0 = (l, psi, p_l), dt0); ``cot`` is the (4, n) cotangent of the final
-    (l, psi, p_l, dt) -> ``(g_theta (4, n), lam (4, n))``, lam the
-    cotangent of (l, psi, p_l, dt0).  CUDA tensors run kernels #9 / #10,
-    CPU tensors their plain versions."""
+    (l, psi, p_l, dt) -> ``(g_theta (4, n) or a table's (2 K + 4, n),
+    lam (4, n))``, lam the cotangent of (l, psi, p_l, dt0).  CUDA tensors
+    run kernels #9 / #10, CPU tensors their plain versions."""
     if not 1 <= seg <= MAX_SEG:
         raise ValueError(f"segment {seg} outside [1, {MAX_SEG}]")
     if scal[0] <= 0.0:
@@ -427,8 +443,8 @@ def ckpt_rk45_backward_cuda(kind, scal, freeze, y0, b, iters, cot, *,
     offsets, total = segment_offsets(iters, seg)
     dev = b.device
     if total == 0:
-        return (torch.zeros((4, b.numel()), dtype=b.dtype, device=dev),
-                cot.clone())
+        return (torch.zeros((n_theta(kind), b.numel()), dtype=b.dtype,
+                            device=dev), cot.clone())
     if dev.type == "cpu":
         ckpt, _ = ckpt_rk45_gen_plain(kind, scal, *y0, b, iters, seg=seg,
                                       offsets=offsets, total=total)

@@ -23,7 +23,8 @@ import torch
 from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops import _build
 from curvis_tpu_torch.ops.ckpt_adjoint_cuda import planar_deriv
-from curvis_tpu_torch.ops.march_cuda import KINDS, march_scalars
+from curvis_tpu_torch.ops.march_cuda import (KINDS, march_scalars,
+                                             refuse_table)
 from curvis_tpu_torch.physics.planar import (_CHECK_EVERY, PlanarResult,
                                              PlanarRays)
 from curvis_tpu_torch.utils.device import common_device
@@ -36,6 +37,7 @@ launches = 0             # kernel launches since the last reset
 def disk_scalars(metric: Metric, dt, escape_radius, r_inner, r_outer):
     """(kind, [dt, R, p0, p1, p2, r_cap, r_in, r_out]) as Python floats:
     the layout of curvis::DiskScalars."""
+    refuse_table(metric, "disk march (kernel #5)")
     kind, head = march_scalars(metric, dt, escape_radius)
     return kind, head + [float(r_inner), float(r_outer)]
 

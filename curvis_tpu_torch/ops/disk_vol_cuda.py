@@ -30,7 +30,8 @@ from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops import _build
 from curvis_tpu_torch.ops.ckpt_adjoint_cuda import _dneg_shape, planar_deriv
 from curvis_tpu_torch.ops.disk_cuda import LAPSE_KINDS, _flat_f32, step_sign
-from curvis_tpu_torch.ops.march_cuda import KINDS, march_scalars
+from curvis_tpu_torch.ops.march_cuda import (KINDS, march_scalars,
+                                             refuse_table)
 from curvis_tpu_torch.physics.planar import (_CHECK_EVERY, PlanarResult,
                                              PlanarRays)
 from curvis_tpu_torch.utils.device import common_device
@@ -73,6 +74,7 @@ def vol_scalars(metric: Metric, dt, escape_radius, disk,
                 scatter_block=None):
     """(kind, the kernel's scalar row as Python floats): one host read of
     the metric parameters and, with scattering, one of the block."""
+    refuse_table(metric, "volumetric march (kernel #6)")
     kind, head = march_scalars(metric, dt, escape_radius)
     row = head + [float(disk.r_inner), float(disk.r_outer)]
     return kind, row + vol_param_slots(disk) + scatter_row(scatter_block)

@@ -6,6 +6,11 @@
 PyTorch version, ``physics/planar.py:march_planar_while``, for CPU tensors.
 A CUDA tensor never falls back to the plain version: a failure to build or
 launch raises.
+
+A tabulated metric (``metrics/table.py``) has the kind
+``ops/table_cuda.py:TableKind``, which carries its coefficient series: the
+kernels of the planar families take it as ``kTable`` with a ``ChebTable``
+argument.  The disk kernels do not take it yet (ROADMAP Queue 1 item 4b).
 """
 from __future__ import annotations
 
@@ -15,7 +20,9 @@ from curvis_tpu_torch.metrics.base import (EllisMetric, FlatSphericalMetric,
                                            InterstellarMetric, Metric,
                                            ReissnerNordstromMetric,
                                            SchwarzschildMetric)
+from curvis_tpu_torch.metrics.table import TabulatedMetric
 from curvis_tpu_torch.ops import _build
+from curvis_tpu_torch.ops.table_cuda import TableKind, kernel_table
 from curvis_tpu_torch.physics.planar import (PlanarResult, PlanarRays,
                                              check_stepper,
                                              march_planar_while)
@@ -23,7 +30,7 @@ from curvis_tpu_torch.utils.device import common_device
 
 # metric kinds, as numbered by curvis::MetricKind in csrc/planar.cuh
 KINDS = {"ellis": 0, "interstellar": 1, "flat": 2, "schwarzschild": 3,
-         "rn": 4}
+         "rn": 4, "table": 5}
 
 _NO_CAPTURE = -1e30      # capture radius of metrics without capture (unused)
 
@@ -31,7 +38,8 @@ launches = 0             # kernel launches since the last reset
 
 
 def metric_kind_and_params(metric: Metric):
-    """(kind, [p0, p1, p2]) of the metric slots of the scalar row."""
+    """(kind, [p0, p1, p2]) of the metric slots of the scalar row; a
+    tabulated metric is (TableKind, [s^2])."""
     if isinstance(metric, EllisMetric):
         return "ellis", [metric.rho]
     if isinstance(metric, InterstellarMetric):
@@ -42,9 +50,24 @@ def metric_kind_and_params(metric: Metric):
         return "schwarzschild", [metric.m]
     if isinstance(metric, ReissnerNordstromMetric):
         return "rn", [metric.m, metric.q * metric.q]
+    if isinstance(metric, TabulatedMetric):
+        coef = torch.cat([metric.c1, metric.c2]).detach().cpu().tolist()
+        n = metric.c1.shape[0]
+        return (TableKind(coef[:n], coef[n:], metric.basis),
+                [metric.s * metric.s])
     raise NotImplementedError(
-        f"CUDA march: unsupported metric {type(metric).__name__} (tabulated "
-        "cheb{K} metrics are ROADMAP Queue 1 item 4)")
+        f"CUDA march: unsupported metric {type(metric).__name__}: tabulate "
+        "it with metrics/table.py:tabulate_metric (tables on the disk "
+        "routes are ROADMAP Queue 1 item 4b)")
+
+
+def refuse_table(metric: Metric, what: str):
+    """Raise NotImplementedError for a tabulated metric on a route that
+    does not take tables yet, before anything is launched."""
+    if isinstance(metric, TabulatedMetric):
+        raise NotImplementedError(
+            f"{what}: tabulated metrics on the disk routes are ROADMAP "
+            "Queue 1 item 4b")
 
 
 def march_scalars(metric: Metric, dt, escape_radius):
@@ -102,13 +125,14 @@ def launch(kind, scal, l, psi, p_l, b, *, max_steps):
     dev = l.device
     outs = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3)]
     outs += [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_march_planar(
-        KINDS[kind], row, len(scal), l.data_ptr(), psi.data_ptr(),
-        p_l.data_ptr(), b.data_ptr(), *(o.data_ptr() for o in outs), n,
-        int(max_steps), dev.index, stream)
+        KINDS[kind], row, len(scal), _build.table_ptr(tab), l.data_ptr(),
+        psi.data_ptr(), p_l.data_ptr(), b.data_ptr(),
+        *(o.data_ptr() for o in outs), n, int(max_steps), dev.index, stream)
     _build.check(lib, err, "march_planar_kernel")
     launches += 1
     return outs

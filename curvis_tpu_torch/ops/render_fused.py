@@ -6,7 +6,8 @@ march (``stepper='rk45'``) its ``_fused_rk45_kernel``.
 
 ``fused_directions`` launches the kernel for a camera on a GPU and runs
 ``render_planar_fused_plain``, the plain PyTorch version of the same spawn +
-march + readout, for a camera on the CPU.  A CUDA camera never falls back
+march + readout, for a camera on the CPU.  A tabulated metric's kind
+carries its table (``ops/table_cuda.py``).  A CUDA camera never falls back
 to the plain version: a failure to build or launch raises.
 """
 from __future__ import annotations
@@ -19,6 +20,8 @@ from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops import _build
 from curvis_tpu_torch.ops.march_cuda import KINDS, march_scalars
 from curvis_tpu_torch.ops.rk45_cuda import march_planar_rk45_plain
+from curvis_tpu_torch.ops.table_cuda import (kernel_table, slot_params,
+                                             table_shape)
 from curvis_tpu_torch.physics.planar import (PlanarRays, _unit_lapse,
                                              check_stepper,
                                              march_planar_while)
@@ -146,7 +149,13 @@ def render_planar_fused_plain(metric: Metric, camera: Camera, *, dt,
         u_l = p_l * torch.sqrt(torch.clamp(A, min=1e-6))
     else:
         u_l = p_l
-    r = metric.r(l) if kind in ("ellis", "interstellar") else torch.abs(l)
+    if kind == "table":      # 1 / sqrt(inv), inv floored at 1e-30
+        inv, _ = table_shape(kind, slot_params(kind, s), l)
+        r = 1.0 / torch.sqrt(torch.clamp(inv, min=1e-30))
+    elif kind in ("ellis", "interstellar"):
+        r = metric.r(l)
+    else:
+        r = torch.abs(l)
     u_psi = b / r
     invu = 1.0 / torch.sqrt(torch.clamp(u_l * u_l + u_psi * u_psi,
                                         min=1e-30))
@@ -198,10 +207,12 @@ def launch(kind, row, W, H, max_steps, dev):
     ``_fused_row`` on CUDA device ``dev`` -> (wx, wy, wz, sign)."""
     n = W * H
     outs = _outputs(n, dev)
+    tab = kernel_table(kind, row)
     lib = _build.load_library()
     host = _build.host_floats(row)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_render_fused(KINDS[kind], host, len(row),
+                                  _build.table_ptr(tab),
                                   *(o.data_ptr() for o in outs), H, n,
                                   int(max_steps), dev.index, stream)
     _build.check(lib, err, "render_fused_kernel")
@@ -215,10 +226,12 @@ def launch_rk45(kind, row, W, H, max_steps, max_iters, dev):
     sign)."""
     n = W * H
     outs = _outputs(n, dev)
+    tab = kernel_table(kind, row)
     lib = _build.load_library()
     host = _build.host_floats(row)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_render_fused_rk45(KINDS[kind], host, len(row),
+                                       _build.table_ptr(tab),
                                        *(o.data_ptr() for o in outs), H, n,
                                        int(max_steps), int(max_iters),
                                        dev.index, stream)

@@ -16,7 +16,9 @@ march_planar_rk45``, the port of the JAX package's XLA march, whose norm
 |y5 - y4|, pow factor and where-writeback differ from these by ulps; such
 ulps flip knife-edge accepts, so the kernel is held against this version.
 The lock-step loop masks every ray that is no longer live, so a frozen ray
-never changes, as in the kernel's per-thread loop.
+never changes, as in the kernel's per-thread loop.  A tabulated metric's
+plain RHS is ``ops/table_cuda.py:table_shape``, the kernel's series in its
+order.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops import _build
 from curvis_tpu_torch.ops.ckpt_adjoint_cuda import planar_deriv
 from curvis_tpu_torch.ops.march_cuda import KINDS, march_scalars
+from curvis_tpu_torch.ops.table_cuda import kernel_table, slot_params
 from curvis_tpu_torch.physics.planar import (_CHECK_EVERY, PlanarResult,
                                              PlanarRays)
 from curvis_tpu_torch.utils.device import common_device
@@ -153,7 +156,7 @@ def march_planar_rk45_plain(kind, scal, l, psi, p_l, b, *, max_steps,
     scalar row of ``rk45_scalars`` -> (l, psi, p_l, sign, steps, iters)."""
     row = torch.tensor(scal, dtype=l.dtype, device=l.device)
     dt0, R, r_cap = row[0], row[1], row[5]
-    p = (row[2], row[3], row[4])
+    p = slot_params(kind, row)
     rtol, atol, dt_max = row[6], row[7], row[8]
     dt = torch.ones_like(l) * dt0
     sign = torch.zeros(l.shape, dtype=torch.int32, device=l.device)
@@ -217,11 +220,13 @@ def launch(kind, scal, l, psi, p_l, b, *, max_steps, max_iters):
     dev = l.device
     outs = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3)]
     outs += [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_march_planar_rk45(
-        KINDS[kind], row, len(scal), l.data_ptr(), psi.data_ptr(),
+        KINDS[kind], row, len(scal), _build.table_ptr(tab), l.data_ptr(),
+        psi.data_ptr(),
         p_l.data_ptr(), b.data_ptr(), *(o.data_ptr() for o in outs), n,
         int(max_steps), int(max_iters), dev.index, stream)
     _build.check(lib, err, "march_planar_rk45_kernel")

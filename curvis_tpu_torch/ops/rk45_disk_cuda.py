@@ -37,7 +37,7 @@ from curvis_tpu_torch.ops.disk_cuda import LAPSE_KINDS, _flat_f32
 from curvis_tpu_torch.ops.disk_vol_cuda import (inv_r2_plain, scatter_row,
                                                 vol_emission_plain,
                                                 vol_param_slots, vol_row_of)
-from curvis_tpu_torch.ops.march_cuda import KINDS
+from curvis_tpu_torch.ops.march_cuda import KINDS, refuse_table
 from curvis_tpu_torch.ops.rk45_cuda import (default_max_iters, jclip,
                                             rk45_control_plain,
                                             rk45_scalars, rk45_trial_plain)
@@ -60,6 +60,7 @@ def rk45_disk_scalars(metric: Metric, dt0, escape_radius, rtol, atol,
         raise ValueError("pass disk=(r_in, r_out) OR vol_disk, not both")
     if vol_disk is None and scatter_block is not None:
         raise ValueError("scatter_block needs vol_disk")
+    refuse_table(metric, "rk45 disk march (kernel #4's surface variants)")
     kind, row = rk45_scalars(metric, dt0, escape_radius, rtol, atol, dt_max)
     if disk is not None:
         return kind, row + [float(disk[0]), float(disk[1])]

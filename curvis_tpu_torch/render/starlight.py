@@ -33,6 +33,7 @@ from curvis_tpu_torch.metrics.base import (EllisMetric, FlatSphericalMetric,
 from curvis_tpu_torch.ops.disk_vol_cuda import SCATTER_BLOCK, SCATTER_DEG
 from curvis_tpu_torch.ops.kerr_cuda import march_kerr_cuda
 from curvis_tpu_torch.ops.kerr_rk45_cuda import march_kerr_rk45_cuda
+from curvis_tpu_torch.ops.march_cuda import refuse_table
 from curvis_tpu_torch.physics.hamiltonian import spawn_photon
 from curvis_tpu_torch.physics import planar as pl
 from curvis_tpu_torch.render.disk import (_check_route, _emission_rgb,
@@ -60,12 +61,12 @@ def mirror_metric(metric):
     """The l -> -l mirrored metric, r_m(l) = r(-l): the metric itself for
     the five planar kinds, whose shapes are even in l.  Tabulated metrics
     (whose mirror flips the parity of their Chebyshev tables) are ROADMAP
-    Queue 1 item 4."""
+    Queue 1 item 4b."""
     if isinstance(metric, _SYMMETRIC):
         return metric
     raise NotImplementedError(
         f"mirror_metric: {type(metric).__name__} is not a ported planar "
-        "metric (tabulated metrics are ROADMAP Queue 1 item 4)")
+        "metric (tabulated metrics are ROADMAP Queue 1 item 4b)")
 
 
 def _cosine_hemisphere(n_samples: int):
@@ -142,6 +143,7 @@ def compute_disk_starlight_map(
     package.  ``two_sheet``: a second table for the mirrored metric with
     the skies swapped (capture-free metrics only)."""
     _check_route(stepper)
+    refuse_table(metric, "compute_disk_starlight_map")
     tex = bg_positive.texture
     dtype, dev = tex.dtype, tex.device
     if bg_negative is None:

@@ -270,9 +270,9 @@ def test_settings_defaults_match_jax():
 
 def test_import_loads_no_jax_and_runs_no_nvcc(tmp_path):
     """Importing the port (with its render, fused, rk45, adjoint, fit,
-    disk, starlight, Kerr, surface-adjoint and CLI modules) loads no jax
-    module and does not run nvcc: a fake nvcc first on PATH would leave a
-    marker file."""
+    disk, starlight, Kerr, surface-adjoint, table and CLI modules) loads no
+    jax module and does not run nvcc: a fake nvcc first on PATH would
+    leave a marker file."""
     marker = tmp_path / "nvcc_ran"
     fake = tmp_path / "bin" / "nvcc"
     fake.parent.mkdir()
@@ -311,6 +311,8 @@ def test_import_loads_no_jax_and_runs_no_nvcc(tmp_path):
         import curvis_tpu_torch.ops.kerr_rk45_cuda
         import curvis_tpu_torch.ops.ckpt_kerr_cuda
         import curvis_tpu_torch.ops.ckpt_kerr_surface_cuda
+        import curvis_tpu_torch.metrics.table
+        import curvis_tpu_torch.ops.table_cuda
         from curvis_tpu_torch.ops import _build
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "curvis_tpu"))
