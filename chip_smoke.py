@@ -279,6 +279,9 @@ DISK_TH = math.pi / 2 - 0.2
 DISK_FOCAL = 30.0
 DISK_R = 80.0
 DISK_VOL_RES = 512         # side of most volumetric kernel-vs-plain cases
+DISK_VOL_CHECK_CAP = 1000  # step cap of #6's kernel-vs-plain cases: rays
+                           # cross the gas by then (mean ~1 930 to escape);
+                           # the plain loop ran to the slowest (~2 430)
 DISK_CAP = 1500            # a step cap below the mean (~1 980): most rays
                            # stop at it, and must stop exactly there
 DISK_NAN_CAP = 3000        # the cap of the NaN case (NaN rays never end)
@@ -307,9 +310,13 @@ KERR_DT = 0.1
 KERR_STEPS = 32_000
 KERR_BAND = (2.6, 12.0)
 KERR_VOL = dict(l=24.0, focal=28.0, dt=0.08, steps=12_000, R=60.0)
-KERR_VOL_CHECK_CAP = 1000  # step cap of the volumetric #7-vs-plain cases:
+KERR_VOL_CHECK_CAP = 700   # step cap of the volumetric #7-vs-plain cases:
                            # mean ~630 steps, but the plain loop runs to the
-                           # slowest ray's (~2 300), ~30 ms a step
+                           # slowest ray's (~2 300), ~30 ms a step (at
+                           # 1 000 a slower host took 9-12 s a case)
+KERR_CHECK_CAP = 600       # step cap of #7's bare, tracker, NaN and map
+                           # kernel-vs-plain cases (means ~275-515; their
+                           # plain loops ran to the slowest ray, ~1 100-1 700)
 KERR_CAP = 150             # a step cap below the mean (~320): most rays
                            # reach it
 KERR_ANGLE_P99 = 1e-3      # p99 escape angle, kernel vs plain (rad)
@@ -426,7 +433,7 @@ SURF_TRAIN = dict(iters=5, lr=0.15, start=1.3)   # kappa from 30 % off
 RK45_SEG = 16
 RK45_TRAIN_STEPS = 4000
 RK45_ADJ_ITERS = 26        # a max_iters most rays of the 256^2 view reach
-RK45_SURF_ITERS = 128      # the iteration cap of the surface kernel-vs-
+RK45_SURF_ITERS = 96       # the iteration cap of the surface kernel-vs-
                            # plain cases: the plain pair takes ~30 ms an
                            # iteration at 1024^2 (the path's rays take ~70
                            # on the thin view, ~170 through the gas)
@@ -459,11 +466,12 @@ FLOP_RK45_SURF_VJP = dict(track=40, vol=150)
 # steps, DP5(4) in segments of 16 iterations (the JAX package's
 # _PALLAS_SEG of each).
 KERR_SEG = {"rk4": 32, "rk45": 16}
-KERR_CKPT_CAP = 320        # step cap of the RK4 kernel-vs-plain checks: the
+KERR_CKPT_CAP = 240        # step cap of the RK4 kernel-vs-plain checks: the
                            # plain pair takes ~30 ms a step at 960 x 540
                            # (the view's rays take ~310 on average; 640
-                           # until the Kerr surface phases needed the time)
-KERR_CKPT_ITERS = 48       # and the iteration cap of the 256^2 DP5(4) ones
+                           # until the Kerr surface phases, 320 until the
+                           # table disk phases needed the time)
+KERR_CKPT_ITERS = 36       # and the iteration cap of the 256^2 DP5(4) ones
                            # (their longest rays took ~100 iterations)
 KERR_ADJ_ITERS = 16        # a max_iters most rays of the 256^2 rk45 view
                            # reach (~25 iterations on average)
@@ -502,13 +510,13 @@ SCAN_GRAD_RTOL = dict(rk4=1e-3, rk45=1e-2)
 # take ~50 ms a step or iteration at any ray count up to the path's
 # 518 400 (launch bound), so the kernel-vs-plain cases run on the path's
 # 960 x 540 views capped in steps or iterations, not in rays: the thin
-# view at KERR_SURF_CAP (a fifth of its rays cross the band by then; ~500
+# view at KERR_SURF_CAP (a fifth of its rays cross the band by 400; ~500
 # RK4 steps to escape; the clamps near the disk hold dt0, so DP5(4) takes
 # ~140-190 iterations), the gas view at KERR_SURF_GAS (the gas lit on
 # ~45-75 % of its rays), the NaN rays at KERR_SURF_NAN (they end in the
 # first steps).
-KERR_SURF_CAP = dict(rk4=400, rk45=96)
-KERR_SURF_GAS = dict(rk4=150, rk45=40)
+KERR_SURF_CAP = dict(rk4=320, rk45=80)
+KERR_SURF_GAS = dict(rk4=120, rk45=32)
 KERR_SURF_NAN = dict(rk4=64, rk45=24)
 KERR_SURF_BLOCK = 0.3      # scale of the seeded scatter block of phase 25
 # The surfaces' reverse work (csrc/kerr_surface_vjp.cuh; an FMA counts as
@@ -550,7 +558,7 @@ TABLE_BELL = dict(h16=dict(degree=16, basis="horner", tol=5e-4),
                   c24=dict(degree=24, basis="clenshaw", tol=1e-4))
 TABLE_CKPT_CAP = 640       # step cap of the Euler table pair checks: the
                            # plain pair evaluates the series op by op
-TABLE_RK45_ITERS = 48      # iteration cap of the DP5(4) table pair checks
+TABLE_RK45_ITERS = 36      # iteration cap of the DP5(4) table pair checks
 TABLE_SIGN_MIN = 0.97      # table vs analytic Ellis render: signs equal
 TABLE_ANGLE = 1e-3         # an escape direction differs beyond this angle
 TABLE_MISS_MAX = 0.05      # on at most this share of the rays (gate_table)
@@ -566,7 +574,66 @@ TABLE_TRAIN_LR = 0.01      # the shape trainer's Adam rate: the loss sees
 TABLE_KERNELS = ("march_planar_kernel", "render_fused_kernel",
                  "render_fused_rk45_kernel", "march_planar_rk45_kernel",
                  "ckpt_gen_kernel", "ckpt_bwd_kernel", "ckpt_rk45_gen_kernel",
-                 "ckpt_rk45_bwd_kernel")
+                 "ckpt_rk45_bwd_kernel", "march_disk_kernel",
+                 "march_disk_vol_kernel", "march_planar_rk45_disk_kernel",
+                 "ckpt_surface_gen_kernel", "ckpt_surface_bwd_kernel",
+                 "ckpt_surface_rk45_gen_kernel",
+                 "ckpt_surface_rk45_bwd_kernel")
+# The tables on the disk routes (phases 29-30): the Bell h16 table at the
+# disk view of phases 10-12 (l = 28, theta = pi/2 - 0.2, 30 mm, dt 0.05,
+# 40 000 steps, R 80) with a band both of the wormhole's sheets cross, and
+# a degree-12 Ellis table's thin frame against the analytic Ellis frame.
+TABLE_DISK_BAND = (3.0, 12.0)
+TABLE_DISK_CAP = 800       # step cap of #5 / #6's table plain checks: rays
+                           # cross the band by then (~300 steps from
+                           # l = 28), and the plain versions sum the series
+                           # op by op
+TABLE_DISK_ITERS = 128     # iteration cap of #4's surface table checks
+TABLE_SURF_CAP = 480       # step cap of the Euler surface table pairs
+TABLE_SURF_VOL_CAP = 400   # and of their gas pairs (~100 steps in the gas)
+TABLE_SURF_ITERS = 48      # iteration cap of the DP5(4) surface table pairs
+TABLE_SURF_SUM_TOL = 1e-4  # a table's ray-summed cotangent of the contracted
+                           # Euler surface pairs: |kernel - plain| within
+                           # this share of the sum of its terms' magnitudes
+                           # (H100: 2.6e-5 read; such sums are ~1e-3 of it)
+TABLE_DISK_THETA = (0.1, 0.2, -0.1)   # the disk shape loss's point (shape_fn)
+TABLE_FD_VIEW = (12.0, (2.0, 9.0))    # l and band of its central difference
+TABLE_WITNESS_RES = 128    # the twin witness: the path's view at this side
+TABLE_WITNESS_AGREE = 1e-4  # it leaves out a pixel whose float32 and
+                           # float64 frames part by more than this
+TABLE_WITNESS_TOL = 1e-2   # and holds the kernels' d loss / d theta to the
+                           # float64 twin's on the rest (H100: 1.5e-4 Euler,
+                           # 1.4e-4 DP5(4) capped as below; uncapped 1.8e-4,
+                           # 3.6e-5 in table_disk_witness.py)
+TABLE_WITNESS_STEPS = dict(euler=1200, rk45=100)   # the witness's step
+                           # caps: the twin loop runs to the slowest ray
+                           # (Euler 2 293 steps, mean 2 101, 41-47 s on an
+                           # H100; DP5(4) 437, mean 57, 149 s uncapped)
+TABLE_DISK_FD_H = 0.02     # its step in theta1: at 0.05, 11-12 % of the
+                           # pixel channels bend within the step there
+
+
+def table_disk_flops(degree, basis):
+    """FP32 operations of the disk families with a table, from table_flops:
+    #5's step (FLOP_DISK_STEP with the table's RHS in place of its
+    Schwarzschild RHS of 15), #6's step for a flag set (its RHS the table's
+    and the emission's radius one more shape evaluation), the Euler surface
+    VJPs (the table's RHS VJP in place of FLOP_SURF_*'s 48; the gas one
+    more for the radius), and #4's surface iteration and its VJP before
+    FLOP_RK45_DISK's surface terms (the gas: one shape and one VJP more for
+    the clamp's radius and one each for the emission's)."""
+    t = table_flops(degree, basis)
+    rhs = t["shape"] + 2
+
+    def vol(flags):
+        return vol_flops("table", flags) - FLOP_STEP + t["step"] + t["shape"]
+
+    def vol_vjp(flags):
+        return surf_flops("table", flags)[1] - 48 + 2 * t["vjp"]
+    return dict(shape=t["shape"], step=FLOP_DISK_STEP - 15 + rhs, vol=vol,
+                thin_vjp=FLOP_SURF_THIN_VJP - 48 + t["vjp"], vol_vjp=vol_vjp,
+                rk45_iter=t["rk45_iter"], rk45_vjp=t["rk45_vjp"],
+                vjp=t["vjp"])
 
 
 def table_flops(degree, basis):
@@ -628,17 +695,19 @@ def phase1_build():
     # per kernel: the range of registers, stack bytes and spill bytes over
     # its instances (kinds and flags), from ptxas's report in build.log
     log = (_build.BUILD_DIR / "build.log").read_text()
-    stats, name = {}, None
+    stats, name, inst = {}, None, {}
     for line in log.splitlines():
         # mangled entry names: _ZN6curvis<len><name>, then the template
         # arguments (IL{i,b}<first>E...) or the parameters
         entry = re.search(r"entry function '_ZN6curvis(\d+)(\w+)", line)
         if entry:
             name = entry.group(2)[:int(entry.group(1))]
-            # the table instances (kind kTable = 5) of the planar kernels
-            if entry.group(2)[int(entry.group(1)):].startswith("ILi5E") \
-                    and name in TABLE_KERNELS:
+            args = entry.group(2)[int(entry.group(1)):]
+            # the table instances (kind kTable = 5) of the planar kernels,
+            # each listed with its template arguments too
+            if args.startswith("ILi5E") and name in TABLE_KERNELS:
                 name += " [table]"
+                inst[(name, args)] = {}
             stats.setdefault(name, {"n": 0, "regs": [], "stack": [],
                                     "spill": []})["n"] += 1
         elif name is not None:
@@ -649,6 +718,8 @@ def phase1_build():
                 m = re.search(pat, line)
                 if m:
                     st[key].append(int(m.group(1)))
+                    if name.endswith(" [table]"):
+                        inst[(name, args)][key] = int(m.group(1))
     secs_by_src = re.findall(r"^== (\S+) \(([\d.]+) s\)$", log, re.M)
     slow = sorted(secs_by_src, key=lambda t: -float(t[1]))[:4]
     print("[1]   slowest nvcc: " + ", ".join(
@@ -659,6 +730,10 @@ def phase1_build():
                for k, v in st.items() if k != "n"}
         print(f"[1]   {name}: {st['n']} instances, {rng['regs']} registers, "
               f"{rng['stack']} B stack frame, {rng['spill']} B spill stores")
+    for (name, args), st in sorted(inst.items()):
+        print(f"[1]     {name} <{args.split('E', 1)[1][:40]}>: "
+              f"{st.get('regs', '?')} registers, {st.get('stack', '?')} B "
+              f"stack, {st.get('spill', '?')} B spill stores")
     return secs
 
 
@@ -1503,15 +1578,16 @@ def phase9_quality(bgp, bgn):
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def disk_camera(res, phi=0.0, l=DISK_L):
+def disk_camera(res, phi=0.0, l=DISK_L, dtype=None):
     """The example's camera at azimuth ``phi`` (and radius ``l``), looking
-    at the hole."""
+    at the hole (float32 unless ``dtype``)."""
+    import torch
     from curvis_tpu_torch.camera.camera import make_camera
     st, ct = math.sin(DISK_TH), math.cos(DISK_TH)
     return make_camera([0.0, l, DISK_TH, phi],
                        [-st * math.cos(phi), -st * math.sin(phi), -ct],
                        [0.0, 0.0, 1.0], DISK_FOCAL, 43.0, res, res,
-                       device=DEVICE)
+                       device=DEVICE, dtype=dtype or torch.float32)
 
 
 def disk_rays(metric, cams):
@@ -1697,11 +1773,12 @@ def phase11_disk_vol(sky):
         kind, scal = dv.vol_scalars(metric, DT, DISK_R, disk, blk)
         flags = (disk.color_mode == "blackbody", disk.redshift, disk.doppler,
                  blk is not None)
-        out_k = dv.launch(kind, flags, scal, *ins, max_steps=MAX_STEPS)
+        out_k = dv.launch(kind, flags, scal, *ins,
+                          max_steps=DISK_VOL_CHECK_CAP)
         sync()
         t0 = time.perf_counter()
         out_p = dv.march_planar_disk_volumetric_plain(
-            kind, flags, scal, *ins, max_steps=MAX_STEPS)
+            kind, flags, scal, *ins, max_steps=DISK_VOL_CHECK_CAP)
         sync()
         plain_ms = 1e3 * (time.perf_counter() - t0)
         sign_eq = (out_k[3] == out_p[3]).double().mean().item()
@@ -1713,7 +1790,8 @@ def phase11_disk_vol(sky):
                   for o in (out_k, out_p)]
         frozen_seen = [a + b for a, b in zip(frozen_seen, frozen)]
         kernel_ms = cuda_ms(lambda: dv.launch(kind, flags, scal, *ins,
-                                              max_steps=MAX_STEPS), 3)
+                                              max_steps=DISK_VOL_CHECK_CAP),
+                             3)
         n = ins[0].numel()
         steps = out_k[4].double()
         print(f"[11] vol march {name}: {n} rays, sign equal {sign_eq:.6f}, "
@@ -2076,11 +2154,11 @@ def phase13_kerr_march(sky):
     vkw = (V["dt"], KERR_VOL_CHECK_CAP, V["R"], far_disk)
     configs = [
         (f"bare {KERR_RES[0]}x{KERR_RES[1]} (the path's view)", kerr,
-         cam_bare, {}, KERR_DT, KERR_STEPS, R, far_bare, 0),
+         cam_bare, {}, KERR_DT, KERR_CHECK_CAP, R, far_bare, 0),
         ("kerr-newman 256^2", kn, (kerr_camera((SMALL, SMALL)),), {},
-         KERR_DT, KERR_STEPS, R, far_bare, 0),
+         KERR_DT, KERR_CHECK_CAP, R, far_bare, 0),
         (f"disk tracker {KERR_SMALL[0]}x{KERR_SMALL[1]}", kerr, small,
-         dict(disk=KERR_BAND), KERR_DT, KERR_STEPS, R, far_disk, 0),
+         dict(disk=KERR_BAND), KERR_DT, KERR_CHECK_CAP, R, far_disk, 0),
         (f"vol tint {KERR_SMALL[0]}x{KERR_SMALL[1]}", kerr, vol_cam,
          dict(vol_disk=tint), *vkw, 0),
         ("vol tint, no beaming", kerr, vol_cam,
@@ -2100,10 +2178,10 @@ def phase13_kerr_march(sky):
         (f"bare 256^2 cap {KERR_CAP}", kerr, (kerr_camera((SMALL, SMALL)),),
          {}, KERR_DT, KERR_CAP, R, far_bare, 0),
         (f"bare 256^2 with {N_POISON} NaN rays", kerr,
-         (kerr_camera((SMALL, SMALL)),), {}, KERR_DT, KERR_STEPS, R,
+         (kerr_camera((SMALL, SMALL)),), {}, KERR_DT, KERR_CHECK_CAP, R,
          far_bare, N_POISON),
         ("starlight map rays 48 x 128", kerr, None, dict(disk=KERR_BAND),
-         KERR_DT, 20_000, 30.0, far_disk, 0),
+         KERR_DT, KERR_CHECK_CAP, 30.0, far_disk, 0),
     ]
     out = {}
     frozen_seen = [0, 0]
@@ -2596,17 +2674,21 @@ def phase15_kerr_rk45_march(sky):
     return out[configs[0][0]]
 
 
-def smooth_sky():
+def smooth_sky(dtype=None):
     """The smooth sky of tests/test_kerr.py:749-820 at the path's sky size:
     colours that vary slowly with direction, so a pixel differs between
-    two steppers only where their rays really part."""
+    two steppers only where their rays really part (float32 unless
+    ``dtype``)."""
     import numpy as np
+    import torch
     from curvis_tpu_torch.env.spherical_image import make_spherical_image
     h, w = SKY[:2]
     yy, xx = np.mgrid[0:h, 0:w]
     tex = np.stack([np.sin(2 * np.pi * xx / w) * 0.5 + 0.5, yy / h,
                     0.3 + 0.4 * np.cos(2 * np.pi * yy / h)], -1)
-    return make_spherical_image(tex.astype(np.float32), device=DEVICE)
+    if dtype is None or dtype == torch.float32:
+        return make_spherical_image(tex.astype(np.float32), device=DEVICE)
+    return make_spherical_image(tex, device=DEVICE, dtype=dtype)
 
 
 def phase16_kerr_rk45_path(sky, sky_np, bright):
@@ -3029,10 +3111,12 @@ def entry_fraction(kernel, plain):
 
 
 def surface_vs_plain(label, kind, flags, scal, state, planes, counts, cot,
-                     fwd):
+                     fwd, tag="[19]", flops=None):
     """Kernels #9 / #10's surface variant against their plain versions on
     the same inputs, gen's final state against the forward kernel, and the
-    timings and bounds."""
+    timings and bounds.  ``flops`` = (a step's, its VJP's) FP32 operations
+    for the bound, if not surf_flops'; a table's series cotangents are held
+    as the other theta rows, entry by entry and summed."""
     import torch
     from curvis_tpu_torch.ops import ckpt_surface_cuda as cs
     y0 = state[:3]
@@ -3062,7 +3146,7 @@ def surface_vs_plain(label, kind, flags, scal, state, planes, counts, cot,
         kind, flags, scal, ck, b, c1, c2, nz, counts, cot, seg=SEG,
         offsets=off), 3)
     n = counts.numel()
-    ns, nt = cs.n_state(flags), cs.n_theta(flags)
+    ns, nt = cs.n_state(flags), cs.n_theta(flags, kind)
     # gen's final state against the forward kernel's outputs: the same
     # step code, but nvcc contracts the hit interpolation differently in
     # the two kernels, so hits are held by presence and to rtol 1e-3
@@ -3112,24 +3196,31 @@ def surface_vs_plain(label, kind, flags, scal, state, planes, counts, cot,
     hits = (int((fwd[5] != 0).sum()), int((fwd[8] != 0).sum())) \
         if flags is None else None
     signs = {s_: int((fwd[3] == s_).sum()) for s_ in (-1, 0, 1, 2)}
-    print(f"[19] {label}: {n} rays, signs {signs}"
+    print(f"{tag} {label}: {n} rays, signs {signs}"
           + (f", hits {hits[0]} / {hits[1]}" if hits else "")
           + f", mean / max steps {total_steps / n:.1f} / "
           f"{int(counts.max())}, {total} checkpoint rows "
           f"({total * ns * 4 / 2**20:.1f} MiB)")
-    print(f"[19]   gen final state == forward kernel: (l, psi, p_l) "
+    print(f"{tag}   gen final state == forward kernel: (l, psi, p_l) "
           f"differs on {state_ne} of {n} rays (bound 0: one step source), "
           f"{what} {fin_eq:.6f} of rays (bound >= {SURF_EQ_MIN})")
-    print(f"[19]   within rtol {GRAD_RTOL}: checkpoints {ck_frac:.6f}, lam "
+    print(f"{tag}   within rtol {GRAD_RTOL}: checkpoints {ck_frac:.6f}, lam "
           f"{lam_frac:.6f}, g_theta {g_frac:.6f} of entries (bound >= "
           f"{GRAD_FRAC_MIN}; lam with raw lam_u, lam_v {raw_frac:.6f}); "
           f"max |d| ckpt {ck_err:.3e}, lam {lam_err:.3e}, g {g_err:.3e}")
     if sums:
         r, sk, sp, rel, mag = max(sums, key=lambda t: t[3])
-        print(f"[19]   {len(sums)} ray-summed slot cotangents, the worst "
+        print(f"{tag}   {len(sums)} ray-summed slot cotangents, the worst "
               f"g_theta[{r}]: kernel {sk:.9e}, plain {sp:.9e}, rel "
               f"{rel:.3e} (sum |g| {mag:.3e}; bound {GRAD_RTOL})")
-    print(f"[19]   gen {gen_ms:.3f} ms (plain {gen_plain_ms:.1f} ms), bwd "
+        r, sk, sp, rel, mag = max(sums, key=lambda t: abs(t[1] - t[2])
+                                  / max(t[4], 1e-300))
+        print(f"{tag}   largest |kernel - plain| of a sum over the sum of "
+              f"its terms' magnitudes: {abs(sk - sp) / max(mag, 1e-300):.3e}"
+              + (f" (bound {TABLE_SURF_SUM_TOL} for a table; that sum, "
+                 f"g_theta[{r}], is {abs(sp) / max(mag, 1e-300):.3e} of its "
+                 f"terms' magnitudes)" if kind == "table" else ""))
+    print(f"{tag}   gen {gen_ms:.3f} ms (plain {gen_plain_ms:.1f} ms), bwd "
           f"{bwd_ms:.3f} ms (plain {bwd_plain_ms:.1f} ms)")
     require(state_ne == 0, f"surface {label}: gen's (l, psi, p_l) differ "
             f"from the forward kernel's on {state_ne} rays")
@@ -3138,20 +3229,26 @@ def surface_vs_plain(label, kind, flags, scal, state, planes, counts, cot,
     require(lam_frac >= GRAD_FRAC_MIN, f"surface {label}: lam {lam_frac}")
     require(g_frac >= GRAD_FRAC_MIN, f"surface {label}: g_theta {g_frac}")
     for r, sk, sp, rel, mag in sums:
-        require(rel <= GRAD_RTOL, f"surface {label}: sum g_theta[{r}] {sk} "
-                f"vs {sp}")
+        # a table's ray sums cancel to ~1/1000 of their terms' magnitude
+        # (the series' cotangents alternate, the slots' follow), and the
+        # contracted Euler pair's rays differ from the plain pair's by
+        # ~1e-5 of theirs: such a sum is held within TABLE_SURF_SUM_TOL of
+        # the sum of their magnitudes, a tenth of the sum's own size
+        require(rel <= GRAD_RTOL or (kind == "table" and abs(sk - sp)
+                                     <= TABLE_SURF_SUM_TOL * mag),
+                f"surface {label}: sum g_theta[{r}] {sk} vs {sp}")
     require(all(bool(torch.isfinite(t).all()) for t in (lam_k, g_k, ck)),
             f"surface {label}: non-finite output")
     if hits is not None:
         require(hits[0] > 0, f"surface {label}: no disk hit")
-    step_f, vjp_f = surf_flops(kind, flags)
+    step_f, vjp_f = surf_flops(kind, flags) if flops is None else flops
     # gen reads 7 floats, steps and the offset a ray, writes ns floats a
     # segment and the final state; bwd reads the segments, 6 values and
     # the cotangent a ray, writes lam and g_theta
     gen_b = bound(40 * n + 4 * ns * (segs + n), step_f * total_steps)
     bwd_b = bound(4 * ns * segs + (32 + 4 * ns) * n + 4 * (ns + nt) * n,
                   (step_f + vjp_f) * total_steps)
-    print(f"[19]   bound gen {gen_b[0]:.3f} ms ({gen_b[1]}), bwd "
+    print(f"{tag}   bound gen {gen_b[0]:.3f} ms ({gen_b[1]}), bwd "
           f"{bwd_b[0]:.3f} ms ({bwd_b[1]})")
     return dict(gen=dict(max_abs_err=ck_err, ms=gen_ms,
                          plain_ms=gen_plain_ms, bound_ms=gen_b[0],
@@ -3553,7 +3650,7 @@ def rk45_family_vs_plain(label, kind, flags, scal, state, planes, fwd, seed,
         bwd_p = lambda ck, cnt, cot, off: cr.ckpt_rk45_bwd_plain(  # noqa
             kind, scal, freeze, ck, b, cnt, cot, seg=RK45_SEG, offsets=off)
     else:
-        ns, nt = cs.n_state_rk45(flags), cs.n_theta(flags)
+        ns, nt = cs.n_state_rk45(flags), cs.n_theta(flags, kind)
         n_out = ns - 1                          # #4 returns no dt
         args = (kind, flags, scal)
         gen = lambda cnt, off, tot: cs.launch_rk45_gen(     # noqa: E731
@@ -5316,7 +5413,7 @@ def phase26_kerr_surface_paths(sky):
     return total
 
 
-def bell_tables():
+def bell_tables(tag="[27]", names=tuple(TABLE_BELL)):
     """The Bell wormhole's tables of TABLE_BELL, float32 on the card."""
     import torch
     from curvis_tpu_torch.metrics.table import tabulate_metric
@@ -5326,9 +5423,9 @@ def bell_tables():
         return torch.sqrt(rho * rho + l * l)
 
     tabs = {}
-    for name, kw in TABLE_BELL.items():
-        tab, rep = tabulate_metric(r_fn, device=DEVICE, **kw)
-        print(f"[27] bell table {name}: basis {rep['basis']}, fit errors "
+    for name in names:
+        tab, rep = tabulate_metric(r_fn, device=DEVICE, **TABLE_BELL[name])
+        print(f"{tag} bell table {name}: basis {rep['basis']}, fit errors "
               f"{rep['err_inv_rel']:.3e} (1/r^2), {rep['err_dr3_rel']:.3e} "
               f"(r'/r^3)")
         tabs[name] = tab
@@ -5579,9 +5676,10 @@ def phase28_table_paths(bgp, bgn):
     # powers of t -> 1; with it the float32 adjoint and the float32
     # central difference of the check below parted by 7 % at 128^2, with
     # the Chebyshev table by 0.7 % (H100, PERF.md)
-    def table_of(theta):
+    def table_of(theta, dtype=torch.float32):
         return tabulate_metric_diff(shape_fn(theta), degree=12, s=1.0,
-                                    basis="clenshaw", device=DEVICE)
+                                    basis="clenshaw", device=DEVICE,
+                                    dtype=dtype)
 
     for stepper, steps in (("euler", MAX_STEPS), ("rk45", RK45_TRAIN_STEPS)):
         cam = trainer_camera(RES)
@@ -5715,6 +5813,525 @@ def phase28_table_paths(bgp, bgn):
     return launches
 
 
+def phase29_table_disk_kernels(sky):
+    """The table kind of kernels #5, #6, #4's surface variants and #9 /
+    #10's four planar surface families against their plain versions on the
+    card, on the Bell h16 table at the disk view, the plain versions capped
+    in steps (iterations) and not in rays."""
+    import dataclasses
+    import torch
+    from curvis_tpu_torch.ops import _build
+    from curvis_tpu_torch.ops import disk_cuda, disk_vol_cuda
+    from curvis_tpu_torch.ops import rk45_disk_cuda as rd
+    from curvis_tpu_torch.render.disk import DiskParams, compute_starlight_map
+    from curvis_tpu_torch.render.starlight import starlight_scatter_block
+    t_start = time.perf_counter()
+    tab = bell_tables("[29]", ("h16",))["h16"]
+    f = table_disk_flops(TABLE_BELL["h16"]["degree"], "horner")
+    exact = "--fmad=false" in _build.SOURCE_FLAGS.get("planar_rk45_disk.cu",
+                                                      [])
+    band = TABLE_DISK_BAND
+    tint = dataclasses.replace(DiskParams(**DISK_VOL), r_inner=band[0],
+                               r_outer=band[1])
+    bb = dataclasses.replace(tint, color_mode="blackbody", t_peak=7000.0)
+    smap = compute_starlight_map(
+        tab, sky, dataclasses.replace(bb, starlight=True, starlight_samples=64,
+                                      starlight_grid=(64, 128)),
+        dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R)
+    block = starlight_scatter_block(smap, bb)
+    V, S = DISK_VOL_RES, SMALL
+    out = {}
+    print(f"[29] table h16: FP32 operations a #5 step {f['step']}, a #6 "
+          f"tint step {f['vol']((False, False, False, False))}, a thin "
+          f"surface VJP {f['thin_vjp']}, a DP5(4) iteration "
+          f"{f['rk45_iter']}, its VJP {f['rk45_vjp']}")
+
+    # #5: the path's view, capped
+    state, planes = disk_rays(tab, [disk_camera(RES)])
+    ins = state + planes[:2]
+    kind, scal = disk_cuda.disk_scalars(tab, DT, DISK_R, *band)
+    out_k = disk_cuda.launch(kind, scal, *ins, max_steps=TABLE_DISK_CAP)
+    sync()
+    t0 = time.perf_counter()
+    out_p = disk_cuda.march_planar_disk_plain(kind, scal, *ins,
+                                              max_steps=TABLE_DISK_CAP)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    a = hit_agreement(out_k, out_p)
+    kernel_ms = cuda_ms(lambda: disk_cuda.launch(
+        kind, scal, *ins, max_steps=TABLE_DISK_CAP), 3)
+    full = disk_cuda.launch(kind, scal, *ins, max_steps=MAX_STEPS)
+    full_ms = cuda_ms(lambda: disk_cuda.launch(kind, scal, *ins,
+                                               max_steps=MAX_STEPS), 3)
+    n = ins[0].numel()
+    far = int((full[5] < 0).sum())
+    print(f"[29] #5 table h16 {RES}^2 cap {TABLE_DISK_CAP}: sign equal "
+          f"{a['sign_eq']:.6f}, steps equal {a['steps_eq']:.6f}, hit "
+          f"presence equal {a['hit_eq']:.6f}; over {a['n_hits']} hits p99 "
+          f"rel radius {a['rel_p99']:.3e}, p99 |dpsi| {a['dpsi_p99']:.3e}; "
+          f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms; full counts "
+          f"{full_ms:.3f} ms (mean steps {full[4].double().mean().item():.1f}"
+          f", {int((full[5] != 0).sum())} first hits, {far} on the far "
+          f"sheet)")
+    require(a["sign_eq"] >= SIGN_EQ_MIN and a["steps_eq"] >= STEPS_EQ_MIN
+            and a["hit_eq"] >= HIT_EQ_MIN and a["rel_p99"] < HIT_P99_MAX
+            and a["dpsi_p99"] < HIT_P99_MAX, f"table #5: {a}")
+    require(a["n_hits"] > 0 and far > 0, f"table #5: hits {a['n_hits']}, "
+            f"far-sheet hits {far}")
+    b_ms, b_by = bound(68 * n, f["step"] * out_k[4].double().sum().item())
+    print(f"[29]   bound {b_ms:.3f} ms ({b_by}); kernel at "
+          f"{100 * b_ms / kernel_ms:.1f} % of it")
+    out["disk"] = dict(max_abs_err=a["max_abs"], ms=kernel_ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # #6: tint on the path's view, blackbody + scatter at DISK_VOL_RES^2
+    for key, name, res, disk, blk in (
+            ("vol", f"tint {RES}^2", RES, tint, None),
+            ("vol_bb", f"blackbody + scatter {V}^2", V, bb, block)):
+        state, planes = disk_rays(tab, [disk_camera(res)])
+        ins = state + planes
+        kind, scal = disk_vol_cuda.vol_scalars(tab, DT, DISK_R, disk, blk)
+        flags = (disk.color_mode == "blackbody", False, False,
+                 blk is not None)
+        out_k = disk_vol_cuda.launch(kind, flags, scal, *ins,
+                                     max_steps=TABLE_DISK_CAP)
+        sync()
+        t0 = time.perf_counter()
+        out_p = disk_vol_cuda.march_planar_disk_volumetric_plain(
+            kind, flags, scal, *ins, max_steps=TABLE_DISK_CAP)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        sign_eq = (out_k[3] == out_p[3]).double().mean().item()
+        frac, worst = close_fraction(out_k[5:9], out_p[5:9])
+        kernel_ms = cuda_ms(lambda: disk_vol_cuda.launch(
+            kind, flags, scal, *ins, max_steps=TABLE_DISK_CAP), 3)
+        n = ins[0].numel()
+        print(f"[29] #6 table h16 {name} cap {TABLE_DISK_CAP}: sign equal "
+              f"{sign_eq:.6f}, tau and em within rtol {GRAD_RTOL} on "
+              f"{frac:.6f} of rays (max |d| {worst:.3e}), tau max "
+              f"{out_k[5].max().item():.3f}; kernel {kernel_ms:.3f} ms, "
+              f"plain {plain_ms:.1f} ms")
+        require(sign_eq >= SIGN_EQ_MIN and frac >= GRAD_FRAC_MIN,
+                f"table #6 {name}: sign equal {sign_eq}, close {frac}")
+        require(all(bool(torch.isfinite(t).all()) for t in out_k[5:9])
+                and out_k[5].max().item() > 0.1,
+                f"table #6 {name}: tau / emission")
+        b_ms, b_by = bound(64 * n, f["vol"](flags)
+                           * out_k[4].double().sum().item())
+        print(f"[29]   bound {b_ms:.3f} ms ({b_by}); kernel at "
+              f"{100 * b_ms / kernel_ms:.1f} % of it")
+        out[key] = dict(max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+
+    # #4's surface variants: exact against the plain version
+    for key, name, res, row_kw in (
+            ("rk45_disk", f"disk tracker {RES}^2", RES, dict(disk=band)),
+            ("rk45_vol", f"vol blackbody + scatter {V}^2", V,
+             dict(vol_disk=bb, scatter_block=block))):
+        state, planes = disk_rays(tab, [disk_camera(res)])
+        kind, scal = rd.rk45_disk_scalars(tab, DT, DISK_R, RK45_DISK_RTOL,
+                                          RK45_DISK_RTOL * 1e-3, 10.0,
+                                          **row_kw)
+        flags = rd.disk_flags(row_kw.get("vol_disk"),
+                              row_kw.get("scatter_block"))
+        ins = state + planes[:2] + [planes[2] if flags[0] else None]
+        kw = dict(max_steps=MAX_STEPS, max_iters=TABLE_DISK_ITERS)
+        out_k = rd.launch(kind, flags, scal, *ins, **kw)
+        sync()
+        t0 = time.perf_counter()
+        out_p = rd.march_planar_rk45_disk_plain(kind, flags, scal, *ins,
+                                                **kw)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        n_diff, worst = outputs_differ(out_k, out_p)
+        kernel_ms = cuda_ms(lambda: rd.launch(kind, flags, scal, *ins, **kw),
+                            3)
+        n = state[0].numel()
+        iters, steps = out_k[-1].double(), out_k[-2].double()
+        hits = int((out_k[3] != 0).sum()) if not flags[0] else None
+        print(f"[29] #4 table h16 {name} at {TABLE_DISK_ITERS} iterations: "
+              f"{n_diff} output entries differ from the plain version, max "
+              f"finite |d| {worst:.3e}; digests {digest(out_k)} / "
+              f"{digest(out_p)}; mean iterations {iters.mean().item():.1f}"
+              + (f", {hits} first hits" if hits is not None else
+                 f", tau max {out_k[3].max().item():.3f}")
+              + f"; kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms")
+        if exact:
+            require(n_diff == 0, f"table #4 {name}: {n_diff} output entries "
+                    "differ from the plain version")
+        require(hits is None or hits > 0, f"table #4 {name}: no disk hit")
+        per_iter = f["rk45_iter"] + (FLOP_RK45_DISK["track"] if not flags[0]
+                                     else FLOP_RK45_DISK["vol_clamp"]
+                                     + f["shape"])
+        per_step = 0 if not flags[0] else (
+            FLOP_RK45_DISK["emission"] + f["shape"] + FLOP_VOL["blackbody"]
+            + FLOP_VOL["scatter"])
+        b_ms, b_by = bound((68 if flags[0] else 72) * n,
+                           per_iter * iters.sum().item()
+                           + per_step * steps.sum().item())
+        print(f"[29]   bound {b_ms:.3f} ms ({b_by}); kernel at "
+              f"{100 * b_ms / kernel_ms:.1f} % of it")
+        out[key] = dict(max_abs_err=worst, ms=kernel_ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+
+    # #9 / #10's Euler surface families (the mismatch gates of phase 19)
+    for k, (key, name, res, flags, extra) in enumerate((
+            ("surf", f"thin {RES}^2", RES, None, dict(band=band)),
+            ("surf_tint", f"vol tint {S}^2", S, (False, False, False, False),
+             dict(disk=tint)),
+            ("surf_bb", f"vol blackbody + scatter {S}^2", S,
+             (True, False, False, True), dict(disk=bb, block=block)))):
+        cap = TABLE_SURF_CAP if flags is None else TABLE_SURF_VOL_CAP
+        inputs = surface_inputs(tab, [disk_camera(res)], flags, cap,
+                                seed=290 + k, **extra)
+        fl = ((f["step"], f["thin_vjp"]) if flags is None
+              else (f["vol"](flags), f["vol_vjp"](flags)))
+        out[key] = surface_vs_plain(f"table h16 {name}, cap {cap}",
+                                    inputs[0], flags, *inputs[1:],
+                                    tag="[29]", flops=fl)
+
+    # #9 / #10's DP5(4) surface families: replays bit-equal to #4
+    for k, (key, name, res, flags, row_kw, freeze) in enumerate((
+            ("rk45_surf", f"thin {RES}^2", RES, None, dict(disk=band),
+             False),
+            ("rk45_surf_tint", f"vol tint {S}^2", S,
+             (False, False, False, False), dict(vol_disk=tint), True),
+            ("rk45_surf_bb", f"vol blackbody + scatter {S}^2", S,
+             (True, False, False, True),
+             dict(vol_disk=bb, scatter_block=block), False))):
+        state, planes = disk_rays(tab, [disk_camera(res)])
+        kind, scal = rd.rk45_disk_scalars(tab, DT, DISK_R, RK45_DISK_RTOL,
+                                          RK45_DISK_RTOL * 1e-3, 10.0,
+                                          **row_kw)
+        mode = rd.disk_flags(row_kw.get("vol_disk"),
+                             row_kw.get("scatter_block"))
+        ins = state + (planes if flags is not None else planes[:2] + [None])
+        fwd = rd.launch(kind, mode, scal, *ins, max_steps=MAX_STEPS,
+                        max_iters=TABLE_SURF_ITERS)
+        if flags is None:
+            planes = [planes[0], planes[1], torch.zeros_like(planes[2])]
+        vol_extra = 0 if flags is None else 2
+        fl = (f["rk45_iter"] + vol_extra * f["shape"] // 2,
+              f["rk45_vjp"] + vol_extra * f["vjp"])
+        out[key] = rk45_family_vs_plain(
+            f"table h16 {name}, max_iters {TABLE_SURF_ITERS}", kind, flags,
+            scal, state, planes, fwd, seed=295 + k, freeze=freeze,
+            tag="[29]", flops=fl)
+    print(f"[29] {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def disk_far_fraction(metric, cam, disk, stepper):
+    """The share of the view's rays that reach the far sheet: an escape to
+    l < 0 or a first disk hit there."""
+    from curvis_tpu_torch.physics.planar import PlanarRays
+    from curvis_tpu_torch.render.disk import _march_thin
+    state, planes = disk_rays(metric, [cam])
+    res, h1, _ = _march_thin(metric, PlanarRays(*state, None, None),
+                             planes[0], planes[1], stepper=stepper,
+                             rtol=RK45_DISK_RTOL, dt=DT, max_steps=MAX_STEPS,
+                             escape_radius=DISK_R, r_inner=disk.r_inner,
+                             r_outer=disk.r_outer)
+    return ((res.sign == -1) | (h1[0] < 0)).double().mean().item()
+
+
+def table_twin_witness(stepper, table_of, disk):
+    """d mean(image) / d theta of the table's thin disk on the path's view
+    at TABLE_WITNESS_RES^2 through the kernels (differentiable='adjoint',
+    float32) against the float64 twin pair (differentiable='scan': the
+    PyTorch step under autograd, with table, camera and sky in float64),
+    over the pixels whose float32 and float64 frames agree within
+    TABLE_WITNESS_AGREE, capped at TABLE_WITNESS_STEPS steps on both
+    routes alike.  The pixels left out are those whose float32 rays
+    part from the float64 ones, by the throat and the photon ring: there
+    the two frames, and so their derivatives, differ by precision, which
+    no float32 route removes (table_disk_witness.py reads both sides)."""
+    import torch
+    from curvis_tpu_torch.render import disk as rd
+    f32, f64 = torch.float32, torch.float64
+    t0 = time.perf_counter()
+    steps = TABLE_WITNESS_STEPS[stepper]
+    kw = dict(disk=disk, dt=DT, max_steps=steps, escape_radius=DISK_R,
+              stepper=stepper, rtol=RK45_DISK_RTOL)
+    res = TABLE_WITNESS_RES
+    th64 = torch.tensor(TABLE_DISK_THETA, device=DEVICE, dtype=f64,
+                        requires_grad=True)
+    img64 = rd.render_blackhole_disk(
+        table_of(th64, f64), disk_camera(res, dtype=f64), smooth_sky(f64),
+        differentiable="scan", **kw)
+    cam, sky = disk_camera(res), smooth_sky()
+    th = torch.tensor(TABLE_DISK_THETA, device=DEVICE, requires_grad=True)
+    img = rd.render_blackhole_disk(table_of(th, f32), cam, sky,
+                                   differentiable="adjoint", **kw).double()
+    part = (img.detach() - img64.detach()).abs().amax(-1, keepdim=True)
+    agree = (part <= TABLE_WITNESS_AGREE).double()
+    (g64,) = torch.autograd.grad((img64 * agree).mean(), th64)
+    (gk,) = torch.autograd.grad((img * agree).mean(), th)
+    gk = gk.double()
+    rel = float((gk - g64).abs().max() / g64.abs().max())
+    sync()
+    print(f"[30] table {stepper} twin witness, the path's view at {res}^2, "
+          f"max_steps {steps}: {1.0 - agree.mean().item():.6f} of pixels "
+          f"left out (float32 "
+          f"and float64 frames part by more than {TABLE_WITNESS_AGREE}; "
+          f"max {part.max().item():.3e}); d mean(image * kept) / d theta "
+          f"kernels {[f'{x:.6e}' for x in gk.tolist()]}, float64 twin "
+          f"{[f'{x:.6e}' for x in g64.tolist()]}, rel {rel:.3e} (bound "
+          f"{TABLE_WITNESS_TOL}); {time.perf_counter() - t0:.1f} s")
+    require(rel <= TABLE_WITNESS_TOL and agree.mean().item() > 0.5,
+            f"table {stepper} twin witness: kernels {gk.tolist()} vs "
+            f"float64 twin {g64.tolist()}")
+
+
+def phase30_table_disk_paths(sky):
+    """The disk path of a tabulated metric at 1024^2: render_blackhole_disk
+    with the Bell h16 table, thin with two-sheet starlight and volumetric
+    tint, Euler and DP5(4), and one differentiable step of a shape loss
+    through tabulate_metric_diff each stepper (the adjoint against a
+    float32 central difference); then a degree-12 Ellis table's thin frame
+    against the analytic Ellis frame.  Returns the launch counts of the
+    path."""
+    import dataclasses
+    import torch
+    from curvis_tpu_torch.metrics.base import make_metric
+    from curvis_tpu_torch.metrics.table import (tabulate_metric,
+                                                tabulate_metric_diff)
+    from curvis_tpu_torch.ops import ckpt_surface_cuda as cs
+    from curvis_tpu_torch.ops import (disk_cuda, disk_vol_cuda, march_cuda,
+                                      rk45_cuda, rk45_disk_cuda)
+    from curvis_tpu_torch.ops.disk_cuda import march_planar_disk_cuda
+    from curvis_tpu_torch.physics.planar import PlanarRays
+    from curvis_tpu_torch.render import disk as rd
+    from curvis_tpu_torch.render.disk import DiskParams, compute_starlight_map
+    from curvis_tpu_torch.render.fast import _readout, _spawn_frames
+    t_start = time.perf_counter()
+    tab = bell_tables("[30]", ("h16",))["h16"]
+    cam = disk_camera(RES)
+    band = dict(r_inner=TABLE_DISK_BAND[0], r_outer=TABLE_DISK_BAND[1])
+    thin = DiskParams(**{**DISK_STAR, **band, "starlight_samples": 64,
+                         "starlight_two_sheet": True})
+    vol = DiskParams(**{**DISK_VOL, **band})
+    counters = (disk_cuda, disk_vol_cuda, march_cuda, rk45_cuda,
+                rk45_disk_cuda)
+    for mod in counters:
+        mod.launches = 0
+    cs.launches.update({k: 0 for k in cs.launches})
+    for stepper in ("euler", "rk45"):
+        kw = dict(dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R,
+                  stepper=stepper, rtol=RK45_DISK_RTOL)
+        smap = compute_starlight_map(tab, sky, thin, **kw)
+        require(smap.values_neg is not None
+                and bool(torch.isfinite(smap.values_neg).all()),
+                f"table {stepper}: no two-sheet map")
+        sheets = float((smap.values - smap.values_neg).abs().max())
+        for name, disk, sm in (("thin + two-sheet starlight", thin, smap),
+                               ("volumetric tint", vol, None)):
+            def frame():
+                return rd.render_blackhole_disk(tab, cam, sky, disk=disk,
+                                                starlight_map=sm, **kw)
+            img = frame()
+            ms = cuda_ms(frame, REPS)
+            require(tuple(img.shape) == (RES, RES, 3)
+                    and bool(torch.isfinite(img).all()),
+                    f"table {stepper} {name}: shape / finite")
+            lit = (img.sum(-1) > 0).double().mean().item()
+            bare = rd.render_blackhole_disk(
+                tab, cam, sky, disk=dataclasses.replace(disk, brightness=0.0,
+                                                        starlight=False),
+                **kw)
+            disk_px = ((img - bare).abs().sum(-1) > 1e-3).double().mean(
+            ).item()
+            far = disk_far_fraction(tab, cam, disk, stepper)
+            print(f"[30] table h16 {stepper} {name} {RES}^2: "
+                  f"{ms:.2f} ms (median of {REPS}); lit {lit:.6f}, disk "
+                  f"pixels {disk_px:.6f}, far-sheet rays {far:.6f}"
+                  + (f"; the two sheets' maps differ by up to {sheets:.3e}"
+                     if sm is not None else ""))
+            require(lit > DISK_LIT_MIN and disk_px > 0.0 and far > 0.0,
+                    f"table {stepper} {name}: lit {lit}, disk {disk_px}, "
+                    f"far {far}")
+
+    # one differentiable step of a shape loss each stepper (thin disk,
+    # smooth sky) at the path's view: time, image, gradient
+    smooth = smooth_sky()
+    grad_disk = DiskParams(**{**DISK_THIN, **band})
+
+    def table_of(theta, dtype=torch.float32):
+        return tabulate_metric_diff(shape_fn(theta), degree=12, s=1.0,
+                                    basis="clenshaw", device=DEVICE,
+                                    dtype=dtype)
+
+    def frame(theta, view, disk, stepper, differentiable=None):
+        return rd.render_blackhole_disk(
+            table_of(theta), view, smooth, disk=disk,
+            differentiable=differentiable, dt=DT, max_steps=MAX_STEPS,
+            escape_radius=DISK_R, stepper=stepper, rtol=RK45_DISK_RTOL)
+
+    def linear_regime(theta, view, disk, stepper, h):
+        """Pixel channels in the linear regime at step h in theta1 and the
+        central difference of their mean (phase 20's rule)."""
+        e1 = torch.tensor([0.0, h, 0.0], device=DEVICE)
+        with torch.no_grad():
+            ims = [frame(theta + s_ * e1, view, disk, stepper)
+                   for s_ in (1.0, -1.0, 0.0)]
+        curv = (ims[0] + ims[1] - 2.0 * ims[2]).abs()
+        linear = (curv <= SURF_FD_LIN * (ims[0] - ims[1]).abs()
+                  + 1e-6).double()
+        fd = ((ims[0] - ims[1]).double() * linear).mean().item() / (2 * h)
+        return linear, fd
+
+    theta0 = torch.tensor(TABLE_DISK_THETA, device=DEVICE)
+    for stepper in ("euler", "rk45"):
+        fwd_ms, bwd_ms = [], []
+        for _ in range(3):
+            theta = theta0.clone().requires_grad_()
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            img = frame(theta, cam, grad_disk, stepper, "adjoint")
+            loss = img.double().mean()
+            e[1].record()
+            (g,) = torch.autograd.grad(loss, theta)
+            e[2].record()
+            e[2].synchronize()
+            fwd_ms.append(e[0].elapsed_time(e[1]))
+            bwd_ms.append(e[1].elapsed_time(e[2]))
+        with torch.no_grad():
+            ref = frame(theta0, cam, grad_disk, stepper)
+        diff = float((img.detach() - ref).abs().max())
+        print(f"[30] table {stepper} shape step {RES}^2 (the path's view): "
+              f"d mean(image) / d theta {[f'{x:.6e}' for x in g.tolist()]}; "
+              f"image vs the non-differentiable render max |d| {diff:.3e}; "
+              f"forward {statistics.median(fwd_ms):.2f} ms + backward "
+              f"{statistics.median(bwd_ms):.2f} ms (median of 3, CUDA "
+              f"events)")
+        require(diff == 0.0, f"table {stepper} step: image differs by {diff}")
+        require(bool(torch.isfinite(g).all()) and bool((g != 0).all()),
+                f"table {stepper} step: gradient {g.tolist()}")
+
+    # d / d theta1 against a float32 central difference over the pixel
+    # channels in the linear regime: at the path's view, printed, and at a
+    # closer view (l = TABLE_FD_VIEW, its band), gated for Euler.  At the
+    # path's view the mean rests on pixels by the throat whose float32
+    # rays part from the float64 ones (the twin witness below leaves them
+    # out; table_disk_witness.py reads them), so neither the float32
+    # adjoint nor a float32 difference is a reference there.  As phase 22
+    # does for a metric parameter, the DP5(4) march's difference is not
+    # gated: it also moves with the controller's decisions, which the
+    # adjoint differentiates as a path; the twin witness gates both
+    # steppers
+    l_fd, band_fd = TABLE_FD_VIEW
+    fd_disk = DiskParams(**{**DISK_THIN, "r_inner": band_fd[0],
+                            "r_outer": band_fd[1]})
+    for stepper in ("euler", "rk45"):
+        for where, view, disk in (
+                ("the path's view", cam, grad_disk),
+                (f"l = {l_fd}", disk_camera(RES, l=l_fd), fd_disk)):
+            linear, fd = linear_regime(theta0, view, disk, stepper,
+                                       TABLE_DISK_FD_H)
+            theta = theta0.clone().requires_grad_()
+            (g,) = torch.autograd.grad(
+                (frame(theta, view, disk, stepper, "adjoint").double()
+                 * linear).mean(), theta)
+            rel = abs(float(g[1]) - fd) / max(abs(fd), 1e-300)
+            kept = linear.mean().item()
+            gate = stepper == "euler" and view is not cam
+            print(f"[30] table {stepper} d loss / d theta1 at {where} "
+                  f"{RES}^2: adjoint {float(g[1]):.6e}, central difference "
+                  f"(h {TABLE_DISK_FD_H}) {fd:.6e}, rel {rel:.3e} "
+                  + (f"(bound {TABLE_FD_TOL})" if gate else "(not gated)")
+                  + f"; {kept:.6f} of pixel channels in the linear regime"
+                  + (f" (bound >= {SURF_FD_KEEP})" if gate else ""))
+            if gate:
+                require(rel <= TABLE_FD_TOL and kept >= SURF_FD_KEEP,
+                        f"table {stepper} d/dtheta1: {float(g[1])} vs {fd}, "
+                        f"kept {kept}")
+    for stepper in ("euler", "rk45"):
+        table_twin_witness(stepper, table_of, grad_disk)
+
+    launches = {
+        "disk": disk_cuda.launches, "vol": disk_vol_cuda.launches,
+        "rk45_disk": rk45_disk_cuda.launches, **cs.launches,
+        "march": march_cuda.launches, "rk45": rk45_cuda.launches}
+    print(f"[30] launch counters over the table disk path: {launches}")
+    require(all(launches[k] > 0 for k in (
+        "disk", "vol", "rk45_disk", "surface_gen", "surface_bwd",
+        "surface_rk45_gen", "surface_rk45_bwd")),
+        f"a kernel of the table disk path was not launched: {launches}")
+
+    # the kernel pairs alone on the step's rays (full counts): gen, bwd and
+    # the checkpoint buffer
+    tab0 = table_of(torch.tensor(TABLE_DISK_THETA, device=DEVICE))
+    kind, scal, state, planes, counts, cot, _ = surface_inputs(
+        tab0, [cam], None, MAX_STEPS, seed=300,
+        band=TABLE_DISK_BAND)
+    off, n_rows = cs.segment_offsets(counts, SEG)
+    args = (kind, None, scal, *state[:3], state[3], *planes, counts)
+    ck, _ = cs.launch_gen(*args, seg=SEG, offsets=off, total=n_rows)
+    gen_ms = cuda_ms(lambda: cs.launch_gen(*args, seg=SEG, offsets=off,
+                                           total=n_rows), 3)
+    bwd_ms = cuda_ms(lambda: cs.launch_bwd(
+        kind, None, scal, ck, state[3], *planes, counts, cot, seg=SEG,
+        offsets=off), 3)
+    print(f"[30] euler step's pair alone: gen {gen_ms:.2f} ms, bwd "
+          f"{bwd_ms:.2f} ms, mean steps {counts.double().mean().item():.1f}, "
+          f"checkpoint buffer {n_rows * cs.n_state(None) * 4 / 2**20:.1f} "
+          f"MiB")
+    del ck
+    state, planes = disk_rays(tab0, [cam])
+    kind, scal = rk45_disk_cuda.rk45_disk_scalars(
+        tab0, DT, DISK_R, RK45_DISK_RTOL, RK45_DISK_RTOL * 1e-3, 10.0,
+        disk=TABLE_DISK_BAND)
+    fwd = rk45_disk_cuda.launch(kind, (False,) * 5, scal, *state,
+                                *planes[:2], None, max_steps=MAX_STEPS,
+                                max_iters=4 * MAX_STEPS)
+    cnt = torch.where(fwd[-3] != 3, fwd[-1], torch.zeros_like(fwd[-1]))
+    off, n_rows = cs.segment_offsets(cnt, RK45_SEG)
+    z = torch.zeros_like(planes[2])
+    ck, _ = cs.launch_rk45_gen(kind, None, scal, *state[:3], state[3],
+                               planes[0], planes[1], z, cnt, seg=RK45_SEG,
+                               offsets=off, total=n_rows)
+    cot = torch.zeros((cs.n_state_rk45(None), cnt.numel()), device=DEVICE)
+    cot[4] = 1.0
+    gen_ms = cuda_ms(lambda: cs.launch_rk45_gen(
+        kind, None, scal, *state[:3], state[3], planes[0], planes[1], z, cnt,
+        seg=RK45_SEG, offsets=off, total=n_rows), 3)
+    bwd_ms = cuda_ms(lambda: cs.launch_rk45_bwd(
+        kind, None, scal, False, ck, state[3], planes[0], planes[1], z, cnt,
+        cot, seg=RK45_SEG, offsets=off), 3)
+    print(f"[30] rk45 step's pair alone: gen {gen_ms:.2f} ms, bwd "
+          f"{bwd_ms:.2f} ms, mean iterations "
+          f"{cnt.double().mean().item():.1f}, checkpoint buffer "
+          f"{n_rows * cs.n_state_rk45(None) * 4 / 2**20:.1f} MiB")
+    del ck
+
+    # a degree-12 Ellis table's thin frame against the analytic one, by
+    # escape directions and hit coordinates
+    ellis = make_metric("ellis", rho=1.0, device=DEVICE)
+    etab, rep = tabulate_metric(ellis, degree=12, tol=1e-3, device=DEVICE)
+    outs = {}
+    for who, metric in (("table", etab), ("analytic", ellis)):
+        (l, psi, p_l, b), r_hat, e2 = _spawn_frames(metric, [cam])
+        res, h1, _ = march_planar_disk_cuda(
+            metric, PlanarRays(l, psi, p_l, b, None, None), r_hat[2], e2[2],
+            dt=DT, max_steps=MAX_STEPS, escape_radius=DISK_R,
+            r_inner=1.5, r_outer=TABLE_DISK_BAND[1])
+        outs[who] = (_readout(metric, res, b, r_hat, e2), res.sign, h1[0])
+    (w_t, s_t, h_t), (w_a, s_a, h_a) = outs["table"], outs["analytic"]
+    table_agreement("[30]", f"ellis degree-12 table thin disk {RES}^2", w_t,
+                    s_t, w_a, s_a)
+    both = (h_t != 0) & (h_a != 0)
+    pres = ((h_t != 0) == (h_a != 0)).double().mean().item()
+    rel = ((h_t - h_a).abs() / h_a.abs())[both]
+    p99 = float(torch.quantile(rel.double(), 0.99)) if rel.numel() else 0.0
+    print(f"[30]   hits: presence equal {pres:.6f}, {int(both.sum())} in "
+          f"both, p99 relative hit coordinate {p99:.3e} (fit errors "
+          f"{rep['err_inv_rel']:.3e} / {rep['err_dr3_rel']:.3e})")
+    require(pres >= TABLE_SIGN_MIN and p99 <= HIT_P99_MAX,
+            f"ellis table hits: presence {pres}, p99 {p99}")
+    print(f"[30] {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 def main():
     smi = phase0_toolchain()
     import numpy as np
@@ -5767,6 +6384,8 @@ def main():
     surf_k_launches = phase26_kerr_surface_paths(disk_sky)
     table = phase27_table_kernels()
     table_launches = phase28_table_paths(bgp, bgn)
+    table_disk = phase29_table_disk_kernels(disk_sky)
+    table_disk_launches = phase30_table_disk_paths(disk_sky)
 
     def entry(name, source, replaces, n_launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -5894,7 +6513,43 @@ def main():
               "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
               table_launches["train_rk45"]["rk45_bwd"],
               table["rk45_ckpt"]["bwd"]),
+        entry("march_disk_kernel (table)", "curvis_tpu_torch/csrc/disk.cu",
+              "curvis_tpu/ops/march_pallas.py:913",
+              table_disk_launches["disk"], table_disk["disk"]),
+        entry("march_disk_vol_kernel (table)",
+              "curvis_tpu_torch/csrc/disk_vol.cu",
+              "curvis_tpu/ops/march_pallas.py:1213",
+              table_disk_launches["vol"], table_disk["vol"]),
+        entry("march_planar_rk45_disk_kernel (table)",
+              "curvis_tpu_torch/csrc/planar_rk45_disk.cu",
+              "curvis_tpu/ops/march_pallas.py:498",
+              table_disk_launches["rk45_disk"], table_disk["rk45_disk"]),
+        entry("ckpt_surface_gen_kernel (table)",
+              "curvis_tpu_torch/csrc/ckpt_surface.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              table_disk_launches["surface_gen"], table_disk["surf"]["gen"]),
+        entry("ckpt_surface_bwd_kernel (table)",
+              "curvis_tpu_torch/csrc/ckpt_surface.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              table_disk_launches["surface_bwd"], table_disk["surf"]["bwd"]),
+        entry("ckpt_surface_rk45_gen_kernel (table)",
+              "curvis_tpu_torch/csrc/ckpt_surface_rk45_table.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:69",
+              table_disk_launches["surface_rk45_gen"],
+              table_disk["rk45_surf"]["gen"]),
+        entry("ckpt_surface_rk45_bwd_kernel (table)",
+              "curvis_tpu_torch/csrc/ckpt_surface_rk45_table.cu",
+              "curvis_tpu/ops/ckpt_adjoint_pallas.py:102",
+              table_disk_launches["surface_rk45_bwd"],
+              table_disk["rk45_surf"]["bwd"]),
     ]
+    print(f"[30] the table disk kernels' ms, plain_ms and bound_ms in the "
+          f"kernels line are phase 29's, on the Bell h16 table at the disk "
+          f"view: #5 and #6 tint at {RES}^2 capped at {TABLE_DISK_CAP} "
+          f"steps, #4's tracker at {RES}^2 capped at {TABLE_DISK_ITERS} "
+          f"iterations, the Euler surface pair thin {RES}^2 capped at "
+          f"{TABLE_SURF_CAP} steps, the DP5(4) one thin {RES}^2 capped at "
+          f"{TABLE_SURF_ITERS} iterations; launches are phase 30's")
     print(f"[28] the table kernels' ms, plain_ms and bound_ms in the "
           f"kernels line are phase 27's: #1 on the Bell h16 table's "
           f"{FRAMES} x {RES}^2 bundle, #2 h16 and #3 c24 at {RES}^2, #4 h16 "

@@ -17,6 +17,11 @@
 //   vol:   y = (l, psi, p_l, u, v, tau, em_r, em_g, em_b),
 //          theta = (p0, p1, p2, b, c1, c2, nz, r_in, r_out, the 8 emission
 //          slots of VolSlots, the 27 scatter scalars when SCATTER is on).
+// A tabulated metric (kTable; the scalars carry the table, as
+// planar.cuh's ScalarsOf) has the metric part (s^2, series c1[0..K],
+// series c2[0..K]) in place of (p0, p1, p2): s^2 in slot p0 (p1, p2 stay
+// 0) and the 2 (K + 1) series coefficients after the family's theta.  The
+// series c1 / c2 of the table are not the plane coefficients c1 / c2.
 // The step is the forward kernels' own: disk_step (planar.cuh), which
 // disk.cu (#5) marches, and vol_step (planar_vol.cuh), which disk_vol.cu
 // (#6) marches, so the replay takes the crossing decisions that the forward
@@ -24,7 +29,7 @@
 // arrive as a runtime bitmask, the same for every thread of a launch: the
 // forward step is dispatched once per segment to its templated instance,
 // the VJP branches on the bits.  Kernels are templated on the metric kind
-// and the family only (20 instances).
+// and the family only (24 instances).
 //
 //   gen: march steps[i] steps from y0 = (l, psi, p_l, cos psi, sin psi,
 //        0...), writing the state at the start of each of the ray's
@@ -50,8 +55,9 @@
 // the pair costs ~4 marches.  Device memory moves the checkpoint buffer
 // once out and once in (11 or 9 floats per ray per segment, a few percent
 // of the time at seg = 32); the per-step start states live in per-thread
-// local memory (4 or 5 x seg floats).  The design does nothing about
-// divergence (no ray sorting): this is the correct, simple form.
+// local memory (4 or 5 x seg floats), and for a table the 2 x 33 series
+// sums too.  The design does nothing about divergence (no ray sorting):
+// this is the correct, simple form.
 #include <cstdint>
 #include <cstring>
 #include <type_traits>
@@ -72,14 +78,15 @@ constexpr int kVolTheta = 17 + kScatterBlock;   // the most a vol launch uses
 // VJP of disk_step at its start (l, p_l, u, v), given which slot the step
 // filled.  lam[11] is the cotangent of the step's output and becomes that
 // of its input; g[0..5] gather the cotangents of p0, p1, p2, b, c1, c2 (the
-// band r_in, r_out is a gate: no cotangent).
-template <int KIND>
-__device__ __forceinline__ void disk_step_vjp(const MarchScalars& s,
+// band r_in, r_out is a gate: no cotangent) and gc a table's series.
+template <int KIND, class S>
+__device__ __forceinline__ void disk_step_vjp(const S& s,
                                               float l, float p_l, float u,
                                               float v, bool new1, bool new2,
                                               float b, float b2, float c1,
                                               float c2, float lam[kDiskState],
-                                              float g[kDiskTheta]) {
+                                              float g[kDiskTheta],
+                                              float* gc) {
   const float dt = s.dt;
   float dl, dpsi, dpl;
   planar_deriv<KIND>(s, l, p_l, b, b2, &dl, &dpsi, &dpl);
@@ -112,7 +119,7 @@ __device__ __forceinline__ void disk_step_vjp(const MarchScalars& s,
   g_du = g_du - v * g_u1 + u * g_v1;
   // the Euler update and the RHS: l1 = l + dt dl, du = dt dpsi, ...
   float lam_l = g_l1, lam_pl = g_pl1;
-  euler_step_vjp<KIND>(s, l, p_l, b, b2, &lam_l, g_du, &lam_pl, g);
+  euler_step_vjp<KIND>(s, l, p_l, b, b2, &lam_l, g_du, &lam_pl, g, gc);
   lam[0] = lam_l + (1.0f - frac) * g_lh;
   lam[1] = lam[1] + g_psih;
   lam[2] = lam_pl + (1.0f - frac) * g_plh;
@@ -122,14 +129,14 @@ __device__ __forceinline__ void disk_step_vjp(const MarchScalars& s,
 
 // VJP of vol_step at its start (l, p_l, u, v, tau).  lam[9] is the
 // cotangent of the step's output and becomes that of its input; g gathers
-// the theta cotangents of the vol family.
-template <int KIND>
-__device__ __forceinline__ void vol_step_vjp(const VolScalars& s, int flags,
+// the theta cotangents of the vol family and gc a table's series.
+template <int KIND, class VS>
+__device__ __forceinline__ void vol_step_vjp(const VS& s, int flags,
                                              float l, float p_l, float u,
                                              float v, float tau, float b,
                                              float b2, float c1, float c2,
                                              float nz, float lam[kVolState],
-                                             float* g) {
+                                             float* g, float* gc) {
   const float dt = s.m.dt;
   float dl, dpsi, dpl;
   planar_deriv<KIND>(s.m, l, p_l, b, b2, &dl, &dpsi, &dpl);
@@ -142,7 +149,7 @@ __device__ __forceinline__ void vol_step_vjp(const VolScalars& s, int flags,
   const float g_dem[3] = {dt * lam[6], dt * lam[7], dt * lam[8]};
   float g_l1 = lam[0], g_pl1 = lam[2], g_zq = 0.0f, g_tau = 0.0f;
   vol_emission_vjp<KIND>(s, flags, l1, pl1, b, zq, tau, nz, dt * lam[5],
-                         g_dem, &g_l1, &g_pl1, &g_zq, &g_tau, g);
+                         g_dem, &g_l1, &g_pl1, &g_zq, &g_tau, g, gc);
   const float g_u1 = lam[3] + c1 * g_zq;
   const float g_v1 = lam[4] + c2 * g_zq;
   g[4] += u1 * g_zq;
@@ -154,7 +161,7 @@ __device__ __forceinline__ void vol_step_vjp(const VolScalars& s, int flags,
   // dt (lam_psi + g_du)
   float lam_l = g_l1, lam_pl = g_pl1;
   euler_step_vjp<KIND>(s.m, l, p_l, b, b2, &lam_l, lam[1] + g_du, &lam_pl,
-                       g);
+                       g, gc);
   lam[0] = lam_l;
   lam[2] = lam_pl;
   lam[3] = g_u;
@@ -165,8 +172,8 @@ __device__ __forceinline__ void vol_step_vjp(const VolScalars& s, int flags,
 // ------------------------------------------------------------ dispatching
 
 // k_n volumetric steps from y with the templated step of the flags
-template <int KIND>
-__device__ __forceinline__ void vol_steps(const VolScalars& s, int flags,
+template <int KIND, class VS>
+__device__ __forceinline__ void vol_steps(const VS& s, int flags,
                                           float b, float b2, float c1,
                                           float c2, float nz, float y[9],
                                           int k_n, float* ys) {
@@ -191,7 +198,8 @@ __device__ __forceinline__ void vol_steps(const VolScalars& s, int flags,
 
 template <int KIND, bool VOL>
 __global__ void __launch_bounds__(kSurfThreads)
-    ckpt_surface_gen_kernel(VolScalars s, int flags,
+    ckpt_surface_gen_kernel(const __grid_constant__ VolScalarsOf<KIND> s,
+                            int flags,
                             const float* __restrict__ l_in,
                             const float* __restrict__ psi_in,
                             const float* __restrict__ pl_in,
@@ -250,7 +258,8 @@ __global__ void __launch_bounds__(kSurfThreads)
 
 template <int KIND, bool VOL>
 __global__ void __launch_bounds__(kSurfThreads)
-    ckpt_surface_bwd_kernel(VolScalars s, int flags,
+    ckpt_surface_bwd_kernel(const __grid_constant__ VolScalarsOf<KIND> s,
+                            int flags,
                             const float* __restrict__ ckpt,
                             const float* __restrict__ b_in,
                             const float* __restrict__ c1_in,
@@ -278,6 +287,10 @@ __global__ void __launch_bounds__(kSurfThreads)
   float g[NT];
 #pragma unroll
   for (int k = 0; k < NT; ++k) g[k] = 0.0f;
+  // a table's series sums (c1's, then c2's at kChebCap)
+  constexpr int NC = KIND == kTable ? 2 * kChebCap : 1;
+  float gc[NC];
+  for (int k = 0; k < NC; ++k) gc[k] = 0.0f;
   // per-step start states: l, p_l, u, v (and tau for vol)
   float ys[(VOL ? 5 : 4) * kSurfMaxSeg];
   const float* rows = ckpt + off_in[i] * NS;
@@ -294,7 +307,7 @@ __global__ void __launch_bounds__(kSurfThreads)
         vol_step_vjp<KIND>(s, flags, ys[k], ys[kSurfMaxSeg + k],
                            ys[2 * kSurfMaxSeg + k], ys[3 * kSurfMaxSeg + k],
                            ys[4 * kSurfMaxSeg + k], b, b2, c1, c2, nz, lam,
-                           g);
+                           g, gc);
     } else {
       float zq = c1 * y[3] + c2 * y[4];
       uint64_t m1 = 0, m2 = 0;
@@ -313,7 +326,7 @@ __global__ void __launch_bounds__(kSurfThreads)
         disk_step_vjp<KIND>(s.m, ys[k], ys[kSurfMaxSeg + k],
                             ys[2 * kSurfMaxSeg + k], ys[3 * kSurfMaxSeg + k],
                             (m1 >> k) & 1, (m2 >> k) & 1, b, b2, c1, c2, lam,
-                            g);
+                            g, gc);
     }
   }
 #pragma unroll
@@ -321,38 +334,27 @@ __global__ void __launch_bounds__(kSurfThreads)
 #pragma unroll
   for (int k = 0; k < NT; ++k)
     if (k < n_theta) g_out[k * n + i] = g[k];
-}
-
-// Calls f(std::integral_constant<int, KIND>) for a runtime metric kind;
-// false for an unknown kind.
-template <typename F>
-bool with_surface_kind(int kind, F&& f) {
-  switch (kind) {
-    case kEllis: f(std::integral_constant<int, kEllis>{}); return true;
-    case kInterstellar:
-      f(std::integral_constant<int, kInterstellar>{});
-      return true;
-    case kFlat: f(std::integral_constant<int, kFlat>{}); return true;
-    case kSchwarzschild:
-      f(std::integral_constant<int, kSchwarzschild>{});
-      return true;
-    case kReissnerNordstrom:
-      f(std::integral_constant<int, kReissnerNordstrom>{});
-      return true;
-    default: return false;
+  if constexpr (KIND == kTable) {
+    // the series after the family's theta: c1[0..K], then c2[0..K]
+    const int nc = s.m.tab.n;
+    for (int k = 0; k < nc; ++k) {
+      g_out[(n_theta + k) * n + i] = gc[k];
+      g_out[(n_theta + nc + k) * n + i] = gc[kChebCap + k];
+    }
   }
 }
 
 // Checks shared by both host entries: the scalar row's length for the
 // family (8 floats thin; 16, or 43 with the scatter bit, vol), the segment
 // and the grid; fills the scalars and the grid size.
-int surface_setup(int vol, int flags, const float* scalars, int n_scalars,
-                  long long n, int seg, int device, VolScalars* s,
-                  unsigned* blocks) {
+int surface_setup(int kind, int vol, int flags, const float* scalars,
+                  int n_scalars, const ChebTable* tab, long long n, int seg,
+                  int device, VolScalars* s, unsigned* blocks) {
   const int want = vol ? kVolBaseFloats +
                              ((flags & kFlagScatter) ? kScatterBlock : 0)
                        : 8;
-  if (n_scalars != want || (!vol && flags != 0) || flags < 0 || flags > 15)
+  if (n_scalars != want || (!vol && flags != 0) || flags < 0 || flags > 15 ||
+      !table_ok(kind, tab))
     return static_cast<int>(cudaErrorInvalidValue);
   if (seg < 1 || seg > kSurfMaxSeg)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -371,6 +373,7 @@ int surface_setup(int vol, int flags, const float* scalars, int n_scalars,
 // Host entries.  `scalars` is a host array: the thin family's 8 floats
 // (curvis::DiskScalars: dt, R, p0, p1, p2, r_cap, r_in, r_out) or the vol
 // family's curvis::VolScalars row (16 floats, 43 with the scatter block);
+// `table` the host ChebTable of a kTable launch (ignored otherwise);
 // `flags` the vol bitmask (1 blackbody, 2 redshift, 4 doppler, 8 scatter;
 // 0 for thin).  `offsets` (int64) are each ray's first checkpoint row;
 // `ckpt` holds sum_i ceil(steps[i] / seg) rows of n_state floats.  Each
@@ -378,57 +381,64 @@ int surface_setup(int vol, int flags, const float* scalars, int n_scalars,
 // of the launch (0 on success).
 extern "C" int curvis_ckpt_surface_gen(
     int kind, int vol, int flags, const float* scalars, int n_scalars,
+    const void* table,
     const float* l, const float* psi, const float* p_l, const float* b,
     const float* c1, const float* c2, const float* nz, const int* steps,
     const long long* offsets, float* ckpt, float* final_state, long long n,
     int seg, int device, void* stream) {
   using namespace curvis;
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
   VolScalars s;
   unsigned g = 0;
-  const int err = surface_setup(vol, flags, scalars, n_scalars, n, seg,
-                                device, &s, &g);
+  const int err = surface_setup(kind, vol, flags, scalars, n_scalars, tab, n,
+                                seg, device, &s, &g);
   if (err != 0 || n <= 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool known = with_surface_kind(kind, [&](auto k) {
+  const bool known = with_planar_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    const VolScalarsOf<K> sk = vol_scalars_of<K>(s, tab);
     if (vol)
-      ckpt_surface_gen_kernel<decltype(k)::value, true>
-          <<<g, kSurfThreads, 0, st>>>(s, flags, l, psi, p_l, b, c1, c2, nz,
-                                       steps, offsets, ckpt, final_state, n,
-                                       seg);
+      ckpt_surface_gen_kernel<K, true><<<g, kSurfThreads, 0, st>>>(
+          sk, flags, l, psi, p_l, b, c1, c2, nz, steps, offsets, ckpt,
+          final_state, n, seg);
     else
-      ckpt_surface_gen_kernel<decltype(k)::value, false>
-          <<<g, kSurfThreads, 0, st>>>(s, flags, l, psi, p_l, b, c1, c2, nz,
-                                       steps, offsets, ckpt, final_state, n,
-                                       seg);
+      ckpt_surface_gen_kernel<K, false><<<g, kSurfThreads, 0, st>>>(
+          sk, flags, l, psi, p_l, b, c1, c2, nz, steps, offsets, ckpt,
+          final_state, n, seg);
   });
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 // `cot` and `lam` are (n_state, n) float buffers, `g_theta` (n_theta, n):
-// 8 for thin, 17 or 44 for vol.
+// 8 for thin, 17 or 44 for vol, and 2 table->n more rows for a kTable
+// launch (the series coefficients after the family's theta).
 extern "C" int curvis_ckpt_surface_bwd(
     int kind, int vol, int flags, const float* scalars, int n_scalars,
+    const void* table,
     const float* ckpt, const float* b, const float* c1, const float* c2,
     const float* nz, const int* steps, const long long* offsets,
     const float* cot, float* lam, float* g_theta, long long n, int seg,
     int device, void* stream) {
   using namespace curvis;
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
   VolScalars s;
   unsigned g = 0;
-  const int err = surface_setup(vol, flags, scalars, n_scalars, n, seg,
-                                device, &s, &g);
+  const int err = surface_setup(kind, vol, flags, scalars, n_scalars, tab, n,
+                                seg, device, &s, &g);
   if (err != 0 || n <= 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool known = with_surface_kind(kind, [&](auto k) {
+  const bool known = with_planar_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    const VolScalarsOf<K> sk = vol_scalars_of<K>(s, tab);
     if (vol)
-      ckpt_surface_bwd_kernel<decltype(k)::value, true>
-          <<<g, kSurfThreads, 0, st>>>(s, flags, ckpt, b, c1, c2, nz, steps,
-                                       offsets, cot, lam, g_theta, n, seg);
+      ckpt_surface_bwd_kernel<K, true><<<g, kSurfThreads, 0, st>>>(
+          sk, flags, ckpt, b, c1, c2, nz, steps, offsets, cot, lam, g_theta,
+          n, seg);
     else
-      ckpt_surface_bwd_kernel<decltype(k)::value, false>
-          <<<g, kSurfThreads, 0, st>>>(s, flags, ckpt, b, c1, c2, nz, steps,
-                                       offsets, cot, lam, g_theta, n, seg);
+      ckpt_surface_bwd_kernel<K, false><<<g, kSurfThreads, 0, st>>>(
+          sk, flags, ckpt, b, c1, c2, nz, steps, offsets, cot, lam, g_theta,
+          n, seg);
   });
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

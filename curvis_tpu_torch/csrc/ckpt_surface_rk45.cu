@@ -17,6 +17,8 @@
 //   vol:   y = (l, psi, p_l, dt, tau, em_r, em_g, em_b),
 //          theta = (p0, p1, p2, b, c1, c2, nz, r_in, r_out, the 8 emission
 //          slots, the 27 scatter scalars when the scatter bit is set).
+// A tabulated metric's theta is as ckpt_surface.cu's: s^2 in slot p0 and
+// its 2 (K + 1) series coefficients after the family's theta.
 // No (u, v) is carried: zq = c1 cos psi + c2 sin psi is recomputed from
 // psi, as kernel #4 does.  The iteration is rk45_surface.cuh's
 // rk45_surface_iter, the one kernel #4's surface variants run
@@ -71,6 +73,7 @@ bool launch_surface_rk45_kind(int kind, bool bwd, const SurfRk45Call& a) {
     case kReissnerNordstrom:
       launch_surface_rk45<kReissnerNordstrom>(bwd, a);
       return true;
+    case kTable: launch_surface_rk45<kTable>(bwd, a); return true;
     default: return false;
   }
 }
@@ -78,12 +81,14 @@ bool launch_surface_rk45_kind(int kind, bool bwd, const SurfRk45Call& a) {
 // Checks shared by both host entries: the row's length for the family
 // (kernel #4's surface row: 11 floats thin; 19, or 46 with the scatter
 // bit, vol), the segment and the grid; fills the scalars and the grid.
-int surface_rk45_setup(int vol, int flags, const float* scalars,
-                       int n_scalars, long long n, int seg, int device,
-                       Rk45SurfScalars* s, unsigned* blocks) {
+int surface_rk45_setup(int kind, int vol, int flags, const float* scalars,
+                       int n_scalars, const ChebTable* tab, long long n,
+                       int seg, int device, Rk45SurfScalars* s,
+                       unsigned* blocks) {
   const int want =
       vol ? 19 + ((flags & kFlagScatter) ? kScatterBlock : 0) : 11;
-  if (n_scalars != want || (!vol && flags != 0) || flags < 0 || flags > 15)
+  if (n_scalars != want || (!vol && flags != 0) || flags < 0 || flags > 15 ||
+      !table_ok(kind, tab))
     return static_cast<int>(cudaErrorInvalidValue);
   if (seg < 1 || seg > kSurfRk45MaxSeg)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -107,15 +112,18 @@ int surface_rk45_setup(int vol, int flags, const float* scalars,
 }  // namespace curvis
 
 // Host entries.  `scalars` is kernel #4's surface row (curvis::
-// Rk45DiskScalars of planar_rk45_disk.cu: 11, 19 or 46 floats); `flags`
+// Rk45DiskScalars of planar_rk45_disk.cu: 11, 19 or 46 floats); `table`
+// the host ChebTable of a kTable launch (ignored otherwise); `flags`
 // the vol bitmask (1 blackbody, 2 redshift, 4 doppler, 8 scatter; 0 for
 // thin).  `offsets` (int64) are each ray's first checkpoint row; `ckpt`
 // holds sum_i ceil(iters[i] / seg) rows of n_state floats; `final_state`,
 // `cot` and `lam` are (n_state, n), `g_theta` (n_theta, n): 8 for thin,
-// 17 or 44 for vol.  Each launches on `stream` without synchronising and
-// returns the cudaError_t of the launch (0 on success).
+// 17 or 44 for vol, and 2 table->n more rows for a kTable launch.  Each
+// launches on `stream` without synchronising and returns the cudaError_t
+// of the launch (0 on success).
 extern "C" int curvis_ckpt_surface_rk45_gen(
     int kind, int vol, int flags, const float* scalars, int n_scalars,
+    const void* table,
     const float* l, const float* psi, const float* p_l, const float* b,
     const float* c1, const float* c2, const float* nz, const int* iters,
     const long long* offsets, float* ckpt, float* final_state, long long n,
@@ -125,8 +133,9 @@ extern "C" int curvis_ckpt_surface_rk45_gen(
                     (19 + kScatterBlock) * sizeof(float),
                 "Rk45SurfScalars is a packed row of floats");
   SurfRk45Call a{};
-  const int err = surface_rk45_setup(vol, flags, scalars, n_scalars, n, seg,
-                                     device, &a.s, &a.blocks);
+  a.tab = static_cast<const ChebTable*>(table);
+  const int err = surface_rk45_setup(kind, vol, flags, scalars, n_scalars,
+                                     a.tab, n, seg, device, &a.s, &a.blocks);
   if (err != 0 || n <= 0) return err;
   a.vol = vol;
   a.flags = flags;
@@ -151,14 +160,15 @@ extern "C" int curvis_ckpt_surface_rk45_gen(
 
 extern "C" int curvis_ckpt_surface_rk45_bwd(
     int kind, int vol, int flags, const float* scalars, int n_scalars,
-    int freeze, const float* ckpt, const float* b, const float* c1,
+    const void* table, int freeze, const float* ckpt, const float* b, const float* c1,
     const float* c2, const float* nz, const int* iters,
     const long long* offsets, const float* cot, float* lam, float* g_theta,
     long long n, int seg, int device, void* stream) {
   using namespace curvis;
   SurfRk45Call a{};
-  const int err = surface_rk45_setup(vol, flags, scalars, n_scalars, n, seg,
-                                     device, &a.s, &a.blocks);
+  a.tab = static_cast<const ChebTable*>(table);
+  const int err = surface_rk45_setup(kind, vol, flags, scalars, n_scalars,
+                                     a.tab, n, seg, device, &a.s, &a.blocks);
   if (err != 0 || n <= 0) return err;
   a.vol = vol;
   a.flags = flags;

@@ -2,9 +2,11 @@
 // templated on the metric kind, the family and the volumetric flags; the
 // host entries are ckpt_surface_rk45.cu's, which sets out what they do.
 // Each kind's instances are built in one translation unit
-// (ckpt_surface_rk45.cu for the capture-free kinds,
+// (ckpt_surface_rk45.cu for the analytic capture-free kinds,
 // ckpt_surface_rk45_schwarzschild.cu and ckpt_surface_rk45_rn.cu for the
-// lapse kinds, whose 16 flag sets make most of the code).
+// lapse kinds, whose 16 flag sets make most of the code, and
+// ckpt_surface_rk45_table.cu and ckpt_surface_rk45_table_bb.cu for the
+// tabulated metrics, whose VJPs reverse the series' recurrences).
 #pragma once
 
 #include <cstdint>
@@ -24,21 +26,29 @@ constexpr int kThinRk45Theta = 8;
 constexpr int kVolRk45Theta = 17 + kScatterBlock;   // the most vol uses
 
 // The kernels' scalars: the controller and the volumetric row (the march
-// scalars with m.dt = dt0, the band, the slots and the scatter block).
-struct Rk45SurfScalars {
+// scalars with m.dt = dt0, the band, the slots and the scatter block); a
+// kTable kernel's march scalars carry the table (M = TableScalars).
+template <class M>
+struct Rk45SurfScalarsT {
   Rk45Control c;
-  VolScalars vs;
+  VolScalarsT<M> vs;
 };
+using Rk45SurfScalars = Rk45SurfScalarsT<MarchScalars>;
+
+template <int KIND>
+using Rk45SurfScalarsOf = Rk45SurfScalarsT<ScalarsOf<KIND>>;
 
 // VJP of one thin iteration at its start (l, psi, p_l, dt), given the hit
 // slot it filled (0 or 3, -1 for none).  lam[10] is the cotangent of the
 // state after it and becomes that before it; g[0..5] gather the
-// cotangents of p0, p1, p2, b, c1, c2 (the band is a gate).
-template <int KIND>
+// cotangents of p0, p1, p2, b, c1, c2 (the band is a gate) and gc a
+// table's series.
+template <int KIND, class S>
 __device__ __forceinline__ void rk45_thin_iter_vjp(
-    const MarchScalars& m, const Rk45Control& c, float r_out, bool freeze,
-    float l, float psi, float p_l, float dt, int slot, float b, float b2,
-    float c1, float c2, float lam[kThinRk45State], float g[kThinRk45Theta]) {
+    const S& m, const Rk45Control& c, float r_out, bool freeze, float l,
+    float psi, float p_l, float dt, int slot, float b, float b2, float c1,
+    float c2, float lam[kThinRk45State], float g[kThinRk45Theta],
+    float* gc) {
   Rk45Rec r;
   rk45_trial_rec<KIND>(m, c, b, b2, l, psi, p_l, dt, &r);
   const float ln = r.out[0], psin = r.out[1], pln = r.out[2];
@@ -88,7 +98,7 @@ __device__ __forceinline__ void rk45_thin_iter_vjp(
   g_y[1] += g_zq0 * (c2 * cs0 - c1 * sn0);
   g[4] += g_zq0 * cs0 + g_zq1 * cs1;
   g[5] += g_zq0 * sn0 + g_zq1 * sn1;
-  rk45_trial_vjp<KIND>(m, c, b, b2, r, g_out, g_err, g_y, &g_dt, g);
+  rk45_trial_vjp<KIND>(m, c, b, b2, r, g_out, g_err, g_y, &g_dt, g, gc);
   lam[0] = g_y[0];
   lam[1] = g_y[1];
   lam[2] = g_y[2];
@@ -97,13 +107,14 @@ __device__ __forceinline__ void rk45_thin_iter_vjp(
 
 // VJP of one volumetric iteration at its start (l, psi, p_l, dt, tau).
 // lam[8] is the cotangent of the state after it and becomes that before
-// it; g gathers the theta cotangents of the vol family.
-template <int KIND, bool BB, bool RS, bool DOP, bool SC>
+// it; g gathers the theta cotangents of the vol family and gc a table's
+// series.
+template <int KIND, bool BB, bool RS, bool DOP, bool SC, class VS>
 __device__ __forceinline__ void rk45_vol_iter_vjp(
-    const VolScalars& vs, const Rk45Control& c, int flags, bool freeze,
-    float l, float psi, float p_l, float dt, float tau, float b, float b2,
-    float c1, float c2, float nz, float lam[kVolRk45State], float* g) {
-  const MarchScalars& m = vs.m;
+    const VS& vs, const Rk45Control& c, int flags, bool freeze, float l,
+    float psi, float p_l, float dt, float tau, float b, float b2, float c1,
+    float c2, float nz, float lam[kVolRk45State], float* g, float* gc) {
+  const auto& m = vs.m;
   Rk45Rec r;
   rk45_trial_rec<KIND>(m, c, b, b2, l, psi, p_l, dt, &r);
   const float ln = r.out[0], pln = r.out[2];
@@ -153,7 +164,7 @@ __device__ __forceinline__ void rk45_vol_iter_vjp(
         radius_vjp<KIND>(
             m, ln,
             g_rl * max_share(planar_inv_r2<KIND>(m, ln), 1e-30f), &g_out[0],
-            g);
+            g, gc);
       }
     }
     rk45_control_vjp(c, r, terminal, g_next, &g_dt, &g_err);
@@ -165,13 +176,14 @@ __device__ __forceinline__ void rk45_vol_iter_vjp(
             lam[7] * dem[2];
     const float g_dem[3] = {dt * lam[5], dt * lam[6], dt * lam[7]};
     vol_emission_vjp<KIND>(vs, flags, ln, pln, b, zq1, tau, nz, dt * lam[4],
-                           g_dem, &g_out[0], &g_out[2], &g_zq1, &g_tau, g);
+                           g_dem, &g_out[0], &g_out[2], &g_zq1, &g_tau, g,
+                           gc);
   }
   g_out[1] += g_zq1 * (c2 * cs1 - c1 * sn1);
   g[4] += g_zq1 * cs1;
   g[5] += g_zq1 * sn1;
   float g_y[3] = {0.0f, 0.0f, 0.0f};
-  rk45_trial_vjp<KIND>(m, c, b, b2, r, g_out, g_err, g_y, &g_dt, g);
+  rk45_trial_vjp<KIND>(m, c, b, b2, r, g_out, g_err, g_y, &g_dt, g, gc);
   lam[0] = g_y[0];
   lam[1] = g_y[1];
   lam[2] = g_y[2];
@@ -183,8 +195,9 @@ __device__ __forceinline__ void rk45_vol_iter_vjp(
 // from psi), writing each one's start into ys (5 rows of kSurfRk45MaxSeg:
 // l, psi, p_l, dt, tau) and the filled slots into *m1 / *m2, when ys is
 // not null.
-template <int KIND, bool TRACK, bool BB, bool RS, bool DOP, bool SC>
-__device__ __forceinline__ void surface_iters(const Rk45SurfScalars& s,
+template <int KIND, bool TRACK, bool BB, bool RS, bool DOP, bool SC,
+          class SS>
+__device__ __forceinline__ void surface_iters(const SS& s,
                                               float b, float b2, float c1,
                                               float c2, float nz, float* y,
                                               int k_n, float* ys,
@@ -216,7 +229,8 @@ __device__ __forceinline__ void surface_iters(const Rk45SurfScalars& s,
 
 template <int KIND, bool TRACK, bool BB, bool RS, bool DOP, bool SC>
 __global__ void __launch_bounds__(kSurfRk45Threads)
-    ckpt_surface_rk45_gen_kernel(Rk45SurfScalars s,
+    ckpt_surface_rk45_gen_kernel(const __grid_constant__
+                                 Rk45SurfScalarsOf<KIND> s,
                                  const float* __restrict__ l_in,
                                  const float* __restrict__ psi_in,
                                  const float* __restrict__ pl_in,
@@ -259,7 +273,9 @@ __global__ void __launch_bounds__(kSurfRk45Threads)
 
 template <int KIND, bool TRACK, bool BB, bool RS, bool DOP, bool SC>
 __global__ void __launch_bounds__(kSurfRk45Threads)
-    ckpt_surface_rk45_bwd_kernel(Rk45SurfScalars s, int flags, int freeze,
+    ckpt_surface_rk45_bwd_kernel(const __grid_constant__
+                                 Rk45SurfScalarsOf<KIND> s,
+                                 int flags, int freeze,
                                  const float* __restrict__ ckpt,
                                  const float* __restrict__ b_in,
                                  const float* __restrict__ c1_in,
@@ -286,6 +302,10 @@ __global__ void __launch_bounds__(kSurfRk45Threads)
   float g[NT];
 #pragma unroll
   for (int k = 0; k < NT; ++k) g[k] = 0.0f;
+  // a table's series sums (c1's, then c2's at kChebCap)
+  constexpr int NC = KIND == kTable ? 2 * kChebCap : 1;
+  float gc[NC];
+  for (int k = 0; k < NC; ++k) gc[k] = 0.0f;
   float ys[5 * kSurfRk45MaxSeg];
   const float* rows = ckpt + off_in[i] * NS;
   const int n_seg = (iters + seg - 1) / seg;
@@ -304,11 +324,12 @@ __global__ void __launch_bounds__(kSurfRk45Threads)
       if constexpr (TRACK) {
         const int slot = ((m1 >> k) & 1) ? 0 : (((m2 >> k) & 1) ? 3 : -1);
         rk45_thin_iter_vjp<KIND>(s.vs.m, s.c, s.vs.r_out, freeze != 0, l,
-                                 psi, p_l, dt, slot, b, b2, c1, c2, lam, g);
+                                 psi, p_l, dt, slot, b, b2, c1, c2, lam, g,
+                                 gc);
       } else {
         rk45_vol_iter_vjp<KIND, BB, RS, DOP, SC>(
             s.vs, s.c, flags, freeze != 0, l, psi, p_l, dt,
-            ys[4 * kSurfRk45MaxSeg + k], b, b2, c1, c2, nz, lam, g);
+            ys[4 * kSurfRk45MaxSeg + k], b, b2, c1, c2, nz, lam, g, gc);
       }
     }
   }
@@ -316,11 +337,20 @@ __global__ void __launch_bounds__(kSurfRk45Threads)
   for (int c = 0; c < NS; ++c) lam_out[c * n + i] = lam[c];
 #pragma unroll
   for (int k = 0; k < NT; ++k) g_out[k * n + i] = g[k];
+  if constexpr (KIND == kTable) {
+    // the series after the family's theta: c1[0..K], then c2[0..K]
+    const int nc = s.vs.m.tab.n;
+    for (int k = 0; k < nc; ++k) {
+      g_out[(NT + k) * n + i] = gc[k];
+      g_out[(NT + nc + k) * n + i] = gc[kChebCap + k];
+    }
+  }
 }
 
 // The arguments of one launch of either kernel.
 struct SurfRk45Call {
   Rk45SurfScalars s;
+  const ChebTable* tab;   // the table of a kTable launch, else null
   int vol, flags, freeze, seg;
   unsigned blocks;
   cudaStream_t stream;
@@ -333,15 +363,16 @@ struct SurfRk45Call {
 
 template <int KIND, bool TRACK, bool BB, bool RS, bool DOP, bool SC>
 void launch_surface_rk45_instance(bool bwd, const SurfRk45Call& a) {
+  const Rk45SurfScalarsOf<KIND> s{a.s.c, vol_scalars_of<KIND>(a.s.vs, a.tab)};
   if (bwd)
     ckpt_surface_rk45_bwd_kernel<KIND, TRACK, BB, RS, DOP, SC>
         <<<a.blocks, kSurfRk45Threads, 0, a.stream>>>(
-            a.s, a.flags, a.freeze, a.ckpt_in, a.b, a.c1, a.c2, a.nz,
+            s, a.flags, a.freeze, a.ckpt_in, a.b, a.c1, a.c2, a.nz,
             a.iters, a.offsets, a.cot, a.lam, a.g_theta, a.n, a.seg);
   else
     ckpt_surface_rk45_gen_kernel<KIND, TRACK, BB, RS, DOP, SC>
         <<<a.blocks, kSurfRk45Threads, 0, a.stream>>>(
-            a.s, a.l, a.psi, a.p_l, a.b, a.c1, a.c2, a.nz, a.iters,
+            s, a.l, a.psi, a.p_l, a.b, a.c1, a.c2, a.nz, a.iters,
             a.offsets, a.ckpt_out, a.final_state, a.n, a.seg);
 }
 
@@ -388,6 +419,15 @@ void launch_surface_rk45(bool bwd, const SurfRk45Call& a) {
 extern template void launch_surface_rk45<kSchwarzschild>(
     bool, const SurfRk45Call&);
 extern template void launch_surface_rk45<kReissnerNordstrom>(
+    bool, const SurfRk45Call&);
+extern template void launch_surface_rk45<kTable>(bool, const SurfRk45Call&);
+// the table's blackbody gas instances, built apart from its other ones
+// (ckpt_surface_rk45_table_bb.cu) so that nvcc compiles them in parallel
+extern template void launch_surface_rk45_instance<kTable, false, true, false,
+                                                  false, false>(
+    bool, const SurfRk45Call&);
+extern template void launch_surface_rk45_instance<kTable, false, true, false,
+                                                  false, true>(
     bool, const SurfRk45Call&);
 
 }  // namespace curvis

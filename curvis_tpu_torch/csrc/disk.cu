@@ -23,6 +23,10 @@
 //     the TPU);
 //   - escape / capture after each step as in march_ray (planar.cuh).
 //
+// A tabulated metric (kTable) takes the table in the kernel's scalar
+// argument (DiskScalarsT<TableScalars>, passed __grid_constant__), as
+// planar_march.cu does; a step then evaluates the two series (table.cuh).
+//
 // What bounds it on the H100: FP32 issue and warp divergence, as the plain
 // march kernel (planar_march.cu): ~14 operations per Schwarzschild Euler
 // step plus ~20 for the rotation and the crossing test, over thousands of
@@ -36,16 +40,20 @@ namespace curvis {
 
 constexpr int kDiskThreads = 128;
 
-// Host row: the march scalars, then the recording band [r_in, r_out].
-struct DiskScalars {
-  MarchScalars m;
+// Host row: the march scalars, then the recording band [r_in, r_out]; a
+// kTable kernel's march scalars carry the table (M = TableScalars).
+template <class M>
+struct DiskScalarsT {
+  M m;
   float r_in;
   float r_out;
 };
+using DiskScalars = DiskScalarsT<MarchScalars>;
 
 template <int KIND>
 __global__ void __launch_bounds__(kDiskThreads)
-    march_disk_kernel(DiskScalars s, const float* __restrict__ l_in,
+    march_disk_kernel(const __grid_constant__ DiskScalarsT<ScalarsOf<KIND>> s,
+                      const float* __restrict__ l_in,
                       const float* __restrict__ psi_in,
                       const float* __restrict__ pl_in,
                       const float* __restrict__ b_in,
@@ -88,19 +96,23 @@ __global__ void __launch_bounds__(kDiskThreads)
 }  // namespace curvis
 
 // Host entry.  `scalars` is a host array of n_scalars floats in the layout
-// of curvis::DiskScalars, copied into the kernel's by-value argument.
-// `fout` is a (9, n) float buffer (l, psi, p_l, h1, h1p, h1s, h2, h2p, h2s)
-// and `iout` a (2, n) int buffer (sign, steps).  Launches on `stream`
-// without synchronising and returns the cudaError_t of the launch.
+// of curvis::DiskScalars, copied into the kernel's by-value argument, and
+// `table` the host ChebTable of a kTable launch (ignored otherwise), copied
+// in after the march scalars.  `fout` is a (9, n) float buffer (l, psi,
+// p_l, h1, h1p, h1s, h2, h2p, h2s) and `iout` a (2, n) int buffer (sign,
+// steps).  Launches on `stream` without synchronising and returns the
+// cudaError_t of the launch.
 extern "C" int curvis_march_disk(int kind, const float* scalars,
-                                 int n_scalars, const float* l,
-                                 const float* psi, const float* p_l,
-                                 const float* b, const float* c1,
-                                 const float* c2, float* fout, int* iout,
-                                 long long n, int max_steps, int device,
-                                 void* stream) {
+                                 int n_scalars, const void* table,
+                                 const float* l, const float* psi,
+                                 const float* p_l, const float* b,
+                                 const float* c1, const float* c2,
+                                 float* fout, int* iout, long long n,
+                                 int max_steps, int device, void* stream) {
   using namespace curvis;
-  if (n_scalars != static_cast<int>(sizeof(DiskScalars) / sizeof(float)))
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
+  if (n_scalars != static_cast<int>(sizeof(DiskScalars) / sizeof(float)) ||
+      !table_ok(kind, tab))
     return static_cast<int>(cudaErrorInvalidValue);
   DiskScalars s;
   std::memcpy(&s, scalars, sizeof(s));
@@ -111,29 +123,13 @@ extern "C" int curvis_march_disk(int kind, const float* scalars,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned g = static_cast<unsigned>(blocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CURVIS_DISK_LAUNCH(K)                                              \
-  march_disk_kernel<K><<<g, kDiskThreads, 0, st>>>(s, l, psi, p_l, b, c1, \
-                                                   c2, fout, iout, n,     \
-                                                   max_steps)
-  switch (kind) {
-    case kEllis:
-      CURVIS_DISK_LAUNCH(kEllis);
-      break;
-    case kInterstellar:
-      CURVIS_DISK_LAUNCH(kInterstellar);
-      break;
-    case kFlat:
-      CURVIS_DISK_LAUNCH(kFlat);
-      break;
-    case kSchwarzschild:
-      CURVIS_DISK_LAUNCH(kSchwarzschild);
-      break;
-    case kReissnerNordstrom:
-      CURVIS_DISK_LAUNCH(kReissnerNordstrom);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef CURVIS_DISK_LAUNCH
+  const bool known = with_planar_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    const DiskScalarsT<ScalarsOf<K>> sk{scalars_of<K>(s.m, tab), s.r_in,
+                                        s.r_out};
+    march_disk_kernel<K><<<g, kDiskThreads, 0, st>>>(
+        sk, l, psi, p_l, b, c1, c2, fout, iout, n, max_steps);
+  });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,10 @@
 //     sign 0 (sign 2: OPAQUE_SIGN == CAPTURED);
 //   - every max and clip propagates NaN, as jnp.maximum / jnp.clip do.
 //
+// A tabulated metric (kTable) takes the table in the kernel's scalar
+// argument (VolScalarsOf<kTable>, __grid_constant__); a table has no lapse,
+// so it has only the instances without the shifts, as Ellis has.
+//
 // What bounds it on the H100: FP32 issue (an Euler step of ~14 operations
 // plus ~45 of tint emission, ~75 with blackbody: 3 more exp and 3 more log)
 // and warp divergence; 28 bytes read and 36 written per ray.  As the other
@@ -47,7 +51,8 @@ constexpr int kVolThreads = 128;
 template <int KIND, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
           bool SCATTER>
 __global__ void __launch_bounds__(kVolThreads)
-    march_disk_vol_kernel(VolScalars s, const float* __restrict__ l_in,
+    march_disk_vol_kernel(const __grid_constant__ VolScalarsOf<KIND> s,
+                          const float* __restrict__ l_in,
                           const float* __restrict__ psi_in,
                           const float* __restrict__ pl_in,
                           const float* __restrict__ b_in,
@@ -92,6 +97,7 @@ __global__ void __launch_bounds__(kVolThreads)
 
 // Launch arguments of one call, bundled for the flag dispatch below.
 struct VolLaunch {
+  const ChebTable* tab;   // the table of a kTable launch, else null
   unsigned blocks;
   cudaStream_t stream;
   const float *l, *psi, *p_l, *b, *c1, *c2, *nz;
@@ -104,9 +110,9 @@ struct VolLaunch {
 template <int KIND, bool BB, bool RS, bool DOP, bool SC>
 void launch_vol(const VolScalars& s, const VolLaunch& a) {
   march_disk_vol_kernel<KIND, BB, RS, DOP, SC>
-      <<<a.blocks, kVolThreads, 0, a.stream>>>(s, a.l, a.psi, a.p_l, a.b,
-                                               a.c1, a.c2, a.nz, a.fout,
-                                               a.iout, a.n, a.max_steps);
+      <<<a.blocks, kVolThreads, 0, a.stream>>>(
+          vol_scalars_of<KIND>(s, a.tab), a.l, a.psi, a.p_l, a.b, a.c1, a.c2,
+          a.nz, a.fout, a.iout, a.n, a.max_steps);
 }
 
 template <int KIND, bool BB, bool RS, bool DOP>
@@ -147,14 +153,16 @@ void pick_flags(bool bb, bool rs, bool dop, bool sc, const VolScalars& s,
 
 // Host entry.  `scalars` is a host array of n_scalars floats in the layout
 // of curvis::VolScalars: 16 without the scatter block, 16 + 27 with it
-// (`scatter` must say which).  `fout` is a (7, n) float buffer (l, psi,
+// (`scatter` must say which); `table` the host ChebTable of a kTable launch
+// (ignored otherwise).  `fout` is a (7, n) float buffer (l, psi,
 // p_l, tau, em_r, em_g, em_b) and `iout` a (2, n) int buffer (sign,
 // steps).  Launches on `stream` without synchronising and returns the
 // cudaError_t of the launch.
 extern "C" int curvis_march_disk_vol(int kind, int blackbody, int redshift,
                                      int doppler, int scatter,
                                      const float* scalars, int n_scalars,
-                                     const float* l, const float* psi,
+                                     const void* table, const float* l,
+                                     const float* psi,
                                      const float* p_l, const float* b,
                                      const float* c1, const float* c2,
                                      const float* nz, float* fout, int* iout,
@@ -165,7 +173,9 @@ extern "C" int curvis_march_disk_vol(int kind, int blackbody, int redshift,
   static_assert(sizeof(VolScalars) ==
                     (kVolBaseFloats + kScatterBlock) * sizeof(float),
                 "VolScalars is a packed row of floats");
-  if (n_scalars != want) return static_cast<int>(cudaErrorInvalidValue);
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
+  if (n_scalars != want || !table_ok(kind, tab))
+    return static_cast<int>(cudaErrorInvalidValue);
   VolScalars s;
   std::memset(&s, 0, sizeof(s));
   std::memcpy(&s, scalars, sizeof(float) * n_scalars);
@@ -174,7 +184,7 @@ extern "C" int curvis_march_disk_vol(int kind, int blackbody, int redshift,
   if (n <= 0) return 0;
   const long long blocks = (n + kVolThreads - 1) / kVolThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const VolLaunch a{static_cast<unsigned>(blocks),
+  const VolLaunch a{tab, static_cast<unsigned>(blocks),
                     static_cast<cudaStream_t>(stream),
                     l, psi, p_l, b, c1, c2, nz, fout, iout, n, max_steps};
   const bool bb = blackbody != 0, rs = redshift != 0, dop = doppler != 0,
@@ -194,6 +204,9 @@ extern "C" int curvis_march_disk_vol(int kind, int blackbody, int redshift,
       break;
     case kReissnerNordstrom:
       pick_flags<kReissnerNordstrom>(bb, rs, dop, sc, s, a);
+      break;
+    case kTable:
+      pick_flags<kTable>(bb, rs, dop, sc, s, a);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -286,16 +286,17 @@ __device__ __forceinline__ void lapse_rhs_vjp(float M, float q2, float l,
 // VJP of one Euler step at (l, p_l) (psi does not enter the RHS):
 // lam = (lam_l, lam_psi, lam_pl) is the cotangent of the step's output and
 // becomes that of its input; g[0..2] gather the cotangents of the metric
-// slots p0, p1, p2 and g[3] that of b; a kTable kernel's g has
-// kThetaSlots<kTable> entries: g[0] s^2, g[3] b, then the coefficient
-// sums, c1's at g + 4 and c2's at g + 4 + kChebCap.  The derivatives are
-// those of the forms in planar_deriv, written out in reverse mode.
+// slots p0, p1, p2 and g[3] that of b; for kTable g[0] gathers s^2's and
+// gc the sums of the table's series coefficients, c1's at gc and c2's at
+// gc + kChebCap (the disk families keep them after their own theta).  The
+// derivatives are those of the forms in planar_deriv, written out in
+// reverse mode.
 template <int KIND, class S>
 __device__ __forceinline__ void euler_step_vjp(const S& s,
                                                float l, float p_l, float b,
                                                float b2, float* lam_l,
                                                float lam_psi, float* lam_pl,
-                                               float g[4]) {
+                                               float* g, float* gc) {
   // cotangents of the RHS (dl, dpsi, dpl): y1 = y + dt f(y)
   const float u = s.dt * *lam_l, v = s.dt * lam_psi, w = s.dt * *lam_pl;
   float g_l = *lam_l, g_pl = *lam_pl;
@@ -351,7 +352,7 @@ __device__ __forceinline__ void euler_step_vjp(const S& s,
     // dpsi = b inv; dpl = b2 dr3; (inv, dr3) from the table
     float inv, dr3;
     table_shape_vjp<false>(s.tab, l, v * b, w * b2, &inv, &dr3, &g_l, &g[0],
-                           g + 4, g + 4 + kChebCap);
+                           gc, gc + kChebCap);
     g_pl += u;
     g[3] += v * inv + w * 2.0f * b * dr3;
   } else if constexpr (KIND == kSchwarzschild) {
@@ -364,6 +365,17 @@ __device__ __forceinline__ void euler_step_vjp(const S& s,
   }
   *lam_l = g_l;
   *lam_pl = g_pl;
+}
+
+// The planar families' layout: a kTable kernel's g has kThetaSlots<kTable>
+// entries, g[0] s^2, g[3] b, then the coefficient sums from g + 4.
+template <int KIND, class S>
+__device__ __forceinline__ void euler_step_vjp(const S& s,
+                                               float l, float p_l, float b,
+                                               float b2, float* lam_l,
+                                               float lam_psi, float* lam_pl,
+                                               float g[4]) {
+  euler_step_vjp<KIND>(s, l, p_l, b, b2, lam_l, lam_psi, lam_pl, g, g + 4);
 }
 
 // One step of the thin-disk march (kernel #5, disk.cu), shared with the

@@ -21,6 +21,10 @@
 // so the capture-free kinds have one instance for all four settings) and
 // SCATTER (the 27-scalar lensed-sky source after the emission slots).
 //
+// A tabulated metric (kTable) takes the table in the kernel's scalar
+// argument (Rk45DiskScalarsT<TableScalars>, __grid_constant__); with no
+// lapse it has the instances without the shifts only.
+//
 // The iteration is rk45_surface.cuh's rk45_surface_iter, which the
 // checkpoint kernels of the rk45 surface families (ckpt_surface_rk45.cu)
 // replay; its header lists the semantics kept from the TPU kernel.
@@ -47,15 +51,31 @@ constexpr int kRk45DiskThreads = 128;
 
 // Host row: the rk45 row [dt0, R, p0, p1, p2, r_cap, rtol, atol, dt_max],
 // the band [r_in, r_out], and for vol the 8 emission slots and, with
-// SCATTER, the scatter block (11, 19 or 46 floats).
-struct Rk45DiskScalars {
-  MarchScalars m;   // m.dt is the initial step dt0
+// SCATTER, the scatter block (11, 19 or 46 floats); a kTable kernel's
+// march scalars carry the table (M = TableScalars).
+template <class M>
+struct Rk45DiskScalarsT {
+  M m;   // m.dt is the initial step dt0
   Rk45Control c;
   float r_in;
   float r_out;
   VolSlots v;
   float scatter[kScatterBlock];
 };
+using Rk45DiskScalars = Rk45DiskScalarsT<MarchScalars>;
+
+template <int KIND>
+Rk45DiskScalarsT<ScalarsOf<KIND>> rk45_disk_scalars_of(
+    const Rk45DiskScalars& s, const ChebTable* tab) {
+  Rk45DiskScalarsT<ScalarsOf<KIND>> o;
+  o.m = scalars_of<KIND>(s.m, tab);
+  o.c = s.c;
+  o.r_in = s.r_in;
+  o.r_out = s.r_out;
+  o.v = s.v;
+  for (int k = 0; k < kScatterBlock; ++k) o.scatter[k] = s.scatter[k];
+  return o;
+}
 
 constexpr int kRk45DiskFloats = 11;
 constexpr int kRk45VolFloats = 19;
@@ -63,7 +83,8 @@ constexpr int kRk45VolFloats = 19;
 template <int KIND, bool TRACK, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
           bool SCATTER>
 __global__ void __launch_bounds__(kRk45DiskThreads)
-    march_planar_rk45_disk_kernel(Rk45DiskScalars s,
+    march_planar_rk45_disk_kernel(
+        const __grid_constant__ Rk45DiskScalarsT<ScalarsOf<KIND>> s,
                                   const float* __restrict__ l_in,
                                   const float* __restrict__ psi_in,
                                   const float* __restrict__ pl_in,
@@ -111,6 +132,7 @@ __global__ void __launch_bounds__(kRk45DiskThreads)
 
 // Launch arguments of one call, bundled for the flag dispatch below.
 struct Rk45DiskLaunch {
+  const ChebTable* tab;   // the table of a kTable launch, else null
   unsigned blocks;
   cudaStream_t stream;
   const float *l, *psi, *p_l, *b, *c1, *c2, *nz;
@@ -125,7 +147,7 @@ template <int KIND, bool TRACK, bool BB, bool RS, bool DOP, bool SC>
 void launch_rk45_disk(const Rk45DiskScalars& s, const Rk45DiskLaunch& a) {
   march_planar_rk45_disk_kernel<KIND, TRACK, BB, RS, DOP, SC>
       <<<a.blocks, kRk45DiskThreads, 0, a.stream>>>(
-          s, a.l, a.psi, a.p_l, a.b, a.c1, a.c2, a.nz, a.fout, a.iout, a.n,
+          rk45_disk_scalars_of<KIND>(s, a.tab), a.l, a.psi, a.p_l, a.b, a.c1, a.c2, a.nz, a.fout, a.iout, a.n,
           a.max_steps, a.max_iters);
 }
 
@@ -170,7 +192,8 @@ void pick_rk45_mode(bool vol, bool bb, bool rs, bool dop, bool sc,
 
 // Host entry.  `scalars` is a host array of n_scalars floats in the layout
 // of curvis::Rk45DiskScalars: 11 for the disk tracker (vol = 0), 19 for
-// vol, 19 + 27 with the scatter block (`scatter` must say which).  `nz`
+// vol, 19 + 27 with the scatter block (`scatter` must say which), and
+// `table` the host ChebTable of a kTable launch (ignored otherwise).  `nz`
 // is read only by vol.  `fout` is a (9, n) float buffer for the tracker
 // (l, psi, p_l, h1, h1p, h1s, h2, h2p, h2s) and a (7, n) one for vol (l,
 // psi, p_l, tau, em_r, em_g, em_b); `iout` a (3, n) int buffer (sign,
@@ -178,7 +201,8 @@ void pick_rk45_mode(bool vol, bool bb, bool rs, bool dop, bool sc,
 // the cudaError_t of the launch (0 on success).
 extern "C" int curvis_march_planar_rk45_disk(
     int kind, int vol, int blackbody, int redshift, int doppler, int scatter,
-    const float* scalars, int n_scalars, const float* l, const float* psi,
+    const float* scalars, int n_scalars, const void* table, const float* l,
+    const float* psi,
     const float* p_l, const float* b, const float* c1, const float* c2,
     const float* nz, float* fout, int* iout, long long n, int max_steps,
     int max_iters, int device, void* stream) {
@@ -190,7 +214,9 @@ extern "C" int curvis_march_planar_rk45_disk(
     return static_cast<int>(cudaErrorInvalidValue);
   const int want = !vol ? kRk45DiskFloats
                         : kRk45VolFloats + (scatter ? kScatterBlock : 0);
-  if (n_scalars != want) return static_cast<int>(cudaErrorInvalidValue);
+  const ChebTable* tab = static_cast<const ChebTable*>(table);
+  if (n_scalars != want || !table_ok(kind, tab))
+    return static_cast<int>(cudaErrorInvalidValue);
   Rk45DiskScalars s;
   std::memset(&s, 0, sizeof(s));
   std::memcpy(&s, scalars, sizeof(float) * n_scalars);
@@ -199,7 +225,7 @@ extern "C" int curvis_march_planar_rk45_disk(
   if (n <= 0) return 0;
   const long long blocks = (n + kRk45DiskThreads - 1) / kRk45DiskThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const Rk45DiskLaunch a{static_cast<unsigned>(blocks),
+  const Rk45DiskLaunch a{tab, static_cast<unsigned>(blocks),
                          static_cast<cudaStream_t>(stream),
                          l, psi, p_l, b, c1, c2, nz, fout, iout, n,
                          max_steps, max_iters};
@@ -220,6 +246,9 @@ extern "C" int curvis_march_planar_rk45_disk(
       break;
     case kReissnerNordstrom:
       pick_rk45_mode<kReissnerNordstrom>(v, bb, rs, dop, sc, s, a);
+      break;
+    case kTable:
+      pick_rk45_mode<kTable>(v, bb, rs, dop, sc, s, a);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -7,8 +7,13 @@
 // two marches' emission identical by construction.
 //
 // Semantics kept from the TPU kernel: r from rsqrt of the shape function's
-// 1/r^2 (r = l for the lapse kinds); every max and clip propagates NaN, as
-// jnp.maximum / jnp.clip do.
+// 1/r^2 (r = l for the lapse kinds; a table's from its series, table.cuh);
+// every max and clip propagates NaN, as jnp.maximum / jnp.clip do.
+//
+// The scalars of a kernel are templated on the metric scalars type, as
+// planar.cuh's ScalarsOf: MarchScalars for the analytic kinds, TableScalars
+// (the same fields, then the coefficient table) for kTable.  The host
+// entries read the analytic row and add the table with vol_scalars_of.
 #pragma once
 
 #include "vol_common.cuh"
@@ -19,14 +24,31 @@ namespace curvis {
 // curvis_tpu/ops/march_pallas.py): the march scalars, the band, the 8
 // emission slots, then the scatter block [tint_r, tint_g, tint_b,
 // 3 x (kScatterDeg + 1) monomials] when the SCATTER instance runs (the
-// host passes 16 or 43 floats).
-struct VolScalars {
-  MarchScalars m;
+// host passes 16 or 43 floats); M = TableScalars adds the table.
+template <class M>
+struct VolScalarsT {
+  M m;
   float r_in;
   float r_out;
   VolSlots v;
   float scatter[kScatterBlock];
 };
+using VolScalars = VolScalarsT<MarchScalars>;
+
+template <int KIND>
+using VolScalarsOf = VolScalarsT<ScalarsOf<KIND>>;
+
+// The scalars of kind KIND from the host's row and, for kTable, its table.
+template <int KIND>
+VolScalarsOf<KIND> vol_scalars_of(const VolScalars& s, const ChebTable* tab) {
+  VolScalarsOf<KIND> o;
+  o.m = scalars_of<KIND>(s.m, tab);
+  o.r_in = s.r_in;
+  o.r_out = s.r_out;
+  o.v = s.v;
+  for (int k = 0; k < kScatterBlock; ++k) o.scatter[k] = s.scatter[k];
+  return o;
+}
 
 constexpr int kVolBaseFloats = 16;
 
@@ -35,8 +57,8 @@ constexpr int kVolBaseFloats = 16;
 // gives the metric parameters, (r_in, r_out) the band, `v` the emission
 // slots and `scatter` the 27-scalar block (read only by SCATTER).
 template <int KIND, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
-          bool SCATTER>
-__device__ __forceinline__ void vol_emission(const MarchScalars& m,
+          bool SCATTER, class S>
+__device__ __forceinline__ void vol_emission(const S& m,
                                              float r_in, float r_out,
                                              const VolSlots& v,
                                              const float* scatter, float l,
@@ -100,8 +122,8 @@ __device__ __forceinline__ void vol_emission(const MarchScalars& m,
 // sin psi), zq = c1 u + c2 v, and the emission at the post-step state with
 // the pre-step tau, accumulated into tau and em over the step.
 template <int KIND, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
-          bool SCATTER>
-__device__ __forceinline__ void vol_step(const VolScalars& s, float b,
+          bool SCATTER, class VS>
+__device__ __forceinline__ void vol_step(const VS& s, float b,
                                          float b2, float c1, float c2,
                                          float nz, float* l, float* psi,
                                          float* p_l, float* u, float* v,

@@ -35,9 +35,9 @@
 namespace curvis {
 
 // The vol variant's radius for the gas clamp: l for the lapse kinds, else
-// rsqrt(max(1/r^2, 1e-30)).
-template <int KIND>
-__device__ __forceinline__ float gas_radius(const MarchScalars& m, float l) {
+// rsqrt(max(1/r^2, 1e-30)) (a table's 1/r^2 from its series).
+template <int KIND, class S>
+__device__ __forceinline__ float gas_radius(const S& m, float l) {
   if constexpr (HasCapture<KIND>::value) {
     return l;
   } else {
@@ -49,11 +49,12 @@ __device__ __forceinline__ float gas_radius(const MarchScalars& m, float l) {
 // psi) and the accumulators acc (TRACK: h1, h1p, h1s, h2, h2p, h2s; vol:
 // tau, em_r, em_g, em_b): updates them, adds the accepted step to *n_acc
 // and sets *sign as rk45_control does.  *slot says which hit slot the
-// iteration filled (0 or 3, -1 for none).  m.dt is the initial step dt0.
+// iteration filled (0 or 3, -1 for none).  m.dt is the initial step dt0;
+// m is the kind's march scalars (ScalarsOf<KIND>, a table's with it).
 template <int KIND, bool TRACK, bool BLACKBODY, bool REDSHIFT, bool DOPPLER,
-          bool SCATTER>
+          bool SCATTER, class S>
 __device__ __forceinline__ void rk45_surface_iter(
-    const MarchScalars& m, const Rk45Control& c, float r_in, float r_out,
+    const S& m, const Rk45Control& c, float r_in, float r_out,
     const VolSlots& v, const float* scatter, float b, float b2, float c1,
     float c2, float nz, float* l, float* psi, float* p_l, float* dt,
     float* zq, float acc[6], int* slot, int* sign, int* n_acc) {

@@ -29,7 +29,7 @@
 namespace curvis {
 
 // Cotangents of (l, p_l) and theta (g[0..2] the metric slots, g[3] b; a
-// table's coefficients after them, as euler_step_vjp's) of one RHS
+// table's coefficients at gc, as euler_step_vjp's) of one RHS
 // evaluation (dl, dpsi, dp_l) at (l, p_l) for the cotangents
 // (u, v, w) of its outputs, added to *g_l, *g_pl and g: the derivatives of
 // the guarded forms of curvis_tpu_torch/integrate/rk45_adjoint_planar.py:
@@ -40,7 +40,8 @@ __device__ __forceinline__ void planar_deriv_vjp(const S& s,
                                                  float l, float p_l, float b,
                                                  float b2, float u, float v,
                                                  float w, float* g_l,
-                                                 float* g_pl, float g[4]) {
+                                                 float* g_pl, float* g,
+                                                 float* gc) {
   const float sl = clip_share(l, -1e4f, 1e4f);
   const float lc = clip_nan(l, -1e4f, 1e4f);
   if constexpr (KIND == kEllis) {
@@ -92,7 +93,7 @@ __device__ __forceinline__ void planar_deriv_vjp(const S& s,
     // l^2 + s^2 floored at 1e-12
     float inv, dr3, g_lc = 0.0f;
     table_shape_vjp<true>(s.tab, lc, v * b, w * b2, &inv, &dr3, &g_lc,
-                          &g[0], g + 4, g + 4 + kChebCap);
+                          &g[0], gc, gc + kChebCap);
     *g_l += g_lc * sl;
     *g_pl += u;
     g[3] += v * inv + w * 2.0f * b * dr3;
@@ -152,7 +153,8 @@ __device__ __forceinline__ void rk45_control_vjp(const Rk45Control& c,
 
 // VJP of rk45_trial at the start state of r, for the cotangents g_out of
 // the written-back (l, psi, p_l) and g_err of the error norm: adds to
-// g_y[3] (l, psi, p_l), *g_dt and g[4] (p0, p1, p2, b).
+// g_y[3] (l, psi, p_l), *g_dt and g[4] (p0, p1, p2, b; a table's series
+// coefficients at gc).
 template <int KIND, class S>
 __device__ __forceinline__ void rk45_trial_vjp(const S& s,
                                                const Rk45Control& c,
@@ -160,7 +162,8 @@ __device__ __forceinline__ void rk45_trial_vjp(const S& s,
                                                const Rk45Rec& r,
                                                const float g_out[3],
                                                float g_err, float g_y[3],
-                                               float* g_dt, float g[4]) {
+                                               float* g_dt, float* g,
+                                               float* gc) {
   const float dt = r.dt;
   // out = y + a (y5 - y), a = accept ? frac : 0
   float g_y5[3], g_a = 0.0f;
@@ -215,7 +218,7 @@ __device__ __forceinline__ void rk45_trial_vjp(const S& s,
   for (int i = 6; i >= 0; --i) {
     float g_li = 0.0f, g_pli = 0.0f;
     planar_deriv_vjp<KIND>(s, r.st.li[i], r.st.pli[i], b, b2, gk[i][0],
-                           gk[i][1], gk[i][2], &g_li, &g_pli, g);
+                           gk[i][1], gk[i][2], &g_li, &g_pli, g, gc);
     g_y[0] += g_li;
     g_y[2] += g_pli;
 #pragma unroll
@@ -248,7 +251,7 @@ __device__ __forceinline__ void rk45_iter_vjp(const S& s,
     rk45_control_vjp(c, r, rk45_terminal(s, r, false), lam[3], &g_dt,
                      &g_err);
   float g_y[3] = {0.0f, 0.0f, 0.0f};
-  rk45_trial_vjp<KIND>(s, c, b, b2, r, lam, g_err, g_y, &g_dt, g);
+  rk45_trial_vjp<KIND>(s, c, b, b2, r, lam, g_err, g_y, &g_dt, g, g + 4);
   lam[0] = g_y[0];
   lam[1] = g_y[1];
   lam[2] = g_y[2];

@@ -72,18 +72,25 @@ __device__ __forceinline__ void take_hit_cotangent(int k, float* lam_h,
 // ----------------------------------------------------------------- vol gas
 
 // Cotangents of the emission's radius r(l) (l for the lapse kinds, else
-// rsqrt of planar_inv_r2): adds to *g_l and gp[0..2].
-template <int KIND>
-__device__ __forceinline__ void radius_vjp(const MarchScalars& m, float l,
-                                           float g_r, float* g_l,
-                                           float gp[3]) {
+// rsqrt of planar_inv_r2): adds to *g_l and gp[0..2] (a table: s^2 to
+// gp[0] and its series coefficients to gc, c1's then c2's at
+// gc + kChebCap, through table_shape_vjp).
+template <int KIND, class S>
+__device__ __forceinline__ void radius_vjp(const S& m, float l, float g_r,
+                                           float* g_l, float gp[3],
+                                           float* gc) {
   if constexpr (HasCapture<KIND>::value) {
     *g_l += g_r;
   } else {
     const float q = planar_inv_r2<KIND>(m, l);
     const float r = rsqrtf(q);
     const float g_q = g_r * (-0.5f) * r * r * r;
-    if constexpr (KIND == kEllis) {
+    if constexpr (KIND == kTable) {
+      // q = inv of the series; dr3 gets no cotangent
+      float inv, dr3;
+      table_shape_vjp<false>(m.tab, l, g_q, 0.0f, &inv, &dr3, g_l, &gp[0],
+                             gc, gc + kChebCap);
+    } else if constexpr (KIND == kEllis) {
       const float g_den = -g_q * q * q;
       *g_l += g_den * 2.0f * l;
       gp[0] += g_den * 2.0f * m.p0;
@@ -250,18 +257,19 @@ __device__ __forceinline__ void vol_color_vjp(
 // the runtime flags, for the cotangents (g_dtau, g_dem[3]) of (dtau, dem):
 // adds to *g_l, *g_pl, *g_zq, *g_tau and to g (the theta layout of the vol
 // family: p0, p1, p2 at 0-2, b at 3, nz at 6, r_in, r_out and the 8 slots
-// at 7-16, the scatter block at 17-43).
-template <int KIND>
+// at 7-16, the scatter block at 17-43; a table's s^2 at 0 and its series
+// coefficients at gc, as radius_vjp's).
+template <int KIND, class VS>
 __device__ __forceinline__ void vol_emission_vjp(
-    const VolScalars& s, int flags, float l, float p_l, float b, float zq,
+    const VS& s, int flags, float l, float p_l, float b, float zq,
     float tau, float nz, float g_dtau, const float g_dem[3], float* g_l,
-    float* g_pl, float* g_zq, float* g_tau, float* g) {
+    float* g_pl, float* g_zq, float* g_tau, float* g, float* gc) {
   constexpr bool kLapse = HasCapture<KIND>::value;
   const bool bb = flags & kFlagBlackbody;
   const bool rs = kLapse && (flags & kFlagRedshift);
   const bool dop = kLapse && (flags & kFlagDoppler);
   const bool sc = flags & kFlagScatter;
-  const MarchScalars& m = s.m;
+  const auto& m = s.m;
   const VolSlots& vs = s.v;
   const float r_in = s.r_in, r_out = s.r_out;
   const float* blk = s.scatter;
@@ -410,7 +418,7 @@ __device__ __forceinline__ void vol_emission_vjp(
   g_s2 += g_rcyl * r * 0.5f / sq_s2;
   g_zq2 += -g_s2 * pass(s2_raw, 1e-12f, 1.0f);
   *g_zq += 2.0f * zq * g_zq2;
-  radius_vjp<KIND>(m, l, g_r, g_l, g);
+  radius_vjp<KIND>(m, l, g_r, g_l, g, gc);
   g[0] += g_M;
   g[1] += g_q2;
 }

@@ -27,7 +27,12 @@ steppers:
 
 Gradients flow to the metric's parameters, the spawn state (l, psi, p_l),
 the conserved b, the plane coefficients (c1, c2) and nz, and the emission
-row (the thin disk's recording band gets zero: it is a gate).
+row (the thin disk's recording band gets zero: it is a gate).  A tabulated
+metric's parameters are (s^2, series c1[0..K], series c2[0..K]), the JAX
+package's order, mapped onto its fields (c1, c2, s) as the planar adjoint
+maps them; the kernels add the series' cotangents, through the RHS and
+through the emission's radius, after each family's theta
+(``ops/ckpt_surface_cuda.py``).
 
 Fate policy (the JAX package's): final-state cotangents flow only for the
 smooth fates, escaped (+-1) and capped (0); the hit, tau and emission
@@ -66,12 +71,12 @@ from curvis_tpu_torch.integrate.rk45_adjoint_planar import (_consts,
                                                             _rk45_trial,
                                                             metric_slots)
 from curvis_tpu_torch.metrics.base import Metric
+from curvis_tpu_torch.metrics.table import TabulatedMetric
 from curvis_tpu_torch.ops import ckpt_surface_cuda as cs
 from curvis_tpu_torch.ops import disk_cuda, disk_vol_cuda, rk45_disk_cuda
 from curvis_tpu_torch.ops.disk_cuda import LAPSE_KINDS
-from curvis_tpu_torch.ops.disk_vol_cuda import inv_r2_plain, vol_row_of
-from curvis_tpu_torch.ops.march_cuda import (_NO_CAPTURE, march_scalars,
-                                             refuse_table)
+from curvis_tpu_torch.ops.disk_vol_cuda import inv_r2_plain
+from curvis_tpu_torch.ops.march_cuda import _NO_CAPTURE, march_scalars
 from curvis_tpu_torch.ops.rk45_cuda import jclip, rk45_scalars
 from curvis_tpu_torch.physics import planar as pl
 
@@ -124,7 +129,8 @@ def _pl_rk45_surface_iter(kind, flags, consts, theta, y, freeze=False):
     """One rk45 surface iteration: ``consts`` = (rtol, atol, dt_min, dt_max,
     R, r_cap, dt0) as 0-d tensors, theta = (p0, p1, p2, b, c1, c2, surf)
     (thin, ``flags`` None; surf = (r_in, r_out)) or (p0, p1, p2, b, c1, c2,
-    nz, surf) (vol; surf the emission row [+ scatter block]); y = (l, psi,
+    nz, surf) (vol; surf the emission row [+ scatter block]), a table's
+    (s^2, c1..., c2...) in place of (p0, p1, p2); y = (l, psi,
     p_l, dt) + the six hit values | (tau, em_r, em_g, em_b) -> (y1,
     (accept, esc_pos, esc_neg, cap_i, stall_i, opaque_i)).  ``freeze``
     detaches the controller chain and the clamps."""
@@ -132,10 +138,11 @@ def _pl_rk45_surface_iter(kind, flags, consts, theta, y, freeze=False):
     dt_min, r_cap, dt0 = consts[2], consts[5], consts[6]
     vol = flags is not None
     if vol:
-        p0, p1, p2, b, c1, c2, nz, surf = theta
+        p = theta[:-5]
+        b, c1, c2, nz, surf = theta[-5:]
     else:
-        p0, p1, p2, b, c1, c2, surf = theta
-    p = (p0, p1, p2)
+        p = theta[:-4]
+        b, c1, c2, surf = theta[-4:]
     r_in, r_out = surf[0], surf[1]
     l, psi, p_l, dt = y[:4]
     ex = y[4:]
@@ -148,7 +155,7 @@ def _pl_rk45_surface_iter(kind, flags, consts, theta, y, freeze=False):
     if vol:
         tau, emr, emg, emb = ex
         dtau, dem = disk_vol_cuda.vol_emission_plain(
-            kind, flags, vol_row_of(p, surf), ln, pln, b, zq_new, tau, nz)
+            kind, flags, p, surf, ln, pln, b, zq_new, tau, nz)
         zero = torch.zeros_like(tau)
         ex = (tau + torch.where(accept, dt * dtau, zero),
               *(e + torch.where(accept, dt * d, zero)
@@ -270,18 +277,14 @@ class _SurfaceAdjoint(torch.autograd.Function):
         cot = cot + (zero,) * (2 if rk is None else 1) + tuple(
             torch.where(replay, c, zero) for c in g_ex)
         counts = torch.where(replay, counts, torch.zeros_like(counts))
-        vol = flags is not None
         n_surf = surf.shape[0]
         args = (metric, flags, dt, R, surf, l0, psi0, pl0, b, c1, c2, nz,
                 counts, cot)
         if l0.device.type == "cuda" and not twin:
             g_theta, lam = (_backward_kernel(*args) if rk is None
                             else _backward_kernel_rk45(rk, *args))
-            g_p = tuple(torch.sum(g_theta[i]) for i in range(3))
-            k = 7 if vol else 6
-            g_b, g_c1, g_c2 = g_theta[3], g_theta[4], g_theta[5]
-            g_nz = g_theta[6] if vol else None
-            g_surf = torch.sum(g_theta[k:k + n_surf], dim=1)
+            g_p, g_b, g_c1, g_c2, g_nz, g_surf = _kernel_theta_grads(
+                metric, flags, g_theta, n_surf)
         else:
             g_p, g_b, g_c1, g_c2, g_nz, g_surf, lam = _backward_twin(
                 max_steps, rk, *args)
@@ -362,12 +365,14 @@ def _backward_twin(max_steps, rk, metric, flags, dt, R, surf, l0, psi0, pl0,
                 return _vol_step(kind, flags, dt, th, y)
         else:
             def step(th, y):
-                return _disk_step(kind, dt, (*th[:6], th[6][0], th[6][1]), y)
+                return _disk_step(kind, dt, (*th[:-1], th[-1][0], th[-1][1]),
+                                  y)
     d_theta, lam = ckpt_adjoint_backward(step, theta, y0, counts, cot,
                                          max_steps=bound, segment=segment)
-    g_nz = d_theta[6] if vol else None
-    return (d_theta[:3], d_theta[3], d_theta[4], d_theta[5], g_nz,
-            d_theta[-1], lam)
+    nm = len(p)
+    g_nz = d_theta[nm + 3] if vol else None
+    return (d_theta[:nm], d_theta[nm], d_theta[nm + 1], d_theta[nm + 2],
+            g_nz, d_theta[-1], lam)
 
 
 def _forward_kernel(metric, flags, dt, max_steps, R, l, psi, p_l, b, c1, c2,
@@ -398,6 +403,22 @@ def _backward_kernel(metric, flags, dt, R, surf, l0, psi0, pl0, b, c1, c2,
         cot)
     shape = l0.shape
     return g.reshape(-1, *shape), lam.reshape(-1, *shape)
+
+
+def _kernel_theta_grads(metric, flags, g_theta, n_surf):
+    """The kernels' per-ray theta cotangents ``g_theta`` -> what
+    ``_backward_twin`` returns ahead of lam: (the metric's, summed over
+    rays, in the order of its parameters; b, c1, c2, nz per ray; the
+    surface row's, summed).  The metric's rows are the slots (p0, p1, p2),
+    or a table's s^2 in p0 and its series after the family's theta."""
+    vol = flags is not None
+    rows = ([0, *range(cs.n_theta(flags), g_theta.shape[0])]
+            if isinstance(metric, TabulatedMetric) else [0, 1, 2])
+    g_p = tuple(torch.sum(g_theta[i]) for i in rows)
+    k = 7 if vol else 6
+    return (g_p, g_theta[3], g_theta[4], g_theta[5],
+            g_theta[6] if vol else None,
+            torch.sum(g_theta[k:k + n_surf], dim=1))
 
 
 def _rk45_row(metric, dt, R, rk, surf):
@@ -441,7 +462,6 @@ def _common(metric, state, b, c1, c2, nz, surf, flags, *, stepper, dt,
         pl.check_stepper(stepper)
     if backend not in ("auto", "twin"):
         raise ValueError(f"backend must be 'auto' or 'twin', got {backend!r}")
-    refuse_table(metric, "differentiable disk march")
     l, psi, p_l = state
     rk = None
     if stepper == "rk45":

@@ -24,6 +24,7 @@ from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops.disk_vol_cuda import (inv_r2_plain,
                                                 vol_emission_plain,
                                                 vol_scalars)
+from curvis_tpu_torch.ops.table_cuda import slot_params
 from curvis_tpu_torch.physics.hamiltonian import (HamiltonianResult,
                                                   _rhs_batched)
 from curvis_tpu_torch.physics.planar import (_CHECK_EVERY, PlanarResult,
@@ -105,7 +106,8 @@ def march_planar_rk45(metric: Metric, rays: PlanarRays, *, escape_radius,
         kind, scal = vol_scalars(metric, dt0, escape_radius, vol_disk,
                                  scatter_block)
         vrow = torch.tensor(scal, dtype=dtype, device=dev)
-        p = (vrow[2], vrow[3], vrow[4])
+        p = slot_params(kind, vrow)
+        surf = vrow[6:]
         flags = (vol_disk.color_mode == "blackbody", vol_disk.redshift,
                  vol_disk.doppler, scatter_block is not None)
         r_in, r_out = vol_disk.r_inner, vol_disk.r_outer
@@ -180,8 +182,8 @@ def march_planar_rk45(metric: Metric, rays: PlanarRays, *, escape_radius,
                    torch.where(new2, psi_hit, h2s)]
         if vol:
             tau = acc[0]
-            dtau, dem = vol_emission_plain(kind, flags, vrow, l, p_l, b, zq,
-                                           tau, nz)
+            dtau, dem = vol_emission_plain(kind, flags, p, surf, l, p_l, b,
+                                           zq, tau, nz)
             acc = [tau + torch.where(accept, dt * dtau, 0.0)] + [
                 e + torch.where(accept, dt * d, 0.0)
                 for e, d in zip(acc[1:], dem)]

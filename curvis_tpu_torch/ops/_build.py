@@ -58,7 +58,8 @@ SOURCE_FLAGS = {src: _NO_FMA for src in (
     "ckpt_kerr.cu", "ckpt_kerr_rk45.cu", "ckpt_kerr_surface.cu",
     "ckpt_kerr_surface_rk45.cu", "ckpt_rk45.cu",
     "ckpt_surface_rk45.cu", "ckpt_surface_rk45_schwarzschild.cu",
-    "ckpt_surface_rk45_rn.cu")}
+    "ckpt_surface_rk45_rn.cu", "ckpt_surface_rk45_table.cu",
+    "ckpt_surface_rk45_table_bb.cu")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,10 +79,10 @@ _PROTOTYPES = {
                                  _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
                                  _P],
     # kind, vol, blackbody, redshift, doppler, scatter, scalars, n_scalars,
-    # l, psi, p_l, b, c1, c2, nz, fout (9 | 7 x n), iout (3 x n), n,
+    # table, l, psi, p_l, b, c1, c2, nz, fout (9 | 7 x n), iout (3 x n), n,
     # max_steps, max_iters, device, stream
     "curvis_march_planar_rk45_disk": [_I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
-                                      _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _P, _P, _P, _P, _P, _P, _P,
                                       ctypes.c_longlong, _I, _I, _I, _P],
     # kind, scalars, n_scalars, table, wx, wy, wz, sign, H, n, max_steps,
     # max_iters, device, stream
@@ -96,16 +97,16 @@ _PROTOTYPES = {
     # stream
     "curvis_ckpt_bwd": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
-    # kind, vol, flags, scalars, n_scalars, l, psi, p_l, b, c1, c2, nz,
-    # steps, offsets, ckpt, final, n, seg, device, stream
+    # kind, vol, flags, scalars, n_scalars, table, l, psi, p_l, b, c1, c2,
+    # nz, steps, offsets, ckpt, final, n, seg, device, stream
     "curvis_ckpt_surface_gen": [_I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                                _I, _I, _P],
+    # kind, vol, flags, scalars, n_scalars, table, ckpt, b, c1, c2, nz,
+    # steps, offsets, cot, lam, g_theta, n, seg, device, stream
+    "curvis_ckpt_surface_bwd": [_I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
                                 _I, _P],
-    # kind, vol, flags, scalars, n_scalars, ckpt, b, c1, c2, nz, steps,
-    # offsets, cot, lam, g_theta, n, seg, device, stream
-    "curvis_ckpt_surface_bwd": [_I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
-                                _P],
     # kind, scalars, n_scalars, table, l, psi, p_l, b, iters, offsets, ckpt,
     # final, n, seg, device, stream
     "curvis_ckpt_rk45_gen": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -114,25 +115,26 @@ _PROTOTYPES = {
     # lam, g_theta, n, seg, device, stream
     "curvis_ckpt_rk45_bwd": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                              ctypes.c_longlong, _I, _I, _P],
-    # kind, vol, flags, scalars, n_scalars, l, psi, p_l, b, c1, c2, nz,
-    # iters, offsets, ckpt, final, n, seg, device, stream
+    # kind, vol, flags, scalars, n_scalars, table, l, psi, p_l, b, c1, c2,
+    # nz, iters, offsets, ckpt, final, n, seg, device, stream
     "curvis_ckpt_surface_rk45_gen": [_I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
-                                     _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _P, _P, _P,
                                      ctypes.c_longlong, _I, _I, _P],
-    # kind, vol, flags, scalars, n_scalars, freeze, ckpt, b, c1, c2, nz,
-    # iters, offsets, cot, lam, g_theta, n, seg, device, stream
-    "curvis_ckpt_surface_rk45_bwd": [_I, _I, _I, _P, _I, _I, _P, _P, _P, _P,
-                                     _P, _P, _P, _P, _P, _P,
+    # kind, vol, flags, scalars, n_scalars, table, freeze, ckpt, b, c1, c2,
+    # nz, iters, offsets, cot, lam, g_theta, n, seg, device, stream
+    "curvis_ckpt_surface_rk45_bwd": [_I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
+                                     _P, _P, _P, _P, _P, _P, _P,
                                      ctypes.c_longlong, _I, _I, _P],
-    # kind, scalars, n_scalars, l, psi, p_l, b, c1, c2, fout (9 x n),
+    # kind, scalars, n_scalars, table, l, psi, p_l, b, c1, c2, fout (9 x n),
     # iout (2 x n), n, max_steps, device, stream
-    "curvis_march_disk": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+    "curvis_march_disk": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_longlong, _I, _I, _P],
-    # kind, blackbody, redshift, doppler, scatter, scalars, n_scalars, l,
-    # psi, p_l, b, c1, c2, nz, fout (7 x n), iout (2 x n), n, max_steps,
-    # device, stream
+    # kind, blackbody, redshift, doppler, scatter, scalars, n_scalars,
+    # table, l, psi, p_l, b, c1, c2, nz, fout (7 x n), iout (2 x n), n,
+    # max_steps, device, stream
     "curvis_march_disk_vol": [_I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
-                              _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+                              _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
+                              _P],
     # track_disk, vol, scatter, blackbody, beaming, scalars, n_scalars, r,
     # theta, phi, p_r, p_theta, E, L, fout (5 + 6 | 4 x n), iout (2 x n),
     # n, max_steps, device, stream

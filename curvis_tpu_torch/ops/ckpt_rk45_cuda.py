@@ -225,13 +225,15 @@ def masked(act, x):
 
 
 def trial_vjp_plain(kind, row, p, b, r, g_out, g_err, g_y, g_dt, g,
-                    act=None):
+                    act=None, series_at=None):
     """csrc/rk45_vjp.cuh:rk45_trial_vjp: adds the cotangents of the start
     (l, psi, p_l), dt and theta for those of the written-back state
     ``g_out`` and of the error norm ``g_err`` -> (g_y, g_dt, g).  ``g``
     (p0, p1, p2, b, ...; a table's s^2, c1..., c2..., b) are the running
     per-ray sums, to which each stage adds its terms as the kernel does (in
-    its order, so that the sums round alike; ``act`` masks the terms)."""
+    its order, so that the sums round alike; ``act`` masks the terms).
+    ``series_at``: the disk families' layout, a table's s^2 in slot 0, b in
+    3 and its series from that row."""
     dt, a = r["dt"], r["a"]
     rtol = row[6]
     zero = torch.zeros_like(dt)
@@ -275,7 +277,12 @@ def trial_vjp_plain(kind, row, p, b, r, g_out, g_err, g_y, g_dt, g,
     for i in range(6, -1, -1):
         g_li, g_pli, gi = planar_deriv_vjp_plain(
             kind, p, r["li"][i], r["pli"][i], b, *gk[i])
-        g[:len(gi)] = [ga + masked(act, gb) for ga, gb in zip(g, gi)]
+        if series_at is not None and kind == "table":
+            idx = [0, *range(series_at, series_at + len(gi) - 2), 3]
+        else:
+            idx = range(len(gi))
+        for j, gb in zip(idx, gi):
+            g[j] = g[j] + masked(act, gb)
         g_y[0] = g_y[0] + g_li
         g_y[2] = g_y[2] + g_pli
         for j, a_ij in enumerate(DP_A[i]):

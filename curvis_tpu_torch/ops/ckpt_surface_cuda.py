@@ -18,7 +18,13 @@ The Euler families are the steps of the two Euler disk marches:
 
 The metric slots (p0, p1, p2) and the disk row are the kernels' scalar row
 (``ops/disk_cuda.py:disk_scalars``, ``ops/disk_vol_cuda.py:vol_scalars``);
-b, c1, c2 and nz are per ray.  Ray i takes ``steps[i]`` steps from
+b, c1, c2 and nz are per ray.  A tabulated metric (the kind
+``ops/table_cuda.py:TableKind``) has the metric parameters (s^2, series
+c1[0..K], series c2[0..K]) in place of (p0, p1, p2): in the steps' theta
+they lead, as the JAX package's theta; in the per-ray cotangents the
+kernels return, s^2 takes slot p0 (p1, p2 stay 0) and the 2 (K + 1) series
+coefficients follow the family's theta (``n_theta``).  The table's series
+c1 / c2 are not the plane coefficients c1 / c2.  Ray i takes ``steps[i]`` steps from
 y0 = (l, psi, p_l, cos psi, sin psi, 0, ...) and is frozen after.
 
 ``ckpt_surface_backward_cuda`` pulls a cotangent of the final state back to
@@ -70,12 +76,13 @@ from curvis_tpu_torch.ops.ckpt_adjoint_cuda import (_dneg_shape,
                                                     segment_offsets)
 from curvis_tpu_torch.ops.disk_cuda import LAPSE_KINDS
 from curvis_tpu_torch.ops.disk_vol_cuda import (_BB_K, _BB_L5,
-                                                N_VOL_SCALARS, SCATTER_BLOCK,
-                                                SCATTER_DEG, inv_r2_plain,
-                                                vol_emission_plain,
-                                                vol_row_of)
+                                                SCATTER_BLOCK, SCATTER_DEG,
+                                                inv_r2_plain,
+                                                vol_emission_plain)
 from curvis_tpu_torch.ops.march_cuda import KINDS
 from curvis_tpu_torch.ops.rk45_cuda import next_dt_plain, trial_rec_plain
+from curvis_tpu_torch.ops.table_cuda import (kernel_table, n_series,
+                                             slot_params, table_shape_vjp)
 
 SEG = 32                 # default segment: 32 Euler steps per recompute
 MAX_SEG = 64             # longest segment the backward kernel can hold
@@ -96,10 +103,12 @@ def n_state(flags):
     return N_DISK if flags is None else N_VOL
 
 
-def n_theta(flags):
+def n_theta(flags, kind=None):
+    """Rows of a family's per-ray theta cotangents: the family's own, then
+    a table ``kind``'s 2 (K + 1) series coefficients."""
     if flags is None:
-        return N_THETA_DISK
-    return N_THETA_VOL + (SCATTER_BLOCK if flags[3] else 0)
+        return N_THETA_DISK + n_series(kind)
+    return N_THETA_VOL + (SCATTER_BLOCK if flags[3] else 0) + n_series(kind)
 
 
 def flag_mask(flags):
@@ -113,15 +122,17 @@ def flag_mask(flags):
 
 def disk_step(kind, dt, theta, y):
     """One step of the thin-disk map: theta = (p0, p1, p2, b, c1, c2, r_in,
-    r_out), y = (l, psi, p_l, u, v, h1, h1p, h1s, h2, h2p, h2s), the hits
+    r_out) (a table's (s^2, c1..., c2...) in place of (p0, p1, p2)),
+    y = (l, psi, p_l, u, v, h1, h1p, h1s, h2, h2p, h2s), the hits
     signed (sign = sheet) -> (y1, new1, new2), the booleans saying which
     hit slot this step filled.  Kernel #5's step (csrc/planar.cuh:
     disk_step: the crossing on zq = c1 u + c2 v) with the guarded RHS of
     ``integrate/rk45_adjoint_planar.py``, which equals the kernel's off the
     guards, and selects for the hit slots."""
-    p0, p1, p2, b, c1, c2, r_in, r_out = theta
+    p = theta[:-5]
+    b, c1, c2, r_in, r_out = theta[-5:]
     l, psi, p_l, u, v, h1, h1p, h1s, h2, h2p, h2s = y
-    dl, dpsi, dpl = _guarded_deriv_fns(kind)((p0, p1, p2), l, p_l, b, b * b)
+    dl, dpsi, dpl = _guarded_deriv_fns(kind)(p, l, p_l, b, b * b)
     l1 = l + dt * dl
     pl1 = p_l + dt * dpl
     du = dt * dpsi
@@ -148,31 +159,33 @@ def disk_step(kind, dt, theta, y):
 
 def vol_step(kind, flags, dt, theta, y):
     """One step of the volumetric map: theta = (p0, p1, p2, b, c1, c2, nz,
-    surf), ``surf`` the emission row (with the scatter block when
-    ``flags[3]``), y = (l, psi, p_l, u, v, tau, em_r, em_g, em_b).  Kernel
+    surf) (a table's metric part as ``disk_step``'s), ``surf`` the emission
+    row (with the scatter block when ``flags[3]``), y = (l, psi, p_l, u, v,
+    tau, em_r, em_g, em_b).  Kernel
     #6's step (csrc/planar_vol.cuh:vol_step) with the guarded RHS; the
     emission is ``vol_emission_plain`` at the post-step state with the
     pre-step tau."""
-    p0, p1, p2, b, c1, c2, nz, surf = theta
+    p = theta[:-5]
+    b, c1, c2, nz, surf = theta[-5:]
     l, psi, p_l, u, v, tau, emr, emg, emb = y
-    dl, dpsi, dpl = _guarded_deriv_fns(kind)((p0, p1, p2), l, p_l, b, b * b)
+    dl, dpsi, dpl = _guarded_deriv_fns(kind)(p, l, p_l, b, b * b)
     l = l + dt * dl
     psi = psi + dt * dpsi
     p_l = p_l + dt * dpl
     du = dt * dpsi
     u, v = u - v * du, v + u * du
     zq = c1 * u + c2 * v
-    dtau, dem = vol_emission_plain(kind, flags, vol_row_of((p0, p1, p2), surf),
-                                   l, p_l, b, zq, tau, nz)
+    dtau, dem = vol_emission_plain(kind, flags, p, surf, l, p_l, b, zq, tau,
+                                   nz)
     return (l, psi, p_l, u, v, tau + dt * dtau, emr + dt * dem[0],
             emg + dt * dem[1], emb + dt * dem[2])
 
 
-def step_theta(flags, row, b, c1, c2, nz):
+def step_theta(flags, row, b, c1, c2, nz, kind):
     """(dt, theta) of ``disk_step`` (``flags`` None) or ``vol_step`` from
     the kernels' scalar row ``row`` = [dt, R, p0, p1, p2, r_cap, ...] as a
-    tensor."""
-    p = (row[2], row[3], row[4])
+    tensor (a table ``kind``'s metric part from its series)."""
+    p = slot_params(kind, row)
     if flags is None:
         return row[0], (*p, b, c1, c2, row[6], row[7])
     return row[0], (*p, b, c1, c2, nz, row[6:])
@@ -180,8 +193,27 @@ def step_theta(flags, row, b, c1, c2, nz):
 
 # ------------------------------------------------------- plain VJPs
 
-def _p(row):
-    return (row[2], row[3], row[4])
+def _slots_series(kind, gm, zero):
+    """Metric cotangents in the order of the metric parameters -> (the
+    slots (p0, p1, p2), the series coefficients' list): a table's s^2
+    takes p0 and its series follow the family's theta, as the kernels keep
+    them."""
+    if kind == "table":
+        return (gm[0], zero, zero), list(gm[1:])
+    return tuple(gm), []
+
+
+def _add_metric(kind, g, gm, act, base):
+    """Adds the metric cotangents ``gm`` (in the metric parameters' order)
+    to the per-ray sums ``g`` where ``act``: to the slots, a table's s^2 to
+    p0 and its series to the rows from ``base``."""
+    (s0, s1, s2), series = _slots_series(kind, gm, None)
+    g[0] = g[0] + ckr.masked(act, s0)
+    if kind != "table":
+        g[1] = g[1] + ckr.masked(act, s1)
+        g[2] = g[2] + ckr.masked(act, s2)
+    for k, c in enumerate(series):
+        g[base + k] = g[base + k] + ckr.masked(act, c)
 
 
 def _clamp_pass(x, lo=None, hi=None):
@@ -240,9 +272,9 @@ def disk_step_vjp_plain(kind, row, start, new1, new2, b, c1, c2, lam):
     and the hits do not enter its arithmetic), with the slots it filled
     (``new1``, ``new2``) as data, as csrc/ckpt_surface.cu:disk_step_vjp.
     ``lam`` (11) is the cotangent of the step's output -> (that of its
-    input (11), per-ray theta cotangents (8)).  A filled slot's old value
-    gets no cotangent, as through a select."""
-    dt, p = row[0], _p(row)
+    input (11), per-ray theta cotangents (8, then a table's series)).  A
+    filled slot's old value gets no cotangent, as through a select."""
+    dt, p = row[0], slot_params(kind, row)
     l, p_l, u, v = start
     lam_l, lam_psi, lam_pl, lam_u, lam_v = lam[:5]
     zero = torch.zeros_like(l)
@@ -272,23 +304,29 @@ def disk_step_vjp_plain(kind, row, start, new1, new2, b, c1, c2, lam):
     g_v = c2 * g_zq - du * g_u1 + g_v1
     g_du = g_du - v * g_u1 + u * g_v1
     # the Euler update and the RHS: l1 = l + dt dl, du = dt dpsi, ...
-    (g_l, _, g_pl), (g0, g1, g2, gb) = euler_step_vjp(
-        kind, dt, p, l, p_l, b, (g_l1, g_du, g_pl1))
+    (g_l, _, g_pl), gm = euler_step_vjp(kind, dt, p, l, p_l, b,
+                                        (g_l1, g_du, g_pl1))
+    slots, series = _slots_series(kind, gm[:-1], zero)
     lam_in = (g_l + (1.0 - frac) * g_lh, lam_psi + g_psih,
               g_pl + (1.0 - frac) * g_plh, g_u, g_v, *hits)
-    return lam_in, (g0, g1, g2, gb, g_c1, g_c2, zero, zero)
+    return lam_in, (*slots, gm[-1], g_c1, g_c2, zero, zero, *series)
 
 
 def _radius_vjp(kind, p, l, g_r):
-    """Cotangents (of l, of p0, p1, p2) of the emission's radius r(l): l
-    for the lapse kinds, else rsqrt(1 / r^2) of the shape function."""
+    """Cotangents (of l, of the metric parameters p) of the emission's
+    radius r(l): l for the lapse kinds, else rsqrt(1 / r^2) of the shape
+    function (a table's through ``table_shape_vjp``, as
+    csrc/surface_vjp.cuh:radius_vjp)."""
     zero = torch.zeros_like(l)
     if kind in LAPSE_KINDS:
         return g_r, (zero, zero, zero)
-    p0, p1, p2 = p
     q = inv_r2_plain(kind, p, l)
     r = torch.rsqrt(q)
     g_q = g_r * (-0.5) * r * r * r
+    if kind == "table":
+        _, _, g_l, g_s2, gc = table_shape_vjp(kind, p, l, g_q, zero)
+        return g_l, (g_s2, *gc)
+    p0, p1, p2 = p
     if kind == "ellis":
         g_den = -g_q * q * q
         return g_den * 2.0 * l, (g_den * 2.0 * p0, zero, zero)
@@ -312,18 +350,18 @@ def _radius_vjp(kind, p, l, g_r):
     return g_l, (g_m, g_a, g_rd)
 
 
-def vol_emission_vjp_plain(kind, flags, row, l, p_l, b, zq, tau, nz, g_dtau,
-                           g_dem):
-    """VJP of ``ops/disk_vol_cuda.py:vol_emission_plain`` at (l, p_l, b,
-    zq, tau, nz) for the cotangents of (dtau, dem_r, dem_g, dem_b), as
-    csrc/ckpt_surface.cu:vol_emission_vjp -> (g_l, g_pl, g_b, g_zq, g_tau,
-    g_nz, (g_p0, g_p1, g_p2), g_surf (10: r_in, r_out and the 8 slots),
+def vol_emission_vjp_plain(kind, flags, p, surf, l, p_l, b, zq, tau, nz,
+                           g_dtau, g_dem):
+    """VJP of ``ops/disk_vol_cuda.py:vol_emission_plain`` (metric
+    parameters ``p``, emission row ``surf``) at (l, p_l, b, zq, tau, nz)
+    for the cotangents of (dtau, dem_r, dem_g, dem_b), as
+    csrc/surface_vjp.cuh:vol_emission_vjp -> (g_l, g_pl, g_b, g_zq, g_tau,
+    g_nz, g_p (in p's order), g_surf (10: r_in, r_out and the 8 slots),
     g_block (SCATTER_BLOCK, or None without scatter))."""
     blackbody, redshift, doppler, scatter = flags
-    p = _p(row)
-    r_in, r_out = row[6], row[7]
-    h2, inv_norm, kappa, _, t_peak, emis_q, spin, t_scale = row[8:16]
-    blk = row[N_VOL_SCALARS:]
+    r_in, r_out = surf[0], surf[1]
+    h2, inv_norm, kappa, _, t_peak, emis_q, spin, t_scale = surf[2:10]
+    blk = surf[10:]
     zero = torch.zeros_like(l)
     lapse = kind in LAPSE_KINDS
     # ---- forward, as vol_emission_plain
@@ -575,7 +613,8 @@ def vol_emission_vjp_plain(kind, flags, row, l, p_l, b, zq, tau, nz, g_dtau,
     g_zq2 = g_zq2 - g_s2 * _clamp_pass(s2_raw, 1e-12, 1.0)
     g_zq = 2.0 * zq * g_zq2
     g_l, g_pm = _radius_vjp(kind, p, l, g_r)
-    g_p = (g_pm[0] + g_M, g_pm[1] + g_q2, g_pm[2])
+    g_p = g_pm if kind == "table" else (g_pm[0] + g_M, g_pm[1] + g_q2,
+                                        g_pm[2])
     g_surf = (g_rin, g_rout, g_h2, g_invnorm, g_kappa, zero, g_tpeak,
               g_emisq, g_spin, g_tscale)
     return (g_l, g_pl, g_b, g_zq, g_tau, g_nz, g_p, g_surf, g_blk)
@@ -586,8 +625,8 @@ def vol_step_vjp_plain(kind, flags, row, start, b, c1, c2, nz, lam):
     (psi and the emission sums do not enter its arithmetic), as
     csrc/ckpt_surface.cu:vol_step_vjp.  ``lam`` (9) is the cotangent of
     the step's output -> (that of its input (9), per-ray theta cotangents
-    (17, or 44 with the scatter block))."""
-    dt, p = row[0], _p(row)
+    (17, or 44 with the scatter block, then a table's series))."""
+    dt, p = row[0], slot_params(kind, row)
     l, p_l, u, v, tau = start
     lam_l, lam_psi, lam_pl, lam_u, lam_v, lam_tau, *lam_em = lam
     dl, dpsi, dpl = planar_deriv(kind, p, l, p_l, b)
@@ -598,8 +637,8 @@ def vol_step_vjp_plain(kind, flags, row, start, b, c1, c2, nz, lam):
     v1 = v + u * du
     zq = c1 * u1 + c2 * v1
     (g_l1e, g_pl1e, g_be, g_zq, g_tau, g_nz, g_pe, g_surf,
-     g_blk) = vol_emission_vjp_plain(kind, flags, row, l1, pl1, b, zq, tau,
-                                     nz, dt * lam_tau,
+     g_blk) = vol_emission_vjp_plain(kind, flags, p, row[6:], l1, pl1, b,
+                                     zq, tau, nz, dt * lam_tau,
                                      [dt * e for e in lam_em])
     g_l1 = lam_l + g_l1e
     g_pl1 = lam_pl + g_pl1e
@@ -612,14 +651,15 @@ def vol_step_vjp_plain(kind, flags, row, start, b, c1, c2, nz, lam):
     g_du = -v * g_u1 + u * g_v1
     # psi1 = psi + dt dpsi and du = dt dpsi: dpsi's cotangent is
     # dt (lam_psi + g_du)
-    (g_l, _, g_pl), (g0, g1, g2, gb) = euler_step_vjp(
-        kind, dt, p, l, p_l, b, (g_l1, lam_psi + g_du, g_pl1))
+    (g_l, _, g_pl), gm = euler_step_vjp(kind, dt, p, l, p_l, b,
+                                        (g_l1, lam_psi + g_du, g_pl1))
     lam_in = (g_l, lam_psi, g_pl, g_u, g_v, lam_tau + g_tau, *lam_em)
-    g = (g0 + g_pe[0], g1 + g_pe[1], g2 + g_pe[2], gb + g_be, g_c1, g_c2,
-         g_nz, *g_surf)
+    slots, series = _slots_series(
+        kind, [a + c for a, c in zip(gm[:-1], g_pe)], torch.zeros_like(l))
+    g = (*slots, gm[-1] + g_be, g_c1, g_c2, g_nz, *g_surf)
     if g_blk is not None:
         g = g + tuple(g_blk)
-    return lam_in, g
+    return lam_in, g + tuple(series)
 
 
 # ------------------------------------------------------- plain kernel pair
@@ -631,7 +671,7 @@ def _y0(flags, l, psi, p_l):
 
 
 def _stepper(kind, flags, row, b, c1, c2, nz):
-    dt, theta = step_theta(flags, row, b, c1, c2, nz)
+    dt, theta = step_theta(flags, row, b, c1, c2, nz, kind)
     if flags is None:
         return lambda y: disk_step(kind, dt, theta, y)[0]
     return lambda y: vol_step(kind, flags, dt, theta, y)
@@ -666,8 +706,8 @@ def ckpt_surface_bwd_plain(kind, flags, scal, ckpt, b, c1, c2, nz, steps,
     (n_state, n)).  A step at or past a ray's count is the identity."""
     row = torch.tensor(scal, dtype=b.dtype, device=b.device)
     lam = tuple(cot)
-    g = [torch.zeros_like(b) for _ in range(n_theta(flags))]
-    dt, theta = step_theta(flags, row, b, c1, c2, nz)
+    g = [torch.zeros_like(b) for _ in range(n_theta(flags, kind))]
+    dt, theta = step_theta(flags, row, b, c1, c2, nz, kind)
     n_seg = -(-int(steps.max()) // seg) if steps.numel() else 0
     for s in range(n_seg - 1, -1, -1):
         has = s * seg < steps
@@ -723,12 +763,13 @@ def launch_gen(kind, flags, scal, l, psi, p_l, b, c1, c2, nz, steps, *,
     n_s = n_state(flags)
     ckpt = torch.empty((max(total, 1), n_s), dtype=torch.float32, device=dev)
     final = torch.empty((n_s, n), dtype=torch.float32, device=dev)
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_ckpt_surface_gen(
         KINDS[kind], int(flags is not None), flag_mask(flags), row,
-        len(scal), l.data_ptr(), psi.data_ptr(), p_l.data_ptr(),
+        len(scal), _build.table_ptr(tab), l.data_ptr(), psi.data_ptr(), p_l.data_ptr(),
         b.data_ptr(), c1.data_ptr(), c2.data_ptr(), nz.data_ptr(),
         steps.data_ptr(), offsets.data_ptr(), ckpt.data_ptr(),
         final.data_ptr(), n, seg, dev.index, stream)
@@ -753,13 +794,15 @@ def launch_bwd(kind, flags, scal, ckpt, b, c1, c2, nz, steps, cot, *, seg,
             or not ckpt.is_contiguous():
         raise ValueError(f"bad checkpoint buffer {tuple(ckpt.shape)}")
     lam = torch.empty((n_s, n), dtype=torch.float32, device=dev)
-    g = torch.empty((n_theta(flags), n), dtype=torch.float32, device=dev)
+    g = torch.empty((n_theta(flags, kind), n), dtype=torch.float32,
+                    device=dev)
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_ckpt_surface_bwd(
         KINDS[kind], int(flags is not None), flag_mask(flags), row,
-        len(scal), ckpt.data_ptr(), b.data_ptr(), c1.data_ptr(),
+        len(scal), _build.table_ptr(tab), ckpt.data_ptr(), b.data_ptr(), c1.data_ptr(),
         c2.data_ptr(), nz.data_ptr(), steps.data_ptr(), offsets.data_ptr(),
         cot.data_ptr(), lam.data_ptr(), g.data_ptr(), n, seg, dev.index,
         stream)
@@ -783,7 +826,7 @@ def ckpt_surface_backward_cuda(kind, flags, scal, y0, b, c1, c2, nz, steps,
     offsets, total = segment_offsets(steps, seg)
     dev = b.device
     if total == 0:
-        return (torch.zeros((n_theta(flags), b.numel()), dtype=b.dtype,
+        return (torch.zeros((n_theta(flags, kind), b.numel()), dtype=b.dtype,
                             device=dev), cot.clone())
     if dev.type == "cpu":
         ckpt, _ = ckpt_surface_gen_plain(kind, flags, scal, *y0, b, c1, c2,
@@ -815,23 +858,16 @@ def n_state_rk45(flags):
     return N_DISK_RK45 if flags is None else N_VOL_RK45
 
 
-def _vol_rk45_row(row):
-    """Kernel #4's vol row [dt0, R, p0, p1, p2, r_cap, rtol, atol, dt_max,
-    r_in, r_out, slots, block] as the Euler vol row that
-    ``vol_emission_vjp_plain`` reads (the controller dropped)."""
-    return torch.cat([row[:6], row[9:]])
-
-
 def rk45_thin_iter_vjp_plain(kind, row, start, new1, new2, b, c1, c2, lam,
                              freeze=False, g=None, act=None):
     """VJP of ``ops/rk45_disk_cuda.py:rk45_surface_iter_plain`` (disk
     tracker) at the start (l, psi, p_l, dt), with the hit slot it filled as
     data, as csrc/ckpt_surface_rk45.cu:rk45_thin_iter_vjp.  ``lam`` (10) is
     the cotangent of the state after it -> (that of the state before it
-    (10), the per-ray theta sums ``g`` (8) with this iteration's terms
-    added as the kernel adds them (from zeros when None; ``act`` masks
-    them))."""
-    p = _p(row)
+    (10), the per-ray theta sums ``g`` (8, then a table's series) with this
+    iteration's terms added as the kernel adds them (from zeros when None;
+    ``act`` masks them))."""
+    p = slot_params(kind, row)
     dt0, r_out = row[0], row[10]
     l, psi, p_l, dt = start
     zero = torch.zeros_like(l)
@@ -872,11 +908,11 @@ def rk45_thin_iter_vjp_plain(kind, row, start, new1, new2, b, c1, c2, lam,
     g_zq1 = g_zq1 + torch.where(filled, gz1, zero)
     g_out[1] = g_out[1] + g_zq1 * (c2 * cs1 - c1 * sn1)
     g_y[1] = g_y[1] + g_zq0 * (c2 * cs0 - c1 * sn0)
-    g = [zero] * N_THETA_DISK if g is None else list(g)
+    g = [zero] * n_theta(None, kind) if g is None else list(g)
     g[4] = g[4] + ckr.masked(act, g_zq0 * cs0 + g_zq1 * cs1)
     g[5] = g[5] + ckr.masked(act, g_zq0 * sn0 + g_zq1 * sn1)
     g_y, g_dt, g = ckr.trial_vjp_plain(kind, row, p, b, r, g_out, g_err, g_y,
-                                       g_dt, g, act)
+                                       g_dt, g, act, series_at=N_THETA_DISK)
     return (*g_y, g_dt, *hits), tuple(g)
 
 
@@ -885,13 +921,14 @@ def rk45_vol_iter_vjp_plain(kind, flags, row, start, b, c1, c2, nz, lam,
     """VJP of ``rk45_surface_iter_plain`` (vol) at the start (l, psi, p_l,
     dt, tau), as csrc/ckpt_surface_rk45.cu:rk45_vol_iter_vjp.  ``lam`` (8)
     is the cotangent of the state after it -> (that of the state before it
-    (8), the per-ray theta sums ``g`` (17, or 44 with the scatter block)
-    with this iteration's terms added (from zeros when None; ``act`` masks
+    (8), the per-ray theta sums ``g`` (17, or 44 with the scatter block,
+    then a table's series) with this iteration's terms added (from zeros when None; ``act`` masks
     them): the gas clamp's and the emission's first, then (c1, c2) and
     the stages', in the kernel's order of the terms that carry the
     controller's chain."""
-    p = _p(row)
-    vrow = _vol_rk45_row(row)
+    p = slot_params(kind, row)
+    surf = row[9:]
+    base = n_theta(flags)
     dt0, r_out, h2, tau_max = row[0], row[10], row[11], row[14]
     l, psi, p_l, dt, tau = start
     zero = torch.zeros_like(l)
@@ -900,12 +937,12 @@ def rk45_vol_iter_vjp_plain(kind, flags, row, start, b, c1, c2, nz, lam,
     accept = r["accept"]
     cs1, sn1 = torch.cos(psin), torch.sin(psin)
     zq1 = c1 * cs1 + c2 * sn1
-    dtau, dem = vol_emission_plain(kind, flags, vrow, ln, pln, b, zq1, tau,
-                                   nz)
+    dtau, dem = vol_emission_plain(kind, flags, p, surf, ln, pln, b, zq1,
+                                   tau, nz)
     opaque = accept & (tau + dt * dtau > tau_max)
     terminal = ckr.terminal_plain(row, r, opaque)
     m = functools.partial(ckr.masked, act)
-    g = [zero] * n_theta(flags) if g is None else list(g)
+    g = [zero] * n_theta(flags, kind) if g is None else list(g)
     g_out = list(lam[:3])
     g_zq1 = g_dt = g_err = zero
     if not freeze:
@@ -946,21 +983,21 @@ def rk45_vol_iter_vjp_plain(kind, flags, row, start, b, c1, c2, nz, lam,
             g_lr, g_pr = _radius_vjp(kind, p, ln,
                                      g_rl * ckr._max_share(q, 1e-30))
             g_out[0] = g_out[0] + g_lr
-            g[:3] = [a + m(c) for a, c in zip(g[:3], g_pr)]
+            _add_metric(kind, g, g_pr, act, base)
         g_dt, g_err = ckr.control_vjp_plain(row, r, terminal, g_next)
     # tau += dt dtau, em += dt dem on an accepted iteration (the trial dt)
     lam_em = [torch.where(accept, e, zero) for e in lam[5:]]
     lam_tau = torch.where(accept, lam[4], zero)
     g_dt = g_dt + lam_tau * dtau + sum(e * d for e, d in zip(lam_em, dem))
     (g_le, g_ple, g_be, g_zqe, g_taue, g_nze, g_pe, g_surf,
-     g_blk) = vol_emission_vjp_plain(kind, flags, vrow, ln, pln, b, zq1, tau,
-                                     nz, dt * lam_tau,
+     g_blk) = vol_emission_vjp_plain(kind, flags, p, surf, ln, pln, b, zq1,
+                                     tau, nz, dt * lam_tau,
                                      [dt * e for e in lam_em])
     g_out[0] = g_out[0] + g_le
     g_out[2] = g_out[2] + g_ple
     g_zq1 = g_zq1 + g_zqe
     g_out[1] = g_out[1] + g_zq1 * (c2 * cs1 - c1 * sn1)
-    g[:3] = [a + m(c) for a, c in zip(g[:3], g_pe)]
+    _add_metric(kind, g, g_pe, act, base)
     g[3] = g[3] + m(g_be)
     g[6] = g[6] + m(g_nze)
     for i, gs in enumerate(g_surf):
@@ -971,7 +1008,8 @@ def rk45_vol_iter_vjp_plain(kind, flags, row, start, b, c1, c2, nz, lam,
     g[4] = g[4] + m(g_zq1 * cs1)
     g[5] = g[5] + m(g_zq1 * sn1)
     g_y, g_dt, g = ckr.trial_vjp_plain(kind, row, p, b, r, g_out, g_err,
-                                       (zero, zero, zero), g_dt, g, act)
+                                       (zero, zero, zero), g_dt, g, act,
+                                       series_at=base)
     return (*g_y, g_dt, lam[4] + g_taue, *lam[5:]), tuple(g)
 
 
@@ -982,7 +1020,7 @@ def ckpt_surface_rk45_gen_plain(kind, flags, scal, l, psi, p_l, b, c1, c2,
     ray's segment starts into the compacted (total, n_state) buffer ->
     (ckpt, final state (n_state, n))."""
     row = torch.tensor(scal, dtype=l.dtype, device=l.device)
-    theta = r4.surface_theta(flags, row, b, c1, c2, nz)
+    theta = r4.surface_theta(flags, row, b, c1, c2, nz, kind)
     n_s = n_state_rk45(flags)
     zero = torch.zeros_like(l)
     y = (l, psi, p_l, torch.ones_like(l) * row[0]) + (zero,) * (n_s - 4)
@@ -1006,9 +1044,9 @@ def ckpt_surface_rk45_bwd_plain(kind, flags, scal, freeze, ckpt, b, c1, c2,
     (n_theta, n), lam (n_state, n)).  An iteration at or past a ray's count
     is the identity."""
     row = torch.tensor(scal, dtype=b.dtype, device=b.device)
-    theta = r4.surface_theta(flags, row, b, c1, c2, nz)
+    theta = r4.surface_theta(flags, row, b, c1, c2, nz, kind)
     lam = tuple(cot)
-    g = [torch.zeros_like(b) for _ in range(n_theta(flags))]
+    g = [torch.zeros_like(b) for _ in range(n_theta(flags, kind))]
     n_seg = -(-int(iters.max()) // seg) if iters.numel() else 0
     for s in range(n_seg - 1, -1, -1):
         has = s * seg < iters
@@ -1049,12 +1087,13 @@ def launch_rk45_gen(kind, flags, scal, l, psi, p_l, b, c1, c2, nz, iters, *,
     n_s = n_state_rk45(flags)
     ckpt = torch.empty((max(total, 1), n_s), dtype=torch.float32, device=dev)
     final = torch.empty((n_s, n), dtype=torch.float32, device=dev)
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_ckpt_surface_rk45_gen(
         KINDS[kind], int(flags is not None), flag_mask(flags), row,
-        len(scal), l.data_ptr(), psi.data_ptr(), p_l.data_ptr(),
+        len(scal), _build.table_ptr(tab), l.data_ptr(), psi.data_ptr(), p_l.data_ptr(),
         b.data_ptr(), c1.data_ptr(), c2.data_ptr(), nz.data_ptr(),
         iters.data_ptr(), offsets.data_ptr(), ckpt.data_ptr(),
         final.data_ptr(), n, seg, dev.index, stream)
@@ -1079,13 +1118,15 @@ def launch_rk45_bwd(kind, flags, scal, freeze, ckpt, b, c1, c2, nz, iters,
             or not ckpt.is_contiguous():
         raise ValueError(f"bad checkpoint buffer {tuple(ckpt.shape)}")
     lam = torch.empty((n_s, n), dtype=torch.float32, device=dev)
-    g = torch.empty((n_theta(flags), n), dtype=torch.float32, device=dev)
+    g = torch.empty((n_theta(flags, kind), n), dtype=torch.float32,
+                    device=dev)
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_ckpt_surface_rk45_bwd(
         KINDS[kind], int(flags is not None), flag_mask(flags), row,
-        len(scal), int(bool(freeze)), ckpt.data_ptr(), b.data_ptr(),
+        len(scal), _build.table_ptr(tab), int(bool(freeze)), ckpt.data_ptr(), b.data_ptr(),
         c1.data_ptr(), c2.data_ptr(), nz.data_ptr(), iters.data_ptr(),
         offsets.data_ptr(), cot.data_ptr(), lam.data_ptr(), g.data_ptr(), n,
         seg, dev.index, stream)
@@ -1107,7 +1148,7 @@ def ckpt_surface_rk45_backward_cuda(kind, flags, scal, freeze, y0, b, c1,
     offsets, total = segment_offsets(iters, seg)
     dev = b.device
     if total == 0:
-        return (torch.zeros((n_theta(flags), b.numel()), dtype=b.dtype,
+        return (torch.zeros((n_theta(flags, kind), b.numel()), dtype=b.dtype,
                             device=dev), cot.clone())
     if dev.type == "cpu":
         ckpt, _ = ckpt_surface_rk45_gen_plain(kind, flags, scal, *y0, b, c1,

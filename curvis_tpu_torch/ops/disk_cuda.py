@@ -15,6 +15,11 @@ crossing fractions and hit radii differ from these at ~1e-3 in float32),
 psi at the hit is psi + frac du, and a hit accumulates as
 h + new * value.  The lock-step loop masks every ray that has ended, so
 an ended ray never changes, as in the kernel's per-thread loop.
+
+A tabulated metric (``metrics/table.py``) runs as the kind
+``ops/table_cuda.py:TableKind``: the kernel takes its ``ChebTable`` beside
+the row, and the plain version evaluates its series in the kernel's order
+(``ops/table_cuda.py:table_shape``).
 """
 from __future__ import annotations
 
@@ -23,8 +28,8 @@ import torch
 from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops import _build
 from curvis_tpu_torch.ops.ckpt_adjoint_cuda import planar_deriv
-from curvis_tpu_torch.ops.march_cuda import (KINDS, march_scalars,
-                                             refuse_table)
+from curvis_tpu_torch.ops.march_cuda import KINDS, march_scalars
+from curvis_tpu_torch.ops.table_cuda import kernel_table, slot_params
 from curvis_tpu_torch.physics.planar import (_CHECK_EVERY, PlanarResult,
                                              PlanarRays)
 from curvis_tpu_torch.utils.device import common_device
@@ -36,8 +41,7 @@ launches = 0             # kernel launches since the last reset
 
 def disk_scalars(metric: Metric, dt, escape_radius, r_inner, r_outer):
     """(kind, [dt, R, p0, p1, p2, r_cap, r_in, r_out]) as Python floats:
-    the layout of curvis::DiskScalars."""
-    refuse_table(metric, "disk march (kernel #5)")
+    the layout of curvis::DiskScalars (a table: TableKind, s^2 in p0)."""
     kind, head = march_scalars(metric, dt, escape_radius)
     return kind, head + [float(r_inner), float(r_outer)]
 
@@ -58,7 +62,7 @@ def march_planar_disk_plain(kind, scal, l, psi, p_l, b, c1, c2, *,
     h1s, h2, h2p, h2s)."""
     row = torch.tensor(scal, dtype=l.dtype, device=l.device)
     dt, R, r_cap, r_in, r_out = row[0], row[1], row[5], row[6], row[7]
-    p = (row[2], row[3], row[4])
+    p = slot_params(kind, row)
     u, v = torch.cos(psi), torch.sin(psi)
     zq = c1 * u + c2 * v
     hits = [torch.zeros_like(l) for _ in range(6)]
@@ -142,14 +146,15 @@ def launch(kind, scal, l, psi, p_l, b, c1, c2, *, max_steps):
     dev = l.device
     fout = torch.empty((9, n), dtype=torch.float32, device=dev)
     iout = torch.empty((2, n), dtype=torch.int32, device=dev)
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_march_disk(
-        KINDS[kind], row, len(scal), l.data_ptr(), psi.data_ptr(),
-        p_l.data_ptr(), b.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-        fout.data_ptr(), iout.data_ptr(), n, int(max_steps), dev.index,
-        stream)
+        KINDS[kind], row, len(scal), _build.table_ptr(tab), l.data_ptr(),
+        psi.data_ptr(), p_l.data_ptr(), b.data_ptr(), c1.data_ptr(),
+        c2.data_ptr(), fout.data_ptr(), iout.data_ptr(), n, int(max_steps),
+        dev.index, stream)
     _build.check(lib, err, "march_disk_kernel")
     launches += 1
     return (fout[0], fout[1], fout[2], iout[0], iout[1], *fout[3:])

@@ -12,7 +12,9 @@ back to the plain version: a failure to build or launch raises.
 which is the TPU kernel's: r = rsqrt(1 / r^2) of the shape function (r = l
 for the lapse kinds), and the Planck chromaticity from
 ln(e^x - 1) = x + ln(1 - e^-x), where ``render/disk.py``'s XLA twin takes
-r(l) and ``blackbody_rgb``'s clipped expm1 form.
+r(l) and ``blackbody_rgb``'s clipped expm1 form.  A tabulated metric runs
+as ``ops/table_cuda.py:TableKind``: its 1 / r^2 comes from its series
+(``table_shape``) and it has no lapse, so no shift.
 
 The scalar row (``vol_scalars``) is the planar volumetric row of the JAX
 package: the six march scalars, r_in, r_out, the eight emission slots of
@@ -30,8 +32,9 @@ from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops import _build
 from curvis_tpu_torch.ops.ckpt_adjoint_cuda import _dneg_shape, planar_deriv
 from curvis_tpu_torch.ops.disk_cuda import LAPSE_KINDS, _flat_f32, step_sign
-from curvis_tpu_torch.ops.march_cuda import (KINDS, march_scalars,
-                                             refuse_table)
+from curvis_tpu_torch.ops.march_cuda import KINDS, march_scalars
+from curvis_tpu_torch.ops.table_cuda import (kernel_table, slot_params,
+                                             table_shape)
 from curvis_tpu_torch.physics.planar import (_CHECK_EVERY, PlanarResult,
                                              PlanarRays)
 from curvis_tpu_torch.utils.device import common_device
@@ -74,7 +77,6 @@ def vol_scalars(metric: Metric, dt, escape_radius, disk,
                 scatter_block=None):
     """(kind, the kernel's scalar row as Python floats): one host read of
     the metric parameters and, with scattering, one of the block."""
-    refuse_table(metric, "volumetric march (kernel #6)")
     kind, head = march_scalars(metric, dt, escape_radius)
     row = head + [float(disk.r_inner), float(disk.r_outer)]
     return kind, row + vol_param_slots(disk) + scatter_row(scatter_block)
@@ -92,7 +94,10 @@ def scatter_row(scatter_block):
 
 
 def inv_r2_plain(kind, p, l):
-    """1 / r^2 of a capture-free kind, as csrc/planar.cuh:planar_inv_r2."""
+    """1 / r^2 of a capture-free kind, as csrc/planar.cuh:planar_inv_r2
+    (a table's ``p`` = (s^2, c1..., c2...))."""
+    if kind == "table":
+        return table_shape(kind, p, l)[0]
     p0, p1, p2 = p
     if kind == "ellis":
         return 1.0 / (p0 * p0 + l * l)
@@ -109,24 +114,16 @@ def _radius(kind, p, l):
     return torch.rsqrt(inv_r2_plain(kind, p, l))
 
 
-def vol_row_of(p, surf):
-    """The scalar row that ``vol_emission_plain`` reads, from traced pieces:
-    the metric slots ``p`` = (p0, p1, p2) and ``surf`` = (r_in, r_out, the
-    8 slots[, the scatter block]); dt, R and r_cap, which it does not read,
-    are zeros."""
-    zero = torch.zeros_like(surf[0])
-    return torch.cat([torch.stack([zero, zero, *p, zero]), surf])
-
-
-def vol_emission_plain(kind, flags, row, l, p_l, b, zq, tau, nz):
+def vol_emission_plain(kind, flags, p, surf, l, p_l, b, zq, tau, nz):
     """(dtau, (dem_r, dem_g, dem_b)) at the post-step state, as the
-    kernel's vol_emission; ``row`` is the scalar row as a tensor and
-    ``flags`` (blackbody, redshift, doppler, scatter).  torch.clamp and
+    kernel's vol_emission: ``p`` the metric parameters ((p0, p1, p2), a
+    table's (s^2, c1..., c2...)), ``surf`` the emission row (r_in, r_out,
+    the 8 slots[, the scatter block]) as a tensor and ``flags``
+    (blackbody, redshift, doppler, scatter).  torch.clamp and
     torch.maximum propagate NaN, as the kernel's clip_nan and max_nan."""
     blackbody, redshift, doppler, scatter = flags
-    p = (row[2], row[3], row[4])
-    r_in, r_out = row[6], row[7]
-    h2, inv_norm, kappa, _, _, _, spin_sign, _ = row[8:16]
+    r_in, r_out = surf[0], surf[1]
+    h2, inv_norm, kappa, _, _, _, spin_sign, _ = surf[2:10]
     r = _radius(kind, p, l)
     zq2 = zq * zq
     s2 = torch.clamp(1.0 - zq2, 1e-12, 1.0)
@@ -160,11 +157,11 @@ def vol_emission_plain(kind, flags, row, l, p_l, b, zq, tau, nz):
             g = g / (gamma * (1.0 - v * cos_xi))
     trans = torch.exp(-tau)
     dtau = kappa * base
-    block = row[N_VOL_SCALARS:]
+    block = surf[10:]
     scat = (scatter_source_plain(block, r_cyl, r_in, r_out, trans * base)
             if scatter else None)
-    return dtau, vol_color_plain(row[8:16], r_in, rr, g, trans * base, block,
-                                 scat, blackbody)
+    return dtau, vol_color_plain(surf[2:10], r_in, rr, g, trans * base,
+                                 block, scat, blackbody)
 
 
 def scatter_source_plain(block, r_cyl, r_in, r_out, sw):
@@ -224,7 +221,8 @@ def march_planar_disk_volumetric_plain(kind, flags, scal, l, psi, p_l, b, c1,
     em_b)."""
     row = torch.tensor(scal, dtype=l.dtype, device=l.device)
     dt, R, r_cap, tau_max = row[0], row[1], row[5], row[11]
-    p = (row[2], row[3], row[4])
+    p = slot_params(kind, row)
+    surf = row[6:]
     u, v = torch.cos(psi), torch.sin(psi)
     tau = torch.zeros_like(l)
     em = [torch.zeros_like(l) for _ in range(3)]
@@ -242,8 +240,8 @@ def march_planar_disk_volumetric_plain(kind, flags, scal, l, psi, p_l, b, c1,
         u1 = u - v * du
         v1 = v + u * du
         zq = c1 * u1 + c2 * v1
-        dtau, dem = vol_emission_plain(kind, flags, row, l1, pl1, b, zq, tau,
-                                       nz)
+        dtau, dem = vol_emission_plain(kind, flags, p, surf, l1, pl1, b, zq,
+                                       tau, nz)
         em = [torch.where(alive, e + dt * d, e) for e, d in zip(em, dem)]
         tau1 = torch.where(alive, tau + dt * dtau, tau)
         l = torch.where(alive, l1, l)
@@ -301,12 +299,13 @@ def launch(kind, flags, scal, l, psi, p_l, b, c1, c2, nz, *, max_steps):
     dev = l.device
     fout = torch.empty((7, n), dtype=torch.float32, device=dev)
     iout = torch.empty((2, n), dtype=torch.int32, device=dev)
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_march_disk_vol(
         KINDS[kind], *(int(bool(f)) for f in flags), row, len(scal),
-        l.data_ptr(), psi.data_ptr(), p_l.data_ptr(), b.data_ptr(),
+        _build.table_ptr(tab), l.data_ptr(), psi.data_ptr(), p_l.data_ptr(), b.data_ptr(),
         c1.data_ptr(), c2.data_ptr(), nz.data_ptr(), fout.data_ptr(),
         iout.data_ptr(), n, int(max_steps), dev.index, stream)
     _build.check(lib, err, "march_disk_vol_kernel")

@@ -9,8 +9,8 @@ launch raises.
 
 A tabulated metric (``metrics/table.py``) has the kind
 ``ops/table_cuda.py:TableKind``, which carries its coefficient series: the
-kernels of the planar families take it as ``kTable`` with a ``ChebTable``
-argument.  The disk kernels do not take it yet (ROADMAP Queue 1 item 4b).
+kernels of the planar families, the disk marches and their checkpoint
+kernels take it as ``kTable`` with a ``ChebTable`` argument.
 """
 from __future__ import annotations
 
@@ -57,17 +57,7 @@ def metric_kind_and_params(metric: Metric):
                 [metric.s * metric.s])
     raise NotImplementedError(
         f"CUDA march: unsupported metric {type(metric).__name__}: tabulate "
-        "it with metrics/table.py:tabulate_metric (tables on the disk "
-        "routes are ROADMAP Queue 1 item 4b)")
-
-
-def refuse_table(metric: Metric, what: str):
-    """Raise NotImplementedError for a tabulated metric on a route that
-    does not take tables yet, before anything is launched."""
-    if isinstance(metric, TabulatedMetric):
-        raise NotImplementedError(
-            f"{what}: tabulated metrics on the disk routes are ROADMAP "
-            "Queue 1 item 4b")
+        "it with metrics/table.py:tabulate_metric")
 
 
 def march_scalars(metric: Metric, dt, escape_radius):

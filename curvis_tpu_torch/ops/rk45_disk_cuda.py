@@ -24,7 +24,10 @@ per-thread loop.
 
 The scalar row (``rk45_disk_scalars``) is the rk45 row of
 ``rk45_cuda.rk45_scalars``, the band (r_in, r_out) and, for vol, the eight
-emission slots of ``vol_param_slots`` and the optional scatter block.
+emission slots of ``vol_param_slots`` and the optional scatter block.  A
+tabulated metric runs as ``ops/table_cuda.py:TableKind``: the kernel takes
+its ``ChebTable`` beside the row, and the plain version evaluates its
+series in the kernel's order.
 """
 from __future__ import annotations
 
@@ -36,8 +39,9 @@ from curvis_tpu_torch.ops import _build
 from curvis_tpu_torch.ops.disk_cuda import LAPSE_KINDS, _flat_f32
 from curvis_tpu_torch.ops.disk_vol_cuda import (inv_r2_plain, scatter_row,
                                                 vol_emission_plain,
-                                                vol_param_slots, vol_row_of)
-from curvis_tpu_torch.ops.march_cuda import KINDS, refuse_table
+                                                vol_param_slots)
+from curvis_tpu_torch.ops.march_cuda import KINDS
+from curvis_tpu_torch.ops.table_cuda import kernel_table, slot_params
 from curvis_tpu_torch.ops.rk45_cuda import (default_max_iters, jclip,
                                             rk45_control_plain,
                                             rk45_scalars, rk45_trial_plain)
@@ -60,7 +64,6 @@ def rk45_disk_scalars(metric: Metric, dt0, escape_radius, rtol, atol,
         raise ValueError("pass disk=(r_in, r_out) OR vol_disk, not both")
     if vol_disk is None and scatter_block is not None:
         raise ValueError("scatter_block needs vol_disk")
-    refuse_table(metric, "rk45 disk march (kernel #4's surface variants)")
     kind, row = rk45_scalars(metric, dt0, escape_radius, rtol, atol, dt_max)
     if disk is not None:
         return kind, row + [float(disk[0]), float(disk[1])]
@@ -77,12 +80,13 @@ def disk_flags(vol_disk, scatter_block):
             scatter_block is not None)
 
 
-def surface_theta(flags, row, b, c1, c2, nz):
+def surface_theta(flags, row, b, c1, c2, nz, kind):
     """theta of ``rk45_surface_iter_plain`` from the scalar row tensor of
     ``rk45_disk_scalars``: (p0, p1, p2, b, c1, c2, r_in, r_out) for the disk
     tracker (``flags`` None), (p0, p1, p2, b, c1, c2, nz, surf) for vol,
-    surf = (r_in, r_out, the 8 slots[, the scatter block])."""
-    p = (row[2], row[3], row[4])
+    surf = (r_in, r_out, the 8 slots[, the scatter block]); a table
+    ``kind``'s (s^2, c1..., c2...) in place of (p0, p1, p2)."""
+    p = slot_params(kind, row)
     if flags is None:
         return (*p, b, c1, c2, row[9], row[10])
     return (*p, b, c1, c2, nz, row[N_RK45:])
@@ -99,12 +103,12 @@ def rk45_surface_iter_plain(kind, flags, row, theta, y, freeze=False):
     vol).  ``freeze`` detaches the next dt.  The clips are jnp.clip's max /
     min forms, so autograd splits ties as the JAX package does."""
     vol = flags is not None
+    p = theta[:-5]
     if vol:
-        p0, p1, p2, b, c1, c2, nz, surf = theta
+        b, c1, c2, nz, surf = theta[-5:]
         r_out = surf[1]
     else:
-        p0, p1, p2, b, c1, c2, r_in, r_out = theta
-    p = (p0, p1, p2)
+        b, c1, c2, r_in, r_out = theta[-5:]
     dt0, R, r_cap = row[0], row[1], row[5]
     l0, psi0, pl0, dt = y[:4]
     alive = torch.ones(l0.shape, dtype=torch.bool, device=l0.device)
@@ -116,8 +120,8 @@ def rk45_surface_iter_plain(kind, flags, row, theta, y, freeze=False):
     opaque = new1 = new2 = None
     if vol:
         tau, emr, emg, emb = y[4:]
-        dtau, dem = vol_emission_plain(kind, flags, vol_row_of(p, surf), l,
-                                       p_l, b, zq1, tau, nz)
+        dtau, dem = vol_emission_plain(kind, flags, p, surf, l, p_l, b, zq1,
+                                       tau, nz)
         acc = [torch.where(accept, e + dt * d, e)
                for e, d in zip((emr, emg, emb), dem)]
         tau = torch.where(accept, tau + dt * dtau, tau)
@@ -173,7 +177,7 @@ def march_planar_rk45_disk_plain(kind, flags, scal, l, psi, p_l, b, c1, c2,
     vol, *vflags = flags
     vflags = tuple(vflags) if vol else None
     row = torch.tensor(scal, dtype=l.dtype, device=l.device)
-    theta = surface_theta(vflags, row, b, c1, c2, nz)
+    theta = surface_theta(vflags, row, b, c1, c2, nz, kind)
     zero = torch.zeros_like(l)
     y = (l, psi, p_l, torch.ones_like(l) * row[0]) + (zero,) * (4 if vol
                                                                 else 6)
@@ -258,12 +262,13 @@ def launch(kind, flags, scal, l, psi, p_l, b, c1, c2, nz, *, max_steps,
     vol = flags[0]
     fout = torch.empty((7 if vol else 9, n), dtype=torch.float32, device=dev)
     iout = torch.empty((3, n), dtype=torch.int32, device=dev)
+    tab = kernel_table(kind, scal)
     lib = _build.load_library()
     row = _build.host_floats(scal)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.curvis_march_planar_rk45_disk(
         KINDS[kind], *(int(bool(f)) for f in flags), row, len(scal),
-        l.data_ptr(), psi.data_ptr(), p_l.data_ptr(), b.data_ptr(),
+        _build.table_ptr(tab), l.data_ptr(), psi.data_ptr(), p_l.data_ptr(), b.data_ptr(),
         c1.data_ptr(), c2.data_ptr(), None if nz is None else nz.data_ptr(),
         fout.data_ptr(), iout.data_ptr(), n, int(max_steps), int(max_iters),
         dev.index, stream)

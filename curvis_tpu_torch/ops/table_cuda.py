@@ -68,6 +68,13 @@ def kernel_table(kind, scal):
     return kind.ctable(scal[2]) if isinstance(kind, TableKind) else None
 
 
+def n_series(kind):
+    """Rows a table's series coefficients add to a disk family's theta
+    cotangents (2 (K + 1), after the family's own); 0 for an analytic
+    kind."""
+    return 2 * kind.n if isinstance(kind, TableKind) else 0
+
+
 def slot_params(kind, row):
     """The metric parameters of a plain version: (p0, p1, p2) of the row
     tensor ``row``, or a table's (s^2, c1..., c2...)."""

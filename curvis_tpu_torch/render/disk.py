@@ -53,7 +53,6 @@ from curvis_tpu_torch.env.spherical_image import SphericalImage
 from curvis_tpu_torch.integrate.rk45 import march_planar_rk45
 from curvis_tpu_torch.metrics.base import Metric
 from curvis_tpu_torch.ops.disk_cuda import march_planar_disk_cuda
-from curvis_tpu_torch.ops.march_cuda import refuse_table
 from curvis_tpu_torch.ops.disk_vol_cuda import (
     march_planar_disk_volumetric_cuda, scatter_source_plain)
 from curvis_tpu_torch.ops.rk45_disk_cuda import march_planar_rk45_disk_cuda
@@ -551,7 +550,6 @@ def render_disk_frames_batched(metric: Metric, cameras, bg: SphericalImage,
     ``starlight_map``: see render_blackhole_disk (precompute it once per
     video)."""
     _check_route(stepper, differentiable)
-    refuse_table(metric, "render_disk_frames_batched")
     cams = list(cameras)
     common_device(metric, bg, *cams)
     return _render_disk_impl(metric, cams, bg, dt, escape_radius,
@@ -571,7 +569,6 @@ def compute_starlight_map(metric: Metric, bg: SphericalImage,
     the disk renderers of every frame.  Its march is kernel #5 on a GPU
     (kernel #4's disk tracker with ``stepper='rk45'``)."""
     _check_route(stepper)
-    refuse_table(metric, "compute_starlight_map")
     common_device(metric, bg)
     return _starlight_map(metric, bg, dt, escape_radius,
                           max_steps=max_steps, disk=disk, filtering=filtering,

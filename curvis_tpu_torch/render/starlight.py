@@ -30,10 +30,10 @@ from curvis_tpu_torch.metrics.base import (EllisMetric, FlatSphericalMetric,
                                            InterstellarMetric, Metric,
                                            ReissnerNordstromMetric,
                                            SchwarzschildMetric)
+from curvis_tpu_torch.metrics.table import TabulatedMetric
 from curvis_tpu_torch.ops.disk_vol_cuda import SCATTER_BLOCK, SCATTER_DEG
 from curvis_tpu_torch.ops.kerr_cuda import march_kerr_cuda
 from curvis_tpu_torch.ops.kerr_rk45_cuda import march_kerr_rk45_cuda
-from curvis_tpu_torch.ops.march_cuda import refuse_table
 from curvis_tpu_torch.physics.hamiltonian import spawn_photon
 from curvis_tpu_torch.physics import planar as pl
 from curvis_tpu_torch.render.disk import (_check_route, _emission_rgb,
@@ -59,14 +59,21 @@ class StarlightMap(NamedTuple):
 
 def mirror_metric(metric):
     """The l -> -l mirrored metric, r_m(l) = r(-l): the metric itself for
-    the five planar kinds, whose shapes are even in l.  Tabulated metrics
-    (whose mirror flips the parity of their Chebyshev tables) are ROADMAP
-    Queue 1 item 4b."""
+    the five planar kinds, whose shapes are even in l; for a
+    TabulatedMetric the parity flip of its series in t = l / sqrt(l^2 +
+    s^2), c1[k] -> (-1)^k c1[k], c2[k] -> -(-1)^k c2[k] (c2 carries r',
+    odd under the reflection), in either basis: T_k(-t) = (-1)^k T_k(t) as
+    t^k.  The flipped series stay in the graph of the metric's."""
+    if isinstance(metric, TabulatedMetric):
+        alt = torch.tensor([(-1.0) ** k for k in range(metric.c1.shape[0])],
+                           dtype=metric.c1.dtype, device=metric.c1.device)
+        return TabulatedMetric(metric.c1 * alt, -metric.c2 * alt, metric.s,
+                               metric.basis, device=metric.c1.device)
     if isinstance(metric, _SYMMETRIC):
         return metric
     raise NotImplementedError(
         f"mirror_metric: {type(metric).__name__} is not a ported planar "
-        "metric (tabulated metrics are ROADMAP Queue 1 item 4b)")
+        "metric: tabulate it with metrics/table.py:tabulate_metric")
 
 
 def _cosine_hemisphere(n_samples: int):
@@ -143,7 +150,6 @@ def compute_disk_starlight_map(
     package.  ``two_sheet``: a second table for the mirrored metric with
     the skies swapped (capture-free metrics only)."""
     _check_route(stepper)
-    refuse_table(metric, "compute_disk_starlight_map")
     tex = bg_positive.texture
     dtype, dev = tex.dtype, tex.device
     if bg_negative is None:

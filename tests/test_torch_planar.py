@@ -302,7 +302,9 @@ def test_build_command_targets_hopper():
                   "ckpt_kerr_surface.cu", "ckpt_kerr_surface_rk45.cu",
                   "ckpt_rk45.cu", "ckpt_surface.cu",
                   "ckpt_surface_rk45.cu", "ckpt_surface_rk45_rn.cu",
-                  "ckpt_surface_rk45_schwarzschild.cu", "disk.cu",
+                  "ckpt_surface_rk45_schwarzschild.cu",
+                  "ckpt_surface_rk45_table.cu",
+                  "ckpt_surface_rk45_table_bb.cu", "disk.cu",
                   "disk_vol.cu", "kerr.cu", "kerr_rk45.cu",
                   "planar_march.cu", "planar_rk45.cu",
                   "planar_rk45_disk.cu", "render_fused.cu"]
@@ -315,7 +317,8 @@ def test_build_command_targets_hopper():
         "ckpt_kerr.cu", "ckpt_kerr_rk45.cu", "ckpt_kerr_surface.cu",
         "ckpt_kerr_surface_rk45.cu", "ckpt_rk45.cu",
         "ckpt_surface_rk45.cu", "ckpt_surface_rk45_rn.cu",
-        "ckpt_surface_rk45_schwarzschild.cu", "kerr.cu", "kerr_rk45.cu",
+        "ckpt_surface_rk45_schwarzschild.cu", "ckpt_surface_rk45_table.cu",
+        "ckpt_surface_rk45_table_bb.cu", "kerr.cu", "kerr_rk45.cu",
         "planar_rk45.cu", "planar_rk45_disk.cu"]
     assert all("-O3" in c and "-c" in c for c in compiles)
     objects = [c[c.index("-o") + 1] for c in compiles]

@@ -217,7 +217,7 @@ def test_iter_vjp_plain_matches_autograd(kind, flags):
     """The kernels' hand-written iteration VJPs against torch.func.vjp of
     kernel #4's plain surface iteration, both controller modes."""
     _, row, y, b, c1, c2, nz = _plain_inputs(kind, flags, seed=13)
-    theta = r4.surface_theta(flags, row, b, c1, c2, nz)
+    theta = r4.surface_theta(flags, row, b, c1, c2, nz, kind)
     y1, (_, accept, new1, new2) = r4.rk45_surface_iter_plain(kind, flags,
                                                             row, theta, y)
     assert bool(accept.any()) and bool((~accept).any())

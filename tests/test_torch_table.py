@@ -5,8 +5,8 @@ the metric protocol computed from the table) against
 ``curvis_tpu/metrics/table.py``, and the plain versions of the table kind
 of kernels #1-#4 against the JAX Pallas kernels in interpret mode, on the
 same tables (carried across with ``convert.table_from_arrays``) and the
-same rays.  Also the layout of the ``ChebTable`` kernel argument, and the
-routes that do not take tables yet refusing them before any launch.
+same rays.  Also the layout of the ``ChebTable`` kernel argument and of
+the table-scalar structs of the planar and disk families.
 """
 import ctypes
 import re
@@ -300,14 +300,19 @@ def test_render_routes_take_tables_and_match_jax():
             assert (np.abs(got - want).max(-1) > 1e-3).mean() <= 0.05
 
 
-# ------------------------------------------- layout and refusals
+# ------------------------------------------------------------ layout
 
 def test_chebtable_layout_pin():
     """The host argument each wrapper builds (ops/table_cuda.py:ChebTable,
     via kernel_table) places s^2, n, the basis and the coefficients where
     csrc/table.cuh:ChebTable reads them: the same fields in the same
     order and capacity, kind kTable = KINDS['table'], s^2 taken from slot
-    2 of every family's scalar row; a degree above the capacity raises."""
+    2 of every family's scalar row (the disk marches' too); a degree above
+    the capacity raises.  The disk families' scalar structs hold the
+    kind's march scalars (ScalarsOf<KIND>, TableScalars for kTable) first,
+    so the host's analytic row keeps its layout, and their kernels take
+    them __grid_constant__; a table's theta cotangents add its 2 (K + 1)
+    series rows after each family's."""
     src = (CSRC / "table.cuh").read_text()
     cap = int(re.search(r"kChebMaxDegree = (\d+);", src).group(1))
     assert cap == tc.MAX_DEGREE and tc.CAP == cap + 1
@@ -328,9 +333,16 @@ def test_chebtable_layout_pin():
         == march_cuda.KINDS["table"]
     jtab, ttab = _tables("horner", jnp.float32)
     s2 = float(np.float32(jtab.s) * np.float32(jtab.s))
-    for kind, scal in (march_cuda.march_scalars(ttab, 0.05, 30.0),
-                       rk45_cuda.rk45_scalars(ttab, 0.05, 30.0, 1e-5, 1e-7,
-                                              10.0)):
+    from curvis_tpu_torch.ops import ckpt_surface_cuda as cs
+    from curvis_tpu_torch.ops import disk_cuda, disk_vol_cuda, rk45_disk_cuda
+    disk = ct.DiskParams(volumetric=True)
+    rows = (march_cuda.march_scalars(ttab, 0.05, 30.0),
+            rk45_cuda.rk45_scalars(ttab, 0.05, 30.0, 1e-5, 1e-7, 10.0),
+            disk_cuda.disk_scalars(ttab, 0.05, 30.0, 3.0, 12.0),
+            disk_vol_cuda.vol_scalars(ttab, 0.05, 30.0, disk),
+            rk45_disk_cuda.rk45_disk_scalars(ttab, 0.05, 30.0, 1e-5, 1e-7,
+                                             10.0, vol_disk=disk))
+    for kind, scal in rows:
         assert scal[2] == s2
         tab = tc.kernel_table(kind, scal)
         assert (tab.s2, tab.n, tab.horner) == (s2, 17, 1)
@@ -339,45 +351,30 @@ def test_chebtable_layout_pin():
         np.testing.assert_array_equal(np.array(tab.c2[:17], np.float32),
                                       np.asarray(jtab.c2, np.float32))
         assert list(tab.c1[17:]) == [0.0] * (tc.CAP - 17)
+    for flags in (None, (False, False, False, False),
+                  (True, False, False, True)):
+        assert cs.n_theta(flags, kind) == cs.n_theta(flags) + 2 * 17
+    structs = {"disk.cu": "DiskScalarsT", "planar_vol.cuh": "VolScalarsT",
+               "planar_rk45_disk.cu": "Rk45DiskScalarsT"}
+    for name, struct in structs.items():
+        body = re.search(r"template <class M>\s*struct " + struct
+                         + r" \{(.*?)\};", (CSRC / name).read_text(),
+                         re.S).group(1)
+        assert re.match(r"\s*M m;", body), (name, body)
+    surf = (CSRC / "ckpt_surface_rk45.cuh").read_text()
+    assert re.search(r"struct Rk45SurfScalarsT \{\s*Rk45Control c;\s*"
+                     r"VolScalarsT<M> vs;", surf)
+    for name, arg in (("disk.cu", "DiskScalarsT<ScalarsOf<KIND>> s"),
+                      ("disk_vol.cu", "VolScalarsOf<KIND> s"),
+                      ("planar_rk45_disk.cu",
+                       "Rk45DiskScalarsT<ScalarsOf<KIND>> s"),
+                      ("ckpt_surface.cu", "VolScalarsOf<KIND> s"),
+                      ("ckpt_surface_rk45.cuh", "Rk45SurfScalarsOf<KIND> s")):
+        src_k = re.sub(r"\s+", " ", (CSRC / name).read_text())
+        assert "const __grid_constant__ " + arg in src_k, name
     big, _ = ttable.tabulate_metric(
         ct.make_metric("ellis", rho=1.0, device="cpu"), degree=cap + 1,
         device="cpu")
     kind, scal = march_cuda.march_scalars(big, 0.05, 30.0)
     with pytest.raises(ValueError, match=f"degree {cap}"):
         tc.kernel_table(kind, scal)
-
-
-def test_disk_routes_and_mirror_refuse_tables():
-    """A TabulatedMetric on every disk route, the disk marches' row
-    functions and mirror_metric raises NotImplementedError naming ROADMAP
-    Queue 1 item 4b, before any kernel launch."""
-    from curvis_tpu_torch.integrate import planar_surface_adjoint as psa
-    from curvis_tpu_torch.ops import disk_cuda, disk_vol_cuda, rk45_disk_cuda
-    from curvis_tpu_torch.render import disk as tdisk
-    from curvis_tpu_torch.render import starlight as tstar
-    _, ttab = _tables("horner", jnp.float32)
-    _, tcam = _camera_pair((4, 2), np.float32)
-    sky = ct.make_spherical_image(np.ones((8, 16, 3), np.float32),
-                                  device="cpu")
-    disk = ct.DiskParams()
-    kw = dict(dt=0.1, max_steps=10, escape_radius=40.0)
-    z = torch.zeros(4)
-    calls = [
-        lambda: tdisk.render_blackhole_disk(ttab, tcam, sky, **kw),
-        lambda: tdisk.render_disk_frames_batched(ttab, [tcam], sky, **kw),
-        lambda: tdisk.compute_starlight_map(ttab, sky, disk, **kw),
-        lambda: tstar.compute_disk_starlight_map(
-            ttab, sky, r_inner=5.0, r_outer=9.0, escape_radius=40.0),
-        lambda: tstar.mirror_metric(ttab),
-        lambda: disk_cuda.disk_scalars(ttab, 0.1, 40.0, 5.0, 9.0),
-        lambda: disk_vol_cuda.vol_scalars(ttab, 0.1, 40.0, disk),
-        lambda: rk45_disk_cuda.rk45_disk_scalars(
-            ttab, 0.1, 40.0, 1e-5, 1e-8, 10.0, disk=(5.0, 9.0)),
-        lambda: psa.march_planar_disk_adjoint(
-            ttab, (z, z, z), z, z, z, r_inner=5.0, r_outer=9.0, **kw),
-    ]
-    before = (march_cuda.launches, disk_cuda.launches)
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            call()
-    assert (march_cuda.launches, disk_cuda.launches) == before
